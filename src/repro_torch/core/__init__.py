@@ -1,0 +1,9 @@
+"""memtier core, copied from ``repro.core`` (the modules the serving path needs).
+
+profiler    — MemProf analogue (block-access accounting, CDFs, correlation)
+distribution— hotness CDF math / Zipf fits / interval stability
+placement   — TPP-like hot/cold placement + migration
+prefetch    — software far-tier prefetch engine + accuracy/coverage (Fig 21/22)
+pagetable   — ref-counted prefix-shared KV page table (multi-ASID I-TLB analogue)
+memtrace    — windowed trace capture + stitch + cache-sim validation (Table 6)
+"""

@@ -1,0 +1,46 @@
+"""Where the port runs, and the one door between host and device memory.
+
+Every entry point takes ``device=None``. ``None`` means the CUDA card; a
+process that sees no card raises instead of quietly running on the CPU.
+Tests pass ``device="cpu"`` explicitly, and there every kernel wrapper
+takes its plain PyTorch version because its tensors lie on the CPU.
+
+Host and device exchange data only through :func:`to_device` and
+:func:`to_host`. Host-to-device copies (page ids, tier maps, token ids) go
+through pinned memory and are issued non-blocking, so they never wait for
+the device. Every device-to-host copy is counted in ``HOST_READS``: the
+serving path reads back only at counter drains, at an admit's first-token
+argmax and in the verify probes, and the count shows it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# device-to-host copies made through to_host (plain ints)
+HOST_READS = {"copies": 0}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the CUDA card; raise when the asked-for card is absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device and none is visible; pass "
+            "device='cpu' explicitly to run the plain PyTorch versions"
+        )
+    return dev
+
+
+def to_device(array, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A host array as a ``dtype`` tensor on ``device`` (non-blocking on CUDA)."""
+    t = torch.as_tensor(np.ascontiguousarray(array)).to(dtype)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """One counted device-to-host copy (a sync on CUDA)."""
+    HOST_READS["copies"] += 1
+    return t.detach().cpu().numpy()

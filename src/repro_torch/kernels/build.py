@@ -1,0 +1,90 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+into ``build/lib<name>-<key>.so`` beside this package, where ``key`` hashes
+the source, the flags and the compiler's path, so an edited source builds
+anew and an unchanged one is loaded as it is. Building happens at first
+use (never at import), one nvcc process per source, all started together.
+Nothing here falls back: a missing nvcc or a failed compile raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+SOURCES = ("tiered_gather",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
+    return path
+
+
+def target(name: str) -> Path:
+    """The library path for ``csrc/<name>.cu`` at its current content."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc().encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every source that has no current library, in parallel.
+
+    The compiler's report (``-Xptxas=-v``: registers, spills) is kept in
+    ``<library>.log``. Raises with nvcc's output if any compile fails.
+    """
+    BUILD.mkdir(parents=True, exist_ok=True)
+    out = {n: target(n) for n in names}
+    procs = {}
+    for n, lib in out.items():
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for n, (p, tmp) in procs.items():
+        log, _ = p.communicate()
+        out[n].with_name(out[n].name + ".log").write_text(log)
+        if p.returncode != 0:
+            failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out[n])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build_all([name])[name]))
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str):
+    """Raise when a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

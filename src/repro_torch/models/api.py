@@ -1,0 +1,70 @@
+"""Model API for the port (mirrors repro/models/api.py, serving subset).
+
+Only the dense family is ported so far; every other family raises
+``NotImplementedError`` naming its ROADMAP item (A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+_PORTED = {"dense": transformer}
+
+
+@dataclasses.dataclass
+class ModelAPI:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        if self.cfg.family not in _PORTED:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} ({self.cfg.name}) is not ported yet: ROADMAP A8"
+            )
+
+    @property
+    def family(self) -> str:
+        return self.cfg.family
+
+    def init(self, seed: int = 0, device=None) -> transformer.Transformer:
+        """Random-init params from ``torch.Generator().manual_seed(seed)``,
+        drawn on the CPU and moved to ``device`` (None -> the CUDA card)."""
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(int(seed))
+        return _PORTED[self.family].init(self.cfg, gen).to(dev)
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        return _PORTED[self.family].init_cache(
+            self.cfg, batch, max_len, device=resolve_device(device)
+        )
+
+    def prefill(self, params, batch: dict, *, max_len: int):
+        return _PORTED[self.family].prefill(params, self.cfg, batch["tokens"], max_len=max_len)
+
+    def decode(self, params, cache: dict, tokens):
+        return _PORTED[self.family].decode_step(params, self.cfg, cache, tokens)
+
+
+def get_model(cfg: ModelConfig) -> ModelAPI:
+    return ModelAPI(cfg)
+
+
+def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None):
+    """(params, cache, tokens (B,1)) -> (greedy next_tokens (B,1) int32, cache').
+
+    ``vocab`` restricts the argmax to the first ``vocab`` logits: the head
+    is padded, and a serving caller must never sample a padding id.
+    """
+
+    def serve_step(params, cache, tokens):
+        logits, cache = api.decode(params, cache, tokens)
+        v = logits.shape[-1] if vocab is None else vocab
+        nxt = torch.argmax(logits[:, -1, :v], dim=-1).to(torch.int32)[:, None]
+        return nxt, cache
+
+    return serve_step

@@ -1,0 +1,122 @@
+"""GQA attention layer: init + prefill/decode application (mirrors repro/models/attention.py).
+
+Layout: projections are stored flat and in JAX's (in, out) order —
+wq: (D, Hq*hd), wk/wv: (D, Hkv*hd), wo: (Hq*hd, D) — so ``x @ W`` mirrors
+the reference's einsums. KV cache per layer: k/v (B, Hkv, S, hd) plus
+per-sequence lengths (B,). The apply functions take the layer's weights as
+a dict of tensors already cast to the compute dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, dtype):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        self.wq = _param(common.dense_init((d, q_dim), generator, dtype=dtype))
+        self.wk = _param(common.dense_init((d, kv_dim), generator, dtype=dtype))
+        self.wv = _param(common.dense_init((d, kv_dim), generator, dtype=dtype))
+        self.wo = _param(common.dense_init(
+            (q_dim, d), generator, scale=1.0 / (2 * cfg.n_layers) ** 0.5, dtype=dtype
+        ))
+        if cfg.qkv_bias:
+            self.bq = _param(torch.zeros((q_dim,), dtype=dtype))
+            self.bk = _param(torch.zeros((kv_dim,), dtype=dtype))
+            self.bv = _param(torch.zeros((kv_dim,), dtype=dtype))
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    b, l, _ = x.shape
+    hd = cfg.head_dim
+    q = common.matmul_f32(x, p["wq"]).to(x.dtype)
+    k = common.matmul_f32(x, p["wk"]).to(x.dtype)
+    v = common.matmul_f32(x, p["wv"]).to(x.dtype)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"].to(q.dtype), k + p["bk"].to(k.dtype), v + p["bv"].to(v.dtype)
+    q = q.reshape(b, l, cfg.n_heads, hd).transpose(1, 2)
+    k = k.reshape(b, l, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(b, l, cfg.n_kv_heads, hd).transpose(1, 2)
+    return q, k, v
+
+
+def _rope(cfg: ModelConfig, q, k, positions):
+    if cfg.rope_theta <= 0:
+        return q, k
+    return (common.apply_rope(q, positions, cfg.rope_theta),
+            common.apply_rope(k, positions, cfg.rope_theta))
+
+
+def _out_proj(p: dict, x_dtype, o: torch.Tensor) -> torch.Tensor:
+    b, h, l, hd = o.shape
+    o = o.transpose(1, 2).reshape(b, l, h * hd)
+    return common.matmul_f32(o, p["wo"]).to(x_dtype)
+
+
+def apply_train(p: dict, cfg: ModelConfig, x, positions, *, causal: bool = True,
+                block_k: int = 1024) -> torch.Tensor:
+    """Full-sequence attention (forward without cache return)."""
+    q, k, v = _project_qkv(p, cfg, x)
+    q, k = _rope(cfg, q, k, positions)
+    o = common.attention_chunked(q, k, v, causal=causal, block_k=block_k)
+    return _out_proj(p, x.dtype, o)
+
+
+def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, block_k: int = 1024):
+    """As apply_train but also returns the (padded-to-max_len) KV for caching."""
+    q, k, v = _project_qkv(p, cfg, x)
+    q, k = _rope(cfg, q, k, positions)
+    o = common.attention_chunked(q, k, v, causal=True, block_k=block_k)
+    l = x.shape[1]
+    if max_len > l:
+        k = F.pad(k, (0, 0, 0, max_len - l))
+        v = F.pad(v, (0, 0, 0, max_len - l))
+    return _out_proj(p, x.dtype, o), (k, v)
+
+
+def _write_at(cache: torch.Tensor, lengths: torch.Tensor, new: torch.Tensor):
+    """cache[b, :, lengths[b], :] = new[b], in place. A position past the
+    cache's end is dropped, as JAX drops an out-of-range update; the write
+    is a select, so it needs no host read of ``lengths``."""
+    s = cache.shape[2]
+    idx = torch.arange(cache.shape[0], device=cache.device)
+    pos = lengths.long().clamp(max=s - 1)
+    keep = (lengths < s)[:, None, None]
+    cache[idx, :, pos, :] = torch.where(keep, new.to(cache.dtype), cache[idx, :, pos, :])
+
+
+def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths):
+    """One-token decode. x: (B, 1, D); caches (B, Hkv, S, hd); lengths (B,).
+
+    Writes the new K/V at position ``lengths`` per sequence IN PLACE into
+    ``k_cache``/``v_cache``; attention sees ``lengths + 1`` valid entries.
+    Returns the attention output (B, 1, D).
+    """
+    q, k, v = _project_qkv(p, cfg, x)
+    positions = lengths[:, None].to(torch.int32)  # (B, 1)
+    q, k = _rope(cfg, q, k, positions)
+    _write_at(k_cache, lengths, k[:, :, 0, :])
+    _write_at(v_cache, lengths, v[:, :, 0, :])
+    o = common.attention_decode(q, k_cache.to(q.dtype), v_cache.to(q.dtype), lengths + 1)
+    return _out_proj(p, x.dtype, o)
+
+
+def init_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    shape = (n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

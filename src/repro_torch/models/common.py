@@ -1,0 +1,196 @@
+"""Shared model primitives, dense subset, forward only (mirrors repro/models/common.py).
+
+* attention for prefill is chunked: a loop over KV blocks with an online
+  softmax and f32 accumulators, so a long prompt never materializes an
+  (Lq, Lk) matrix;
+* decode (Lq == 1) is a direct masked product over the cache;
+* every matmul goes through :func:`matmul_f32`. The JAX einsums ask for
+  f32 results (``preferred_element_type``); a product of bf16 inputs
+  accumulated and returned in f32 is the f32 product of the upcast inputs,
+  since bf16 products are exact in f32. Float32 matmuls must run in full
+  f32: leave ``torch.backends.cuda.matmul.allow_tf32`` False (the default).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# dtype helpers
+
+
+def dt(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in f32, whatever the inputs' type."""
+    return torch.matmul(a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# initializers (drawn on the CPU from an explicit generator)
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], by inverse-CDF sampling."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
+    return x.clamp(-2.0, 2.0)
+
+
+def dense_init(shape, generator: torch.Generator, in_axis: int = 0, scale: float = 1.0,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal fan-in init."""
+    std = scale / math.sqrt(shape[in_axis])
+    return (_truncated_normal(shape, generator) * std).to(dtype)
+
+
+def embed_init(shape, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    return (torch.randn(shape, generator=generator, dtype=torch.float32) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, H, L, D); positions: (B, L) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (D/2,)
+    ang = positions[:, None, :, None].float() * freqs  # (B,1,L,D/2)
+    cos = torch.cat([torch.cos(ang)] * 2, dim=-1)
+    sin = torch.cat([torch.sin(ang)] * 2, dim=-1)
+    xf = x.float()
+    return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def _expand_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, Hq, L, D) -> (B, Hkv, G, L, D)."""
+    b, hq, l, d = q.shape
+    return q.reshape(b, n_kv, hq // n_kv, l, d)
+
+
+def _kv_blocks(k: torch.Tensor, v: torch.Tensor, block_k: int):
+    """(B,Hkv,Lk,D) k/v -> (nb,B,Hkv,block,D) stacks, zero-padded."""
+    b, hkv, lk, d = k.shape
+    nb = max(1, -(-lk // block_k))
+    pad = nb * block_k - lk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    kb = k.reshape(b, hkv, nb, block_k, d).permute(2, 0, 1, 3, 4)
+    vb = v.reshape(b, hkv, nb, block_k, d).permute(2, 0, 1, 3, 4)
+    return kb, vb, nb
+
+
+def _block_scores(qg, kblk, iblk, *, scale, block_k, lk, lq, q_offset, causal, bidirectional):
+    """Masked f32 scores for one k-block: (B,Hkv,G,Lq,block), the mask an
+    additive (Lq, block) bias as in the reference."""
+    dev = qg.device
+    kv_pos = iblk * block_k + torch.arange(block_k, device=dev)
+    s = matmul_f32(qg, kblk[:, :, None].transpose(-1, -2)) * scale
+    valid = kv_pos < lk
+    if causal and not bidirectional:
+        q_pos = q_offset + torch.arange(lq, device=dev)
+        valid = valid[None, :] & (kv_pos[None, :] <= q_pos[:, None])  # (Lq, block)
+    bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    return s + bias
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                      block_k: int = 1024, bidirectional: bool = False) -> torch.Tensor:
+    """Online-softmax attention, O(L * block_k) memory (forward only).
+
+    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D). GQA via Hq % Hkv == 0.
+    Returns (B, Hq, Lq, D) in q.dtype.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qg = _expand_gqa(q, hkv)  # (B,Hkv,G,Lq,D)
+    g = qg.shape[2]
+    kb, vb, nb = _kv_blocks(k, v, block_k)
+    m = torch.full((b, hkv, g, lq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, lq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, lq, d), dtype=torch.float32, device=q.device)
+    for i in range(nb):
+        s = _block_scores(
+            qg, kb[i], i, scale=scale, block_k=block_k, lk=lk, lq=lq,
+            q_offset=q_offset, causal=causal, bidirectional=bidirectional,
+        )
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + matmul_f32(p.to(vb.dtype), vb[i][:, :, None])
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, hq, lq, d).to(q.dtype)
+
+
+def attention_decode(q, k, v, kv_length) -> torch.Tensor:
+    """Single-position attention over a (possibly partially filled) cache.
+
+    q: (B, Hq, 1, D); k, v: (B, Hkv, S, D); kv_length: (B,) valid lengths.
+    """
+    b, hq, lq, d = q.shape
+    hkv, s_len = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qg = _expand_gqa(q, hkv)
+    s = matmul_f32(qg, k[:, :, None].transpose(-1, -2)) * scale  # (B,Hkv,G,1,S)
+    kv_length = torch.as_tensor(kv_length, device=q.device).reshape(-1).expand(b)
+    mask = torch.arange(s_len, device=q.device)[None, :] < kv_length[:, None]  # (B, S)
+    s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = matmul_f32(p.to(v.dtype), v[:, :, None])
+    o = o / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    return o.reshape(b, hq, lq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+    g = matmul_f32(x, w_gate)
+    u = matmul_f32(x, w_up)
+    h = (F.silu(g) * u).to(x.dtype)
+    return matmul_f32(h, w_down).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# misc
+
+
+def causal_positions(batch: int, seq: int, device=None) -> torch.Tensor:
+    return torch.arange(seq, dtype=torch.int32, device=device)[None, :].expand(batch, seq)
