@@ -6,23 +6,33 @@
 Phases (any failure raises, so the script exits non-zero):
 
 1. device and build: the card's name and power limit, TF32 off, every CUDA
-   kernel built from ``src/repro_torch/csrc`` with nvcc;
+   kernel built from ``src/repro_torch/csrc`` with nvcc, in parallel;
 2. kernels against their plain PyTorch versions at the serving step's
-   shapes (D = 2*32*5*64 = 20480, N = 512, 307 of 1024 pages near, 9
-   segments): rows and counters bit-exact, then timed with CUDA events next
-   to the plain version, the least time the card could take, and (for the
-   row gather) the one PyTorch call that computes the same function;
+   shapes, then timed with CUDA events next to the plain version, the
+   least time the card could take, and the one PyTorch call that computes
+   the same function where there is one:
+   - the tiered gathers (D = 2*32*5*64 = 20480, N = 512, 307 of 1024
+     pages near, 9 segments): rows and counters bit-exact;
+   - flash attention (prefill of 512 tokens) and paged decode attention
+     (8 slots, S = 1024, pages of 16, through the cache view) at the
+     widths of smollm-360m and qwen2.5-3b, bf16: within one bf16 step of
+     the plain version, and within 2e-2 of the model's eager attention;
 3. the main path: a device-tiered ``ServingEngine`` over full-width
    smollm-360m (32 layers, random weights from a seed) answering 16 Web1
-   requests — every request finishes, one tiered-gather launch per step,
-   both tiers hit, logits finite;
+   requests -- every request finishes, one tiered-gather launch per step,
+   one flash launch per layer per prefill and one paged launch per layer
+   per decode, both tiers hit, logits finite, decode-only steps free of
+   host reads, and a profile of decode steps;
+   3b. the same over full-width qwen2.5-3b (36 layers, d 2048, 16/2 heads,
+   d_ff 11008, vocab 151936) on 6 Web1 requests;
 4. the verify paths at full width on 4 requests: identity scales with the
    in-line flat-mirror probe (no read error), the per-slot lookup baseline
    (same drained hit totals), device tiering off (same live counters), and
-   a reduced model on the card against the same engine on the CPU;
+   a reduced model on the card (kernels) against the same engine on the
+   CPU (plain attention);
 5. one JSON line with every kernel's numbers, then the result line.
 
-Each phase's kernel launch counts are zeroed just before it and read just
+Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through.
 """
 from __future__ import annotations
@@ -43,8 +53,31 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-CU_SOURCE = "src/repro_torch/csrc/tiered_gather.cu"
-TPU_KERNELS = "src/repro/kernels/tiered_gather/kernel.py"
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+CSRC = "src/repro_torch/csrc"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "tiered_segmented": ("tiered_gather.cu", "src/repro/kernels/tiered_gather/kernel.py:133"),
+    "tiered_gather": ("tiered_gather.cu", "src/repro/kernels/tiered_gather/kernel.py:186"),
+    "gather_rows": ("tiered_gather.cu", "src/repro/kernels/tiered_gather/kernel.py:52"),
+    "paged_attention": ("paged_attention.cu", "src/repro/kernels/paged_attention/kernel.py:73"),
+    "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:76"),
+}
+# the attention widths of the two served models: (query heads, KV heads, head_dim)
+ATTN_WIDTHS = {"smollm-360m": (15, 5, 64), "qwen2.5-3b": (16, 2, 128)}
+PREFILL_LEN = 512  # Web1's mean prompt
+# the decode check's 8 slots over S = 1024: one token, a partial page, a
+# full page run, ragged lengths near the main path's, the full cache, and
+# a length past the cache's end (an inactive slot that kept decoding)
+DECODE_S, DECODE_PAGE = 1024, 16
+DECODE_LENGTHS = (1, 23, 512, 547, 560, 600, 1024, 1300)
+# the main path's engine, for both models
+ECFG = dict(max_batch=8, max_len=1024, page_size=16, n_pages=1024, near_frac=0.3,
+            device_tiering=True)
+# the main path on smollm-360m with eager attention, as measured at commit
+# 0f3184b (NVIDIA H100 80GB HBM3, 700 W)
+EAGER_BASELINE = ("eager attention at commit 0f3184b on NVIDIA H100 80GB HBM3, 700 W: "
+                  "43.8 tokens/s, step p50 92.6 ms, p99 335.2 ms")
 
 
 def log(msg: str):
@@ -76,10 +109,25 @@ def time_ms(fn, reps: int = 60) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(bytes_moved: float, ops: float):
-    """(least time in ms, what bounds it) at the card's published peaks."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """(least time in ms, what bounds it) at the card's published peaks;
+    ``ops_per_s`` is the peak for the operations' input type."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention, paged_attention, tiered_gather
+
+    return {**tiered_gather.LAUNCHES, **flash_attention.LAUNCHES, **paged_attention.LAUNCHES}
+
+
+def zero_launch_counts():
+    from repro_torch.kernels import flash_attention, paged_attention, tiered_gather
+
+    for counts in (tiered_gather.LAUNCHES, flash_attention.LAUNCHES, paged_attention.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +259,99 @@ def check_kernels():
     return results
 
 
+def within_one_bf16_step(out, plain) -> bool:
+    """Two bf16 roundings of f32 values that differ only in summation order
+    differ by at most one bf16 step, 2**-7 of the value."""
+    import torch
+
+    a, b = out.float(), plain.float()
+    return bool(((a - b).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-6).all())
+
+
+def check_attention():
+    """B5 and B4 at each served model's widths, bf16 as the model feeds them.
+
+    The kernels and their plain versions both compute in f32 and differ in
+    summation order only, so they agree to one bf16 step. The model's eager
+    attention rounds p to bf16 before PV (the kernels, like the TPU
+    kernels, do not), so it is held at the JAX tests' bf16 tolerance, 2e-2.
+    ``library_ms`` times ``scaled_dot_product_attention``, which the port
+    never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import common
+
+    results = {"flash_attention": {}, "paged_attention": {}}
+    bf = torch.bfloat16
+    for arch, (hq, hkv, d) in ATTN_WIDTHS.items():
+        g = torch.Generator().manual_seed(3)
+        rand = lambda *shape: torch.randn(*shape, generator=g).to(bf).cuda()
+        # B5: one prompt's prefill; q and k come out of rope contiguous, v
+        # is a transposed view of the projection, as the model hands them in
+        n = PREFILL_LEN
+        q, k = rand(1, hq, n, d), rand(1, hkv, n, d)
+        v = rand(1, n, hkv * d).reshape(1, n, hkv, d).transpose(1, 2)
+        call = lambda: fa.flash_attention(q, k, v, causal=True, lk_valid=n, q_offset=0)
+        out = call()
+        plain = fa.flash_attention_ref(q, k, v, causal=True, lk_valid=n, q_offset=0)
+        eager = common.attention_chunked(q, k, v, causal=True, block_k=256)
+        torch.cuda.synchronize()
+        assert within_one_bf16_step(out, plain), f"flash_attention differs from plain ({arch})"
+        torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
+        nbytes = float(2 * q.numel() * 2 + 2 * k.numel() * 2)  # q and o, k and v, bf16
+        nops = 4.0 * hq * d * n * (n + 1) / 2  # QK^T and PV over the causal pairs
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        results["flash_attention"][arch] = {
+            "shapes": f"q (1, {hq}, {n}, {d}), k/v (1, {hkv}, {n}, {d}) bf16, causal",
+            "max_abs_err": float((out.float() - plain.float()).abs().max()),
+            "err_vs_eager": float((out.float() - eager.float()).abs().max()),
+            "ms": time_ms(call),
+            "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True, lk_valid=n,
+                                                               q_offset=0)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+        }
+        # B4: one decode step of 8 slots over the engine's per-slot cache,
+        # viewed as pages without a copy
+        kc, vc = rand(8, hkv, DECODE_S, d), rand(8, hkv, DECODE_S, d)
+        qd = rand(8, hq, d)
+        lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+        kp, vp, table = pa.cache_as_pages(kc, vc, DECODE_PAGE)
+        call = lambda: pa.paged_attention(qd, kp, vp, table, lengths)
+        out = call()
+        plain = pa.paged_attention_ref(qd, kp, vp, table, lengths)
+        eager = common.attention_decode(qd[:, :, None], kc, vc, lengths)[:, :, 0]
+        torch.cuda.synchronize()
+        assert within_one_bf16_step(out, plain), f"paged_attention differs from plain ({arch})"
+        torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
+        seen = sum(min(x, DECODE_S) for x in DECODE_LENGTHS)
+        nbytes = float(2 * seen * hkv * d * 2 + 2 * qd.numel() * 2 + table.numel() * 4 + 8 * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * hq * d * seen, BF16_OPS_PER_S)
+        mask = (torch.arange(DECODE_S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        results["paged_attention"][arch] = {
+            "shapes": f"q (8, {hq}, {d}), cache (8, {hkv}, {DECODE_S}, {d}) bf16 as pages of "
+                      f"{DECODE_PAGE}, lengths {list(DECODE_LENGTHS)}",
+            "max_abs_err": float((out.float() - plain.float()).abs().max()),
+            "err_vs_eager": float((out.float() - eager.float()).abs().max()),
+            "ms": time_ms(call),
+            "plain_ms": time_ms(lambda: pa.paged_attention_ref(qd, kp, vp, table, lengths)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)),
+        }
+    for name, per in results.items():
+        for arch, r in per.items():
+            log(f"{name} [{arch}] {r['shapes']}: max_abs_err vs plain {r['max_abs_err']:.3e} "
+                f"(one bf16 step), vs eager {r['err_vs_eager']:.3e}; kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{r['bytes'] / 1e6:.2f} MB), library {r['library_ms']:.4f} ms")
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the serving engine
 
@@ -267,25 +408,23 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def main_path(card: str):
+def serve(card: str, arch: str, n_requests: int, widths: tuple):
+    """The main path on one model at full width: an engine answering
+    ``n_requests`` Web1 requests, every kernel launch counted."""
     import torch
 
     import repro_torch.runtime.tiered_kv as tiered_kv_mod
     from repro_torch.configs import get_config
-    from repro_torch.kernels.tiered_gather import ops
     from repro_torch.models.api import get_model
 
-    cfg = get_config("smollm-360m")
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size) == (
-        32, 960, 15, 5, 2560, 49152), cfg
+    cfg = get_config(arch)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size) == widths, cfg
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(seed=0, device="cuda")
-    log(f"smollm-360m params: {sum(p.numel() for p in params.parameters()) / 1e6:.1f} M "
+    log(f"{arch} params: {sum(p.numel() for p in params.parameters()) / 1e6:.1f} M "
         f"({cfg.param_dtype} stored, {cfg.compute_dtype} compute), init {time.perf_counter() - t0:.1f} s")
-    ecfg = dict(max_batch=8, max_len=1024, page_size=16, n_pages=1024, near_frac=0.3,
-                device_tiering=True)
-    reqs = web1_requests(cfg, 16, seed=0)
+    reqs = web1_requests(cfg, n_requests, seed=0)
 
     # device span of the tiered lookup op in each step: CUDA events around
     # the store's call, read after the run (no sync inside the loop)
@@ -300,89 +439,64 @@ def main_path(card: str):
         spans.append((s, e))
         return out
 
-    eng = make_engine(api, params, **ecfg)
+    eng = make_engine(api, params, **ECFG)
     tiered_kv_mod.tiered_lookup_segments = timed
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    zero_launch_counts()
     try:
         toks, wall, step_ms = drive(eng, reqs, step_events=True)
     finally:
         tiered_kv_mod.tiered_lookup_segments = orig
-    launches = dict(ops.LAUNCHES)
+    launches = launch_counts()
     st = eng.stats()
     dev = st["device_tiering"]
-    log(f"main path launches: {launches}, engine steps {eng.engine_steps}")
+    decodes = eng.model_dispatches - eng.prefill_dispatches
+    log(f"{arch} main path launches: {launches}, engine steps {eng.engine_steps}, "
+        f"{eng.prefill_dispatches} prefill and {decodes} decode dispatches")
     assert st["requests_finished"] == len(reqs), st["requests_finished"]
     assert dev["dispatches_per_step"] == 1.0, dev["dispatches_per_step"]
     assert launches["tiered_segmented"] == eng.engine_steps > 0, (launches, eng.engine_steps)
+    assert launches["flash_attention"] == cfg.n_layers * eng.prefill_dispatches > 0, launches
+    assert launches["paged_attention"] == cfg.n_layers * decodes > 0, (launches, decodes)
     assert dev["near_hits"] > 0 and dev["far_hits"] > 0, dev
     # the logits of one more decode of the final batch, and of one prefill
     cache = {k: v.clone() for k, v in eng.cache.items()}
-    logits, _ = api.decode(params, cache, eng.next_tokens[:, None])
+    logits, _ = api.decode(params, cache, eng.next_tokens[:, None], page_size=ECFG["page_size"])
     pre, _ = api.prefill(params, {"tokens": torch.as_tensor(reqs[0].tokens[None, :64]).cuda()},
                          max_len=64)
     assert logits.shape == (8, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
     assert bool(torch.isfinite(pre).all())
     gather_ms = [s.elapsed_time(e) for s, e in spans]
     toks_per_s = st["tokens_decoded"] / wall
-    log(f"main path [{card}]: {len(reqs)} requests, {st['tokens_decoded']} tokens decoded, "
+    log(f"{arch} main path [{card}]: {len(reqs)} requests, {st['tokens_decoded']} tokens decoded, "
         f"{eng.engine_steps} steps, {st['prefill_tokens']} prompt tokens "
         f"({st['prefill_tokens_saved']} shared), {wall:.3f} s wall")
-    log(f"main path [{card}]: {toks_per_s:.1f} tokens/s (decode tokens over the wall time, "
+    log(f"{arch} main path [{card}]: {toks_per_s:.1f} tokens/s (decode tokens over the wall time, "
         f"prefill included); step time p50 {pct(step_ms, 50):.3f} ms, p99 {pct(step_ms, 99):.3f} ms "
-        f"(device timeline between step ends)")
-    log(f"main path [{card}]: tiered lookup op per step p50 {pct(gather_ms, 50):.4f} ms, "
+        f"(device timeline between step ends)" + (f"; {EAGER_BASELINE}" if arch == "smollm-360m" else ""))
+    log(f"{arch} main path [{card}]: tiered lookup op per step p50 {pct(gather_ms, 50):.4f} ms, "
         f"p99 {pct(gather_ms, 99):.4f} ms (device span of the op: counter zeroing + kernel)")
-    log(f"main path [{card}]: near {dev['near_hits']} far {dev['far_hits']} "
+    log(f"{arch} main path [{card}]: near {dev['near_hits']} far {dev['far_hits']} "
         f"(near-hit rate {dev['near_hit_rate']:.4f}), dispatches/step {dev['dispatches_per_step']}, "
         f"host syncs/step {dev['host_syncs_per_step']:.4f}, moved rows {dev['moved_rows']}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"launches": launches, "api": api, "params": params, "cfg": cfg, "ecfg": ecfg,
-            "tokens_per_s": toks_per_s}
+    budget = decode_budget(api, params, web1_requests(cfg, 4, seed=1), card, arch)
+    return {"launches": launches, "api": api, "params": params, "cfg": cfg,
+            "tokens_per_s": toks_per_s, "profile": budget}
 
 
-def verify_paths(mp, card: str):
+def decode_budget(api, params, reqs, card: str, arch: str):
+    """Decode-only steps read nothing back: run steps that neither admit nor
+    drain with CUDA sync checking on and count the device-to-host reads.
+    Then where a decode step's time goes: 6 more steps timed as they run,
+    then 6 under the profiler for the device's share (the profiler's own
+    host cost inflates the wall time it sees, so the idle share uses the
+    former)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.device import HOST_READS
-    from repro_torch.kernels.tiered_gather import ops
-    from repro_torch.runtime.serving import EngineConfig, ServingEngine
 
-    api, params, cfg = mp["api"], mp["params"], mp["cfg"]
-    reqs = web1_requests(cfg, 4, seed=1)
-    out = {}
-
-    def run(label, **over):
-        eng = make_engine(api, params, **{**mp["ecfg"], **over})
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
-        toks, wall, _ = drive(eng, [dataclasses.replace(r) for r in reqs])
-        launches = dict(ops.LAUNCHES)
-        st = eng.stats()
-        log(f"verify {label}: {eng.engine_steps} steps, launches {launches}, {wall:.2f} s")
-        return eng, st, toks, launches
-
-    eng_a, st_a, toks_a, l_a = run("identity scales + tiered_verify",
-                                   tiered_identity_scales=True, tiered_verify=True)
-    assert st_a["device_tiering"]["max_read_error"] == 0.0, st_a["device_tiering"]["max_read_error"]
-    assert l_a["gather_rows"] == eng_a.engine_steps > 0 and l_a["tiered_segmented"] == eng_a.engine_steps
-    out["gather_rows"] = l_a["gather_rows"]
-    eng_b, st_b, toks_b, l_b = run("per-slot lookup (segmented_lookup=False)",
-                                   tiered_identity_scales=True, segmented_lookup=False)
-    da, db = st_a["device_tiering"], st_b["device_tiering"]
-    assert (db["near_hits"], db["far_hits"]) == (da["near_hits"], da["far_hits"]), (da, db)
-    assert l_b["tiered_gather"] > eng_b.engine_steps and l_b["tiered_segmented"] == 0, l_b
-    out["tiered_gather"] = l_b["tiered_gather"]
-    eng_c, st_c, toks_c, l_c = run("device tiering off", device_tiering=False)
-    assert eng_c.live_counters() == eng_a.live_counters(), (eng_c.live_counters(), eng_a.live_counters())
-    assert sum(l_c.values()) == 0, l_c
-    log(f"verify [{card}]: max_read_error 0.0; per-slot near/far {db['near_hits']}/{db['far_hits']} "
-        f"== segmented; live_counters equal with tiering off: {eng_c.live_counters()}; tokens "
-        f"equal a==b {bool(torch.equal(toks_a, toks_b))}, a==c {bool(torch.equal(toks_a, toks_c))}")
-
-    # decode-only steps read nothing back: run steps that neither admit nor
-    # drain with CUDA sync checking on, and count the device-to-host reads
-    eng = make_engine(api, params, **mp["ecfg"])
+    eng = make_engine(api, params, **ECFG)
     for r in reqs:
         eng.submit(dataclasses.replace(r))
     eng.step()  # admits all four
@@ -398,14 +512,9 @@ def verify_paths(mp, card: str):
     syncs = [str(w.message).splitlines()[0] for w in caught
              if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
     reads = HOST_READS["copies"] - reads0
-    log(f"decode-only steps: {quiet} steps, {reads} counted host reads, "
+    log(f"{arch} decode-only steps: {quiet} steps, {reads} counted host reads, "
         f"{len(syncs)} sync warnings {syncs[:3]}")
     assert quiet == 6 and reads == 0 and not syncs, (quiet, reads, syncs)
-
-    # where a decode step's time goes: 6 more steps timed as they run, then
-    # 6 under the profiler for the device's share (the profiler's own host
-    # cost inflates the wall time it sees, so the idle share uses the former)
-    from torch.profiler import ProfilerActivity, profile
 
     active = sum(s.active for s in eng.slots)
     torch.cuda.synchronize()
@@ -424,19 +533,60 @@ def verify_paths(mp, card: str):
     busy_ms = sum(dev_us(e) for e in avgs) / 1e3 / 6
     kernels = sum(e.count for e in avgs) / 6
     top = sorted(avgs, key=dev_us, reverse=True)[:6]
-    log(f"profile [{card}], decode steps of {active} active slots: {step_ms:.2f} ms a step unprofiled, "
-        f"device busy {busy_ms:.3f} ms a step (idle share {1 - busy_ms / step_ms:.4f}), "
+    log(f"{arch} profile [{card}], decode steps of {active} active slots: {step_ms:.2f} ms a step "
+        f"unprofiled, device busy {busy_ms:.3f} ms a step (idle share {1 - busy_ms / step_ms:.4f}), "
         f"{kernels:.0f} device kernels a step; top over 6 steps: "
         + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms" for e in top))
-    out["profile"] = {"step_ms": step_ms, "busy_ms": busy_ms, "kernels_per_step": kernels}
+    return {"step_ms": step_ms, "busy_ms": busy_ms, "kernels_per_step": kernels}
 
-    # a reduced model on the card against the same engine on the CPU
+
+def verify_paths(mp, card: str):
+    import torch
+
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+
+    api, params, cfg = mp["api"], mp["params"], mp["cfg"]
+    reqs = web1_requests(cfg, 4, seed=1)
+    out = {}
+
+    def run(label, **over):
+        eng = make_engine(api, params, **{**ECFG, **over})
+        zero_launch_counts()
+        toks, wall, _ = drive(eng, [dataclasses.replace(r) for r in reqs])
+        launches = launch_counts()
+        st = eng.stats()
+        log(f"verify {label}: {eng.engine_steps} steps, launches {launches}, {wall:.2f} s")
+        return eng, st, toks, launches
+
+    eng_a, st_a, toks_a, l_a = run("identity scales + tiered_verify",
+                                   tiered_identity_scales=True, tiered_verify=True)
+    assert st_a["device_tiering"]["max_read_error"] == 0.0, st_a["device_tiering"]["max_read_error"]
+    assert l_a["gather_rows"] == eng_a.engine_steps > 0 and l_a["tiered_segmented"] == eng_a.engine_steps
+    out["gather_rows"] = l_a["gather_rows"]
+    eng_b, st_b, toks_b, l_b = run("per-slot lookup (segmented_lookup=False)",
+                                   tiered_identity_scales=True, segmented_lookup=False)
+    da, db = st_a["device_tiering"], st_b["device_tiering"]
+    assert (db["near_hits"], db["far_hits"]) == (da["near_hits"], da["far_hits"]), (da, db)
+    assert l_b["tiered_gather"] > eng_b.engine_steps and l_b["tiered_segmented"] == 0, l_b
+    out["tiered_gather"] = l_b["tiered_gather"]
+    eng_c, st_c, toks_c, l_c = run("device tiering off", device_tiering=False)
+    assert eng_c.live_counters() == eng_a.live_counters(), (eng_c.live_counters(), eng_a.live_counters())
+    assert l_c["tiered_segmented"] + l_c["tiered_gather"] + l_c["gather_rows"] == 0, l_c
+    log(f"verify [{card}]: max_read_error 0.0; per-slot near/far {db['near_hits']}/{db['far_hits']} "
+        f"== segmented; live_counters equal with tiering off: {eng_c.live_counters()}; tokens "
+        f"equal a==b {bool(torch.equal(toks_a, toks_b))}, a==c {bool(torch.equal(toks_a, toks_c))}")
+
+    # a reduced model on the card (attention kernels) against the same
+    # engine on the CPU (eager attention). The kernels are built for
+    # head_dim 64 and 128, so the reduced smollm keeps smollm's head_dim and
+    # GQA group: 3 query heads of 64 over 1 KV head.
     from repro_torch.configs import get_config
     from repro_torch.configs.workloads import get_profile
     from repro_torch.data.requests import RequestGenerator
     from repro_torch.models.api import get_model
 
-    small = get_config("smollm-360m").reduced()
+    small = dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3,
+                                n_kv_heads=1)
     sapi = get_model(small)
     prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
                                prefix_share=0.5, n_prefixes=2)
@@ -451,9 +601,14 @@ def verify_paths(mp, card: str):
         toks = []
         for _ in range(6):
             e.submit(next(gen))
+        zero_launch_counts()
         while e.queue or any(s.active for s in e.slots):
             e.step()
             toks.append(e.next_tokens.cpu().clone())
+        launched = launch_counts()
+        decodes = e.model_dispatches - e.prefill_dispatches
+        want = (small.n_layers * e.prefill_dispatches, small.n_layers * decodes) if where == "cuda" else (0, 0)
+        assert (launched["flash_attention"], launched["paged_attention"]) == want, (where, launched, want)
         logits, _ = sapi.prefill(sp, {"tokens": torch.arange(24, device=where)[None]}, max_len=32)
         res[where] = (torch.stack(toks), e.live_counters(), e.stats()["device_tiering"], logits.cpu())
     (tg, lg, dg, pg), (tc, lc, dc, pc) = res["cuda"], res["cpu"]
@@ -463,8 +618,9 @@ def verify_paths(mp, card: str):
     assert lg == lc and dg == dc, (lg, lc, dg, dc)
     # a greedy argmax may flip at a near-tie under the other summation order
     assert match >= 0.9, match
-    log(f"reduced smollm on the card vs the CPU: prefill logits max |diff| {err:.3e}, "
-        f"per-step tokens equal {match:.4f}, live counters and device books equal")
+    log(f"reduced smollm (head_dim 64, 3/1 heads) on the card (flash + paged kernels) vs the CPU "
+        f"(eager attention): prefill logits max |diff| {err:.3e}, per-step tokens equal {match:.4f}, "
+        f"live counters and device books equal")
     return out
 
 
@@ -498,30 +654,47 @@ def main():
         report = lib.with_name(lib.name + ".log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"  ptxas: {line.strip()}")
 
     # phase 2: kernels against their plain versions
     kernels = check_kernels()
-    # phase 3: the main path
-    mp = main_path(card)
+    attention = check_attention()
+    t2 = time.perf_counter()
+    # phase 3: the main path, smollm-360m; 3b: qwen2.5-3b
+    mp = serve(card, "smollm-360m", 16, (32, 960, 15, 5, 2560, 49152))
+    t3 = time.perf_counter()
+    qwen = serve(card, "qwen2.5-3b", 6, (36, 2048, 16, 2, 11008, 151936))
+    del qwen["params"], qwen["api"]
+    torch.cuda.empty_cache()
+    t3b = time.perf_counter()
+    log(f"phase 3 smollm-360m {t3 - t2:.1f} s, phase 3b qwen2.5-3b {t3b - t3:.1f} s")
     # phase 4: the verify paths
     vp = verify_paths(mp, card)
 
     # phase 5: summary
-    where = {"tiered_segmented": 133, "tiered_gather": 186, "gather_rows": 52}
     launches = {"tiered_segmented": mp["launches"]["tiered_segmented"],
-                "tiered_gather": vp["tiered_gather"], "gather_rows": vp["gather_rows"]}
+                "tiered_gather": vp["tiered_gather"], "gather_rows": vp["gather_rows"],
+                "paged_attention": mp["launches"]["paged_attention"],
+                "flash_attention": mp["launches"]["flash_attention"]}
+    for name in ("paged_attention", "flash_attention"):
+        # the row carries the main path's model; the other model's numbers ride along
+        per = attention[name]
+        kernels[name] = {**per["smollm-360m"], "qwen2.5-3b": {
+            **{k: per["qwen2.5-3b"][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms")},
+            "launches": qwen["launches"][name]}}
     rows = []
-    for name in ("tiered_segmented", "tiered_gather", "gather_rows"):
+    for name, (source, replaces) in KERNELS.items():
         r = kernels[name]
         rows.append({
-            "name": name, "route": "cuda", "source": CU_SOURCE,
-            "replaces": f"{TPU_KERNELS}:{where[name]}", "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "name": name, "route": "cuda", "source": f"{CSRC}/{source}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"qwen2.5-3b": r["qwen2.5-3b"]} if "qwen2.5-3b" in r else {}),
         })
+    log(f"decode step profiles: smollm-360m {mp['profile']}, qwen2.5-3b {qwen['profile']}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

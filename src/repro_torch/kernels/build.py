@@ -6,6 +6,9 @@ the source, the flags and the compiler's path, so an edited source builds
 anew and an unchanged one is loaded as it is. Building happens at first
 use (never at import), one nvcc process per source, all started together.
 Nothing here falls back: a missing nvcc or a failed compile raises.
+
+The routing helpers at the end are shared by every wrapper in ``ops.py``:
+CPU tensors take the plain version, CUDA tensors the kernel.
 """
 from __future__ import annotations
 
@@ -17,10 +20,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("tiered_gather",)
+SOURCES = ("tiered_gather", "flash_attention", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -88,3 +93,33 @@ def check(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def on_cuda(what: str, *tensors) -> bool:
+    """True when the inputs lie on one CUDA device, False when on the CPU."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: inputs lie on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    return dev.type == "cuda"
+
+
+def need(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def vector_aligned(t: torch.Tensor) -> bool:
+    """Unit stride along the last dim and every row on a 16-byte boundary,
+    as the kernels' 16-byte loads need (dims of size 1 have no stride)."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(n == 1 or s * t.element_size() % 16 == 0
+               for n, s in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def strides(t: torch.Tensor, dims: int):
+    """The element strides of ``t``'s first ``dims`` dims as a C array."""
+    return (ctypes.c_longlong * dims)(*t.stride()[:dims])

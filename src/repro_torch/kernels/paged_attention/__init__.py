@@ -1,0 +1,6 @@
+from repro_torch.kernels.paged_attention.ops import (  # noqa: F401
+    LAUNCHES,
+    cache_as_pages,
+    paged_attention,
+)
+from repro_torch.kernels.paged_attention.ref import gather_pages, paged_attention_ref  # noqa: F401

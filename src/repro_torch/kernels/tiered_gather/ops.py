@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import need
 from repro_torch.kernels.tiered_gather import ref
 
 LAUNCHES = {"tiered_segmented": 0, "tiered_gather": 0, "gather_rows": 0}
@@ -46,41 +47,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cuda(*tensors) -> bool:
-    """True when the inputs lie on one CUDA device, False when on the CPU."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no tiered-gather kernel for device {dev}")
-    return dev.type == "cuda"
-
-
-def _need(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
-
-
 def _check_tiered(hot, cold_q, cold_scales, tier, slot, ids, seg_of=None):
-    _need(hot.ndim == 2 and hot.dtype in _NEAR_KIND, f"hot must be (M, D) f32/bf16, got {tuple(hot.shape)} {hot.dtype}")
+    need(hot.ndim == 2 and hot.dtype in _NEAR_KIND, f"hot must be (M, D) f32/bf16, got {tuple(hot.shape)} {hot.dtype}")
     d = hot.shape[1]
-    _need(cold_q.ndim == 2 and cold_q.shape[1] == d and cold_q.dtype == torch.int8,
+    need(cold_q.ndim == 2 and cold_q.shape[1] == d and cold_q.dtype == torch.int8,
           f"cold_q must be (M, {d}) int8, got {tuple(cold_q.shape)} {cold_q.dtype}")
-    _need(cold_scales.numel() == cold_q.shape[0] and cold_scales.dtype == torch.float32,
+    need(cold_scales.numel() == cold_q.shape[0] and cold_scales.dtype == torch.float32,
           f"cold_scales must hold {cold_q.shape[0]} f32 scales, got {tuple(cold_scales.shape)} {cold_scales.dtype}")
-    _need(tier.ndim == 1 and slot.shape == tier.shape, "tier and slot must be (P,) maps of one length")
-    _need(tier.dtype == torch.int32 and slot.dtype == torch.int32, "tier and slot must be int32")
-    _need(ids.ndim == 1 and ids.dtype == torch.int32, f"ids must be (N,) int32, got {tuple(ids.shape)} {ids.dtype}")
+    need(tier.ndim == 1 and slot.shape == tier.shape, "tier and slot must be (P,) maps of one length")
+    need(tier.dtype == torch.int32 and slot.dtype == torch.int32, "tier and slot must be int32")
+    need(ids.ndim == 1 and ids.dtype == torch.int32, f"ids must be (N,) int32, got {tuple(ids.shape)} {ids.dtype}")
     if seg_of is not None:
-        _need(seg_of.shape == ids.shape and seg_of.dtype == torch.int32, "seg_of must be (N,) int32 like ids")
+        need(seg_of.shape == ids.shape and seg_of.dtype == torch.int32, "seg_of must be (N,) int32 like ids")
 
 
 def _launch_tiered(hot, cold_q, cold_scales, tier, slot, ids, seg_of, n_segments, name):
     """Launch tg_tiered_lookup: (rows (N, D) f32, hits (n_segments, 2) int32)."""
     for t in (hot, cold_q, cold_scales, tier, slot, ids, seg_of):
-        _need(t is None or t.is_contiguous(), "the kernel takes contiguous tensors only")
-    _need(tier.shape[0] > 0, "the tier map is empty")
+        need(t is None or t.is_contiguous(), "the kernel takes contiguous tensors only")
+    need(tier.shape[0] > 0, "the tier map is empty")
     n, d = ids.shape[0], hot.shape[1]
     dev = hot.device
     rows = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -102,20 +87,20 @@ def _launch_tiered(hot, cold_q, cold_scales, tier, slot, ids, seg_of, n_segments
 
 def gather_rows(src, ids, scales: Optional[torch.Tensor] = None):
     """src: (M, D); ids: (N,) int32 -> (N, D) f32 (dequantized if scales given)."""
-    _need(src.ndim == 2 and src.dtype in _SRC_KIND, f"src must be (M, D) f32/bf16/int8, got {tuple(src.shape)} {src.dtype}")
-    _need(ids.ndim == 1 and ids.dtype == torch.int32, f"ids must be (N,) int32, got {tuple(ids.shape)} {ids.dtype}")
+    need(src.ndim == 2 and src.dtype in _SRC_KIND, f"src must be (M, D) f32/bf16/int8, got {tuple(src.shape)} {src.dtype}")
+    need(ids.ndim == 1 and ids.dtype == torch.int32, f"ids must be (N,) int32, got {tuple(ids.shape)} {ids.dtype}")
     if scales is not None:
-        _need(scales.numel() == src.shape[0] and scales.dtype == torch.float32,
+        need(scales.numel() == src.shape[0] and scales.dtype == torch.float32,
               f"scales must hold {src.shape[0]} f32 scales")
-    if not _on_cuda(src, ids, scales):
+    if not build.on_cuda("tiered gather", src, ids, scales):
         return ref.gather_rows_ref(src, ids, scales)
     n, d = ids.shape[0], src.shape[1]
     rows = torch.empty((n, d), dtype=torch.float32, device=src.device)
     if n == 0:
         return rows
-    _need(src.shape[0] > 0, "gather from an empty source")
+    need(src.shape[0] > 0, "gather from an empty source")
     for t in (src, ids, scales):
-        _need(t is None or t.is_contiguous(), "the kernel takes contiguous tensors only")
+        need(t is None or t.is_contiguous(), "the kernel takes contiguous tensors only")
     lib = _lib()
     with torch.cuda.device(src.device):
         err = lib.tg_gather_rows(
@@ -136,7 +121,7 @@ def tiered_lookup_counted(hot, cold_q, cold_scales, tier, slot, ids):
     scalars on the inputs' device, counted inside the kernel.
     """
     _check_tiered(hot, cold_q, cold_scales, tier, slot, ids)
-    if not _on_cuda(hot, cold_q, cold_scales, tier, slot, ids):
+    if not build.on_cuda("tiered gather", hot, cold_q, cold_scales, tier, slot, ids):
         return ref.tiered_lookup_counted_ref(hot, cold_q, cold_scales, tier, slot, ids)
     if ids.shape[0] == 0:
         z = torch.zeros((), dtype=torch.int32, device=hot.device)
@@ -157,7 +142,7 @@ def tiered_lookup_segments(hot, cold_q, cold_scales, tier, slot, ids, seg_of,
     """
     n_segments = int(n_segments)
     _check_tiered(hot, cold_q, cold_scales, tier, slot, ids, seg_of)
-    if not _on_cuda(hot, cold_q, cold_scales, tier, slot, ids, seg_of):
+    if not build.on_cuda("tiered gather", hot, cold_q, cold_scales, tier, slot, ids, seg_of):
         return ref.tiered_lookup_segments_ref(
             hot, cold_q, cold_scales, tier, slot, ids, seg_of, n_segments
         )

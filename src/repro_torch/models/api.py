@@ -46,23 +46,25 @@ class ModelAPI:
     def prefill(self, params, batch: dict, *, max_len: int):
         return _PORTED[self.family].prefill(params, self.cfg, batch["tokens"], max_len=max_len)
 
-    def decode(self, params, cache: dict, tokens):
-        return _PORTED[self.family].decode_step(params, self.cfg, cache, tokens)
+    def decode(self, params, cache: dict, tokens, *, page_size: int = 16):
+        return _PORTED[self.family].decode_step(params, self.cfg, cache, tokens,
+                                                page_size=page_size)
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(cfg)
 
 
-def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None):
+def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None, page_size: int = 16):
     """(params, cache, tokens (B,1)) -> (greedy next_tokens (B,1) int32, cache').
 
     ``vocab`` restricts the argmax to the first ``vocab`` logits: the head
     is padded, and a serving caller must never sample a padding id.
+    ``page_size`` is the page the card's decode kernel walks the cache in.
     """
 
     def serve_step(params, cache, tokens):
-        logits, cache = api.decode(params, cache, tokens)
+        logits, cache = api.decode(params, cache, tokens, page_size=page_size)
         v = logits.shape[-1] if vocab is None else vocab
         nxt = torch.argmax(logits[:, -1, :v], dim=-1).to(torch.int32)[:, None]
         return nxt, cache

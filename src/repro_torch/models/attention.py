@@ -5,6 +5,13 @@ wq: (D, Hq*hd), wk/wv: (D, Hkv*hd), wo: (Hq*hd, D) — so ``x @ W`` mirrors
 the reference's einsums. KV cache per layer: k/v (B, Hkv, S, hd) plus
 per-sequence lengths (B,). The apply functions take the layer's weights as
 a dict of tensors already cast to the compute dtype.
+
+Attention itself follows the tensors' device. On the CPU it is the eager
+``common.attention_chunked`` / ``common.attention_decode``, which mirror
+the reference op for op. On the card prefill runs the hand-written flash
+kernel and decode the paged kernel over the cache itself, viewed as pages
+(``kernels/flash_attention``, ``kernels/paged_attention``); a CUDA tensor
+the kernel refuses raises.
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import cache_as_pages, paged_attention
 from repro_torch.models import common
 
 
@@ -64,12 +73,21 @@ def _out_proj(p: dict, x_dtype, o: torch.Tensor) -> torch.Tensor:
     return common.matmul_f32(o, p["wo"]).to(x_dtype)
 
 
+def _attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
+    """Full-sequence attention, (B, Hq, L, hd) -> (B, Hq, L, hd): the flash
+    kernel on the card (every key valid, q row 0 at position 0), the eager
+    online-softmax reference on the CPU."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal, lk_valid=k.shape[2], q_offset=0)
+    return common.attention_chunked(q, k, v, causal=causal, block_k=block_k)
+
+
 def apply_train(p: dict, cfg: ModelConfig, x, positions, *, causal: bool = True,
                 block_k: int = 1024) -> torch.Tensor:
     """Full-sequence attention (forward without cache return)."""
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rope(cfg, q, k, positions)
-    o = common.attention_chunked(q, k, v, causal=causal, block_k=block_k)
+    o = _attend(q, k, v, causal=causal, block_k=block_k)
     return _out_proj(p, x.dtype, o)
 
 
@@ -77,7 +95,7 @@ def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, block_k
     """As apply_train but also returns the (padded-to-max_len) KV for caching."""
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rope(cfg, q, k, positions)
-    o = common.attention_chunked(q, k, v, causal=True, block_k=block_k)
+    o = _attend(q, k, v, causal=True, block_k=block_k)
     l = x.shape[1]
     if max_len > l:
         k = F.pad(k, (0, 0, 0, max_len - l))
@@ -96,19 +114,25 @@ def _write_at(cache: torch.Tensor, lengths: torch.Tensor, new: torch.Tensor):
     cache[idx, :, pos, :] = torch.where(keep, new.to(cache.dtype), cache[idx, :, pos, :])
 
 
-def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths):
+def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_size: int = 16):
     """One-token decode. x: (B, 1, D); caches (B, Hkv, S, hd); lengths (B,).
 
     Writes the new K/V at position ``lengths`` per sequence IN PLACE into
     ``k_cache``/``v_cache``; attention sees ``lengths + 1`` valid entries.
-    Returns the attention output (B, 1, D).
+    On the card the paged kernel walks the cache as pages of ``page_size``
+    positions (the engine's page size; S must be a multiple of it); the CPU
+    path ignores it. Returns the attention output (B, 1, D).
     """
     q, k, v = _project_qkv(p, cfg, x)
     positions = lengths[:, None].to(torch.int32)  # (B, 1)
     q, k = _rope(cfg, q, k, positions)
     _write_at(k_cache, lengths, k[:, :, 0, :])
     _write_at(v_cache, lengths, v[:, :, 0, :])
-    o = common.attention_decode(q, k_cache.to(q.dtype), v_cache.to(q.dtype), lengths + 1)
+    if q.is_cuda:
+        k_pages, v_pages, table = cache_as_pages(k_cache, v_cache, page_size)
+        o = paged_attention(q[:, :, 0, :], k_pages, v_pages, table, lengths + 1)[:, :, None, :]
+    else:
+        o = common.attention_decode(q, k_cache.to(q.dtype), v_cache.to(q.dtype), lengths + 1)
     return _out_proj(p, x.dtype, o)
 
 

@@ -138,11 +138,14 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, *, max_len: int,
 
 
 @torch.no_grad()
-def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens):
+def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, *,
+                page_size: int = 16):
     """One decode step. tokens: (B, 1). Returns (logits, cache').
 
     ``cache["k"]``/``cache["v"]`` are updated in place; the returned cache
-    holds the same tensors and the advanced lengths.
+    holds the same tensors and the advanced lengths. ``page_size`` is the
+    page the card's decode kernel walks the cache in (the engine passes its
+    own); the CPU path ignores it.
     """
     cdt = common.dt(cfg.compute_dtype)
     h = _embed_in(params, cfg, tokens)
@@ -150,7 +153,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens):
     for i, blk in enumerate(params.layers):
         layer = blk.weights(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
-        h = h + attention.apply_decode(layer["attn"], cfg, x, cache["k"][i], cache["v"][i], lengths)
+        h = h + attention.apply_decode(layer["attn"], cfg, x, cache["k"][i], cache["v"][i], lengths,
+                                       page_size)
         h = _mlp(layer, cfg, h)
     logits = _logits_out(params, cfg, h)
     return logits, {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}

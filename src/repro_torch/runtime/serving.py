@@ -232,7 +232,8 @@ class ServingEngine:
         self.ttft_wall_samples: List[float] = []
         # per-role (decode, prefill) x (near, far) tier hits from the drain
         self.role_hits = np.zeros((N_ROLES, 2), np.int64)
-        self._serve = make_serve_step(api, vocab=self.cfg.vocab_size)
+        # the decode kernel walks the cache in the pages the tier plane accounts
+        self._serve = make_serve_step(api, vocab=self.cfg.vocab_size, page_size=e.page_size)
         self._seed = seed
         # device-executed tiering: a device-resident near/far store whose
         # tier map mirrors placement.tier

@@ -9,6 +9,12 @@ has no CPU mode), and run on a machine with the card by
 machine need not have). Rows and counters must be bit-exact; the shapes
 cover the scalar tail (widths that are not a multiple of 16 bytes), empty,
 duplicate and out-of-range ids, all-near and all-far maps, and bf16 near.
+
+The attention kernels compute in f32 like their plain versions and differ
+from them only in summation order: f32 outputs agree to 2e-5, bf16
+outputs to one bf16 step (2**-7 of the value), the final rounding. They
+cover head_dim 64 and 128, GQA groups of 1, 3 and 8, ragged lengths,
+lengths past the cache's end, and causal and non-causal prefill.
 """
 import numpy as np
 import pytest
@@ -93,20 +99,135 @@ def test_wrapper_refuses_non_contiguous(card):
         ops.tiered_lookup_counted(hot, *(x[k] for k in ("cold_q", "cold_scales", "tier", "slot", "ids")))
 
 
+@pytest.fixture
+def attn():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention, paged_attention
+
+    return flash_attention, paged_attention
+
+
+def _close(out, plain):
+    assert out.dtype == plain.dtype and out.shape == plain.shape
+    a, b = out.float(), plain.float()
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+    else:
+        assert bool(((a - b).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-6).all())
+
+
+def _randn(shape, seed, dtype):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dtype).cuda()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lq,lk", [(512, 512), (1, 77), (100, 230), (130, 200)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (15, 5), (16, 2)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_against_plain(attn, dtype, d, hq, hkv, lq, lk, causal):
+    fa, _ = attn
+    q = _randn((2, hq, lq, d), 0, dtype)
+    k, v = _randn((2, hkv, lk, d), 1, dtype), _randn((2, hkv, lk, d), 2, dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    plain = fa.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 2
+    assert torch.equal(out, again)  # deterministic
+    _close(out, plain)
+
+
+@pytest.mark.parametrize("lk_valid,q_offset", [(100, None), (70, 6), (200, 0)])
+def test_flash_kernel_lk_valid_and_strided_views(attn, lk_valid, q_offset):
+    fa, _ = attn
+    x = _randn((1, 96, 3 * 128), 3, torch.bfloat16)
+    kv = _randn((1, 200, 2 * 128), 4, torch.bfloat16)
+    q = x.reshape(1, 96, 3, 128).transpose(1, 2)  # views, as the model hands them in
+    k = kv[..., :128].reshape(1, 200, 1, 128).transpose(1, 2)
+    v = kv[..., 128:].reshape(1, 200, 1, 128).transpose(1, 2)
+    out = fa.flash_attention(q, k, v, causal=True, lk_valid=lk_valid, q_offset=q_offset)
+    _close(out, fa.flash_attention_ref(q, k, v, causal=True, lk_valid=lk_valid, q_offset=q_offset))
+    assert torch.equal(out, fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               causal=True, lk_valid=lk_valid, q_offset=q_offset))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16),
+                                              (torch.float32, torch.float32)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (15, 5), (16, 2)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernel_over_the_cache_view(attn, d, hq, hkv, q_dtype, kv_dtype):
+    """The engine's case: a per-slot cache viewed as pages of 16, lengths of
+    1, within a page, on a page edge, ragged, full and past the end."""
+    _, pa = attn
+    s, ps = 256, 16
+    cache = _randn((2, 8, hkv, s, d), 5, kv_dtype)  # two layers, 8 slots
+    kp, vp, table = pa.cache_as_pages(cache[1], _randn((8, hkv, s, d), 6, kv_dtype), ps)
+    q = _randn((8, hq, d), 7, q_dtype)
+    lengths = torch.tensor([1, 7, 16, 17, 100, 255, 256, 300], dtype=torch.int32).cuda()
+    before = pa.LAUNCHES["paged_attention"]
+    out = pa.paged_attention(q, kp, vp, table, lengths)
+    again = pa.paged_attention(q, kp, vp, table, lengths)
+    plain = pa.paged_attention_ref(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention"] - before == 2
+    assert torch.equal(out, again)  # deterministic
+    _close(out, plain)
+
+
+@pytest.mark.parametrize("ps", [16, 32])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+def test_paged_kernel_over_a_shared_pool(attn, hq, hkv, ps):
+    """A general pool: pages shared between sequences, out-of-range ids."""
+    _, pa = attn
+    kp, vp = _randn((hkv, 32, ps, 64), 8, torch.float32), _randn((hkv, 32, ps, 64), 9, torch.float32)
+    g = torch.Generator().manual_seed(10)
+    table = torch.randint(-3, 35, (4, 6), generator=g, dtype=torch.int32).cuda()
+    lengths = torch.tensor([1, ps + 3, 2 * ps, 6 * ps], dtype=torch.int32).cuda()
+    q = _randn((4, hq, 64), 11, torch.float32)
+    _close(pa.paged_attention(q, kp, vp, table, lengths), pa.paged_attention_ref(q, kp, vp, table, lengths))
+
+
+def test_attention_refuses_unbuilt_shapes_on_the_card(attn):
+    fa, pa = attn
+    q = _randn((1, 4, 16, 32), 12, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fa.flash_attention(q, q, q)
+    x = _randn((1, 4, 16, 65), 13, torch.bfloat16)[..., 1:]  # rows off 16-byte boundaries
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(x, x, x)
+
+
+def _reduced_config():
+    """Reduced smollm-360m at head_dim 64 (the kernels are built for 64 and
+    128) with smollm's GQA group of 3: 3 query heads over 1 KV head."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3,
+                               n_kv_heads=1)
+
+
 def test_reduced_engine_on_card_equals_cpu(card):
     """The whole device-tiered engine at reduced size: the card (kernels) and
     the CPU (plain versions) give the same books. The books follow the
     schedule, not the token values, so an argmax near-tie that the other
-    summation order flips cannot change them."""
+    summation order flips cannot change them. On the card every prefill
+    layer runs the flash kernel and every decode layer the paged kernel."""
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.workloads import get_profile
     from repro_torch.data.requests import RequestGenerator
+    from repro_torch.kernels import flash_attention, paged_attention
     from repro_torch.models.api import get_model
     from repro_torch.runtime.serving import EngineConfig, ServingEngine
 
-    cfg = get_config("smollm-360m").reduced()
+    cfg = _reduced_config()
     api = get_model(cfg)
     prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
                                prefix_share=0.5, n_prefixes=2)
@@ -116,7 +237,14 @@ def test_reduced_engine_on_card_equals_cpu(card):
             max_batch=4, max_len=64, n_pages=256, near_frac=0.02, placement_window=4,
             device_tiering=True, tiered_identity_scales=True, tiered_verify=True,
         ), seed=0, device=where)
+        flash_attention.LAUNCHES["flash_attention"] = paged_attention.LAUNCHES["paged_attention"] = 0
         eng.run(RequestGenerator(prof, vocab_size=cfg.vocab_size, seed=0), n_requests=6)
         books[where] = (eng.live_counters(), eng.stats()["device_tiering"])
+        launched = (flash_attention.LAUNCHES["flash_attention"], paged_attention.LAUNCHES["paged_attention"])
+        decodes = eng.model_dispatches - eng.prefill_dispatches
+        if where == "cuda":
+            assert launched == (cfg.n_layers * eng.prefill_dispatches, cfg.n_layers * decodes) and decodes > 0
+        else:
+            assert launched == (0, 0)
     assert books["cuda"] == books["cpu"]
     assert books["cuda"][1]["max_read_error"] == 0.0

@@ -23,6 +23,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import json, sys\n"
         "import repro_torch.runtime.serving, repro_torch.parity\n"
         "import repro_torch.kernels.tiered_gather.ops\n"
+        "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.paged_attention.ops\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -30,6 +31,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                          text=True, check=True, cwd=ROOT)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.runtime.serving" in mods
+    assert "repro_torch.kernels.flash_attention.ref" in mods
+    assert "repro_torch.kernels.paged_attention.ref" in mods
     assert [m for m in mods if _is_reference(m)] == []
 
 

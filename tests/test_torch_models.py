@@ -98,3 +98,29 @@ def test_decode_past_the_cache_end_drops_the_write():
     assert torch.equal(new["k"][:, 1], before)  # row 1 was full: nothing written
     assert not torch.equal(new["k"][:, 0, :, 3], torch.zeros_like(new["k"][:, 0, :, 3]))
     np.testing.assert_array_equal(new["lengths"].numpy(), [4, 5])
+
+
+def test_cpu_attention_stays_the_eager_reference(monkeypatch):
+    """On the CPU prefill and decode take common.attention_chunked and
+    common.attention_decode, once per layer, and launch no kernel."""
+    from repro_torch.kernels import flash_attention, paged_attention
+    from repro_torch.models import common
+
+    calls = {"attention_chunked": 0, "attention_decode": 0}
+    for name in calls:
+        orig = getattr(common, name)
+
+        def counted(*a, _orig=orig, _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(common, name, counted)
+    before = (flash_attention.LAUNCHES["flash_attention"], paged_attention.LAUNCHES["paged_attention"])
+    tapi = get_model(get_config("qwen2.5-3b").reduced())
+    model = tapi.init(0, device="cpu")
+    _, cache = tapi.prefill(model, {"tokens": torch.arange(12)[None]}, max_len=20)
+    tapi.decode(model, cache, torch.tensor([[3]], dtype=torch.int32), page_size=4)
+    n = tapi.cfg.n_layers
+    assert calls == {"attention_chunked": n, "attention_decode": n}
+    assert (flash_attention.LAUNCHES["flash_attention"],
+            paged_attention.LAUNCHES["paged_attention"]) == before == (0, 0)
