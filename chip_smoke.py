@@ -17,6 +17,11 @@ Phases (any failure raises, so the script exits non-zero):
      (8 slots, S = 1024, pages of 16, through the cache view) at the
      widths of smollm-360m and qwen2.5-3b, bf16: within one bf16 step of
      the plain version, and within 2e-2 of the model's eager attention;
+   - the scans, f32: WKV6 at rwkv6-7b's widths (64 heads of 64) and the
+     Mamba2 SSD at zamba2-1.2b's (64 heads, P = N = 64), each on a prompt
+     of 512 from a zero and from a random state and on a decode step of 8
+     slots, with decays up to e^-10 a step: y and the final state within
+     the stated f32 tolerance of the plain version;
 3. the main path: a device-tiered ``ServingEngine`` over full-width
    smollm-360m (32 layers, random weights from a seed) answering 16 Web1
    requests -- every request finishes, one tiered-gather launch per step,
@@ -25,11 +30,19 @@ Phases (any failure raises, so the script exits non-zero):
    host reads, and a profile of decode steps;
    3b. the same over full-width qwen2.5-3b (36 layers, d 2048, 16/2 heads,
    d_ff 11008, vocab 151936) on 6 Web1 requests;
+   3c. the same over full-width rwkv6-7b (32 layers, d 4096, 64 wkv heads
+   of 64, d_ff 14336, vocab 65536) on 6 Web1 requests: one WKV6 launch per
+   layer per prefill and per decode, no attention launch;
+   3d. the same over full-width zamba2-1.2b (38 Mamba2 layers, d 2048, 64
+   SSD heads of 64, N = 64, 6 applications of the shared attention block
+   of 32 heads of 64) on 8 Web1 requests: one SSD launch per layer, and
+   one flash (prefill) or paged (decode) launch per application, per
+   dispatch;
 4. the verify paths at full width on 4 requests: identity scales with the
    in-line flat-mirror probe (no read error), the per-slot lookup baseline
-   (same drained hit totals), device tiering off (same live counters), and
-   a reduced model on the card (kernels) against the same engine on the
-   CPU (plain attention);
+   (same drained hit totals), device tiering off (same live counters); and
+   reduced smollm, rwkv6 and zamba2 models on the card (kernels) against
+   the same engine on the CPU (plain versions);
 5. one JSON line with every kernel's numbers, then the result line.
 
 Each path's kernel launch counts are zeroed just before it and read just
@@ -62,9 +75,15 @@ KERNELS = {
     "gather_rows": ("tiered_gather.cu", "src/repro/kernels/tiered_gather/kernel.py:52"),
     "paged_attention": ("paged_attention.cu", "src/repro/kernels/paged_attention/kernel.py:73"),
     "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:76"),
+    "wkv6": ("wkv6.cu", "src/repro/kernels/rwkv6_scan/kernel.py:77"),
+    "ssd": ("ssd.cu", "src/repro/kernels/mamba2_scan/kernel.py:76"),
 }
 # the attention widths of the two served models: (query heads, KV heads, head_dim)
-ATTN_WIDTHS = {"smollm-360m": (15, 5, 64), "qwen2.5-3b": (16, 2, 128)}
+ATTN_WIDTHS = {"smollm-360m": (15, 5, 64), "qwen2.5-3b": (16, 2, 128), "zamba2-1.2b": (32, 32, 64)}
+# zamba2's shared block runs uncast f32 weights (as the reference's prefill
+# and decode do): f32 q, k, v in prefill, an f32 query over the bf16 cache
+# in decode; the dense models feed bf16 throughout
+ATTN_F32_Q = {"zamba2-1.2b"}
 PREFILL_LEN = 512  # Web1's mean prompt
 # the decode check's 8 slots over S = 1024: one token, a partial page, a
 # full page run, ragged lengths near the main path's, the full cache, and
@@ -116,16 +135,20 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def launch_counts() -> dict:
-    from repro_torch.kernels import flash_attention, paged_attention, tiered_gather
+def _counters():
+    from repro_torch.kernels import (flash_attention, mamba2_scan, paged_attention, rwkv6_scan,
+                                     tiered_gather)
 
-    return {**tiered_gather.LAUNCHES, **flash_attention.LAUNCHES, **paged_attention.LAUNCHES}
+    return (tiered_gather.LAUNCHES, flash_attention.LAUNCHES, paged_attention.LAUNCHES,
+            rwkv6_scan.LAUNCHES, mamba2_scan.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def zero_launch_counts():
-    from repro_torch.kernels import flash_attention, paged_attention, tiered_gather
-
-    for counts in (tiered_gather.LAUNCHES, flash_attention.LAUNCHES, paged_attention.LAUNCHES):
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
@@ -269,10 +292,12 @@ def within_one_bf16_step(out, plain) -> bool:
 
 
 def check_attention():
-    """B5 and B4 at each served model's widths, bf16 as the model feeds them.
+    """B5 and B4 at each served model's widths and types as the model feeds
+    them: bf16 for the dense models, f32 queries for zamba2's shared block.
 
     The kernels and their plain versions both compute in f32 and differ in
-    summation order only, so they agree to one bf16 step. The model's eager
+    summation order only, so they agree to one bf16 step in bf16 and to
+    2e-5 in f32 (the card tests' tolerance). The model's eager
     attention rounds p to bf16 before PV (the kernels, like the TPU
     kernels, do not), so it is held at the JAX tests' bf16 tolerance, 2e-2.
     ``library_ms`` times ``scaled_dot_product_attention``, which the port
@@ -284,11 +309,17 @@ def check_attention():
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import common
 
-    results = {"flash_attention": {}, "paged_attention": {}}
     bf = torch.bfloat16
+    results = {"flash_attention": {}, "paged_attention": {}}
     for arch, (hq, hkv, d) in ATTN_WIDTHS.items():
         g = torch.Generator().manual_seed(3)
-        rand = lambda *shape: torch.randn(*shape, generator=g).to(bf).cuda()
+        qdt = torch.float32 if arch in ATTN_F32_Q else bf
+        qsz = 4 if qdt == torch.float32 else 2
+        rand = lambda *shape, dtype=qdt: torch.randn(*shape, generator=g).to(dtype).cuda()
+        close = (lambda a, b: bool(torch.allclose(a, b, rtol=2e-5, atol=2e-5))) if qdt == torch.float32 \
+            else within_one_bf16_step
+        peak = FP32_OPS_PER_S if qdt == torch.float32 else BF16_OPS_PER_S
+        qname = "f32" if qdt == torch.float32 else "bf16"
         # B5: one prompt's prefill; q and k come out of rope contiguous, v
         # is a transposed view of the projection, as the model hands them in
         n = PREFILL_LEN
@@ -299,13 +330,13 @@ def check_attention():
         plain = fa.flash_attention_ref(q, k, v, causal=True, lk_valid=n, q_offset=0)
         eager = common.attention_chunked(q, k, v, causal=True, block_k=256)
         torch.cuda.synchronize()
-        assert within_one_bf16_step(out, plain), f"flash_attention differs from plain ({arch})"
+        assert close(out, plain), f"flash_attention differs from plain ({arch})"
         torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
-        nbytes = float(2 * q.numel() * 2 + 2 * k.numel() * 2)  # q and o, k and v, bf16
+        nbytes = float((2 * q.numel() + 2 * k.numel()) * qsz)  # q and o, k and v
         nops = 4.0 * hq * d * n * (n + 1) / 2  # QK^T and PV over the causal pairs
-        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        b_ms, b_by = bound(nbytes, nops, peak)
         results["flash_attention"][arch] = {
-            "shapes": f"q (1, {hq}, {n}, {d}), k/v (1, {hkv}, {n}, {d}) bf16, causal",
+            "shapes": f"q (1, {hq}, {n}, {d}), k/v (1, {hkv}, {n}, {d}) {qname}, causal",
             "max_abs_err": float((out.float() - plain.float()).abs().max()),
             "err_vs_eager": float((out.float() - eager.float()).abs().max()),
             "ms": time_ms(call),
@@ -317,7 +348,7 @@ def check_attention():
         }
         # B4: one decode step of 8 slots over the engine's per-slot cache,
         # viewed as pages without a copy
-        kc, vc = rand(8, hkv, DECODE_S, d), rand(8, hkv, DECODE_S, d)
+        kc, vc = rand(8, hkv, DECODE_S, d, dtype=bf), rand(8, hkv, DECODE_S, d, dtype=bf)
         qd = rand(8, hq, d)
         lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
         kp, vp, table = pa.cache_as_pages(kc, vc, DECODE_PAGE)
@@ -326,14 +357,15 @@ def check_attention():
         plain = pa.paged_attention_ref(qd, kp, vp, table, lengths)
         eager = common.attention_decode(qd[:, :, None], kc, vc, lengths)[:, :, 0]
         torch.cuda.synchronize()
-        assert within_one_bf16_step(out, plain), f"paged_attention differs from plain ({arch})"
+        assert close(out, plain), f"paged_attention differs from plain ({arch})"
         torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
         seen = sum(min(x, DECODE_S) for x in DECODE_LENGTHS)
-        nbytes = float(2 * seen * hkv * d * 2 + 2 * qd.numel() * 2 + table.numel() * 4 + 8 * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * hq * d * seen, BF16_OPS_PER_S)
+        nbytes = float(2 * seen * hkv * d * 2 + 2 * qd.numel() * qsz + table.numel() * 4 + 8 * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * hq * d * seen, peak)
+        kl, vl = (kc, vc) if qdt == bf else (kc.to(qdt), vc.to(qdt))  # SDPA takes one dtype
         mask = (torch.arange(DECODE_S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
         results["paged_attention"][arch] = {
-            "shapes": f"q (8, {hq}, {d}), cache (8, {hkv}, {DECODE_S}, {d}) bf16 as pages of "
+            "shapes": f"q (8, {hq}, {d}) {qname}, cache (8, {hkv}, {DECODE_S}, {d}) bf16 as pages of "
                       f"{DECODE_PAGE}, lengths {list(DECODE_LENGTHS)}",
             "max_abs_err": float((out.float() - plain.float()).abs().max()),
             "err_vs_eager": float((out.float() - eager.float()).abs().max()),
@@ -341,14 +373,137 @@ def check_attention():
             "plain_ms": time_ms(lambda: pa.paged_attention_ref(qd, kp, vp, table, lengths)),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)),
+                qd[:, :, None], kl, vl, attn_mask=mask, enable_gqa=True)),
         }
     for name, per in results.items():
         for arch, r in per.items():
             log(f"{name} [{arch}] {r['shapes']}: max_abs_err vs plain {r['max_abs_err']:.3e} "
-                f"(one bf16 step), vs eager {r['err_vs_eager']:.3e}; kernel {r['ms']:.4f} ms, plain "
+                f"(one bf16 step; f32 2e-5), vs eager {r['err_vs_eager']:.3e}; kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
                 f"{r['bytes'] / 1e6:.2f} MB), library {r['library_ms']:.4f} ms")
+    return results
+
+
+SCAN_CHUNK = 32  # the scan kernels' chunk (kC in csrc/wkv6.cu and csrc/ssd.cu)
+SCAN_RTOL = 1e-4  # see check_scans
+
+
+def _chunks(t: int):
+    return [min(SCAN_CHUNK, t - c) for c in range(0, t, SCAN_CHUNK)]
+
+
+def wkv6_work(b: int, t: int, h: int, hd: int, with_state: bool):
+    """(bytes, f32 operations) of one WKV6 call: r, k, v, lw read and y
+    written once, u, the state written (and read when given); the
+    operations those of the kernel's chunked form on these shapes, an exp
+    counted as one: per chunk of n tokens the cumulative sums, the n(n-1)/2
+    off-diagonal A terms of hd (sub, exp, mul, fma) and the n diagonal
+    ones, the decayed r and k, y = A v + r~ S and the state update."""
+    nbytes = 4.0 * (5 * b * t * h * hd + h * hd + (2 if with_state else 1) * b * h * hd * hd)
+    ops = 0.0
+    for n in _chunks(t):
+        ops += (n + 1) * hd + n * (n - 1) / 2 * hd * 5 + n * hd * 3 + n * hd * 5
+        ops += n * (n + 1) / 2 * hd * 2 + n * hd * hd * 2 + hd * hd * (1 + 2 * n)
+    return nbytes, ops * b * h
+
+
+def ssd_work(b: int, t: int, h: int, p: int, n_state: int, with_state: bool):
+    """(bytes, f32 operations) of one SSD call: x read and y written once,
+    dt, B, C, A, D read, the state written (and read when given); the
+    operations the function needs in the chunked form, an exp counted as
+    one. Per chunk of n tokens: the Gram matrix C B^T over its n(n+1)/2
+    causal pairs once, shared by the heads; per head the decays (dt A, its
+    cumulative sum and their exps), the n(n+1)/2 segment weights G and their
+    product with the Gram matrix, ((C B^T) o G) x, C S_in^T scaled and plus
+    D x, x o w once, and the state update exp(.) S_in + (x o w)^T B. (The
+    kernel, as the TPU kernel, forms the Gram matrix in every head and
+    multiplies x by w again inside its N loop; that redundant work is not
+    counted.)"""
+    nbytes = 4.0 * (2 * b * t * h * p + b * t * h + 2 * b * t * n_state + 2 * h
+                    + (2 if with_state else 1) * b * h * p * n_state)
+    ops = 0.0
+    for n in _chunks(t):
+        tri = n * (n + 1) / 2
+        per_head = (6 * n + 4 * tri + 2 * tri * p + 2 * n * p * n_state + 4 * n * p
+                    + n * p + p * n_state * (2 * n + 1))
+        ops += 2 * n_state * tri + h * per_head
+    return nbytes, ops * b
+
+
+def check_scans():
+    """B6 (WKV6) and B7 (SSD) at the served models' widths, f32 as the
+    models feed them: rwkv6-7b's 64 heads of 64, zamba2-1.2b's 64 heads of
+    P = N = 64; a prompt of 512 from a zero and from a random state, and a
+    decode step of 8 slots.
+
+    Decays run from about e^-0.02 to e^-10 a step, so the strong ones are
+    there. The kernels take their closed form per chunk of 32 and the plain
+    versions the sequential recurrence. The largest gap between the two
+    comes from the per-chunk cumulative decay: its sums reach some 300 at
+    the strongest decays, where one f32 rounding (3e-5) shifts an
+    exponent, and so a term, by a relative 3e-5, over some 64-term dot
+    products. Hence the stated tolerance: |kernel - plain| <= 1e-4 of the
+    output's largest magnitude plus 1e-4 of each value. ``library_ms`` is
+    null: no one PyTorch call computes either scan."""
+    import torch
+
+    from repro_torch.kernels import mamba2_scan, rwkv6_scan
+
+    rng = np.random.default_rng(4)
+    t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+    normal = lambda *shape: t_(rng.standard_normal(shape))
+    h, hd = 64, 64  # heads, and hd = P = N
+
+    def wkv6_case(b, t, state):
+        lw = t_(-np.minimum(np.exp(rng.normal(-1.0, 1.5, (b, t, h, hd))), 10.0))
+        return (normal(b, t, h, hd), normal(b, t, h, hd), normal(b, t, h, hd), lw, normal(h, hd),
+                normal(b, h, hd, hd) if state else None)
+
+    def ssd_case(b, t, state):
+        dt = t_(np.log1p(np.exp(rng.normal(0.0, 1.5, (b, t, h)))))
+        a = t_(-np.exp(rng.uniform(-2.0, 1.0, h)))  # |dt A| up to ~10
+        return (normal(b, t, h, hd), dt, a, normal(b, t, hd), normal(b, t, hd), normal(h),
+                normal(b, h, hd, hd) if state else None)
+
+    specs = {
+        "wkv6": (rwkv6_scan.wkv6_chunked, rwkv6_scan.wkv6_ref, wkv6_case,
+                 lambda b, t, st: wkv6_work(b, t, h, hd, st), "r, k, v, lw"),
+        "ssd": (mamba2_scan.ssd_chunked, mamba2_scan.ssd_ref, ssd_case,
+                lambda b, t, st: ssd_work(b, t, h, hd, hd, st), "x"),
+    }
+    shapes = {"prefill": (1, PREFILL_LEN, False), "prefill_state": (1, PREFILL_LEN, True),
+              "decode": (8, 1, True)}
+    results = {}
+    for name, (op, plain, make, work, inputs) in specs.items():
+        cases = {label: make(*shape) for label, shape in shapes.items()}
+        errs = {}
+        for label, args in cases.items():
+            out, ref = op(*args), plain(*args)
+            torch.cuda.synchronize()
+            for a, b_ in zip(out, ref):  # y, then the final state
+                torch.testing.assert_close(a, b_, rtol=SCAN_RTOL, atol=SCAN_RTOL * float(b_.abs().max()),
+                                           msg=f"{name} {label}")
+            errs[label] = max(float((a - b_).abs().max()) for a, b_ in zip(out, ref))
+        log(f"{name}: max_abs_err vs plain {errs} (tolerance rtol {SCAN_RTOL}, atol {SCAN_RTOL} x max|plain|)")
+        res = {}
+        for label in ("prefill", "decode"):
+            args = cases[label]
+            b, t = args[0].shape[:2]
+            given = args[-1] is not None
+            nbytes, nops = work(b, t, given)
+            b_ms, b_by = bound(nbytes, nops)
+            res[label] = {
+                "shapes": f"{inputs} ({b}, {t}, {h}, {hd}) f32, state {'given' if given else 'zero'}",
+                "max_abs_err": max(errs.values()),
+                "ms": time_ms(lambda: op(*args)),
+                "plain_ms": time_ms(lambda: plain(*args), reps=20 if t > 1 else 60),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": nbytes, "ops": nops,
+            }
+            rr = res[label]
+            log(f"{name} {label} {rr['shapes']}: kernel {rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms, "
+                f"bound {rr['bound_ms']:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} GFLOP), "
+                f"library none")
+        results[name] = {**res["prefill"], "decode": res["decode"]}
     return results
 
 
@@ -408,17 +563,20 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def serve(card: str, arch: str, n_requests: int, widths: tuple):
+def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
     """The main path on one model at full width: an engine answering
-    ``n_requests`` Web1 requests, every kernel launch counted."""
+    ``n_requests`` Web1 requests, every kernel launch counted. ``widths``:
+    (layers, d_model, heads, KV heads, d_ff, vocab); ``ssm``: (ssm_head_dim,
+    ssm_state, shared_attn_every) of a recurrent family."""
     import torch
 
     import repro_torch.runtime.tiered_kv as tiered_kv_mod
     from repro_torch.configs import get_config
-    from repro_torch.models.api import get_model
+    from repro_torch.models.api import get_model, kernel_launches
 
     cfg = get_config(arch)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size) == widths, cfg
+    assert ssm is None or (cfg.ssm_head_dim, cfg.ssm_state, cfg.shared_attn_every) == ssm, cfg
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(seed=0, device="cuda")
@@ -455,8 +613,9 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple):
     assert st["requests_finished"] == len(reqs), st["requests_finished"]
     assert dev["dispatches_per_step"] == 1.0, dev["dispatches_per_step"]
     assert launches["tiered_segmented"] == eng.engine_steps > 0, (launches, eng.engine_steps)
-    assert launches["flash_attention"] == cfg.n_layers * eng.prefill_dispatches > 0, launches
-    assert launches["paged_attention"] == cfg.n_layers * decodes > 0, (launches, decodes)
+    assert eng.prefill_dispatches > 0 and decodes > 0, (eng.prefill_dispatches, decodes)
+    want = kernel_launches(cfg, eng.prefill_dispatches, decodes)
+    assert {k: launches[k] for k in want} == want, (launches, want)
     assert dev["near_hits"] > 0 and dev["far_hits"] > 0, dev
     # the logits of one more decode of the final batch, and of one prefill
     cache = {k: v.clone() for k, v in eng.cache.items()}
@@ -576,17 +735,38 @@ def verify_paths(mp, card: str):
         f"== segmented; live_counters equal with tiering off: {eng_c.live_counters()}; tokens "
         f"equal a==b {bool(torch.equal(toks_a, toks_b))}, a==c {bool(torch.equal(toks_a, toks_c))}")
 
-    # a reduced model on the card (attention kernels) against the same
-    # engine on the CPU (eager attention). The kernels are built for
-    # head_dim 64 and 128, so the reduced smollm keeps smollm's head_dim and
-    # GQA group: 3 query heads of 64 over 1 KV head.
+    for small, label in reduced_models():
+        reduced_on_card_vs_cpu(small, label)
+    return out
+
+
+def reduced_models():
+    """Reduced configs the kernels take on the card: attention head_dim 64
+    (the attention kernels are built for 64 and 128) and scan widths of 16
+    (the reduced ssm_head_dim and ssm_state, as they are)."""
     from repro_torch.configs import get_config
+
+    return [
+        # smollm's GQA group of 3: 3 query heads of 64 over 1 KV head
+        (dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3, n_kv_heads=1),
+         "smollm (head_dim 64, 3/1 heads; flash + paged)"),
+        (get_config("rwkv6-7b").reduced(), "rwkv6 (4 wkv heads of 16; wkv6)"),
+        # the shared block's attention at head_dim 64: 2/2 heads over d 128
+        (dataclasses.replace(get_config("zamba2-1.2b").reduced(), d_model=128, n_heads=2, n_kv_heads=2),
+         "zamba2 (16 SSD heads of 16, N 16, 2/2 attention heads of 64; ssd + flash + paged)"),
+    ]
+
+
+def reduced_on_card_vs_cpu(small, label: str):
+    """A reduced model on the card (kernels) against the same engine on the
+    CPU (plain versions): prefill logits, books and tokens."""
+    import torch
+
     from repro_torch.configs.workloads import get_profile
     from repro_torch.data.requests import RequestGenerator
-    from repro_torch.models.api import get_model
+    from repro_torch.models.api import get_model, kernel_launches
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
 
-    small = dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3,
-                                n_kv_heads=1)
     sapi = get_model(small)
     prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
                                prefix_share=0.5, n_prefixes=2)
@@ -607,21 +787,21 @@ def verify_paths(mp, card: str):
             toks.append(e.next_tokens.cpu().clone())
         launched = launch_counts()
         decodes = e.model_dispatches - e.prefill_dispatches
-        want = (small.n_layers * e.prefill_dispatches, small.n_layers * decodes) if where == "cuda" else (0, 0)
-        assert (launched["flash_attention"], launched["paged_attention"]) == want, (where, launched, want)
+        want = kernel_launches(small, e.prefill_dispatches, decodes)
+        if where == "cpu":
+            want = dict.fromkeys(want, 0)
+        assert {k: launched[k] for k in want} == want, (label, where, launched, want)
         logits, _ = sapi.prefill(sp, {"tokens": torch.arange(24, device=where)[None]}, max_len=32)
         res[where] = (torch.stack(toks), e.live_counters(), e.stats()["device_tiering"], logits.cpu())
     (tg, lg, dg, pg), (tc, lc, dc, pc) = res["cuda"], res["cpu"]
     err = float((pg - pc).abs().max())
     match = float((tg == tc).float().mean())
-    assert err < 1e-3, err  # f32 on both; summation order differs between the two
-    assert lg == lc and dg == dc, (lg, lc, dg, dc)
+    assert err < 1e-3, (label, err)  # f32 on both; summation order differs between the two
+    assert lg == lc and dg == dc, (label, lg, lc, dg, dc)
     # a greedy argmax may flip at a near-tie under the other summation order
-    assert match >= 0.9, match
-    log(f"reduced smollm (head_dim 64, 3/1 heads) on the card (flash + paged kernels) vs the CPU "
-        f"(eager attention): prefill logits max |diff| {err:.3e}, per-step tokens equal {match:.4f}, "
-        f"live counters and device books equal")
-    return out
+    assert match >= 0.9, (label, match)
+    log(f"reduced {label} on the card vs the CPU (plain versions): prefill logits max |diff| "
+        f"{err:.3e}, per-step tokens equal {match:.4f}, live counters and device books equal")
 
 
 def main():
@@ -660,30 +840,43 @@ def main():
     # phase 2: kernels against their plain versions
     kernels = check_kernels()
     attention = check_attention()
+    kernels.update(check_scans())
     t2 = time.perf_counter()
-    # phase 3: the main path, smollm-360m; 3b: qwen2.5-3b
-    mp = serve(card, "smollm-360m", 16, (32, 960, 15, 5, 2560, 49152))
-    t3 = time.perf_counter()
-    qwen = serve(card, "qwen2.5-3b", 6, (36, 2048, 16, 2, 11008, 151936))
-    del qwen["params"], qwen["api"]
-    torch.cuda.empty_cache()
-    t3b = time.perf_counter()
-    log(f"phase 3 smollm-360m {t3 - t2:.1f} s, phase 3b qwen2.5-3b {t3b - t3:.1f} s")
+    log(f"phase 2 {t2 - t_start:.1f} s")
+    # phase 3: the main path, smollm-360m; 3b: qwen2.5-3b; 3c: rwkv6-7b; 3d: zamba2-1.2b
+    paths = {"smollm-360m": serve(card, "smollm-360m", 16, (32, 960, 15, 5, 2560, 49152))}
+    for arch, n_req, widths, ssm in (
+        ("qwen2.5-3b", 6, (36, 2048, 16, 2, 11008, 151936), None),
+        ("rwkv6-7b", 6, (32, 4096, 64, 64, 14336, 65536), (64, 0, 0)),
+        ("zamba2-1.2b", 8, (38, 2048, 32, 32, 8192, 32000), (64, 64, 6)),
+    ):
+        t3 = time.perf_counter()
+        paths[arch] = serve(card, arch, n_req, widths, ssm)
+        del paths[arch]["params"], paths[arch]["api"]
+        torch.cuda.empty_cache()
+        log(f"phase 3 {arch} {time.perf_counter() - t3:.1f} s")
+    mp = paths["smollm-360m"]
+    log(f"phase 3 smollm-360m to zamba2-1.2b {time.perf_counter() - t2:.1f} s")
     # phase 4: the verify paths
+    t4 = time.perf_counter()
     vp = verify_paths(mp, card)
+    log(f"phase 4 {time.perf_counter() - t4:.1f} s")
 
-    # phase 5: summary
+    # phase 5: summary. Each row's launches are those of the main path that
+    # runs it; the attention rows carry smollm-360m's numbers, and the other
+    # models' ride along
     launches = {"tiered_segmented": mp["launches"]["tiered_segmented"],
                 "tiered_gather": vp["tiered_gather"], "gather_rows": vp["gather_rows"],
                 "paged_attention": mp["launches"]["paged_attention"],
-                "flash_attention": mp["launches"]["flash_attention"]}
+                "flash_attention": mp["launches"]["flash_attention"],
+                "wkv6": paths["rwkv6-7b"]["launches"]["wkv6"],
+                "ssd": paths["zamba2-1.2b"]["launches"]["ssd"]}
     for name in ("paged_attention", "flash_attention"):
-        # the row carries the main path's model; the other model's numbers ride along
         per = attention[name]
-        kernels[name] = {**per["smollm-360m"], "qwen2.5-3b": {
-            **{k: per["qwen2.5-3b"][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms",
-                                                 "bound_ms", "bound_by", "library_ms")},
-            "launches": qwen["launches"][name]}}
+        kernels[name] = {**per["smollm-360m"], **{arch: {
+            **{k: per[arch][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")},
+            "launches": paths[arch]["launches"][name]} for arch in ("qwen2.5-3b", "zamba2-1.2b")}}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kernels[name]
@@ -692,9 +885,10 @@ def main():
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"qwen2.5-3b": r["qwen2.5-3b"]} if "qwen2.5-3b" in r else {}),
+            **{k: r[k] for k in ("qwen2.5-3b", "zamba2-1.2b", "shapes") if k in r},
+            **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })
-    log(f"decode step profiles: smollm-360m {mp['profile']}, qwen2.5-3b {qwen['profile']}")
+    log("decode step profiles: " + "; ".join(f"{arch} {p['profile']}" for arch, p in paths.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

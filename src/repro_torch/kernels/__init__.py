@@ -9,8 +9,14 @@ tiered_gather   — near/far tiered row gather: tier resolve + select + int8
                   far-tier dequant + on-device hit counting; the serving
                   engine's device-tiering path (runtime/tiered_kv)
 flash_attention — blocked causal/non-causal attention forward with GQA, the
-                  dense model's prefill attention on the card
+                  prefill attention on the card of the dense model and of
+                  zamba2's shared block
 paged_attention — one-query GQA decode attention over a paged K/V pool, the
-                  dense model's decode attention on the card, over the
-                  per-slot cache viewed as pages (``cache_as_pages``)
+                  decode attention on the card of the dense model and of
+                  zamba2's shared block, over the per-slot cache viewed as
+                  pages (``cache_as_pages``)
+rwkv6_scan      — chunked WKV6 with per-channel decay and a carried (hd, hd)
+                  state, rwkv6's time-mix recurrence in prefill and decode
+mamba2_scan     — chunked Mamba2 SSD with a scalar per-head decay and a
+                  carried (P, N) state, zamba2's Mamba2 layers
 """

@@ -25,7 +25,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("tiered_gather", "flash_attention", "paged_attention")
+SOURCES = ("tiered_gather", "flash_attention", "paged_attention", "wkv6", "ssd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

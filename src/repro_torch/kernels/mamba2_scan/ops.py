@@ -1,0 +1,88 @@
+"""Public SSD op (the Mamba2 scan), routed by device.
+
+``ssd_chunked(x, dt, A, B, C, D, state=None)`` takes the model layout of
+``repro/kernels/mamba2_scan/ops.py``: x (b, T, H, P), dt (b, T, H), A and
+D (H,), B and C (b, T, N) shared by the heads, and a state (b, H, P, N)
+or None for zeros; it returns (y (b, T, H, P) f32, final_state (b, H, P,
+N) f32). With ``inplace=True`` the final state is written into ``state``
+itself and ``state`` is returned: the model's decode updates its cache
+that way.
+
+The op takes what the kernel is built for, on every device: f32 inputs,
+T >= 1, and P and N each 16, 32 or 64; anything else raises. CPU tensors
+take the plain version in ``ref.py``. CUDA tensors launch the
+hand-written kernel of ``csrc/ssd.cu`` (built at first use), which reads
+x, dt, B and C through their strides (unit stride along P and N) and
+masks its ragged last chunk, so unlike the TPU op nothing is transposed
+and T is not padded; a decode step (T = 1) does one step's work.
+``LAUNCHES`` counts kernel launches, and only kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import need
+from repro_torch.kernels.mamba2_scan import ref
+
+LAUNCHES = {"ssd": 0}
+SIZES = (16, 32, 64)
+
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ssd")
+    if not getattr(lib, "_declared", False):
+        lib.ssd_forward.argtypes = [_P, _S, _P, _S, _P, _S, _P, _S, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _P]
+        lib.ssd_forward.restype = _I
+        lib._declared = True
+    return lib
+
+
+def ssd_chunked(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, *, inplace: bool = False):
+    """x: (b, T, H, P); dt: (b, T, H); A, D: (H,); B, C: (b, T, N); state:
+    (b, H, P, N) or None; all f32 -> (y (b, T, H, P), final_state (b, H, P, N))."""
+    need(x.ndim == 4, f"x must be (b, T, H, P), got {tuple(x.shape)}")
+    b, t, h, p = x.shape
+    need(dt.shape == (b, t, h), f"dt must be ({b}, {t}, {h}), got {tuple(dt.shape)}")
+    need(A.shape == (h,) and D.shape == (h,), f"A and D must be ({h},), got {tuple(A.shape)} {tuple(D.shape)}")
+    need(B.ndim == 3 and B.shape[:2] == (b, t) and C.shape == B.shape,
+         f"B and C must be two ({b}, {t}, N) tensors, got {tuple(B.shape)} {tuple(C.shape)}")
+    n = B.shape[2]
+    need(state is None or state.shape == (b, h, p, n),
+         f"state must be ({b}, {h}, {p}, {n}), got {None if state is None else tuple(state.shape)}")
+    need(all(a.dtype == torch.float32 for a in (x, dt, A, B, C, D, state) if a is not None),
+         "x, dt, A, B, C, D and state must be float32")
+    need(p in SIZES and n in SIZES, f"P = {p}, N = {n} is not built: the kernel takes {SIZES} each")
+    need(t >= 1, "the sequence is empty")
+    need(not inplace or state is not None, "inplace needs a state to write into")
+    if not build.on_cuda("ssd", x, dt, A, B, C, D, state):
+        y, s = ref.ssd_ref(x, dt, A, B, C, D, state)
+        if inplace:
+            state.copy_(s)
+            s = state
+        return y, s
+    for name, a in (("x", x), ("B", B), ("C", C)):
+        need(a.stride(-1) == 1, f"{name} needs unit stride along its last dim")
+    need(A.is_contiguous() and D.is_contiguous() and (state is None or state.is_contiguous()),
+         "A, D and state must be contiguous")
+    y = torch.empty((b, t, h, p), dtype=torch.float32, device=x.device)
+    s_out = state if inplace else torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if b * h == 0:
+        return y, s_out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.ssd_forward(
+            x.data_ptr(), build.strides(x, 3), dt.data_ptr(), build.strides(dt, 3),
+            B.data_ptr(), build.strides(B, 2), C.data_ptr(), build.strides(C, 2), A.data_ptr(),
+            D.data_ptr(), None if state is None else state.data_ptr(), y.data_ptr(),
+            s_out.data_ptr(), b, t, h, p, n, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    build.check(lib, err, "ssd")
+    LAUNCHES["ssd"] += 1
+    return y, s_out

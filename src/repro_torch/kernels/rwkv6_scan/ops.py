@@ -1,0 +1,85 @@
+"""Public WKV6 op (RWKV6's time-mix recurrence), routed by device.
+
+``wkv6_chunked(r, k, v, lw, u, state=None)`` takes the model layout of
+``repro/kernels/rwkv6_scan/ops.py``: r, k, v and the log-decay lw (<= 0)
+(B, T, H, hd), the bonus u (H, hd) and a state (B, H, hd, hd) or None for
+zeros; it returns (y (B, T, H, hd) f32, final_state (B, H, hd, hd) f32).
+With ``inplace=True`` the final state is written into ``state`` itself
+and ``state`` is returned: the model's decode updates its cache that way.
+
+The op takes what the kernel is built for, on every device: f32 inputs,
+T >= 1 and hd 16, 32 or 64; anything else raises. CPU tensors take the
+plain version in ``ref.py``. CUDA tensors launch the hand-written kernel
+of ``csrc/wkv6.cu`` (built at first use), which reads r, k, v and lw
+through their strides (unit stride along hd) and masks its ragged last
+chunk, so unlike the TPU op nothing is transposed to (B, H, T, hd) and T
+is not padded to a chunk multiple; a decode step (T = 1) does one token's
+work. ``LAUNCHES`` counts kernel launches, and only kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import need
+from repro_torch.kernels.rwkv6_scan import ref
+
+LAUNCHES = {"wkv6": 0}
+HEAD_DIMS = (16, 32, 64)
+
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("wkv6")
+    if not getattr(lib, "_declared", False):
+        lib.wkv6_forward.argtypes = [_P, _S, _P, _S, _P, _S, _P, _S, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _P]
+        lib.wkv6_forward.restype = _I
+        lib._declared = True
+    return lib
+
+
+def wkv6_chunked(r, k, v, lw, u, state: Optional[torch.Tensor] = None, *, inplace: bool = False):
+    """r/k/v/lw: (B, T, H, hd) f32; u: (H, hd) f32; state: (B, H, hd, hd) f32
+    or None -> (y (B, T, H, hd) f32, final_state (B, H, hd, hd) f32)."""
+    need(r.ndim == 4 and k.shape == r.shape and v.shape == r.shape and lw.shape == r.shape,
+         f"r, k, v, lw must be four (B, T, H, hd) tensors, got {tuple(r.shape)} {tuple(k.shape)} "
+         f"{tuple(v.shape)} {tuple(lw.shape)}")
+    b, t, h, hd = r.shape
+    need(u.shape == (h, hd), f"u must be ({h}, {hd}), got {tuple(u.shape)}")
+    need(state is None or state.shape == (b, h, hd, hd),
+         f"state must be ({b}, {h}, {hd}, {hd}), got {None if state is None else tuple(state.shape)}")
+    need(all(x.dtype == torch.float32 for x in (r, k, v, lw, u, state) if x is not None),
+         "r, k, v, lw, u and state must be float32")
+    need(hd in HEAD_DIMS, f"head_dim {hd} is not built: the kernel takes {HEAD_DIMS}")
+    need(t >= 1, "the sequence is empty")
+    need(not inplace or state is not None, "inplace needs a state to write into")
+    if not build.on_cuda("wkv6", r, k, v, lw, u, state):
+        y, s = ref.wkv6_ref(r, k, v, lw, u, state)
+        if inplace:
+            state.copy_(s)
+            s = state
+        return y, s
+    for name, x in (("r", r), ("k", k), ("v", v), ("lw", lw)):
+        need(x.stride(-1) == 1, f"{name} needs unit stride along head_dim")
+    need(u.is_contiguous() and (state is None or state.is_contiguous()),
+         "u and state must be contiguous")
+    y = torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
+    s_out = state if inplace else torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    if b * h == 0:
+        return y, s_out
+    lib = _lib()
+    with torch.cuda.device(r.device):
+        err = lib.wkv6_forward(
+            r.data_ptr(), build.strides(r, 3), k.data_ptr(), build.strides(k, 3),
+            v.data_ptr(), build.strides(v, 3), lw.data_ptr(), build.strides(lw, 3),
+            u.data_ptr(), None if state is None else state.data_ptr(), y.data_ptr(),
+            s_out.data_ptr(), b, t, h, hd, torch.cuda.current_stream(r.device).cuda_stream,
+        )
+    build.check(lib, err, "wkv6")
+    LAUNCHES["wkv6"] += 1
+    return y, s_out

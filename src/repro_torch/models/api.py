@@ -1,7 +1,8 @@
 """Model API for the port (mirrors repro/models/api.py, serving subset).
 
-Only the dense family is ported so far; every other family raises
-``NotImplementedError`` naming its ROADMAP item (A8).
+Ported families: dense (``transformer``), ssm (``rwkv6``) and hybrid
+(``zamba2``). The others (moe, vlm, audio) raise ``NotImplementedError``
+naming their ROADMAP item (A8).
 """
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer, zamba2
 
-_PORTED = {"dense": transformer}
+_PORTED = {"dense": transformer, "ssm": rwkv6, "hybrid": zamba2}
 
 
 @dataclasses.dataclass
@@ -31,12 +32,12 @@ class ModelAPI:
     def family(self) -> str:
         return self.cfg.family
 
-    def init(self, seed: int = 0, device=None) -> transformer.Transformer:
+    def init(self, seed: int = 0, device=None) -> torch.nn.Module:
         """Random-init params from ``torch.Generator().manual_seed(seed)``,
-        drawn on the CPU and moved to ``device`` (None -> the CUDA card)."""
+        drawn on the CPU and placed on ``device`` (None -> the CUDA card)."""
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
-        return _PORTED[self.family].init(self.cfg, gen).to(dev)
+        return _PORTED[self.family].init(self.cfg, gen, device=dev)
 
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         return _PORTED[self.family].init_cache(
@@ -55,12 +56,28 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(cfg)
 
 
+def kernel_launches(cfg: ModelConfig, prefills: int, decodes: int) -> dict:
+    """The model kernels' launches on the card over ``prefills`` prefill and
+    ``decodes`` decode dispatches: attention once per dense layer or per
+    application of zamba2's shared block (flash in prefill, paged in
+    decode), and a scan once per recurrent layer in either."""
+    n = cfg.n_layers
+    if cfg.family == "dense":
+        return {"flash_attention": n * prefills, "paged_attention": n * decodes, "wkv6": 0, "ssd": 0}
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "paged_attention": 0, "wkv6": n * (prefills + decodes), "ssd": 0}
+    apps = zamba2.n_attn_apps(cfg)
+    return {"flash_attention": apps * prefills, "paged_attention": apps * decodes, "wkv6": 0,
+            "ssd": n * (prefills + decodes)}
+
+
 def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None, page_size: int = 16):
     """(params, cache, tokens (B,1)) -> (greedy next_tokens (B,1) int32, cache').
 
     ``vocab`` restricts the argmax to the first ``vocab`` logits: the head
     is padded, and a serving caller must never sample a padding id.
-    ``page_size`` is the page the card's decode kernel walks the cache in.
+    ``page_size`` is the page the card's decode kernel walks a KV cache in
+    (the recurrent state of the ssm family has none and ignores it).
     """
 
     def serve_step(params, cache, tokens):

@@ -1,8 +1,8 @@
-"""GQA attention layer: init + prefill/decode application (mirrors repro/models/attention.py).
+"""GQA attention layer: prefill/decode application (mirrors repro/models/attention.py).
 
-Layout: projections are stored flat and in JAX's (in, out) order —
-wq: (D, Hq*hd), wk/wv: (D, Hkv*hd), wo: (Hq*hd, D) — so ``x @ W`` mirrors
-the reference's einsums. KV cache per layer: k/v (B, Hkv, S, hd) plus
+Layout: projections (drawn by ``transformer._init_layer``) are stored
+flat and in JAX's (in, out) order — wq: (D, Hq*hd), wk/wv: (D, Hkv*hd),
+wo: (Hq*hd, D) — so ``x @ W`` mirrors the reference's einsums. KV cache per layer: k/v (B, Hkv, S, hd) plus
 per-sequence lengths (B,). The apply functions take the layer's weights as
 a dict of tensors already cast to the compute dtype.
 
@@ -17,33 +17,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import cache_as_pages, paged_attention
 from repro_torch.models import common
-
-
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator, dtype):
-        super().__init__()
-        d, hd = cfg.d_model, cfg.head_dim
-        q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
-        self.wq = _param(common.dense_init((d, q_dim), generator, dtype=dtype))
-        self.wk = _param(common.dense_init((d, kv_dim), generator, dtype=dtype))
-        self.wv = _param(common.dense_init((d, kv_dim), generator, dtype=dtype))
-        self.wo = _param(common.dense_init(
-            (q_dim, d), generator, scale=1.0 / (2 * cfg.n_layers) ** 0.5, dtype=dtype
-        ))
-        if cfg.qkv_bias:
-            self.bq = _param(torch.zeros((q_dim,), dtype=dtype))
-            self.bk = _param(torch.zeros((kv_dim,), dtype=dtype))
-            self.bv = _param(torch.zeros((kv_dim,), dtype=dtype))
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -73,7 +51,7 @@ def _out_proj(p: dict, x_dtype, o: torch.Tensor) -> torch.Tensor:
     return common.matmul_f32(o, p["wo"]).to(x_dtype)
 
 
-def _attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
+def attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
     """Full-sequence attention, (B, Hq, L, hd) -> (B, Hq, L, hd): the flash
     kernel on the card (every key valid, q row 0 at position 0), the eager
     online-softmax reference on the CPU."""
@@ -87,7 +65,7 @@ def apply_train(p: dict, cfg: ModelConfig, x, positions, *, causal: bool = True,
     """Full-sequence attention (forward without cache return)."""
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rope(cfg, q, k, positions)
-    o = _attend(q, k, v, causal=causal, block_k=block_k)
+    o = attend(q, k, v, causal=causal, block_k=block_k)
     return _out_proj(p, x.dtype, o)
 
 
@@ -95,7 +73,7 @@ def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, block_k
     """As apply_train but also returns the (padded-to-max_len) KV for caching."""
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rope(cfg, q, k, positions)
-    o = _attend(q, k, v, causal=True, block_k=block_k)
+    o = attend(q, k, v, causal=True, block_k=block_k)
     l = x.shape[1]
     if max_len > l:
         k = F.pad(k, (0, 0, 0, max_len - l))
@@ -128,12 +106,19 @@ def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_s
     q, k = _rope(cfg, q, k, positions)
     _write_at(k_cache, lengths, k[:, :, 0, :])
     _write_at(v_cache, lengths, v[:, :, 0, :])
+    o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size)
+    return _out_proj(p, x.dtype, o)
+
+
+def attend_decode(q, k_cache, v_cache, kv_len, page_size: int) -> torch.Tensor:
+    """One query position over a per-slot cache: q (B, Hq, 1, hd), caches
+    (B, Hkv, S, hd), ``kv_len`` (B,) valid positions -> (B, Hq, 1, hd) in
+    q's dtype. The paged kernel over the cache viewed as pages of
+    ``page_size`` on the card, the eager reference on the CPU."""
     if q.is_cuda:
         k_pages, v_pages, table = cache_as_pages(k_cache, v_cache, page_size)
-        o = paged_attention(q[:, :, 0, :], k_pages, v_pages, table, lengths + 1)[:, :, None, :]
-    else:
-        o = common.attention_decode(q, k_cache.to(q.dtype), v_cache.to(q.dtype), lengths + 1)
-    return _out_proj(p, x.dtype, o)
+        return paged_attention(q[:, :, 0, :], k_pages, v_pages, table, kv_len)[:, :, None, :]
+    return common.attention_decode(q, k_cache.to(q.dtype), v_cache.to(q.dtype), kv_len)
 
 
 def init_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,

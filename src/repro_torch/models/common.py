@@ -1,4 +1,4 @@
-"""Shared model primitives, dense subset, forward only (mirrors repro/models/common.py).
+"""Shared model primitives, forward only (mirrors repro/models/common.py).
 
 * attention for prefill is chunked: a loop over KV blocks with an online
   softmax and f32 accumulators, so a long prompt never materializes an
@@ -16,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 NEG_INF = -1e30
 
@@ -30,6 +31,44 @@ def dt(name: str) -> torch.dtype:
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in f32, whatever the inputs' type."""
     return torch.matmul(a.float(), b.float())
+
+
+def matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as JAX computes it without ``preferred_element_type``: the
+    f32 product, returned in the promoted type of the two inputs (a bf16
+    activation times an f32 weight gives f32)."""
+    return matmul_f32(a, b).to(torch.promote_types(a.dtype, b.dtype))
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+
+
+def frozen(t: torch.Tensor, device=None) -> nn.Parameter:
+    """``t`` on ``device`` as a parameter of a forward-only model."""
+    return nn.Parameter(t.to(device), requires_grad=False)
+
+
+class ParamTree(nn.Module):
+    """One node of the reference's parameter tree, under its names: leaves
+    are frozen parameters, inner nodes ParamTrees, so ``state_dict`` keys
+    are the reference's paths joined by dots."""
+
+    def __init__(self, **children):
+        super().__init__()
+        for name, c in children.items():
+            if isinstance(c, nn.Module):
+                self.add_module(name, c)
+            else:
+                self.register_parameter(name, frozen(c))
+
+    def tree(self, dtype=None) -> dict:
+        """This node as nested dicts of tensors, float leaves cast to
+        ``dtype`` (as the reference's ``cast_tree``/``constrain_tree``)."""
+        out = {n: p if dtype is None or not p.is_floating_point() else p.to(dtype)
+               for n, p in self.named_parameters(recurse=False)}
+        out.update({n: m.tree(dtype) for n, m in self.named_children()})
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +103,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

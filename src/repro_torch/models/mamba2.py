@@ -1,0 +1,109 @@
+"""Mamba2 (SSD) block, the state-space core of the zamba2 hybrid, forward only.
+
+Mirrors repro/models/mamba2.py. Per head (P = head dim, N = state dim):
+
+    S_t = exp(dt_t * A_h) * S_{t-1} + dt_t * x_t B_t^T        S: (P, N)
+    y_t = S_t C_t + D_h x_t
+
+with a causal depthwise conv in front of (x, B, C) and a gated RMSNorm
+after. The scan is ``kernels.mamba2_scan``'s ``ssd_chunked``: its plain
+version on the CPU, the hand-written kernel on the card. Decode state is
+O(1): the conv tail (B, K-1, C) and the SSM state (B, H, P, N), both f32.
+
+``apply`` casts the block's float leaves to ``cfg.compute_dtype`` as the
+reference's ``constrain_tree`` does, ``A_log``, ``D``, ``dt_bias`` and the
+conv weights included: at full width ``A = -exp(A_log)`` is a bf16 value.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mamba2_scan import ssd_chunked
+from repro_torch.models import common
+from repro_torch.models.common import ParamTree, matmul_f32
+
+
+def dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    n_heads = d_in // cfg.ssm_head_dim
+    return d_in, n_heads, cfg.ssm_state
+
+
+def init_block(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    d = cfg.d_model
+    d_in, nh, ns = dims(cfg)
+    conv_dim = d_in + 2 * ns
+    f32 = torch.float32
+    return ParamTree(
+        ln=torch.ones((d,), dtype=dtype),
+        w_in=common.dense_init((d, 2 * d_in + 2 * ns + nh), g, dtype=dtype),
+        conv_w=common.dense_init((cfg.ssm_conv, conv_dim), g, scale=1.0, dtype=f32),
+        conv_b=torch.zeros((conv_dim,), dtype=f32),
+        A_log=torch.zeros((nh,), dtype=f32),  # A = -exp(A_log) = -1
+        D=torch.ones((nh,), dtype=f32),
+        dt_bias=torch.full((nh,), -2.0, dtype=f32),  # softplus(-2) ~ 0.13
+        norm_w=torch.ones((d_in,), dtype=dtype),
+        w_out=common.dense_init((d_in, d), g, scale=1.0 / (2 * max(cfg.n_layers, 1)) ** 0.5,
+                                dtype=dtype),
+    )
+
+
+def _causal_conv(x, w, b, tail):
+    """Depthwise causal conv. x: (B, T, C); w: (K, C); tail: (B, K-1, C) carry-in.
+
+    Returns (y (B, T, C), new tail (B, K-1, C))."""
+    k = w.shape[0]
+    xp = torch.cat([tail, x], dim=1)  # (B, T+K-1, C)
+    y = sum(xp[:, i: i + x.shape[1], :] * w[i][None, None, :] for i in range(k)) + b
+    return y, xp[:, -(k - 1):, :] if k > 1 else torch.zeros_like(tail)
+
+
+def init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    d_in, nh, ns = dims(cfg)
+    f32 = torch.float32
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in + 2 * ns), dtype=f32, device=device),
+        "ssm": torch.zeros((batch, nh, cfg.ssm_head_dim, ns), dtype=f32, device=device),
+    }
+
+
+def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None):
+    """Full mamba2 block (pre-norm, residual outside). p: the block's leaves
+    as a dict; x: (B, T, D). Returns (out (B, T, D), new state).
+
+    A given ``state`` (decode's, the cache's own tensors) is updated in
+    place (the scan's kernel writes the SSM state over the old one) and its
+    tensors are returned; without one the block starts from zeros."""
+    p = {n: w.to(common.dt(cfg.compute_dtype)) if w.is_floating_point() else w
+         for n, w in p.items()}
+    b, t, _ = x.shape
+    d_in, nh, ns = dims(cfg)
+    hd = cfg.ssm_head_dim
+    inplace = state is not None
+    if state is None:  # a zero tail, and a zero SSM state inside the scan
+        state = {"conv": init_state(cfg, b, x.device)["conv"], "ssm": None}
+    xn = common.rms_norm(x, p["ln"], cfg.norm_eps)
+    proj = matmul_f32(xn, p["w_in"])
+    z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * ns, nh], dim=-1)
+    conv_out, conv_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], state["conv"])
+    conv_out = F.silu(conv_out)
+    xs, B, C = torch.split(conv_out, [d_in, ns, ns], dim=-1)
+    xs = xs.reshape(b, t, nh, hd)
+    dt = torch.logaddexp(dt_raw + p["dt_bias"], torch.zeros((), device=x.device))  # softplus
+    A = -torch.exp(p["A_log"])
+    y, ssm_state = ssd_chunked(xs, dt, A.float(), B, C, p["D"].float(), state["ssm"],
+                               inplace=inplace)
+    y = y.reshape(b, t, d_in)
+    # gated RMSNorm (mamba2 style): norm(y * silu(z))
+    y = y * F.silu(z)
+    var = (y * y).mean(dim=-1, keepdim=True)
+    y = (y * torch.rsqrt(var + cfg.norm_eps) * p["norm_w"].float()).to(x.dtype)
+    out = matmul_f32(y, p["w_out"]).to(x.dtype)
+    if inplace:
+        state["conv"].copy_(conv_tail)
+        conv_tail = state["conv"]
+    return out, {"conv": conv_tail, "ssm": ssm_state}

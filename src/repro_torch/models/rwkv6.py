@@ -1,0 +1,239 @@
+"""RWKV6 "Finch" (attention-free, data-dependent decay), forward only.
+
+Mirrors repro/models/rwkv6.py. Time-mix: token shift with LoRA-modulated
+per-channel interpolation, then the WKV6 recurrence per head of
+``cfg.ssm_head_dim``; channel-mix: token shift and a squared-ReLU FFN
+with a receptance gate. The recurrence is ``kernels.rwkv6_scan``'s
+``wkv6_chunked`` on the log-decay ``lw = -exp(w0 + xw w1 w2)``: its plain
+version on the CPU, the hand-written kernel on the card, once per layer
+per prefill and per decode step.
+
+Parameters are ``common.ParamTree`` nodes under the reference's names (its
+stacked ``layers`` leaves split onto one node per layer, as
+``parity.params_from_jax`` does). Each layer's float leaves are cast to
+``cfg.compute_dtype`` where it runs, as the reference's ``constrain_tree``
+does: at full width every weight, ``u``, ``w0``, the ``maa*`` mixers and
+``ln_x`` are bf16 there, and a bf16 weight met by an f32 activation gives
+an f32 product (JAX's promotion), while ``wr``/``wk``/``wv``/``wg``/``wo``
+products of bf16 inputs are returned in bf16.
+
+Decode state is O(1) per layer: the (H, hd, hd) f32 wkv state and the
+last token's input to each mix. ``decode_step`` updates the cache tensors
+in place (the kernel writes each layer's new state over the old one).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rwkv6_scan import wkv6_chunked
+from repro_torch.models import common
+from repro_torch.models.common import ParamTree, frozen, layer_norm, matmul_f32
+
+MIX_RANK = 32
+DECAY_RANK = 64
+
+
+def _n_heads(cfg: ModelConfig) -> int:
+    return cfg.d_model // cfg.ssm_head_dim
+
+
+def _norm(d: int, dtype) -> ParamTree:
+    return ParamTree(w=torch.ones((d,), dtype=dtype), b=torch.zeros((d,), dtype=dtype))
+
+
+def _init_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.ssm_head_dim
+    f32 = torch.float32
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    return ParamTree(
+        ln1=_norm(d, dtype),
+        ln2=_norm(d, dtype),
+        att=ParamTree(
+            maa_x=torch.zeros((d,), dtype=f32),
+            maa=torch.zeros((5, d), dtype=f32),  # w, k, v, r, g
+            maa_w1=common.dense_init((d, 5 * MIX_RANK), g, scale=0.1, dtype=f32),
+            maa_w2=common.dense_init((5, MIX_RANK, d), g, in_axis=1, scale=0.1, dtype=f32),
+            w0=torch.full((d,), -6.0, dtype=f32),  # decay bias: slow decay default
+            w1=common.dense_init((d, DECAY_RANK), g, scale=0.1, dtype=f32),
+            w2=common.dense_init((DECAY_RANK, d), g, scale=0.1, dtype=f32),
+            u=torch.full((_n_heads(cfg), hd), 0.5, dtype=f32),  # "time_faaaa" bonus
+            wr=common.dense_init((d, d), g, dtype=dtype),
+            wk=common.dense_init((d, d), g, dtype=dtype),
+            wv=common.dense_init((d, d), g, dtype=dtype),
+            wg=common.dense_init((d, d), g, dtype=dtype),
+            wo=common.dense_init((d, d), g, scale=out_scale, dtype=dtype),
+            ln_x=_norm(d, f32),
+        ),
+        ffn=ParamTree(
+            maa_k=torch.zeros((d,), dtype=f32),
+            maa_r=torch.zeros((d,), dtype=f32),
+            wk=common.dense_init((d, f), g, dtype=dtype),
+            wv=common.dense_init((f, d), g, scale=out_scale, dtype=dtype),
+            wr=common.dense_init((d, d), g, dtype=dtype),
+        ),
+    )
+
+
+class RWKV6(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        dtype = common.dt(cfg.param_dtype)
+        d, vp = cfg.d_model, cfg.padded_vocab
+        self.embed = frozen(common.embed_init((vp, d), generator, dtype), device)
+        self.ln0 = _norm(d, dtype).to(device)
+        # drawn on the CPU and moved one layer at a time: host memory holds one layer
+        self.layers = nn.ModuleList(_init_layer(cfg, generator, dtype).to(device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _norm(d, dtype).to(device)
+        self.lm_head = frozen(common.dense_init((d, vp), generator, dtype=dtype), device)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> RWKV6:
+    """Random init drawn on the CPU from ``generator``, placed on ``device``."""
+    return RWKV6(cfg, generator, device)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+
+
+def _token_shift(x, prev):
+    """x: (B, T, D); prev: (B, D), the last token of the previous segment."""
+    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state):
+    """Returns (out (B, T, D), new shift (B, D), new wkv state). A given
+    ``wkv_state`` (decode's, the cache's own tensor) is updated in place."""
+    b, t, d = x.shape
+    hd = cfg.ssm_head_dim
+    h = d // hd
+    dtype = x.dtype
+    xf = x.float()
+    sx = _token_shift(xf, shift_prev) - xf
+    xxx = xf + sx * att["maa_x"]
+    mix = torch.tanh(matmul_f32(xxx, att["maa_w1"])).reshape(b, t, 5, MIX_RANK)
+    mix = torch.einsum("btfr,frd->fbtd", mix, att["maa_w2"].float())  # (5, B, T, D)
+    xw, xk, xv, xr, xg = [xf + sx * (att["maa"][i] + mix[i]) for i in range(5)]
+
+    def proj(xx, w):  # bf16 x bf16 -> bf16 at full width, then f32
+        return matmul_f32(xx.to(dtype), w).to(dtype).float()
+
+    r = proj(xr, att["wr"]).reshape(b, t, h, hd)
+    k = proj(xk, att["wk"]).reshape(b, t, h, hd)
+    v = proj(xv, att["wv"]).reshape(b, t, h, hd)
+    g = F.silu(proj(xg, att["wg"]))
+    lw = -torch.exp(att["w0"] + matmul_f32(matmul_f32(xw, att["w1"]), att["w2"]))
+    y, wkv_state = wkv6_chunked(r, k, v, lw.reshape(b, t, h, hd), att["u"].float(), wkv_state,
+                                inplace=wkv_state is not None)
+    # per-head group norm, then gate and output projection
+    mu = y.mean(dim=-1, keepdim=True)
+    var = y.var(dim=-1, keepdim=True, unbiased=False)
+    yn = ((y - mu) * torch.rsqrt(var + 64e-5)).reshape(b, t, d)
+    yn = yn * att["ln_x"]["w"] + att["ln_x"]["b"]
+    out = matmul_f32((yn * g).to(dtype), att["wo"]).to(dtype)
+    return out, xf[:, -1, :], wkv_state
+
+
+def _channel_mix(ffn: dict, x, shift_prev):
+    dtype = x.dtype
+    xf = x.float()
+    sx = _token_shift(xf, shift_prev) - xf
+    xk = (xf + sx * ffn["maa_k"]).to(dtype)
+    xr = (xf + sx * ffn["maa_r"]).to(dtype)
+    k = torch.square(torch.relu(matmul_f32(xk, ffn["wk"]).to(dtype)))
+    kv = matmul_f32(k, ffn["wv"]).to(dtype)
+    gate = torch.sigmoid(matmul_f32(xr, ffn["wr"]).to(dtype).float()).to(dtype)
+    return gate * kv, xf[:, -1, :]
+
+
+def _block(layer: dict, cfg: ModelConfig, h, att_shift, cm_shift, wkv_state):
+    x = layer_norm(h, layer["ln1"]["w"], layer["ln1"]["b"], cfg.norm_eps)
+    a, att_shift, wkv_state = _time_mix(layer["att"], cfg, x, att_shift, wkv_state)
+    h = h + a
+    x = layer_norm(h, layer["ln2"]["w"], layer["ln2"]["b"], cfg.norm_eps)
+    m, cm_shift = _channel_mix(layer["ffn"], x, cm_shift)
+    return h + m, att_shift, cm_shift, wkv_state
+
+
+def _embed(params: RWKV6, cfg: ModelConfig, tokens):
+    h = params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
+    return layer_norm(h, params.ln0.w, params.ln0.b, cfg.norm_eps)
+
+
+def _logits(params: RWKV6, cfg: ModelConfig, h):
+    h = layer_norm(h, params.final_norm.w, params.final_norm.b, cfg.norm_eps)
+    return matmul_f32(h, params.lm_head.to(h.dtype))
+
+
+def _layers(params: RWKV6, cfg: ModelConfig, h):
+    """Every layer from zero shifts and a zero state; yields (h, shifts, state)."""
+    b, _, d = h.shape
+    cdt = common.dt(cfg.compute_dtype)
+    for blk in params.layers:
+        z = torch.zeros((b, d), dtype=torch.float32, device=h.device)
+        h, a_s, c_s, s = _block(blk.tree(cdt), cfg, h, z, z, None)
+        yield h, a_s, c_s, s
+
+
+# ---------------------------------------------------------------------------
+# public API
+
+
+@torch.no_grad()
+def forward(params: RWKV6, cfg: ModelConfig, tokens):
+    """Full-sequence forward -> logits (B, T, Vp) f32."""
+    h = _embed(params, cfg, tokens)
+    for h, *_ in _layers(params, cfg, h):
+        pass
+    return _logits(params, cfg, h)
+
+
+@torch.no_grad()
+def prefill(params: RWKV6, cfg: ModelConfig, tokens, *, max_len: int = 0):
+    """Forward that also returns the recurrent state as the cache."""
+    h = _embed(params, cfg, tokens)
+    b, t, _ = h.shape
+    states = []
+    for h, a_s, c_s, s in _layers(params, cfg, h):
+        states.append((s, a_s, c_s))
+    cache = {
+        "wkv": torch.stack([s for s, _, _ in states]),
+        "att_shift": torch.stack([a for _, a, _ in states]),
+        "cm_shift": torch.stack([c for _, _, c in states]),
+        "lengths": torch.full((b,), t, dtype=torch.int32, device=h.device),
+    }
+    return _logits(params, cfg, h), cache
+
+
+@torch.no_grad()
+def decode_step(params: RWKV6, cfg: ModelConfig, cache: dict, tokens, *, page_size: int = 16):
+    """One decode step. tokens: (B, 1). Returns (logits, cache').
+
+    The cache's state tensors are updated in place; the returned cache holds
+    the same tensors and the advanced lengths. ``page_size`` is taken for the
+    engine's sake and unused: the state has no pages.
+    """
+    cdt = common.dt(cfg.compute_dtype)
+    h = _embed(params, cfg, tokens)
+    for i, blk in enumerate(params.layers):
+        h, a_s, c_s, _ = _block(blk.tree(cdt), cfg, h, cache["att_shift"][i], cache["cm_shift"][i],
+                                cache["wkv"][i])
+        cache["att_shift"][i].copy_(a_s)
+        cache["cm_shift"][i].copy_(c_s)
+    return _logits(params, cfg, h), {**cache, "lengths": cache["lengths"] + 1}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    d, hd = cfg.d_model, cfg.ssm_head_dim
+    del max_len, dtype  # O(1) state, all f32
+    f32 = torch.float32
+    return {
+        "wkv": torch.zeros((cfg.n_layers, batch, d // hd, hd, hd), dtype=f32, device=device),
+        "att_shift": torch.zeros((cfg.n_layers, batch, d), dtype=f32, device=device),
+        "cm_shift": torch.zeros((cfg.n_layers, batch, d), dtype=f32, device=device),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

@@ -1,11 +1,12 @@
 """Dense decoder-only LM (smollm / qwen2.5 / internlm2 / qwen1.5-110b), forward only.
 
-Mirrors repro/models/transformer.py. Parameters are an ``nn.Module`` with
-one ``Block`` per layer (the reference stacks layers on a leading L axis;
-``parity.params_from_jax`` splits that axis onto the blocks). Weights are
-stored in ``cfg.param_dtype`` and each layer's weights are cast to
-``cfg.compute_dtype`` where the layer runs, as the reference's
-``constrain_tree`` does. Logits are f32 over ``cfg.padded_vocab``.
+Mirrors repro/models/transformer.py. Parameters are ``common.ParamTree``
+nodes under the reference's names, one node per layer (the reference
+stacks layers on a leading L axis; ``parity.params_from_jax`` splits that
+axis onto the layers). Weights are stored in ``cfg.param_dtype`` and each
+layer's weights are cast to ``cfg.compute_dtype`` where the layer runs, as
+the reference's ``constrain_tree`` does. Logits are f32 over
+``cfg.padded_vocab``.
 
 PyTorch runs eagerly, so there is no counterpart of the reference's
 ``lax.scan`` or ``jax.jit``: layers are a Python loop, and ``decode_step``
@@ -20,52 +21,51 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common
+from repro_torch.models.common import ParamTree, frozen
 
 
-class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator, dtype):
-        super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        self.w_gate = attention._param(common.dense_init((d, f), generator, dtype=dtype))
-        self.w_up = attention._param(common.dense_init((d, f), generator, dtype=dtype))
-        self.w_down = attention._param(common.dense_init(
-            (f, d), generator, scale=1.0 / (2 * cfg.n_layers) ** 0.5, dtype=dtype
-        ))
-
-
-class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator, dtype):
-        super().__init__()
-        self.ln1 = attention._param(torch.ones((cfg.d_model,), dtype=dtype))
-        self.ln2 = attention._param(torch.ones((cfg.d_model,), dtype=dtype))
-        self.attn = attention.Attention(cfg, generator, dtype)
-        self.mlp = MLP(cfg, generator, dtype)
-
-    def weights(self, dtype) -> dict:
-        """This layer's weights cast to ``dtype``, nested like the reference's tree."""
-        cast = lambda m: {n: p.to(dtype) for n, p in m.named_parameters(recurse=False)}
-        return {"ln1": self.ln1.to(dtype), "ln2": self.ln2.to(dtype),
-                "attn": cast(self.attn), "mlp": cast(self.mlp)}
+def _init_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    attn = dict(
+        wq=common.dense_init((d, q_dim), g, dtype=dtype),
+        wk=common.dense_init((d, kv_dim), g, dtype=dtype),
+        wv=common.dense_init((d, kv_dim), g, dtype=dtype),
+        wo=common.dense_init((q_dim, d), g, scale=out_scale, dtype=dtype),
+    )
+    if cfg.qkv_bias:
+        attn.update(bq=torch.zeros((q_dim,), dtype=dtype), bk=torch.zeros((kv_dim,), dtype=dtype),
+                    bv=torch.zeros((kv_dim,), dtype=dtype))
+    return ParamTree(
+        ln1=torch.ones((d,), dtype=dtype),
+        ln2=torch.ones((d,), dtype=dtype),
+        attn=ParamTree(**attn),
+        mlp=ParamTree(
+            w_gate=common.dense_init((d, f), g, dtype=dtype),
+            w_up=common.dense_init((d, f), g, dtype=dtype),
+            w_down=common.dense_init((f, d), g, scale=out_scale, dtype=dtype),
+        ),
+    )
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device=None):
         super().__init__()
         dtype = common.dt(cfg.param_dtype)
-        self.embed = attention._param(
-            common.embed_init((cfg.padded_vocab, cfg.d_model), generator, dtype)
-        )
-        self.layers = nn.ModuleList(Block(cfg, generator, dtype) for _ in range(cfg.n_layers))
-        self.final_norm = attention._param(torch.ones((cfg.d_model,), dtype=dtype))
+        d, vp = cfg.d_model, cfg.padded_vocab
+        self.embed = frozen(common.embed_init((vp, d), generator, dtype), device)
+        # drawn on the CPU and moved one layer at a time: host memory holds one layer
+        self.layers = nn.ModuleList(_init_layer(cfg, generator, dtype).to(device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = frozen(torch.ones((d,), dtype=dtype), device)
         if not cfg.tie_embeddings:
-            self.lm_head = attention._param(
-                common.dense_init((cfg.d_model, cfg.padded_vocab), generator, dtype=dtype)
-            )
+            self.lm_head = frozen(common.dense_init((d, vp), generator, dtype=dtype), device)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator) -> Transformer:
-    """Random init on the CPU, drawn from ``generator``."""
-    return Transformer(cfg, generator)
+def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transformer:
+    """Random init drawn on the CPU from ``generator``, placed on ``device``."""
+    return Transformer(cfg, generator, device)
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +100,7 @@ def forward(params: Transformer, cfg: ModelConfig, tokens, *, block_k: Optional[
     b, l, _ = h.shape
     positions = common.causal_positions(b, l, h.device)
     for blk in params.layers:
-        layer = blk.weights(cdt)
+        layer = blk.tree(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_train(layer["attn"], cfg, x, positions, block_k=block_k)
         h = _mlp(layer, cfg, h)
@@ -122,7 +122,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, *, max_len: int,
     positions = common.causal_positions(b, l, h.device)
     ks, vs = [], []
     for blk in params.layers:
-        layer = blk.weights(cdt)
+        layer = blk.tree(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         a, (k, v) = attention.apply_prefill(layer["attn"], cfg, x, positions, max_len,
                                             block_k=block_k)
@@ -151,7 +151,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, *,
     h = _embed_in(params, cfg, tokens)
     lengths = cache["lengths"]
     for i, blk in enumerate(params.layers):
-        layer = blk.weights(cdt)
+        layer = blk.tree(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_decode(layer["attn"], cfg, x, cache["k"][i], cache["v"][i], lengths,
                                        page_size)

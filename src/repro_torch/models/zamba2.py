@@ -1,0 +1,234 @@
+"""Zamba2 hybrid: a Mamba2 backbone and one SHARED attention block applied
+after every ``shared_attn_every`` Mamba2 layers, forward only.
+
+Mirrors repro/models/zamba2.py. The shared block is one parameter set
+reused at every application depth; its input is concat(hidden, original
+embedding) (2d), projected through attention and a 2d -> d_ff MLP back
+into the residual stream. Each application keeps its own KV cache
+(n_apps, B, Hkv, S, hd) bf16, beside the per-layer Mamba2 conv tails and
+SSM states.
+
+Numerics mirror the reference's, its asymmetry included: ``forward`` casts
+the shared block's weights to ``cfg.compute_dtype`` (``shared_block_train``)
+but ``prefill`` and ``decode_step`` use them as stored
+(``shared_block_prefill``/``_decode``), so at full width bf16 activations
+meet f32 weights and q, k, v come out f32. Attention follows the tensors'
+device as in ``models/attention.py``: on the card the flash kernel runs
+the f32 prefill and the paged kernel the decode (an f32 query over the
+bf16 cache viewed as pages), once per application; on the CPU the eager
+reference attention. ``decode_step`` updates the cache tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common, mamba2
+from repro_torch.models.common import ParamTree, frozen, matmul_f32, matmul_promoted, rms_norm
+
+
+def n_attn_apps(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def _init_shared(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    d = cfg.d_model
+    u = 2 * d  # concat(hidden, embedding)
+    q_dim, kv_dim = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return ParamTree(
+        ln1=torch.ones((u,), dtype=dtype),
+        wq=common.dense_init((u, q_dim), g, dtype=dtype),
+        wk=common.dense_init((u, kv_dim), g, dtype=dtype),
+        wv=common.dense_init((u, kv_dim), g, dtype=dtype),
+        wo=common.dense_init((q_dim, d), g, scale=0.1, dtype=dtype),
+        ln2=torch.ones((u,), dtype=dtype),
+        w_gate=common.dense_init((u, cfg.d_ff), g, dtype=dtype),
+        w_up=common.dense_init((u, cfg.d_ff), g, dtype=dtype),
+        w_down=common.dense_init((cfg.d_ff, d), g, scale=0.1, dtype=dtype),
+    )
+
+
+class Zamba2(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        dtype = common.dt(cfg.param_dtype)
+        d, vp = cfg.d_model, cfg.padded_vocab
+        self.embed = frozen(common.embed_init((vp, d), generator, dtype), device)
+        # drawn on the CPU and moved one layer at a time: host memory holds one layer
+        self.layers = nn.ModuleList(mamba2.init_block(cfg, generator, dtype).to(device)
+                                    for _ in range(cfg.n_layers))
+        self.shared = _init_shared(cfg, generator, dtype).to(device)
+        self.final_norm = frozen(torch.ones((d,), dtype=dtype), device)
+        self.lm_head = frozen(common.dense_init((d, vp), generator, dtype=dtype), device)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Zamba2:
+    """Random init drawn on the CPU from ``generator``, placed on ``device``."""
+    return Zamba2(cfg, generator, device)
+
+
+# ---------------------------------------------------------------------------
+# shared attention block
+
+
+def _shared_qkv(sh: dict, cfg: ModelConfig, u, positions):
+    """``x @ W`` without a preferred type: bf16 x f32 gives f32, as in JAX."""
+    b, t, _ = u.shape
+    hd = cfg.head_dim
+    un = rms_norm(u, sh["ln1"], cfg.norm_eps)
+    q = matmul_promoted(un, sh["wq"]).reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
+    k = matmul_promoted(un, sh["wk"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = matmul_promoted(un, sh["wv"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _shared_out(sh: dict, cfg: ModelConfig, h, emb0, o):
+    """Attention output projection into the residual stream, then the MLP
+    on concat(h, emb0)."""
+    b, hh, t, hd = o.shape
+    h = h + matmul_promoted(o.transpose(1, 2).reshape(b, t, hh * hd), sh["wo"]).to(h.dtype)
+    un2 = rms_norm(torch.cat([h, emb0], dim=-1), sh["ln2"], cfg.norm_eps)
+    return h + common.swiglu(un2, sh["w_gate"], sh["w_up"], sh["w_down"])
+
+
+def shared_block(sh: dict, cfg: ModelConfig, h, emb0, positions):
+    """Full-sequence application without a cache; returns (h', k, v)."""
+    q, k, v = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
+    o = attention.attend(q, k, v, causal=True, block_k=1024)
+    return _shared_out(sh, cfg, h, emb0, o), k, v
+
+
+def shared_block_decode(sh: dict, cfg: ModelConfig, h, emb0, k_cache, v_cache, lengths,
+                        page_size: int):
+    """h, emb0: (B, 1, D); caches (B, Hkv, S, hd), written IN PLACE at
+    ``lengths`` (a position past the end is dropped, as JAX drops it)."""
+    positions = lengths[:, None].to(torch.int32)
+    q, k, v = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
+    attention._write_at(k_cache, lengths, k[:, :, 0, :])
+    attention._write_at(v_cache, lengths, v[:, :, 0, :])
+    o = attention.attend_decode(q, k_cache, v_cache, lengths + 1, page_size)
+    return _shared_out(sh, cfg, h, emb0, o)
+
+
+# ---------------------------------------------------------------------------
+# full model
+
+
+def _embed(params: Zamba2, cfg: ModelConfig, tokens):
+    return params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
+
+
+def _logits(params: Zamba2, cfg: ModelConfig, h):
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return matmul_f32(h, params.lm_head.to(h.dtype))
+
+
+def _split_groups(cfg: ModelConfig, seq):
+    """Per-layer sequence -> (G groups of ``shared_attn_every``, the tail)."""
+    k = cfg.shared_attn_every
+    g = cfg.n_layers // k
+    return [seq[i * k:(i + 1) * k] for i in range(g)], seq[g * k:]
+
+
+@torch.no_grad()
+def forward(params: Zamba2, cfg: ModelConfig, tokens):
+    """Full-sequence forward -> logits (B, T, Vp) f32 (the shared block cast
+    to the compute dtype, as the reference's ``shared_block_train``)."""
+    h = _embed(params, cfg, tokens)
+    emb0 = h
+    b, t, _ = h.shape
+    positions = common.causal_positions(b, t, h.device)
+    sh = params.shared.tree(common.dt(cfg.compute_dtype))
+    groups, tail = _split_groups(cfg, list(params.layers))
+    for grp in groups:
+        for blk in grp:
+            h = h + mamba2.apply(blk.tree(), cfg, h)[0]
+        h = shared_block(sh, cfg, h, emb0, positions)[0]
+    for blk in tail:
+        h = h + mamba2.apply(blk.tree(), cfg, h)[0]
+    return _logits(params, cfg, h)
+
+
+@torch.no_grad()
+def prefill(params: Zamba2, cfg: ModelConfig, tokens, *, max_len: int):
+    """Forward + cache construction. Returns (logits, cache)."""
+    h = _embed(params, cfg, tokens)
+    emb0 = h
+    b, t, _ = h.shape
+    positions = common.causal_positions(b, t, h.device)
+    sh = params.shared.tree()  # as stored: the reference's prefill does not cast it
+    states, ks, vs = [], [], []
+
+    def mamba_layer(h, blk):
+        m, st = mamba2.apply(blk.tree(), cfg, h)
+        states.append(st)
+        return h + m
+
+    groups, tail = _split_groups(cfg, list(params.layers))
+    for grp in groups:
+        for blk in grp:
+            h = mamba_layer(h, blk)
+        h, k, v = shared_block(sh, cfg, h, emb0, positions)
+        ks.append(F.pad(k, (0, 0, 0, max(0, max_len - t))).to(torch.bfloat16))
+        vs.append(F.pad(v, (0, 0, 0, max(0, max_len - t))).to(torch.bfloat16))
+    for blk in tail:
+        h = mamba_layer(h, blk)
+    cache = {
+        "k": torch.stack(ks),
+        "v": torch.stack(vs),
+        "conv": torch.stack([s["conv"] for s in states]),
+        "ssm": torch.stack([s["ssm"] for s in states]),
+        "lengths": torch.full((b,), t, dtype=torch.int32, device=h.device),
+    }
+    return _logits(params, cfg, h), cache
+
+
+@torch.no_grad()
+def decode_step(params: Zamba2, cfg: ModelConfig, cache: dict, tokens, *, page_size: int = 16):
+    """One decode step. tokens: (B, 1). Returns (logits, cache').
+
+    Every cache tensor is updated in place; the returned cache holds the
+    same tensors and the advanced lengths. On the card the shared block's
+    decode attention walks its cache as pages of ``page_size`` positions
+    (the engine's page size; max_len must be a multiple of it).
+    """
+    h = _embed(params, cfg, tokens)
+    emb0 = h
+    lengths = cache["lengths"]
+    sh = params.shared.tree()  # as stored: the reference's decode does not cast it
+
+    def mamba_layer(h, i):
+        state = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+        return h + mamba2.apply(params.layers[i].tree(), cfg, h, state)[0]
+
+    groups, tail = _split_groups(cfg, list(range(cfg.n_layers)))
+    for app, grp in enumerate(groups):
+        for i in grp:
+            h = mamba_layer(h, i)
+        h = shared_block_decode(sh, cfg, h, emb0, cache["k"][app], cache["v"][app], lengths,
+                                page_size)
+    for i in tail:
+        h = mamba_layer(h, i)
+    return _logits(params, cfg, h), {**cache, "lengths": lengths + 1}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    ms = mamba2.init_state(cfg, batch, device)
+    kv = (n_attn_apps(cfg), batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {
+        "k": torch.zeros(kv, dtype=dtype, device=device),
+        "v": torch.zeros(kv, dtype=dtype, device=device),
+        "conv": torch.zeros((cfg.n_layers,) + tuple(ms["conv"].shape), dtype=torch.float32,
+                            device=device),
+        "ssm": torch.zeros((cfg.n_layers,) + tuple(ms["ssm"].shape), dtype=torch.float32,
+                           device=device),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

@@ -2,8 +2,14 @@
 
 This slice ports the whole-slot path (``prefill_chunk == 0``): a request's
 prompt prefills whole at admission through ``api.prefill``, and every step
-decodes one token for each active slot. The paper's three findings run
-together here as in the reference:
+decodes one token for each active slot. It serves every ported family
+(``models/api.py``: dense, ssm = rwkv6, hybrid = zamba2) with one code
+path: a slot write copies every cache leaf, and the tier store's payload
+rows are a family's k and v vectors where it has a 5-D KV cache ``k``
+(the dense layers', zamba2's shared-block applications') and synthetic
+``counter_rows`` where it has none (rwkv6's O(1) state), as in the
+reference. The paper's three findings run together here as in the
+reference:
 
   * shared KV page table (core/pagetable): requests with common prompt
     prefixes map the same physical pages;

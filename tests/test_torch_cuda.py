@@ -15,6 +15,14 @@ from them only in summation order: f32 outputs agree to 2e-5, bf16
 outputs to one bf16 step (2**-7 of the value), the final rounding. They
 cover head_dim 64 and 128, GQA groups of 1, 3 and 8, ragged lengths,
 lengths past the cache's end, and causal and non-causal prefill.
+
+The scan kernels (WKV6, SSD) take a closed form per chunk where their
+plain versions run the recurrence step by step; the per-chunk cumulative
+decay rounds an exponent by up to one f32 step of its size, so they are
+held to 1e-4 of each value plus 1e-4 of the output's largest magnitude.
+They cover hd, P and N of 16 and 64, ragged lengths and one token, zero
+and given states, strong decays, in-place state updates and strided
+inputs; and the reduced recurrent engines on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -202,49 +210,177 @@ def test_attention_refuses_unbuilt_shapes_on_the_card(attn):
         fa.flash_attention(x, x, x)
 
 
-def _reduced_config():
-    """Reduced smollm-360m at head_dim 64 (the kernels are built for 64 and
-    128) with smollm's GQA group of 3: 3 query heads over 1 KV head."""
-    import dataclasses
+@pytest.fixture
+def scans():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import mamba2_scan, rwkv6_scan
 
-    from repro_torch.configs import get_config
-
-    return dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3,
-                               n_kv_heads=1)
+    return rwkv6_scan, mamba2_scan
 
 
-def test_reduced_engine_on_card_equals_cpu(card):
+def _scan_close(out, plain):
+    for a, b in zip(out, plain):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def _wkv6_args(seed, b, t, h, hd, strong, state):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+    mu = 1.5 if strong else -1.0
+    lw = torch.from_numpy(-np.exp(rng.normal(mu, 1.0, (b, t, h, hd))).astype(np.float32)).cuda()
+    return [f(b, t, h, hd), f(b, t, h, hd), f(b, t, h, hd), lw, f(h, hd),
+            f(b, h, hd, hd) if state else None]
+
+
+def _ssd_args(seed, b, t, h, p, n, strong, state):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((b, t, h)))).astype(np.float32)).cuda()
+    a = torch.from_numpy(-np.exp(rng.normal(2.0 if strong else 0.0, 1.0, h)).astype(np.float32)).cuda()
+    return [f(b, t, h, p), dt, a, f(b, t, n), f(b, t, n), f(h), f(b, h, p, n) if state else None]
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("b,t", [(2, 50), (8, 1), (1, 96)])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_kernel_against_plain(scans, hd, b, t, strong, state):
+    wkv, _ = scans
+    args = _wkv6_args(hd + t, b, t, 3, hd, strong, state)
+    before = wkv.LAUNCHES["wkv6"]
+    out = wkv.wkv6_chunked(*args)
+    again = wkv.wkv6_chunked(*args)
+    plain = wkv.wkv6_ref(*args)
+    torch.cuda.synchronize()
+    assert wkv.LAUNCHES["wkv6"] - before == 2
+    assert all(torch.equal(x, y) for x, y in zip(out, again))  # deterministic
+    _scan_close(out, plain)
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("b,t", [(2, 50), (8, 1), (1, 96)])
+@pytest.mark.parametrize("p,n", [(16, 16), (64, 64), (16, 64)])
+def test_ssd_kernel_against_plain(scans, p, n, b, t, strong, state):
+    _, ssd = scans
+    args = _ssd_args(p + n + t, b, t, 3, p, n, strong, state)
+    before = ssd.LAUNCHES["ssd"]
+    out = ssd.ssd_chunked(*args)
+    again = ssd.ssd_chunked(*args)
+    plain = ssd.ssd_ref(*args)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd"] - before == 2
+    assert all(torch.equal(x, y) for x, y in zip(out, again))  # deterministic
+    _scan_close(out, plain)
+
+
+@pytest.mark.parametrize("t", [1, 40])
+def test_scans_write_the_state_in_place(scans, t):
+    """The model's decode: the final state over the initial one, bit for
+    bit what a separate output gets, and the same tensor returned."""
+    wkv, ssd = scans
+    args = _wkv6_args(1, 4, t, 2, 64, False, True)
+    y, s = wkv.wkv6_chunked(*args)
+    cache = args[5].clone()
+    yi, si = wkv.wkv6_chunked(*args[:5], cache, inplace=True)
+    torch.cuda.synchronize()
+    assert si is cache and torch.equal(cache, s) and torch.equal(yi, y)
+    args = _ssd_args(2, 4, t, 2, 64, 64, False, True)
+    y, s = ssd.ssd_chunked(*args)
+    cache = args[6].clone()
+    yi, si = ssd.ssd_chunked(*args[:6], cache, inplace=True)
+    torch.cuda.synchronize()
+    assert si is cache and torch.equal(cache, s) and torch.equal(yi, y)
+
+
+def test_scans_read_strided_views(scans):
+    """The models hand in views: wkv6's inputs as reshaped projections,
+    SSD's x, B and C as slices of the conv output."""
+    wkv, ssd = scans
+    g = torch.Generator().manual_seed(4)
+    big = torch.randn(2, 30, 4 * 3 * 64, generator=g).cuda()
+    r, k, v, lw = (big[..., i * 192:(i + 1) * 192].reshape(2, 30, 3, 64) for i in range(4))
+    lw = -lw.abs()
+    u = torch.randn(3, 64, generator=g).cuda()
+    out = wkv.wkv6_chunked(r, k, v, lw, u)
+    ref = wkv.wkv6_chunked(*(x.contiguous() for x in (r, k, v, lw)), u)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    conv = torch.randn(2, 30, 3 * 64 + 2 * 16, generator=g).cuda()
+    x = conv[..., :192].reshape(2, 30, 3, 64)
+    bm, cm = conv[..., 192:208], conv[..., 208:]
+    dt = torch.rand(2, 30, 3, generator=g).cuda()
+    a, d = -torch.rand(3, generator=g).cuda(), torch.randn(3, generator=g).cuda()
+    out = ssd.ssd_chunked(x, dt, a, bm, cm, d)
+    ref = ssd.ssd_chunked(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), d)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(out, ref))
+
+
+def test_scans_refuse_what_they_are_not_built_for(scans):
+    wkv, ssd = scans
+    x = torch.zeros(1, 4, 2, 128, device="cuda")[..., ::2]  # stride 2 along hd
+    with pytest.raises(ValueError, match="unit stride"):
+        wkv.wkv6_chunked(x, x, x, x, torch.zeros(2, 64, device="cuda"))
+    y = torch.zeros(1, 4, 2, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 48"):
+        wkv.wkv6_chunked(y, y, y, y, torch.zeros(2, 48, device="cuda"))
+    bm = torch.zeros(1, 4, 32, device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd.ssd_chunked(torch.zeros(1, 4, 2, 16, device="cuda"), torch.zeros(1, 4, 2, device="cuda"),
+                        torch.zeros(2, device="cuda"), bm, bm, torch.zeros(2, device="cuda"))
+    s0 = torch.zeros(1, 2, 64, 64, device="cuda")
+    with pytest.raises(ValueError, match="several devices"):
+        wkv.wkv6_chunked(*(torch.zeros(1, 4, 2, 64, device="cuda") for _ in range(4)),
+                         torch.zeros(2, 64), s0)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-7b", "zamba2-1.2b"])
+def test_reduced_engine_on_card_equals_cpu(card, arch):
     """The whole device-tiered engine at reduced size: the card (kernels) and
     the CPU (plain versions) give the same books. The books follow the
     schedule, not the token values, so an argmax near-tie that the other
-    summation order flips cannot change them. On the card every prefill
-    layer runs the flash kernel and every decode layer the paged kernel."""
+    summation order flips cannot change them. On the card every layer runs
+    its kernel once per dispatch: attention per dense layer, WKV6 per rwkv6
+    layer, SSD per zamba2 layer and attention per application of zamba2's
+    shared block. The attention kernels are built for head_dim 64 and 128,
+    so smollm keeps its head_dim and GQA group (3 query heads of 64 over 1
+    KV head) and zamba2's block takes 2 heads of 64 over d 128; the scans
+    take the reduced widths of 16 as they are."""
     import dataclasses
 
+    from repro_torch.configs import get_config
     from repro_torch.configs.workloads import get_profile
     from repro_torch.data.requests import RequestGenerator
-    from repro_torch.kernels import flash_attention, paged_attention
-    from repro_torch.models.api import get_model
+    from repro_torch.kernels import flash_attention, mamba2_scan, paged_attention, rwkv6_scan
+    from repro_torch.models.api import get_model, kernel_launches
     from repro_torch.runtime.serving import EngineConfig, ServingEngine
 
-    cfg = _reduced_config()
+    cfg = get_config(arch).reduced()
+    if arch == "smollm-360m":
+        cfg = dataclasses.replace(cfg, d_model=192, n_heads=3, n_kv_heads=1)
+    elif arch == "zamba2-1.2b":
+        cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2)
     api = get_model(cfg)
     prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
                                prefix_share=0.5, n_prefixes=2)
+    counters = (flash_attention.LAUNCHES, paged_attention.LAUNCHES, rwkv6_scan.LAUNCHES,
+                mamba2_scan.LAUNCHES)
     books = {}
     for where in ("cuda", "cpu"):
         eng = ServingEngine(api, api.init(0, device=where), EngineConfig(
             max_batch=4, max_len=64, n_pages=256, near_frac=0.02, placement_window=4,
             device_tiering=True, tiered_identity_scales=True, tiered_verify=True,
         ), seed=0, device=where)
-        flash_attention.LAUNCHES["flash_attention"] = paged_attention.LAUNCHES["paged_attention"] = 0
+        for c in counters:
+            for k in c:
+                c[k] = 0
         eng.run(RequestGenerator(prof, vocab_size=cfg.vocab_size, seed=0), n_requests=6)
         books[where] = (eng.live_counters(), eng.stats()["device_tiering"])
-        launched = (flash_attention.LAUNCHES["flash_attention"], paged_attention.LAUNCHES["paged_attention"])
-        decodes = eng.model_dispatches - eng.prefill_dispatches
-        if where == "cuda":
-            assert launched == (cfg.n_layers * eng.prefill_dispatches, cfg.n_layers * decodes) and decodes > 0
-        else:
-            assert launched == (0, 0)
+        launched = {k: v for c in counters for k, v in c.items()}
+        pre, dec = eng.prefill_dispatches, eng.model_dispatches - eng.prefill_dispatches
+        want = kernel_launches(cfg, pre, dec)
+        assert dec > 0
+        assert launched == (want if where == "cuda" else dict.fromkeys(want, 0))
     assert books["cuda"] == books["cpu"]
     assert books["cuda"][1]["max_read_error"] == 0.0

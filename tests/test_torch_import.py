@@ -24,6 +24,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch.runtime.serving, repro_torch.parity\n"
         "import repro_torch.kernels.tiered_gather.ops\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.paged_attention.ops\n"
+        "import repro_torch.kernels.rwkv6_scan.ops, repro_torch.kernels.mamba2_scan.ops\n"
+        "import repro_torch.models.rwkv6, repro_torch.models.mamba2, repro_torch.models.zamba2\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -33,6 +35,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "repro_torch.runtime.serving" in mods
     assert "repro_torch.kernels.flash_attention.ref" in mods
     assert "repro_torch.kernels.paged_attention.ref" in mods
+    for mod in ("kernels.rwkv6_scan.ref", "kernels.mamba2_scan.ref", "models.rwkv6",
+                "models.mamba2", "models.zamba2"):
+        assert f"repro_torch.{mod}" in mods, mod
     assert [m for m in mods if _is_reference(m)] == []
 
 
@@ -110,5 +115,8 @@ def test_unported_family_names_its_roadmap_item():
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_model(get_config("rwkv6-7b"))
+    for arch in ("granite-moe-3b-a800m", "qwen2-vl-7b", "whisper-base"):
+        with pytest.raises(NotImplementedError, match="A8"):
+            get_model(get_config(arch))
+    for arch in ("smollm-360m", "rwkv6-7b", "zamba2-1.2b"):
+        assert get_model(get_config(arch)).family in ("dense", "ssm", "hybrid")
