@@ -6,7 +6,8 @@
 Phases (any failure raises, so the script exits non-zero):
 
 1. device and build: the card's name and power limit, TF32 off, every CUDA
-   kernel built from ``src/repro_torch/csrc`` with nvcc, in parallel;
+   kernel built from ``src/repro_torch/csrc`` with nvcc, in parallel; the
+   bf16 flash kernels' SASS holds wgmma (HGMMA) and TMA loads (UTMALDG);
 2. kernels against their plain PyTorch versions at the serving step's
    shapes, then timed with CUDA events next to the plain version, the
    least time the card could take, and the one PyTorch call that computes
@@ -14,9 +15,14 @@ Phases (any failure raises, so the script exits non-zero):
    - the tiered gathers (D = 2*32*5*64 = 20480, N = 512, 307 of 1024
      pages near, 9 segments): rows and counters bit-exact;
    - flash attention (prefill of 512 tokens) and paged decode attention
-     (8 slots, S = 1024, pages of 16, through the cache view) at the
-     widths of smollm-360m and qwen2.5-3b, bf16: within one bf16 step of
-     the plain version, and within 2e-2 of the model's eager attention;
+     (8 slots, S = 1024, pages of 16, through the cache view, each sequence
+     split over a cluster of blocks) at the widths of smollm-360m and
+     qwen2.5-3b, bf16, and zamba2-1.2b, f32 queries: within one bf16 step
+     (2e-5 in f32) of the plain version, and within 2e-2 of the model's
+     eager attention;
+   - B5 over prompts of 64 to 1024 and B4 over lengths all 1, the main
+     ones and all 1024, beside the timing's floor, to show where their
+     time goes;
    - the scans, f32: WKV6 at rwkv6-7b's widths (64 heads of 64) and the
      Mamba2 SSD at zamba2-1.2b's (64 heads, P = N = 64), each on a prompt
      of 512 from a zero and from a random state and on a decode step of 8
@@ -101,6 +107,30 @@ EAGER_BASELINE = ("eager attention at commit 0f3184b on NVIDIA H100 80GB HBM3, 7
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def sass_counts(lib: Path):
+    """The bf16 flash kernels run their products as wgmma (HGMMA in SASS) on
+    tiles that TMA loads (UTMALDG): count both in each compiled kernel with
+    cuobjdump (beside the nvcc that built them), and fail if a tensor-core
+    instance has none."""
+    from repro_torch.kernels import build
+
+    counts, func = {}, None
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+            counts[func] = {"HGMMA": 0, "UTMALDG": 0}
+        elif func:
+            for op in counts[func]:
+                counts[func][op] += op + "." in line or op + " " in line
+    for func, c in counts.items():
+        log(f"  sass {func[:70]}: {c}")
+    tc = [c for f, c in counts.items() if "fa_tc_kernel" in f]
+    assert len(tc) == 2 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc), counts
 
 
 def time_ms(fn, reps: int = 60) -> float:
@@ -362,6 +392,9 @@ def check_attention():
         seen = sum(min(x, DECODE_S) for x in DECODE_LENGTHS)
         nbytes = float(2 * seen * hkv * d * 2 + 2 * qd.numel() * qsz + table.numel() * 4 + 8 * 4)
         b_ms, b_by = bound(nbytes, 4.0 * hq * d * seen, peak)
+        blocks = hkv * 8 * pa.split_count(DECODE_S, hkv, 8)
+        log(f"paged_attention [{arch}]: {blocks} blocks of {pa.split_count(DECODE_S, hkv, 8)} a cluster "
+            f"({hkv} KV heads x 8 slots x the split), one launch")
         kl, vl = (kc, vc) if qdt == bf else (kc.to(qdt), vc.to(qdt))  # SDPA takes one dtype
         mask = (torch.arange(DECODE_S, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
         results["paged_attention"][arch] = {
@@ -381,7 +414,45 @@ def check_attention():
                 f"(one bf16 step; f32 2e-5), vs eager {r['err_vs_eager']:.3e}; kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
                 f"{r['bytes'] / 1e6:.2f} MB), library {r['library_ms']:.4f} ms")
+            log(f"{name} [{arch}]: at {r['bound_ms'] / r['ms']:.4f} of its bound; "
+                f"{r['ms'] / r['library_ms']:.3f}x the library's time")
     return results
+
+
+def attention_scaling():
+    """Where B5's and B4's time goes, at the dense models' bf16 widths: B5
+    causal over prompts of 64 to 1024 (one to 16 key tiles for the longest
+    q tile) beside SDPA, and B4 over the decode cache with every length 1
+    (the fixed cost: launch, prologue, one chunk and the merges), with the
+    main lengths, and with every length 1024; and the floor of this timing,
+    a one-element add."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    g = torch.Generator().manual_seed(5)
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
+    x = torch.zeros(1, device="cuda")
+    log(f"timing floor (one-element add): {time_ms(lambda: x.add_(1)):.4f} ms")
+    for arch in ("smollm-360m", "qwen2.5-3b"):
+        hq, hkv, d = ATTN_WIDTHS[arch]
+        row = []
+        for n in (64, 256, 512, 1024):
+            q, k = rand(1, hq, n, d), rand(1, hkv, n, d)
+            v = rand(1, n, hkv * d).reshape(1, n, hkv, d).transpose(1, 2)
+            t = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, lk_valid=n, q_offset=0))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))
+            row.append(f"L {n}: {t:.4f} (SDPA {lib:.4f})")
+        log(f"flash_attention [{arch}] causal prompts, ms: " + "; ".join(row))
+        kc, vc, qd = rand(8, hkv, DECODE_S, d), rand(8, hkv, DECODE_S, d), rand(8, hq, d)
+        kp, vp, table = pa.cache_as_pages(kc, vc, DECODE_PAGE)
+        row = []
+        for label, lens in (("all 1", [1] * 8), ("main", list(DECODE_LENGTHS)), ("all 1024", [1024] * 8)):
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            row.append(f"{label}: {time_ms(lambda: pa.paged_attention(qd, kp, vp, table, lengths)):.4f}")
+        log(f"paged_attention [{arch}] 8 slots over S = {DECODE_S}, lengths, ms: " + "; ".join(row))
 
 
 SCAN_CHUNK = 32  # the scan kernels' chunk (kC in csrc/wkv6.cu and csrc/ssd.cu)
@@ -692,11 +763,14 @@ def decode_budget(api, params, reqs, card: str, arch: str):
     busy_ms = sum(dev_us(e) for e in avgs) / 1e3 / 6
     kernels = sum(e.count for e in avgs) / 6
     top = sorted(avgs, key=dev_us, reverse=True)[:6]
+    attn_ms = {name: sum(dev_us(e) for e in avgs if key in e.key) / 1e3 / 6
+               for name, key in (("paged_attention", "paged_decode_kernel"), ("flash_attention", "fa_"))}
     log(f"{arch} profile [{card}], decode steps of {active} active slots: {step_ms:.2f} ms a step "
         f"unprofiled, device busy {busy_ms:.3f} ms a step (idle share {1 - busy_ms / step_ms:.4f}), "
         f"{kernels:.0f} device kernels a step; top over 6 steps: "
         + "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms" for e in top))
-    return {"step_ms": step_ms, "busy_ms": busy_ms, "kernels_per_step": kernels}
+    log(f"{arch} profile [{card}]: attention kernels' device time a decode step {attn_ms}")
+    return {"step_ms": step_ms, "busy_ms": busy_ms, "kernels_per_step": kernels, "attention_ms": attn_ms}
 
 
 def verify_paths(mp, card: str):
@@ -836,10 +910,12 @@ def main():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"  ptxas: {line.strip()}")
+    sass_counts(libs["flash_attention"])
 
     # phase 2: kernels against their plain versions
     kernels = check_kernels()
     attention = check_attention()
+    attention_scaling()
     kernels.update(check_scans())
     t2 = time.perf_counter()
     log(f"phase 2 {t2 - t_start:.1f} s")
@@ -874,8 +950,8 @@ def main():
     for name in ("paged_attention", "flash_attention"):
         per = attention[name]
         kernels[name] = {**per["smollm-360m"], **{arch: {
-            **{k: per[arch][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "library_ms")},
+            **{k: per[arch][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
             "launches": paths[arch]["launches"][name]} for arch in ("qwen2.5-3b", "zamba2-1.2b")}}
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,2 +1,5 @@
 from repro_torch.kernels.flash_attention.ops import LAUNCHES, flash_attention  # noqa: F401
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: F401
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    flash_attention_ref,
+    flash_attention_tiled_ref,
+)

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+P_PARTS = 3  # bf16 parts of p in the bf16 kernel's PV product
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, lk_valid: Optional[int] = None,
@@ -34,4 +35,63 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, lk_valid: Optional[int]
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, lq, d).to(q.dtype)
+
+
+def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, lk_valid: Optional[int] = None,
+                              q_offset: Optional[int] = None, block_k: int = 64):
+    """The bf16 kernel's algorithm in plain PyTorch, same arguments and result.
+
+    An online softmax over K/V tiles of ``block_k`` rows, as
+    ``csrc/flash_attention.cu`` runs it: scores as q·k products summed in
+    f32 (for bf16 inputs the products are exact), scaled, masked to
+    -1e30; per tile m_new = max(m, tile max), p = exp(s - m_new), l and acc
+    rescaled by exp(m - m_new). For bf16 inputs p enters PV as three bf16
+    parts, p1 = bf16(p), p2 = bf16(p - p1), p3 = bf16(p - p1 - p2), whose
+    products with v are summed in f32: 24 bits of p, as the TPU kernel's f32
+    p (two parts, 16 bits, leave errors of some 1e-6 on outputs that cancel
+    to 1e-5, past one bf16 step). For f32 inputs p stays f32. The final
+    divide is clamped at 1e-30. Tiles past a
+    row's causal diagonal change nothing (p = 0, the rescale 1), so every
+    row walks every tile up to lk_valid. The card tests hold the kernel to
+    it as a second oracle; nothing on the main path calls it.
+    """
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    lk_valid = lk if lk_valid is None else int(lk_valid)
+    q_offset = lk_valid - lq if q_offset is None else int(q_offset)
+    split = q.dtype == torch.bfloat16
+    kv_lim = min(lk_valid, lk)
+    qf = q.float().reshape(b, hkv, g, lq, d)
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / math.sqrt(d)
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    m = torch.full((b, hkv, g, lq), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, lq, d), device=q.device)
+    for k0 in range(0, kv_lim, block_k):
+        k1 = min(k0 + block_k, lk)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf[:, :, k0:k1]) * scale
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        valid = kpos < kv_lim
+        if causal:
+            valid = valid & (kpos <= qpos + q_offset)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        vt = vf[:, :, k0:k1]
+        if split:
+            pv, rest = 0.0, p
+            for _ in range(P_PARTS):
+                part = rest.to(torch.bfloat16).float()
+                pv = pv + torch.einsum("bhgqk,bhkd->bhgqd", part, vt)
+                rest = rest - part
+        else:
+            pv = torch.einsum("bhgqk,bhkd->bhgqd", p, vt)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(b, hq, lq, d).to(q.dtype)

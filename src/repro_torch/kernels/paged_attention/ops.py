@@ -13,10 +13,15 @@ pools f32 or bf16 (K and V of one dtype), head_dim 64 or 128, at most 8
 query heads per KV head, an int32 page table and int32 lengths; anything
 else raises. CPU tensors take the plain version in ``ref.py``. CUDA
 tensors launch the hand-written kernel of ``csrc/paged_attention.cu``
-(built at first use), which sizes its grid from shapes alone, reads the
-pools through their strides and needs unit stride along head_dim and
+(built at first use): one launch that splits each sequence over the
+``ref.split_count(pp * ps, Hkv, B)`` blocks of a thread-block cluster, a
+count the wrapper computes and passes, and merges their partials in split
+order. The grid comes from shapes alone, so nothing is read back; it reads
+the pools through their strides and needs unit stride along head_dim and
 16-byte aligned rows. Unlike the TPU op nothing is padded. ``LAUNCHES``
 counts kernel launches, and only kernel launches.
+``ref.paged_attention_split_ref`` is the kernel's algorithm in plain
+PyTorch, for tests.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     if not getattr(lib, "_declared", False):
         lib.pa_decode.argtypes = [_P, _S, _P, _S, _P, _S, _P, _I, _L, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, ctypes.c_float, _P, _P]
+                                  _I, _I, _I, ctypes.c_float, _P, _P]
         lib.pa_decode.restype = _I
         lib._declared = True
     return lib
@@ -105,6 +110,15 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
         need(build.vector_aligned(t), f"{name} needs unit stride along head_dim and 16-byte aligned rows")
     need(page_table.is_contiguous() and lengths.is_contiguous(),
          "page_table and lengths must be contiguous")
+    return _launch(q, k_pages, v_pages, page_table, lengths,
+                   ref.split_count(page_table.shape[1] * ps, hkv, b))
+
+
+def _launch(q, k_pages, v_pages, page_table, lengths, n_split: int):
+    """The kernel on checked CUDA inputs, each sequence split over
+    ``n_split`` blocks; the kernel raises for n_split outside 1..8."""
+    b, hq, d = q.shape
+    hkv, n_phys, ps, _ = k_pages.shape
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -114,8 +128,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
             q.data_ptr(), build.strides(q, 2), k_pages.data_ptr(), build.strides(k_pages, 3),
             v_pages.data_ptr(), build.strides(v_pages, 3), page_table.data_ptr(),
             page_table.shape[1], n_phys, lengths.data_ptr(), ps, _KIND[q.dtype],
-            _KIND[k_pages.dtype], d, b, hkv, hq // hkv, 1.0 / math.sqrt(d), out.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _KIND[k_pages.dtype], d, b, hkv, hq // hkv, n_split, 1.0 / math.sqrt(d),
+            out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(lib, err, "paged_attention")
     LAUNCHES["paged_attention"] += 1

@@ -11,10 +11,15 @@ cover the scalar tail (widths that are not a multiple of 16 bytes), empty,
 duplicate and out-of-range ids, all-near and all-far maps, and bf16 near.
 
 The attention kernels compute in f32 like their plain versions and differ
-from them only in summation order: f32 outputs agree to 2e-5, bf16
-outputs to one bf16 step (2**-7 of the value), the final rounding. They
-cover head_dim 64 and 128, GQA groups of 1, 3 and 8, ragged lengths,
-lengths past the cache's end, and causal and non-causal prefill.
+from them only in summation order (bf16 flash takes p into its
+tensor-core product as three bf16 parts, all 24 bits of it): f32 outputs
+agree to 2e-5, bf16 outputs to one bf16 step (2**-7 of the value), the
+final rounding. They cover head_dim 64 and 128, GQA groups of 1, 3 and 8,
+ragged lengths, lengths past the cache's end, and causal and non-causal
+prefill; the redesigned kernels also against the plain versions of their
+own algorithms (tiles of 64 keys; spans merged in split order), at one
+tile, at 1000 tokens, with q_offset and lk_valid, and at S = 1024, where
+paged decode splits over a cluster of 8 blocks.
 
 The scan kernels (WKV6, SSD) take a closed form per chunk where their
 plain versions run the recurrence step by step; the per-chunk cumulative
@@ -208,6 +213,109 @@ def test_attention_refuses_unbuilt_shapes_on_the_card(attn):
     x = _randn((1, 4, 16, 65), 13, torch.bfloat16)[..., 1:]  # rows off 16-byte boundaries
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(x, x, x)
+
+
+def _flash_case(fa, q, k, v, **args):
+    """Two launches bit-equal, one count each, within one bf16 step of the
+    plain version and of the kernel's own algorithm on the card."""
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, **args)
+    again = fa.flash_attention(q, k, v, **args)
+    plain = fa.flash_attention_ref(q, k, v, **args)
+    tiled = fa.flash_attention_tiled_ref(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 2
+    assert torch.equal(out, again)  # deterministic
+    _close(out, plain)
+    _close(out, tiled)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tensor_cores_at_one_tile(attn, d):
+    """lq = lk = 64, not causal: one wgmma tile each way, which isolates the
+    fragment layouts and the 128-byte swizzle."""
+    fa, _ = attn
+    q, k, v = _randn((1, 2, 64, d), 20, torch.bfloat16), *(_randn((1, 2, 64, d), s, torch.bfloat16)
+                                                          for s in (21, 22))
+    _flash_case(fa, q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tensor_cores_ragged_long_prompt(attn, d, group):
+    """lq = lk = 1000: ragged last tiles (TMA's zero fill), 16 key tiles
+    through the four-stage ring, GQA groups of 1, 3 and 8."""
+    fa, _ = attn
+    q = _randn((1, 2 * group, 1000, d), 23, torch.bfloat16)
+    k, v = _randn((1, 2, 1000, d), 24, torch.bfloat16), _randn((1, 2, 1000, d), 25, torch.bfloat16)
+    _flash_case(fa, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tensor_cores_offset_and_lk_valid(attn, d, causal):
+    """q_offset > 0 (a suffix of queries over a longer prefix) and keys
+    past lk_valid < lk masked, v a transposed projection view."""
+    fa, _ = attn
+    q = _randn((2, 6, 100, d), 26, torch.bfloat16)
+    k = _randn((2, 2, 300, d), 27, torch.bfloat16)
+    v = _randn((2, 300, 2 * d), 28, torch.bfloat16).reshape(2, 300, 2, d).transpose(1, 2)
+    _flash_case(fa, q, k, v, causal=causal, lk_valid=250, q_offset=150)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16),
+                                              (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 2, 128), (15, 5, 64), (32, 32, 64)])
+def test_paged_split_at_main_path_width(attn, hq, hkv, d, q_dtype, kv_dtype):
+    """S = 1024 in pages of 16, so the kernel splits each sequence over a
+    cluster of 8 blocks of 128 positions (at 32 KV heads, whose grid is
+    large already, 2 of 512): lengths 1, a span less one, a span, a span
+    and one, the cache less one, the cache, and past it."""
+    _, pa = attn
+    kc, vc = _randn((8, hkv, 1024, d), 29, kv_dtype), _randn((8, hkv, 1024, d), 30, kv_dtype)
+    kp, vp, table = pa.cache_as_pages(kc, vc, 16)
+    q = _randn((8, hq, d), 31, q_dtype)
+    lengths = torch.tensor([1, 127, 128, 129, 600, 1023, 1024, 1300], dtype=torch.int32).cuda()
+    assert pa.split_count(1024, hkv, 8) == {2: 8, 5: 8, 32: 2}[hkv]
+    before = pa.LAUNCHES["paged_attention"]
+    out = pa.paged_attention(q, kp, vp, table, lengths)
+    again = pa.paged_attention(q, kp, vp, table, lengths)
+    plain = pa.paged_attention_ref(q, kp, vp, table, lengths)
+    split = pa.paged_attention_split_ref(q, kp, vp, table, lengths, pa.split_count(1024, hkv, 8))
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention"] - before == 2
+    assert torch.equal(out, again)  # deterministic
+    _close(out, plain)
+    _close(out, split)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4, 8])
+def test_paged_kernel_takes_the_split_it_is_given(attn, n_split):
+    """The kernel splits by the count its caller passes (the wrapper's is
+    ``split_count``): each count against the split plain version at that
+    count, spans that cut pages (S = 192 in pages of 16), empty splits,
+    a length past the end; a count outside 1..8 is refused."""
+    _, pa = attn
+    from repro_torch.kernels.paged_attention import ops
+
+    kc, vc = _randn((4, 2, 192, 64), 32, torch.bfloat16), _randn((4, 2, 192, 64), 33, torch.bfloat16)
+    kp, vp, table = pa.cache_as_pages(kc, vc, 16)
+    q = _randn((4, 6, 64), 34, torch.bfloat16)
+    lengths = torch.tensor([1, 25, 150, 400], dtype=torch.int32).cuda()
+    before = pa.LAUNCHES["paged_attention"]
+    out = ops._launch(q, kp, vp, table, lengths, n_split)
+    again = ops._launch(q, kp, vp, table, lengths, n_split)
+    split = pa.paged_attention_split_ref(q, kp, vp, table, lengths, n_split)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention"] - before == 2
+    assert torch.equal(out, again)
+    _close(out, split)
+    _close(out, pa.paged_attention_ref(q, kp, vp, table, lengths))
+    for bad in (0, 9):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            ops._launch(q, kp, vp, table, lengths, bad)
+    assert pa.LAUNCHES["paged_attention"] - before == 2
 
 
 @pytest.fixture
