@@ -7,7 +7,8 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. device and build: the card's name and power limit, TF32 off, every CUDA
    kernel built from ``src/repro_torch/csrc`` with nvcc, in parallel; the
-   bf16 flash kernels' SASS holds wgmma (HGMMA) and TMA loads (UTMALDG);
+   four flash kernels' SASS holds wgmma (HGMMA) and TMA loads (UTMALDG),
+   the two f32 ones TF32 tensor-core products (HGMMA and HMMA on TF32);
 2. kernels against their plain PyTorch versions at the serving step's
    shapes, then timed with CUDA events next to the plain version, the
    least time the card could take, and the one PyTorch call that computes
@@ -17,9 +18,9 @@ Phases (any failure raises, so the script exits non-zero):
    - flash attention (prefill of 512 tokens) and paged decode attention
      (8 slots, S = 1024, pages of 16, through the cache view, each sequence
      split over a cluster of blocks) at the widths of smollm-360m and
-     qwen2.5-3b, bf16, and zamba2-1.2b, f32 queries: within one bf16 step
-     (2e-5 in f32) of the plain version, and within 2e-2 of the model's
-     eager attention;
+     qwen2.5-3b, bf16, and zamba2-1.2b, f32 (flash on TF32 tensor cores,
+     three products a product): within one bf16 step (2e-5 in f32) of the
+     plain version, and within 2e-2 of the model's eager attention;
    - B5 over prompts of 64 to 1024 and B4 over lengths all 1, the main
      ones and all 1024, beside the timing's floor, to show where their
      time goes;
@@ -27,7 +28,9 @@ Phases (any failure raises, so the script exits non-zero):
      Mamba2 SSD at zamba2-1.2b's (64 heads, P = N = 64), each on a prompt
      of 512 from a zero and from a random state and on a decode step of 8
      slots, with decays up to e^-10 a step: y and the final state within
-     the stated f32 tolerance of the plain version;
+     the stated f32 tolerance of the plain version; the SSD prompt split
+     over a cluster of ``split_count`` blocks, whose clusters must fit the
+     card in at most three waves;
 3. the main path: a device-tiered ``ServingEngine`` over full-width
    smollm-360m (32 layers, random weights from a seed) answering 16 Web1
    requests -- every request finishes, one tiered-gather launch per step,
@@ -73,6 +76,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
+TF32_PRODUCTS = 3  # TF32 products the f32 flash kernel takes for one f32-exact product
 CSRC = "src/repro_torch/csrc"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -110,10 +115,12 @@ def log(msg: str):
 
 
 def sass_counts(lib: Path):
-    """The bf16 flash kernels run their products as wgmma (HGMMA in SASS) on
-    tiles that TMA loads (UTMALDG): count both in each compiled kernel with
-    cuobjdump (beside the nvcc that built them), and fail if a tensor-core
-    instance has none."""
+    """The flash kernels run their products as wgmma (HGMMA in SASS) on
+    tiles that TMA loads (UTMALDG), and the f32 ones (``fa_tc_kernel<float,
+    D>``) on TF32: S = Q K^T as TF32 wgmma (HGMMA...TF32), P V as TF32
+    mma.sync (HMMA...TF32). Count them in each compiled kernel with
+    cuobjdump (beside the nvcc that built them), and fail if an instance
+    lacks one."""
     from repro_torch.kernels import build
 
     counts, func = {}, None
@@ -123,14 +130,18 @@ def sass_counts(lib: Path):
     for line in sass.splitlines():
         if "Function :" in line:
             func = line.split("Function :")[1].strip()
-            counts[func] = {"HGMMA": 0, "UTMALDG": 0}
+            counts[func] = {"HGMMA": 0, "UTMALDG": 0, "HGMMA.TF32": 0, "HMMA.TF32": 0}
         elif func:
-            for op in counts[func]:
+            for op in ("HGMMA", "UTMALDG"):
                 counts[func][op] += op + "." in line or op + " " in line
+            for op in ("HGMMA", "HMMA"):
+                counts[func][op + ".TF32"] += op + "." in line and "TF32" in line
     for func, c in counts.items():
         log(f"  sass {func[:70]}: {c}")
-    tc = [c for f, c in counts.items() if "fa_tc_kernel" in f]
-    assert len(tc) == 2 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc), counts
+    tc = {f: c for f, c in counts.items() if "fa_tc_kernel" in f}
+    f32 = [c for f, c in tc.items() if "fa_tc_kernelIf" in f]
+    assert len(tc) == 4 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tc.values()), counts
+    assert len(f32) == 2 and all(c["HGMMA.TF32"] > 0 and c["HMMA.TF32"] > 0 for c in f32), counts
 
 
 def time_ms(fn, reps: int = 60) -> float:
@@ -365,7 +376,17 @@ def check_attention():
         nbytes = float((2 * q.numel() + 2 * k.numel()) * qsz)  # q and o, k and v
         nops = 4.0 * hq * d * n * (n + 1) / 2  # QK^T and PV over the causal pairs
         b_ms, b_by = bound(nbytes, nops, peak)
-        results["flash_attention"][arch] = {
+        extra = {}
+        if qdt == torch.float32:
+            # f32-exact products on the tensor cores take TF32_PRODUCTS TF32
+            # products each: the least time for this work on them; the CUDA
+            # cores' f32 bound stays beside it
+            tf32 = fa.flash_attention_tf32_ref(q, k, v, causal=True, lk_valid=n, q_offset=0)
+            assert close(out, tf32), f"flash_attention differs from its TF32 algorithm ({arch})"
+            extra = {"bound_cuda_cores_ms": b_ms,
+                     "err_vs_tf32_algorithm": float((out - tf32).abs().max())}
+            b_ms, b_by = bound(nbytes, TF32_PRODUCTS * nops, TF32_OPS_PER_S)
+        results["flash_attention"][arch] = {**extra,
             "shapes": f"q (1, {hq}, {n}, {d}), k/v (1, {hkv}, {n}, {d}) {qname}, causal",
             "max_abs_err": float((out.float() - plain.float()).abs().max()),
             "err_vs_eager": float((out.float() - eager.float()).abs().max()),
@@ -414,6 +435,11 @@ def check_attention():
                 f"(one bf16 step; f32 2e-5), vs eager {r['err_vs_eager']:.3e}; kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
                 f"{r['bytes'] / 1e6:.2f} MB), library {r['library_ms']:.4f} ms")
+            if "bound_cuda_cores_ms" in r:
+                log(f"{name} [{arch}]: bound on TF32 tensor cores ({TF32_PRODUCTS} products) "
+                    f"{r['bound_ms']:.4f} ms, on the CUDA cores (f32) {r['bound_cuda_cores_ms']:.4f} ms "
+                    f"(share {r['bound_cuda_cores_ms'] / r['ms']:.4f}); vs its TF32 algorithm "
+                    f"{r['err_vs_tf32_algorithm']:.3e}")
             log(f"{name} [{arch}]: at {r['bound_ms'] / r['ms']:.4f} of its bound; "
                 f"{r['ms'] / r['library_ms']:.3f}x the library's time")
     return results
@@ -424,8 +450,9 @@ def attention_scaling():
     causal over prompts of 64 to 1024 (one to 16 key tiles for the longest
     q tile) beside SDPA, and B4 over the decode cache with every length 1
     (the fixed cost: launch, prologue, one chunk and the merges), with the
-    main lengths, and with every length 1024; and the floor of this timing,
-    a one-element add."""
+    main lengths, and with every length 1024; B5 f32 (TF32 tensor cores) at
+    zamba2's width over the same prompts; and the floor of this timing, a
+    one-element add."""
     import torch
     import torch.nn.functional as F
 
@@ -453,6 +480,15 @@ def attention_scaling():
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             row.append(f"{label}: {time_ms(lambda: pa.paged_attention(qd, kp, vp, table, lengths)):.4f}")
         log(f"paged_attention [{arch}] 8 slots over S = {DECODE_S}, lengths, ms: " + "; ".join(row))
+    hq, hkv, d = ATTN_WIDTHS["zamba2-1.2b"]
+    row = []
+    for n in (64, 256, 512, 1024):
+        q, k = (torch.randn(1, h, n, d, generator=g).cuda() for h in (hq, hkv))
+        v = torch.randn(1, n, hkv * d, generator=g).cuda().reshape(1, n, hkv, d).transpose(1, 2)
+        t = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, lk_valid=n, q_offset=0))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        row.append(f"L {n}: {t:.4f} (SDPA {lib:.4f})")
+    log("flash_attention [zamba2-1.2b] f32 causal prompts, ms: " + "; ".join(row))
 
 
 SCAN_CHUNK = 32  # the scan kernels' chunk (kC in csrc/wkv6.cu and csrc/ssd.cu)
@@ -556,6 +592,14 @@ def check_scans():
                                            msg=f"{name} {label}")
             errs[label] = max(float((a - b_).abs().max()) for a, b_ in zip(out, ref))
         log(f"{name}: max_abs_err vs plain {errs} (tolerance rtol {SCAN_RTOL}, atol {SCAN_RTOL} x max|plain|)")
+        if name == "ssd":
+            from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+
+            split = mamba2_scan.split_count(PREFILL_LEN, 1, h)
+            fit = ssd_ops.max_active_clusters(hd, hd, split)
+            log(f"ssd prefill: each (b, h) split over a cluster of {split} blocks ({h * split} blocks, "
+                f"one launch); {fit} such clusters resident at once")
+            assert split == 8 and 3 * fit >= h, (split, fit)  # at most three waves
         res = {}
         for label in ("prefill", "decode"):
             args = cases[label]
@@ -951,7 +995,8 @@ def main():
         per = attention[name]
         kernels[name] = {**per["smollm-360m"], **{arch: {
             **{k: per[arch][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "library_ms", "bound_cuda_cores_ms")
+               if k in per[arch]},
             "launches": paths[arch]["launches"][name]} for arch in ("qwen2.5-3b", "zamba2-1.2b")}}
     rows = []
     for name, (source, replaces) in KERNELS.items():

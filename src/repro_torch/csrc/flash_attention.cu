@@ -13,10 +13,12 @@
 // bytes bound the card there, at 1-2 us. The kernel is bound by latency
 // instead: the launch, the first loads, and the walk of the longest causal
 // q tile (8 key tiles at L = 512), which runs on one SM and, at D = 128,
-// on that SM's tensor cores. In f32 (zamba2's shared block) the CUDA
-// cores' 67 TFLOP/s bound it.
+// on that SM's tensor cores. In f32 (zamba2's shared block, 32 heads of
+// 64) exact products on the tensor cores take three TF32 products each:
+// 3 x 1.08 GFLOP at 495 TFLOP/s, 6.5 us for the card, against 16 us on
+// the CUDA cores' 67 TFLOP/s.
 //
-// bf16 (fa_tc_kernel), the design:
+// One kernel, fa_tc_kernel<T, D>, for both types. The design:
 //   * one block per (q tile of 64 rows, q head, batch), the q tiles in
 //     reverse order, so the causal tiles that walk the most keys start
 //     first; the TPU's sequential KV grid axis becomes a walk over 64-row
@@ -26,40 +28,58 @@
 //     warpgroup 1 hands (m, l, acc) to warpgroup 0 through shared memory,
 //     which merges them in that order. The last 64-row tile of a 512-token
 //     causal prompt walks 4 tiles a warpgroup instead of 8;
-//   * both products on the tensor cores, `wgmma.mma_async` with f32
-//     accumulators (m64n64k16; m64n128k16 for P V at D = 128), issued by the
-//     warpgroup (128 threads) that owns the tile. S = Q K^T reads Q and K
-//     from shared memory, K-major (K's own rows).
-//     O += P V takes P from registers: the S accumulator's fragment is the
-//     A-operand fragment of a 16-bit product, so P never goes through
-//     shared memory; V is read MN-major (the transpose bit bf16 allows),
-//     so it is never transposed in memory;
 //   * loads by TMA: one tensor map a tensor over its real 4-D shape and
 //     byte strides (v may be a transposed projection view: no copy), boxes
-//     of 64 x 64 with the 128-byte swizzle the wgmma descriptors name, two
-//     boxes a row at D = 128. One producer warp keeps a ring of four K/V
-//     stages in flight on mbarriers; TMA's zero fill past the tensor's end
-//     replaces the masking of ragged tiles. The score mask (lk_valid,
+//     of 64 rows of 128 bytes (64 bf16 or 32 f32 columns) with the 128-byte
+//     swizzle the wgmma descriptors name. One producer warp keeps a ring of
+//     K/V stages in flight on mbarriers (four; two for f32 at D = 128, what
+//     227 KB hold beside the TF32 parts); TMA's zero fill past the tensor's
+//     end replaces the masking of ragged tiles. The score mask (lk_valid,
 //     causal, q_offset) stays, and a tile that every row sees whole skips
 //     it; exponentials go to the special-function unit (ex2.approx);
-//   * the TPU kernel's numerics: it takes p in f32 into PV (kernel.py:44,
-//     :64-66). A bf16 operand carries 8 bits, so p goes in as three bf16
-//     parts, p1 = bf16(p), p2 = bf16(p - p1), p3 = bf16(p - p1 - p2), in
-//     three products into one accumulator: the 24 bits of f32 p, each
-//     product with v exact. Two parts (16 bits) leave errors of some 1e-6
-//     on outputs that cancel to 1e-5, past one bf16 step of them (measured
-//     with ref.flash_attention_tiled_ref). The parts make P V three times
-//     the tensor-core work of Q K^T: on the longest causal tiles at D = 128
-//     that work sets the SM's pace. Scores are scaled by 1/sqrt(d), masked
-//     to -1e30, acc and l rescaled by exp(m - m_new), the final divide
-//     clamped at 1e-30; every sum runs in a fixed order, so two runs give
-//     the same bits.
+//   * scores are scaled by 1/sqrt(d), masked to -1e30, acc and l rescaled
+//     by exp(m - m_new), the final divide clamped at 1e-30; every sum runs
+//     in a fixed order, so two runs give the same bits.
 //
-// f32 (fa_simt_kernel), the first kernel's design, kept for f32 callers:
-// q, k and v staged in shared memory, both products as f32 FMAs on a
-// 16 x 16 thread grid (thread (ty, tx) owns rows 4ty..4ty+3, score columns
-// tx + 16j, output columns 4tx.. and 64 + 4tx..), rows' max and sum as
-// half-warp shuffles, P through shared memory.
+// bf16, the products: both on `wgmma.mma_async` with f32 accumulators
+// (m64n64k16; m64n128k16 for P V at D = 128), issued by the warpgroup that
+// owns the tile. S = Q K^T reads Q and K from shared memory, K-major (K's
+// own rows). O += P V takes P from registers: the S accumulator's fragment
+// is the A-operand fragment of a 16-bit product, so P never goes through
+// shared memory; V is read MN-major (the transpose bit bf16 allows), so it
+// is never transposed in memory. The TPU kernel takes p in f32 into PV
+// (kernel.py:44, :64-66). A bf16 operand carries 8 bits, so p goes in as
+// three bf16 parts, p1 = bf16(p), p2 = bf16(p - p1), p3 = bf16(p - p1 -
+// p2), in three products into one accumulator: the 24 bits of f32 p, each
+// product with v exact. Two parts (16 bits) leave errors of some 1e-6 on
+// outputs that cancel to 1e-5, past one bf16 step of them (measured with
+// ref.flash_attention_tiled_ref).
+//
+// f32, the products: on the tensor cores in TF32, as three products. Each
+// f32 operand x splits as big = tf32(x) and small = tf32(x - big), both
+// rounded to nearest (cvt.rna: the tensor core truncates a raw f32), and
+// each product is Ab Bb + Ab Bs + As Bb in f32 accumulators: what is
+// dropped, As Bs and the rounding of the small parts, is some 2^-21 of the
+// product, so the result keeps 21-22 bits. One TF32 product keeps 11 bits:
+// at L = 512, D = 64 its outputs miss flash_attention_ref by 1e-3; two
+// products (Ab Bb + Ab Bs) leave A's rounding, 6e-4; three, 1e-6, inside
+// the unchanged 2e-5 (ref.flash_attention_tf32_ref on the CPU, products =
+// 1, 2, 3). The splits:
+//   - Q once a block, by both warpgroups: big in place, small beside it;
+//     K once a tile by the warpgroup that takes it, 64 columns at a time:
+//     big in place, small in 16 KB of its own. Both are elementwise over
+//     TMA's swizzled tiles, so the swizzle holds, then made visible to
+//     wgmma (fence.proxy.async). S = Q K^T is three m64n64k8 TF32 wgmma a
+//     step of 8, both operands K-major as TF32 requires, as in bf16;
+//   - O += P V on mma.sync m16n8k8 in TF32, each warp its 16 rows. TF32
+//     wgmma takes B K-major only (the transpose bit is for 16-bit types),
+//     so V would have to be transposed into shared memory, and P's
+//     accumulator fragment is not a TF32 A fragment (its column pairs
+//     differ). mma.sync reads V's rows where TMA put them, and P stays in
+//     registers: ordering each 8 keys 0, 2, 4, 6, 1, 3, 5, 7 in both P and
+//     V (a sum's order over k is free) makes the accumulator's elements
+//     the A fragment as they are. P and V split in registers;
+//   - ex2.approx stays, as in bf16: its 2^-22 is below the split's.
 //
 // The entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns a CUDA error code (cudaGetLastError(), or
@@ -78,214 +98,40 @@ constexpr float kNegInf = -1e30f;
 constexpr int kTensorMapError = 10000;  // beyond every cudaError_t
 
 // ---------------------------------------------------------------------------
-// f32: products on the CUDA cores
-
-constexpr int kSimtThreads = 256;  // 16 x 16
-constexpr int kPStride = kBK + 4;
-
-template <int D>
-struct SimtTile {
-  static constexpr int kStride = D + 4;  // floats per staged row
-  static constexpr int kCols = D / 64;   // float4 output groups per thread
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * ((kBQ + 2 * kBK) * kStride + kBQ * kPStride);
-};
-
-// Stage `rows` rows of D floats (row r at src + r * row_stride) into dst,
-// each row kStride floats apart; rows at or past `valid` are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, long long row_stride,
-                                           int valid, float* __restrict__ dst) {
-  constexpr int VPR = D / 4;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += kSimtThreads) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    const float4 f = r < valid ? *reinterpret_cast<const float4*>(src + r * row_stride + c)
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    *reinterpret_cast<float4*>(dst + r * SimtTile<D>::kStride + c) = f;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-__device__ __forceinline__ float lane_of(float4 v, int u) {
-  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kSimtThreads)
-fa_simt_kernel(const float* __restrict__ q, long long q_sb, long long q_sh, long long q_sl,
-               const float* __restrict__ k, long long k_sb, long long k_sh, long long k_sl,
-               const float* __restrict__ v, long long v_sb, long long v_sh, long long v_sl,
-               float* __restrict__ o, int hq, int group, int lq, int lk, int causal,
-               int lk_valid, int q_offset, float scale) {
-  using TL = SimtTile<D>;
-  constexpr int S = TL::kStride;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBQ * S;
-  float* vs = ks + kBK * S;
-  float* ps = vs + kBK * S;
-
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group;
-  const float* kb = k + b * k_sb + hk * k_sh;
-  const float* vb = v + b * v_sb + hk * v_sh;
-  stage_rows<D, kBQ>(q + b * q_sb + h * q_sh + q0 * q_sl, q_sl, lq - q0, qs);
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float m[4], l[4], acc[4][4 * TL::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 4 * TL::kCols; ++c) acc[i][c] = 0.0f;
-  }
-
-  // keys any row of this block can see
-  const int kv_lim = min(lk_valid, lk);
-  int k_end = kv_lim;
-  if (causal) k_end = min(k_end, min(lq, q0 + kBQ) - 1 + q_offset + 1);
-  const int n_tiles = k_end > 0 ? (k_end + kBK - 1) / kBK : 0;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows<D, kBK>(kb + k0 * k_sl, k_sl, lk - k0, ks);
-    stage_rows<D, kBK>(vb + k0 * v_sl, v_sl, lk - k0, vs);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * S + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * S + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      float rmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool valid = kpos < kv_lim && (!causal || kpos <= qpos + q_offset);
-        s[i][j] = valid ? s[i][j] * scale : kNegInf;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float corr = expf(m[i] - m_new);
-      float rsum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rsum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * TL::kCols; ++c) acc[i][c] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(4 * ty + i) * kPStride + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * kPStride + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = vs + (kk + u) * S + 4 * tx;
-#pragma unroll
-        for (int g = 0; g < TL::kCols; ++g) {
-          const float4 w = *reinterpret_cast<const float4*>(vrow + 64 * g);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = lane_of(pa[i], u);
-            acc[i][4 * g + 0] = fmaf(p, w.x, acc[i][4 * g + 0]);
-            acc[i][4 * g + 1] = fmaf(p, w.y, acc[i][4 * g + 1]);
-            acc[i][4 * g + 2] = fmaf(p, w.z, acc[i][4 * g + 2]);
-            acc[i][4 * g + 3] = fmaf(p, w.w, acc[i][4 * g + 3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= lq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((static_cast<long long>(b) * hq + h) * lq + row) * D + 4 * tx;
-#pragma unroll
-    for (int g = 0; g < TL::kCols; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) orow[64 * g + c] = acc[i][4 * g + c] / denom;
-  }
-}
-
-template <int D>
-int launch_simt(const void* q, const long long* qs, const void* k, const long long* ks,
-                const void* v, const long long* vs, void* o, int b, int hq, int hkv, int lq,
-                int lk, int causal, int lk_valid, int q_offset, float scale, cudaStream_t st) {
-  auto kern = fa_simt_kernel<D>;
-  const size_t smem = SimtTile<D>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((lq + kBQ - 1) / kBQ, hq, b);
-  kern<<<grid, kSimtThreads, smem, st>>>(
-      static_cast<const float*>(q), qs[0], qs[1], qs[2], static_cast<const float*>(k), ks[0],
-      ks[1], ks[2], static_cast<const float*>(v), vs[0], vs[1], vs[2], static_cast<float*>(o),
-      hq, hq / hkv, lq, lk, causal, lk_valid, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// bf16: wgmma on tiles brought in by TMA
+// wgmma on tiles brought in by TMA, for both types
 
 constexpr int kConsumers = 2;                         // warpgroups: warps 0-7
 constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kTcThreads = kConsumerThreads + 32;     // and one producer warp
-constexpr int kStages = 4;                            // K/V tiles in flight
 constexpr int kPParts = 3;                            // bf16 parts of p in PV
-constexpr int kBoxBytes = 64 * 64 * 2;                // one 64 x 64 bf16 box, 8 KB
+constexpr int kBoxBytes = 64 * 128;                   // one box: 64 rows of one 128-byte swizzle row, 8 KB
+constexpr int kSmemMax = 232448;                      // what a block may use
 
-template <int D>
+// The shared memory of one block, in bytes from a 1 KB boundary. A box is
+// 64 rows of 128 bytes (64 bf16 or 32 f32 columns), a tile 64 rows of D.
+// f32 also keeps Q's small TF32 part beside Q (split in place) and, for
+// each consumer warpgroup, the small part of 64 columns of its K tile (the
+// big part is written over the tile in place); its ring is 4 tiles deep at
+// D = 64 and 2 at D = 128, what 227 KB hold.
+template <typename T, int D>
 struct TcSmem {
-  static constexpr int kTile = kBoxBytes * (D / 64);  // 64 rows of D
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kBoxCols = 128 / sizeof(T);
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kTile = kBoxBytes * kBoxes;
+  static constexpr int kStages = kF32 && D == 128 ? 2 : 4;  // K/V tiles in flight
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
+  static constexpr int kQs = kQ + kTile;
+  static constexpr int kK = kQs + (kF32 ? kTile : 0);
   static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBars = kV + kStages * kTile;  // q, full[kStages], empty[kStages]
+  static constexpr int kKs = kV + kStages * kTile;   // + wg * 2 boxes
+  static constexpr int kBars = kKs + (kF32 ? kConsumers * 2 * kBoxBytes : 0);  // q, full[], empty[]
   // after the walk the stages hold warpgroup 1's m, l and acc for warpgroup 0
   static constexpr int kXchg = kK;
   static_assert(sizeof(float) * 128 * (4 + 32 * (D / 64)) <= 2 * kStages * kTile, "exchange");
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages);
   static constexpr size_t kAlloc = kBytes + 1024;     // room to align the tiles to 1 KB
+  static_assert(kAlloc <= kSmemMax, "shared memory");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -401,9 +247,72 @@ __device__ __forceinline__ void wgmma_rs_tn_n128(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) = A (64 x 8) B (8 x 64) [+ d when accumulate], A and B
+// TF32 in shared memory, both K-major (the only major TF32 takes).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D32_REGS
+      ", %32, %33, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef WG_D64_REGS
 #undef WG_D32_REGS
 #undef WG_D8
+
+// d (16 x 8, f32) += A (16 x 8) B (8 x 8), TF32 fragments in registers:
+// a0 (row g, col c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4),
+// b0 (row c, col g), b1 (c + 4, g), d as the wgmma accumulator, for lane
+// 4 g + c.
+__device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2, float& d3,
+                                         const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The nearest TF32 (10 mantissa bits), ties away from zero: the tensor
+// core would truncate the raw f32 instead.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, each TF32: small is what rounding x dropped, rounded.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));  // the difference is exact
+}
+
+// Generic writes to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Split n4 float4s of f32 at `big` into TF32 parts, the big part in place
+// and the small one at the same offset from `small`: an elementwise map,
+// so the swizzle TMA wrote holds for both.
+__device__ __forceinline__ void split_tile(float* big, float* small, int n4, int tid, int threads) {
+  for (int i = tid; i < n4; i += threads) {
+    float4 v = reinterpret_cast<float4*>(big)[i];
+    uint32_t b[4], sm[4];
+    tf32_split(v.x, b[0], sm[0]);
+    tf32_split(v.y, b[1], sm[1]);
+    tf32_split(v.z, b[2], sm[2]);
+    tf32_split(v.w, b[3], sm[3]);
+    reinterpret_cast<uint4*>(big)[i] = make_uint4(b[0], b[1], b[2], b[3]);
+    reinterpret_cast<uint4*>(small)[i] = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+  }
+}
 
 // e^x as 2^(x log2 e) on the special-function unit: one multiply and one
 // MUFU.EX2 (relative error 2^-22) where expf takes some ten instructions; the
@@ -421,16 +330,220 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 // Thread t of the consumer warpgroup holds, of a 64 x 64 accumulator, rows
 // r = 16 (t / 32) + (t % 32) / 4 and r + 8: element i of its 32 sits at
 // row r + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.
+
+// S = Q K^T over D for bf16: steps of 16, box kk / 4, 32 bytes a step within it.
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__device__ __forceinline__ void scores_bf16(float (&sc)[32], uint32_t q_s, uint32_t k_s) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.0f;  // the first product overwrites them
+  fence_regs(sc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss(sc, smem_desc(q_s + off, 16), smem_desc(k_s + off, 16), kk > 0);
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(sc);
+}
+
+// S = Q K^T over D for f32, as three TF32 products Qb Kb + Qb Ks + Qs Kb
+// (steps of 8, box kk / 4, 32 bytes a step within it), 64 columns at a
+// time: the warpgroup splits K's columns 64c.. (two boxes) into the big
+// part in place and the small part in its own two boxes at ks_s, then
+// multiplies. The named barrier (2 + wg) keeps the split from overwriting
+// what another warp's products still read, and makes it whole first.
+template <int D>
+__device__ __forceinline__ void scores_tf32(float (&sc)[32], uint32_t q_s, uint32_t qs_s,
+                                            uint32_t k_s, uint32_t ks_s, float* k_ptr,
+                                            float* ks_ptr, int tid, int wg) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    named_sync(2 + wg, 128);
+    split_tile(k_ptr + c * 2 * kBoxBytes / 4, ks_ptr, 2 * kBoxBytes / 16, tid, 128);
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      const uint32_t qo = 2 * c * kBoxBytes + off;
+      const uint64_t qb = smem_desc(q_s + qo, 16), qs = smem_desc(qs_s + qo, 16);
+      const uint64_t kb = smem_desc(k_s + qo, 16), ks = smem_desc(ks_s + off, 16);
+      wgmma_tf32(sc, qb, kb, c > 0 || kk > 0);
+      wgmma_tf32(sc, qb, ks, 1);
+      wgmma_tf32(sc, qs, kb, 1);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+  }
+}
+
+// Scale, mask (not on a tile every row sees whole) and the online softmax
+// of one key tile for rows r0 (elements 4i, 4i+1) and r0 + 8 (4i+2, 4i+3):
+// sc becomes p, acc and l are rescaled by exp(m - m_new).
+template <int NA>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&acc)[NA], float& m0,
+                                             float& m1, float& l0, float& l1, int k0, int q0,
+                                             int qpos0, int qpos1, int cq, int kv_lim,
+                                             int causal, int q_offset, float scale) {
+  if (k0 + kBK <= kv_lim && (!causal || k0 + kBK - 1 <= q0 + q_offset)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= scale;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kpos = k0 + 8 * i + cq + j;
+        const bool in = kpos < kv_lim;
+        const bool v0 = in && (!causal || kpos <= qpos0 + q_offset);
+        const bool v1 = in && (!causal || kpos <= qpos1 + q_offset);
+        sc[4 * i + j] = v0 ? sc[4 * i + j] * scale : kNegInf;
+        sc[4 * i + 2 + j] = v1 ? sc[4 * i + 2 + j] * scale : kNegInf;
+      }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx0 = fmaxf(mx0, sc[4 * i + j]);
+      mx1 = fmaxf(mx1, sc[4 * i + 2 + j]);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float corr0 = exp_fast(m0 - mn0), corr1 = exp_fast(m1 - mn1);
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      sc[4 * i + j] = exp_fast(sc[4 * i + j] - mn0);
+      sc[4 * i + 2 + j] = exp_fast(sc[4 * i + 2 + j] - mn1);
+      sum0 += sc[4 * i + j];
+      sum1 += sc[4 * i + 2 + j];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+  }
+  l0 = l0 * corr0 + sum0;
+  l1 = l1 * corr1 + sum1;
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int i = 0; i < NA / 4; ++i) {
+    acc[4 * i] *= corr0;
+    acc[4 * i + 1] *= corr0;
+    acc[4 * i + 2] *= corr1;
+    acc[4 * i + 3] *= corr1;
+  }
+}
+
+// O += P V for bf16: P as A operands in kPParts bf16 parts, each the
+// rounding of what the parts before it left: keys 16kk..16kk+15 are
+// elements 8kk..8kk+7, in register j the pair (8kk + 2j, 8kk + 2j + 1),
+// lower column low. V's rows 16kk.. start 2048 bytes apart, box c holds
+// columns 64c..; at D = 128 one product spans both boxes.
+template <int D>
+__device__ __forceinline__ void pv_bf16(float (&acc)[32 * (D / 64)], const float (&sc)[32],
+                                        uint32_t v_s) {
+  uint32_t pa[kPParts][4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float x = sc[8 * kk + 2 * j], y = sc[8 * kk + 2 * j + 1];
+#pragma unroll
+      for (int u = 0; u < kPParts; ++u) {
+        const __nv_bfloat162 part = __floats2bfloat162_rn(x, y);
+        pa[u][kk][j] = bf16x2_bits(part);
+        if (u + 1 < kPParts) {
+          x -= __low2float(part);  // exact: what rounding dropped
+          y -= __high2float(part);
+        }
+      }
+    }
+  fence_regs(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dv = smem_desc(v_s + kk * 2048, kBoxBytes);
+#pragma unroll
+    for (int u = 0; u < kPParts; ++u) {
+      if constexpr (D == 128)  // both boxes in one m64n128k16
+        wgmma_rs_tn_n128(acc, pa[u][kk], dv);
+      else
+        wgmma_rs_tn(acc, pa[u][kk], dv);
+    }
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(acc);
+}
+
+// O += P V for f32, as three TF32 products Pb Vb + Pb Vs + Ps Vb with
+// mma.sync m16n8k8, each warp its 16 rows. TF32 wgmma would need V^T (keys
+// contiguous) in shared memory; mma.sync reads V's rows as TMA wrote them.
+// P stays in registers: within each 8 keys, logical column c of the A
+// fragment is key 2c and column c + 4 key 2c + 1, so the accumulator's own
+// elements (4kk, 4kk+2; 4kk+1, 4kk+3) are the fragment, and B takes V's
+// rows in the same order: b0 = V[8kk + 2c][n], b1 = V[8kk + 2c + 1][n].
+// Element (row, col) of the f32 tile lives in box col / 32 at 16-byte
+// chunk ((col % 32) / 4) ^ (row % 8) of its 128-byte row: for the 32 lanes
+// (row % 8 = 2c or 2c + 1, col = 8j + g) that is 32 different banks.
+template <int D>
+__device__ __forceinline__ void pv_tf32(float (&acc)[32 * (D / 64)], const float (&sc)[32],
+                                        const uint8_t* v_tile, int lane) {
+  const int g = lane / 4, c4 = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t ab[4], as[4];
+    tf32_split(sc[4 * kk], ab[0], as[0]);
+    tf32_split(sc[4 * kk + 2], ab[1], as[1]);
+    tf32_split(sc[4 * kk + 1], ab[2], as[2]);
+    tf32_split(sc[4 * kk + 3], ab[3], as[3]);
+    const int r0 = 8 * kk + 2 * c4;  // r0 % 8 = 2 c4, r0 + 1 one more
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + g, cc = col % 32;
+      const uint8_t* box = v_tile + (col / 32) * kBoxBytes + (cc % 4) * 4;
+      const float v0 = *reinterpret_cast<const float*>(box + r0 * 128 + (((cc / 4) ^ (2 * c4)) * 16));
+      const float v1 =
+          *reinterpret_cast<const float*>(box + (r0 + 1) * 128 + (((cc / 4) ^ (2 * c4 + 1)) * 16));
+      uint32_t b0, b1, s0, s1;
+      tf32_split(v0, b0, s0);
+      tf32_split(v1, b1, s1);
+      mma_tf32(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3], ab, b0, b1);
+      mma_tf32(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3], ab, s0, s1);
+      mma_tf32(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3], as, b0, b1);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
 fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-             const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int hq,
-             int group, int lq, int lk, int causal, int lk_valid, int q_offset, float scale) {
-  using SM = TcSmem<D>;
-  constexpr int kBoxes = D / 64;
+             const __grid_constant__ CUtensorMap v_map, T* __restrict__ o, int hq, int group,
+             int lq, int lk, int causal, int lk_valid, int q_offset, float scale) {
+  using SM = TcSmem<T, D>;
+  constexpr int kStages = SM::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // the same bytes, generic
   const uint32_t q_s = base + SM::kQ;
   const uint32_t bar_q = base + SM::kBars;
   const uint32_t bar_full = bar_q + 8;                 // + 8 s
@@ -458,15 +571,17 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     if (lane == 0) {
       const int hk = h / group;
       mbar_expect_tx(bar_q, SM::kTile);
-      for (int c = 0; c < kBoxes; ++c) tma_load_4d(q_s + c * kBoxBytes, &q_map, bar_q, 64 * c, q0, h, b);
+      for (int c = 0; c < SM::kBoxes; ++c)
+        tma_load_4d(q_s + c * kBoxBytes, &q_map, bar_q, SM::kBoxCols * c, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(bar_empty + 8 * s, ((t / kStages) - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, 2 * SM::kTile);
-        for (int c = 0; c < kBoxes; ++c) {
-          tma_load_4d(base + SM::kK + s * SM::kTile + c * kBoxBytes, &k_map, full, 64 * c, t * kBK, hk, b);
-          tma_load_4d(base + SM::kV + s * SM::kTile + c * kBoxBytes, &v_map, full, 64 * c, t * kBK, hk, b);
+        for (int c = 0; c < SM::kBoxes; ++c) {
+          const int col = SM::kBoxCols * c;
+          tma_load_4d(base + SM::kK + s * SM::kTile + c * kBoxBytes, &k_map, full, col, t * kBK, hk, b);
+          tma_load_4d(base + SM::kV + s * SM::kTile + c * kBoxBytes, &v_map, full, col, t * kBK, hk, b);
         }
       }
     }
@@ -479,152 +594,51 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
   const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
   const int cq = 2 * (lane % 4);  // column of element 0 within each group of 8
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
-  float acc[32 * kBoxes];  // columns 64c.. in elements 32c..
+  float acc[32 * (D / 64)];  // columns 64c.. in elements 32c..
 #pragma unroll
-  for (int i = 0; i < 32 * kBoxes; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < 32 * (D / 64); ++i) acc[i] = 0.0f;
 
   mbar_wait(bar_q, 0);
+  if constexpr (SM::kF32) {  // Q's TF32 parts, once for both warpgroups
+    split_tile(reinterpret_cast<float*>(gbase + SM::kQ), reinterpret_cast<float*>(gbase + SM::kQs),
+               SM::kTile / 16, threadIdx.x, kConsumerThreads);
+    fence_proxy_async();
+    named_sync(1, kConsumerThreads);
+  }
   for (int t = wg; t < n_tiles; t += kConsumers) {
     const int s = t % kStages;
     mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
     const uint32_t k_s = base + SM::kK + s * SM::kTile;
     const uint32_t v_s = base + SM::kV + s * SM::kTile;
-
-    // S = Q K^T over D in steps of 16: box kk / 4, 32 bytes a step within it
     float sc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;  // the first product overwrites them
-    fence_regs(sc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss(sc, smem_desc(q_s + off, 16), smem_desc(k_s + off, 16), kk > 0);
-    }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(sc);
-
-    // scale, mask (not on a tile every row sees whole), online softmax for
-    // rows r0 (elements 4i, 4i+1) and r0 + 8 (4i+2, 4i+3)
-    const int k0 = t * kBK;
-    if (k0 + kBK <= kv_lim && (!causal || k0 + kBK - 1 <= q0 + q_offset)) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] *= scale;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kpos = k0 + 8 * i + cq + j;
-          const bool in = kpos < kv_lim;
-          const bool v0 = in && (!causal || kpos <= qpos0 + q_offset);
-          const bool v1 = in && (!causal || kpos <= qpos1 + q_offset);
-          sc[4 * i + j] = v0 ? sc[4 * i + j] * scale : kNegInf;
-          sc[4 * i + 2 + j] = v1 ? sc[4 * i + 2 + j] * scale : kNegInf;
-        }
-    }
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        mx0 = fmaxf(mx0, sc[4 * i + j]);
-        mx1 = fmaxf(mx1, sc[4 * i + 2 + j]);
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float corr0 = exp_fast(m0 - mn0), corr1 = exp_fast(m1 - mn1);
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        sc[4 * i + j] = exp_fast(sc[4 * i + j] - mn0);
-        sc[4 * i + 2 + j] = exp_fast(sc[4 * i + 2 + j] - mn1);
-        sum0 += sc[4 * i + j];
-        sum1 += sc[4 * i + 2 + j];
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * corr0 + sum0;
-    l1 = l1 * corr1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int c = 0; c < kBoxes; ++c)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[32 * c + 4 * i] *= corr0;
-        acc[32 * c + 4 * i + 1] *= corr0;
-        acc[32 * c + 4 * i + 2] *= corr1;
-        acc[32 * c + 4 * i + 3] *= corr1;
-      }
-
-    // P as A operands in kPParts bf16 parts, each the rounding of what the
-    // parts before it left: keys 16kk..16kk+15 are elements 8kk..8kk+7, in
-    // register j the pair (8kk + 2j, 8kk + 2j + 1), lower column low
-    uint32_t pa[kPParts][4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = sc[8 * kk + 2 * j], y = sc[8 * kk + 2 * j + 1];
-#pragma unroll
-        for (int u = 0; u < kPParts; ++u) {
-          const __nv_bfloat162 part = __floats2bfloat162_rn(x, y);
-          pa[u][kk][j] = bf16x2_bits(part);
-          if (u + 1 < kPParts) {
-            x -= __low2float(part);  // exact: what rounding dropped
-            y -= __high2float(part);
-          }
-        }
-      }
-
-    // O += P V: V's rows 16kk.. start 2048 bytes apart, box c holds columns 64c..;
-    // at D = 128 one product spans both boxes
-    fence_regs(acc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = smem_desc(v_s + kk * 2048, kBoxBytes);
-#pragma unroll
-      for (int u = 0; u < kPParts; ++u) {
-        if constexpr (kBoxes == 2)  // both boxes in one m64n128k16
-          wgmma_rs_tn_n128(acc, pa[u][kk], dv);
-        else
-          wgmma_rs_tn(acc, pa[u][kk], dv);
-      }
-    }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(acc);
+    if constexpr (SM::kF32)
+      scores_tf32<D>(sc, q_s, base + SM::kQs, k_s, base + SM::kKs + wg * 2 * kBoxBytes,
+                     reinterpret_cast<float*>(gbase + SM::kK + s * SM::kTile),
+                     reinterpret_cast<float*>(gbase + SM::kKs + wg * 2 * kBoxBytes), tid, wg);
+    else
+      scores_bf16<D>(sc, q_s, k_s);
+    softmax_tile(sc, acc, m0, m1, l0, l1, t * kBK, q0, qpos0, qpos1, cq, kv_lim, causal, q_offset,
+                 scale);
+    if constexpr (SM::kF32)
+      pv_tf32<D>(acc, sc, gbase + SM::kV + s * SM::kTile, lane);
+    else
+      pv_bf16<D>(acc, sc, v_s);
     mbar_arrive(bar_empty + 8 * s);  // this stage may be refilled
   }
 
   // warpgroup 1 hands its m, l and acc to warpgroup 0 through the drained
   // stages (named barrier 1: the 256 consumer threads); 0 merges in order
-  float* xchg = reinterpret_cast<float*>(smem_raw + (base - raw) + SM::kXchg);
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+  float* xchg = reinterpret_cast<float*>(gbase + SM::kXchg);
+  named_sync(1, kConsumerThreads);
   if (wg == 1) {
     xchg[0 * 128 + tid] = m0;
     xchg[1 * 128 + tid] = m1;
     xchg[2 * 128 + tid] = l0;
     xchg[3 * 128 + tid] = l1;
 #pragma unroll
-    for (int c = 0; c < kBoxes; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) xchg[(4 + 32 * c + i) * 128 + tid] = acc[32 * c + i];
+    for (int i = 0; i < 32 * (D / 64); ++i) xchg[(4 + i) * 128 + tid] = acc[i];
   }
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+  named_sync(1, kConsumerThreads);
   if (wg == 1) return;
   {
     const float mo0 = xchg[tid], mo1 = xchg[128 + tid];
@@ -634,27 +648,33 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     l0 = l0 * a0 + xchg[2 * 128 + tid] * b0;
     l1 = l1 * a1 + xchg[3 * 128 + tid] * b1;
 #pragma unroll
-    for (int c = 0; c < kBoxes; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const float other = xchg[(4 + 32 * c + i) * 128 + tid];
-        acc[32 * c + i] = (i / 2) % 2 ? acc[32 * c + i] * a1 + other * b1 : acc[32 * c + i] * a0 + other * b0;
-      }
+    for (int i = 0; i < 32 * (D / 64); ++i) {
+      const float other = xchg[(4 + i) * 128 + tid];
+      acc[i] = (i / 2) % 2 ? acc[i] * a1 + other * b1 : acc[i] * a0 + other * b0;
+    }
   }
 
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   const long long row_base = (static_cast<long long>(b) * hq + h) * lq;
 #pragma unroll
-  for (int c = 0; c < kBoxes; ++c)
+  for (int c = 0; c < D / 64; ++c)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int col = 64 * c + 8 * i + cq;
-      if (qpos0 < lq)
-        *reinterpret_cast<__nv_bfloat162*>(o + (row_base + qpos0) * D + col) =
-            __floats2bfloat162_rn(acc[32 * c + 4 * i] / den0, acc[32 * c + 4 * i + 1] / den0);
-      if (qpos1 < lq)
-        *reinterpret_cast<__nv_bfloat162*>(o + (row_base + qpos1) * D + col) =
-            __floats2bfloat162_rn(acc[32 * c + 4 * i + 2] / den1, acc[32 * c + 4 * i + 3] / den1);
+      const float* a = acc + 32 * c + 4 * i;
+      if constexpr (SM::kF32) {
+        if (qpos0 < lq)
+          *reinterpret_cast<float2*>(o + (row_base + qpos0) * D + col) = make_float2(a[0] / den0, a[1] / den0);
+        if (qpos1 < lq)
+          *reinterpret_cast<float2*>(o + (row_base + qpos1) * D + col) = make_float2(a[2] / den1, a[3] / den1);
+      } else {
+        if (qpos0 < lq)
+          *reinterpret_cast<__nv_bfloat162*>(o + (row_base + qpos0) * D + col) =
+              __floats2bfloat162_rn(a[0] / den0, a[1] / den0);
+        if (qpos1 < lq)
+          *reinterpret_cast<__nv_bfloat162*>(o + (row_base + qpos1) * D + col) =
+              __floats2bfloat162_rn(a[2] / den1, a[3] / den1);
+      }
     }
 }
 
@@ -681,47 +701,50 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a (B, H, L, D) bf16 tensor with element strides
-// {batch, head, row} and unit stride along D, in 64 x 64 boxes with the
-// 128-byte swizzle; reads past its extent fill zeros. A dim of extent 1
-// takes the packed stride (TMA wants every stride a multiple of 16
-// bytes, and torch may give such a dim any stride).
+// A tensor map over a (B, H, L, D) tensor of `elem`-byte elements (bf16 or
+// f32) with element strides {batch, head, row} and unit stride along D, in
+// boxes of 64 rows by one 128-byte swizzle row (64 bf16 or 32 f32); reads
+// past its extent fill zeros. A dim of extent 1 takes the packed stride
+// (TMA wants every stride a multiple of 16 bytes, and torch may give such
+// a dim any stride).
 bool make_map(CUtensorMap* map, const void* ptr, const long long* strides, int b, int h, int l,
-              int d) {
+              int d, int elem) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(l),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
   cuuint64_t bytes[3];
-  cuuint64_t packed = static_cast<cuuint64_t>(d) * 2;
+  cuuint64_t packed = static_cast<cuuint64_t>(d) * elem;
   for (int i = 0; i < 3; ++i) {
     const long long s = strides[2 - i];  // row, head, batch
-    bytes[i] = dims[i + 1] == 1 ? packed : static_cast<cuuint64_t>(s) * 2;
+    bytes[i] = dims[i + 1] == 1 ? packed : static_cast<cuuint64_t>(s) * elem;
     packed = bytes[i] * dims[i + 1];
   }
-  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem), 64, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUtensorMapDataType type = elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <typename T, int D>
 int launch_tc(const void* q, const long long* qs, const void* k, const long long* ks,
               const void* v, const long long* vs, void* o, int b, int hq, int hkv, int lq,
               int lk, int causal, int lk_valid, int q_offset, float scale, cudaStream_t st) {
+  constexpr int kElem = sizeof(T);
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, qs, b, hq, lq, D) || !make_map(&km, k, ks, b, hkv, lk, D) ||
-      !make_map(&vm, v, vs, b, hkv, lk, D))
+  if (!make_map(&qm, q, qs, b, hq, lq, D, kElem) || !make_map(&km, k, ks, b, hkv, lk, D, kElem) ||
+      !make_map(&vm, v, vs, b, hkv, lk, D, kElem))
     return kTensorMapError;
-  auto kern = fa_tc_kernel<D>;
-  const size_t smem = TcSmem<D>::kAlloc;
+  auto kern = fa_tc_kernel<T, D>;
+  const size_t smem = TcSmem<T, D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((lq + kBQ - 1) / kBQ, hq, b);
-  kern<<<grid, kTcThreads, smem, st>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o), hq, hq / hkv,
-                                       lq, lk, causal, lk_valid, q_offset, scale);
+  kern<<<grid, kTcThreads, smem, st>>>(qm, km, vm, static_cast<T*>(o), hq, hq / hkv, lq, lk,
+                                       causal, lk_valid, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -746,10 +769,10 @@ int fa_forward(const void* q, const long long* q_strides, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_ARGS q, q_strides, k, k_strides, v, v_strides, o, b, hq, hkv, lq, lk, causal, \
                 lk_valid, q_offset, scale, st
-  if (kind == 0 && head_dim == 64) return launch_simt<64>(FA_ARGS);
-  if (kind == 0 && head_dim == 128) return launch_simt<128>(FA_ARGS);
-  if (kind == 1 && head_dim == 64) return launch_tc<64>(FA_ARGS);
-  if (kind == 1 && head_dim == 128) return launch_tc<128>(FA_ARGS);
+  if (kind == 0 && head_dim == 64) return launch_tc<float, 64>(FA_ARGS);
+  if (kind == 0 && head_dim == 128) return launch_tc<float, 128>(FA_ARGS);
+  if (kind == 1 && head_dim == 64) return launch_tc<__nv_bfloat16, 64>(FA_ARGS);
+  if (kind == 1 && head_dim == 128) return launch_tc<__nv_bfloat16, 128>(FA_ARGS);
 #undef FA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,15 +10,17 @@ The op takes what the kernel is built for, on every device: q, k and v of
 one dtype, f32 or bf16, and head_dim 64 or 128; anything else raises.
 CPU tensors take the plain version in ``ref.py``. CUDA tensors launch the
 hand-written kernel of ``csrc/flash_attention.cu`` (built at first use):
-for bf16 its products run on the tensor cores (``wgmma``) over tiles that
-TMA loads, for f32 on the CUDA cores. Both read q, k and v through their
-strides, so the model's transposed projection views go in without a copy;
+its products run on the tensor cores over tiles that TMA loads, in bf16
+or, for f32, as three TF32 products of split operands each. It reads q,
+k and v through their strides, so the model's transposed projection views
+go in without a copy;
 they need unit stride along head_dim and 16-byte aligned rows, and raise
 otherwise. Unlike the TPU op nothing is padded: ragged tiles are
 zero-filled and masked. ``LAUNCHES`` counts kernel launches, and only
-kernel launches. ``ref.flash_attention_tiled_ref`` is the bf16 kernel's
-algorithm (tiles of 64 keys, p in three bf16 parts) in plain PyTorch, for
-tests.
+kernel launches. ``ref.flash_attention_tiled_ref`` and
+``ref.flash_attention_tf32_ref`` are the bf16 and f32 kernels' algorithms
+(tiles of 64 keys; p in three bf16 parts, or three TF32 products) in
+plain PyTorch, for tests.
 """
 from __future__ import annotations
 

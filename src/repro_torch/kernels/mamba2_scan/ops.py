@@ -14,8 +14,11 @@ take the plain version in ``ref.py``. CUDA tensors launch the
 hand-written kernel of ``csrc/ssd.cu`` (built at first use), which reads
 x, dt, B and C through their strides (unit stride along P and N) and
 masks its ragged last chunk, so unlike the TPU op nothing is transposed
-and T is not padded; a decode step (T = 1) does one step's work.
-``LAUNCHES`` counts kernel launches, and only kernel launches.
+and T is not padded. A prompt is split over the blocks of a cluster, as
+many as ``ref.split_count`` gives from the shapes; a decode step (T = 1)
+streams the state through registers. ``LAUNCHES`` counts kernel
+launches, and only kernel launches. ``ref.ssd_split_ref`` is the
+prefill kernel's algorithm in plain PyTorch, for tests.
 """
 from __future__ import annotations
 
@@ -38,8 +41,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ssd")
     if not getattr(lib, "_declared", False):
         lib.ssd_forward.argtypes = [_P, _S, _P, _S, _P, _S, _P, _S, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _P]
+                                    _I, _I, _I, _I, _I, _I, _P]
         lib.ssd_forward.restype = _I
+        lib.ssd_max_active_clusters.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.ssd_max_active_clusters.restype = _I
         lib._declared = True
     return lib
 
@@ -71,8 +76,19 @@ def ssd_chunked(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, *, inpl
         need(a.stride(-1) == 1, f"{name} needs unit stride along its last dim")
     need(A.is_contiguous() and D.is_contiguous() and (state is None or state.is_contiguous()),
          "A, D and state must be contiguous")
+    need(state is None or state.data_ptr() % 16 == 0, "state must start on a 16-byte boundary")
+    return _launch(x, dt, A, B, C, D, state, state if inplace else None, ref.split_count(t, b, h))
+
+
+def _launch(x, dt, A, B, C, D, state, s_out, n_split: int):
+    """The kernel on checked CUDA inputs, each sequence split over
+    ``n_split`` blocks of a cluster, the final state into ``s_out`` (a new
+    tensor when None); the kernel raises for n_split outside 1..8."""
+    b, t, h, p = x.shape
+    n = B.shape[2]
     y = torch.empty((b, t, h, p), dtype=torch.float32, device=x.device)
-    s_out = state if inplace else torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if s_out is None:
+        s_out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b * h == 0:
         return y, s_out
     lib = _lib()
@@ -81,8 +97,17 @@ def ssd_chunked(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, *, inpl
             x.data_ptr(), build.strides(x, 3), dt.data_ptr(), build.strides(dt, 3),
             B.data_ptr(), build.strides(B, 2), C.data_ptr(), build.strides(C, 2), A.data_ptr(),
             D.data_ptr(), None if state is None else state.data_ptr(), y.data_ptr(),
-            s_out.data_ptr(), b, t, h, p, n, torch.cuda.current_stream(x.device).cuda_stream,
+            s_out.data_ptr(), b, t, h, p, n, n_split, torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(lib, err, "ssd")
     LAUNCHES["ssd"] += 1
     return y, s_out
+
+
+def max_active_clusters(p: int, n: int, n_split: int) -> int:
+    """How many clusters of ``n_split`` prefill blocks at P = p, N = n the
+    current card keeps resident at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _lib()
+    out = _I(0)
+    build.check(lib, lib.ssd_max_active_clusters(p, n, n_split, ctypes.byref(out)), "ssd")
+    return out.value

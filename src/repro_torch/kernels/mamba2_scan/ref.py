@@ -27,3 +27,83 @@ def ssd_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None):
         s = s * da[..., None, None] + (dt[:, i, :, None] * x[:, i])[..., None] * B[:, i, None, None, :]
         ys.append(torch.einsum("bhpn,bn->bhp", s, C[:, i]))
     return torch.stack(ys, dim=1) + x * D[None, None, :, None], s
+
+
+CHUNK = 32  # steps per chunk in the kernel (kC in csrc/ssd.cu)
+MAX_SPLIT = 8  # blocks of one cluster in the kernel, the portable most
+TARGET_BLOCKS = 512  # split until the grid has this many (about 4 an SM)
+
+
+def split_count(t: int, b: int, h: int) -> int:
+    """How many blocks of a cluster the kernel splits each (b, h) sequence of
+    ``t`` steps over: from shapes alone, so the wrapper computes it and
+    passes it to the kernel. It doubles up to MAX_SPLIT while the grid (b *
+    h * n_split blocks) is under TARGET_BLOCKS and every block keeps at
+    least one whole chunk. A decode step (t = 1) gets 1; zamba2-1.2b's
+    prompt of 512 steps over 64 heads gets 8."""
+    chunks = -(-t // CHUNK)
+    n = 1
+    while n < MAX_SPLIT and b * h * n < TARGET_BLOCKS and 2 * n <= chunks:
+        n *= 2
+    return n
+
+
+def split_chunks(t: int, n_split: int, j: int):
+    """The chunks block ``j`` of ``n_split`` takes: [j C / n, (j + 1) C / n)
+    of the C = ceil(t / CHUNK) chunks, so each block takes floor(C / n) or
+    one more, consecutive, and a block takes none when n > C."""
+    chunks = -(-t // CHUNK)
+    return j * chunks // n_split, (j + 1) * chunks // n_split
+
+
+def ssd_split_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, n_split: int = 1):
+    """The prefill kernel's algorithm in plain PyTorch, same arguments and
+    result as ``ssd_ref``, with each sequence split over ``n_split`` blocks.
+
+    Block j takes the chunks ``split_chunks`` gives it. From a zero state it
+    forms, chunk by chunk in the closed form (cw the inclusive cumulative
+    sum of dt A within the chunk, every exponent <= 0), its local outputs
+    y_loc = ((C B^T) o G) x + exp(cw) o (C L^T) + D x and its local state
+    L <- exp(cw_end) L + (x o exp(cw_end - cw) dt)^T B; its total decay is
+    delta_j = exp(cwb_end), cwb the cumulative sum over all its steps. The
+    state entering block j folds in block order, S = S0 then S = delta_i S
+    + L_i for i < j; block j's outputs are y_loc + exp(cwb) o (C S^T). The
+    final state is delta_last S + L_last of the last block. The card tests
+    hold the kernel to it as a second oracle; nothing on the main path
+    calls it.
+    """
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    x, dt, A, B, C, D = (a.float() for a in (x, dt, A, B, C, D))
+    s_in = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) if state is None \
+        else state.float()
+    y = torch.empty((b, t, h, p), dtype=torch.float32, device=x.device)
+    carried = []  # (cwb per step, t0, t1) of each block, for the carry term
+    for j in range(n_split):
+        c0, c1 = split_chunks(t, n_split, j)
+        t0, t1 = min(c0 * CHUNK, t), min(c1 * CHUNK, t)
+        loc = torch.zeros_like(s_in)
+        run = torch.zeros((b, h), dtype=torch.float32, device=x.device)
+        cwb = []
+        for s0 in range(t0, t1, CHUNK):
+            s1 = min(s0 + CHUNK, t1)
+            xc, dc, bc, cc = x[:, s0:s1], dt[:, s0:s1], B[:, s0:s1], C[:, s0:s1]
+            cw = torch.cumsum(dc * A, dim=1)  # (b, n, H)
+            gram = torch.einsum("btn,bsn->bts", cc, bc)
+            seg = torch.exp(cw[:, :, None, :] - cw[:, None, :, :]) * dc[:, None, :, :]  # (b, t, s, H)
+            tri = torch.tril(torch.ones(s1 - s0, s1 - s0, dtype=torch.bool, device=x.device))
+            m = torch.where(tri[None, :, :, None], gram[..., None] * seg, 0.0)
+            yc = torch.einsum("btsh,bshp->bthp", m, xc)
+            yc = yc + torch.exp(cw)[..., None] * torch.einsum("btn,bhpn->bthp", cc, loc)
+            y[:, s0:s1] = yc + D[None, None, :, None] * xc
+            end = cw[:, -1]  # (b, H)
+            w = torch.exp(end[:, None] - cw) * dc  # (b, n, H)
+            loc = torch.exp(end)[..., None, None] * loc + torch.einsum("bthp,btn->bhpn", xc * w[..., None], bc)
+            cwb.append(run[:, None] + cw)
+            run = run + end
+        carried.append((torch.cat(cwb, 1) if cwb else None, t0, t1, s_in))
+        s_in = torch.exp(run)[..., None, None] * s_in + loc
+    for cwb, t0, t1, s_blk in carried:
+        if cwb is not None:
+            y[:, t0:t1] += torch.exp(cwb)[..., None] * torch.einsum("btn,bhpn->bthp", C[:, t0:t1], s_blk)
+    return y, s_in

@@ -12,9 +12,10 @@ duplicate and out-of-range ids, all-near and all-far maps, and bf16 near.
 
 The attention kernels compute in f32 like their plain versions and differ
 from them only in summation order (bf16 flash takes p into its
-tensor-core product as three bf16 parts, all 24 bits of it): f32 outputs
-agree to 2e-5, bf16 outputs to one bf16 step (2**-7 of the value), the
-final rounding. They cover head_dim 64 and 128, GQA groups of 1, 3 and 8,
+tensor-core product as three bf16 parts, all 24 bits of it; f32 flash
+takes each product as three TF32 products of split operands, some 21-22
+bits): f32 outputs agree to 2e-5, bf16 outputs to one bf16 step (2**-7 of
+the value), the final rounding. They cover head_dim 64 and 128, GQA groups of 1, 3 and 8,
 ragged lengths, lengths past the cache's end, and causal and non-causal
 prefill; the redesigned kernels also against the plain versions of their
 own algorithms (tiles of 64 keys; spans merged in split order), at one
@@ -27,7 +28,9 @@ decay rounds an exponent by up to one f32 step of its size, so they are
 held to 1e-4 of each value plus 1e-4 of the output's largest magnitude.
 They cover hd, P and N of 16 and 64, ragged lengths and one token, zero
 and given states, strong decays, in-place state updates and strided
-inputs; and the reduced recurrent engines on the card against the CPU.
+inputs; the SSD prefill at every cluster split it takes against the plain
+version of its split algorithm; and the reduced recurrent engines on the
+card against the CPU.
 """
 import numpy as np
 import pytest
@@ -263,6 +266,55 @@ def test_flash_tensor_cores_offset_and_lk_valid(attn, d, causal):
     _flash_case(fa, q, k, v, causal=causal, lk_valid=250, q_offset=150)
 
 
+def _flash_tf32_case(fa, q, k, v, **args):
+    """The f32 kernel (three TF32 products a product): two launches
+    bit-equal, one count each, within 2e-5 of the plain version and of its
+    own algorithm (``flash_attention_tf32_ref``)."""
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, **args)
+    again = fa.flash_attention(q, k, v, **args)
+    plain = fa.flash_attention_ref(q, k, v, **args)
+    tf32 = fa.flash_attention_tf32_ref(q, k, v, **args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 2
+    assert torch.equal(out, again)  # deterministic
+    _close(out, plain)
+    _close(out, tf32)
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tf32_ragged_long_prompt(attn, d, group):
+    """f32 at lq = lk = 1000: ragged last tiles (TMA's zero fill), 16 key
+    tiles through the ring (four stages at D = 64, two at 128), GQA."""
+    fa, _ = attn
+    q = _randn((1, 2 * group, 1000, d), 40, torch.float32)
+    k, v = _randn((1, 2, 1000, d), 41, torch.float32), _randn((1, 2, 1000, d), 42, torch.float32)
+    _flash_tf32_case(fa, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tf32_offset_lk_valid_and_views(attn, d, causal):
+    """f32 with q_offset > 0, keys past lk_valid < lk masked, v a
+    transposed projection view, one tile and a ragged one."""
+    fa, _ = attn
+    q = _randn((2, 6, 100, d), 43, torch.float32)
+    k = _randn((2, 3, 300, d), 44, torch.float32)
+    v = _randn((2, 300, 3 * d), 45, torch.float32).reshape(2, 300, 3, d).transpose(1, 2)
+    _flash_tf32_case(fa, q, k, v, causal=causal, lk_valid=250, q_offset=150)
+    q1, k1, v1 = (_randn((1, 2, 64, d), s, torch.float32) for s in (46, 47, 48))
+    _flash_tf32_case(fa, q1, k1, v1, causal=False)
+
+
+def test_flash_tf32_at_zamba2_width(attn):
+    """zamba2-1.2b's shared block: one prompt of 512, 32/32 heads of 64."""
+    fa, _ = attn
+    q, k = _randn((1, 32, 512, 64), 49, torch.float32), _randn((1, 32, 512, 64), 50, torch.float32)
+    v = _randn((1, 512, 32 * 64), 51, torch.float32).reshape(1, 512, 32, 64).transpose(1, 2)
+    _flash_tf32_case(fa, q, k, v, causal=True, lk_valid=512, q_offset=0)
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16),
                                               (torch.float32, torch.bfloat16),
                                               (torch.bfloat16, torch.float32)])
@@ -423,6 +475,59 @@ def test_scans_read_strided_views(scans):
     out = ssd.ssd_chunked(x, dt, a, bm, cm, d)
     ref = ssd.ssd_chunked(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(), d)
     assert all(torch.equal(a_, b_) for a_, b_ in zip(out, ref))
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 5, 8])
+def test_ssd_kernel_takes_the_split_it_is_given(scans, n_split, state):
+    """The prefill kernel splits each sequence over the cluster count its
+    caller passes (the wrapper's is ``split_count``): against the split
+    plain version at that count and the sequential one, T = 300 (ten
+    chunks, the last ragged), strong decays, bit-equal reruns; a count
+    outside 1..8 is refused."""
+    _, ssd = scans
+    from repro_torch.kernels.mamba2_scan import ops
+
+    args = _ssd_args(60 + n_split, 2, 300, 3, 64, 64, True, state)
+    before = ssd.LAUNCHES["ssd"]
+    out = ops._launch(*args, None, n_split)
+    again = ops._launch(*args, None, n_split)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd"] - before == 2
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    _scan_close(out, ssd.ssd_split_ref(*args, n_split=n_split))
+    _scan_close(out, ssd.ssd_ref(*args))
+    for bad in (0, 9):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            ops._launch(*args, None, bad)
+    assert ssd.LAUNCHES["ssd"] - before == 2
+
+
+@pytest.mark.parametrize("t", [1, 512])
+def test_ssd_at_zamba2_width_in_place(scans, t):
+    """zamba2-1.2b's widths (64 heads, P = N = 64): the prompt of 512 over a
+    cluster of 8, and the decode path (T = 1, 8 slots), in place with
+    s_out the given state itself, against both plain versions."""
+    _, ssd = scans
+    b = 1 if t > 1 else 8
+    assert ssd.split_count(t, b, 64) == (8 if t > 1 else 1)
+    args = _ssd_args(70 + t, b, t, 64, 64, 64, True, True)
+    y, s = ssd.ssd_chunked(*args)
+    cache = args[6].clone()
+    yi, si = ssd.ssd_chunked(*args[:6], cache, inplace=True)
+    torch.cuda.synchronize()
+    assert si is cache and torch.equal(cache, s) and torch.equal(yi, y)
+    _scan_close((y, s), ssd.ssd_ref(*args))
+    _scan_close((y, s), ssd.ssd_split_ref(*args, n_split=ssd.split_count(t, b, 64)))
+
+
+def test_ssd_prefill_clusters_fit_the_card(scans):
+    """64 clusters of 8 prefill blocks (zamba2's prompt) run in at most three
+    waves (two blocks an SM: 30 clusters resident on an H100)."""
+    _, ssd = scans
+    from repro_torch.kernels.mamba2_scan import ops
+
+    assert 3 * ops.max_active_clusters(64, 64, 8) >= 64
 
 
 def test_scans_refuse_what_they_are_not_built_for(scans):
