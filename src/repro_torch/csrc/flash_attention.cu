@@ -71,14 +71,19 @@
 //     TMA's swizzled tiles, so the swizzle holds, then made visible to
 //     wgmma (fence.proxy.async). S = Q K^T is three m64n64k8 TF32 wgmma a
 //     step of 8, both operands K-major as TF32 requires, as in bf16;
-//   - O += P V on mma.sync m16n8k8 in TF32, each warp its 16 rows. TF32
-//     wgmma takes B K-major only (the transpose bit is for 16-bit types),
-//     so V would have to be transposed into shared memory, and P's
-//     accumulator fragment is not a TF32 A fragment (its column pairs
-//     differ). mma.sync reads V's rows where TMA put them, and P stays in
-//     registers: ordering each 8 keys 0, 2, 4, 6, 1, 3, 5, 7 in both P and
-//     V (a sum's order over k is free) makes the accumulator's elements
-//     the A fragment as they are. P and V split in registers;
+//   - O += P V: P's accumulator fragment is not a TF32 A fragment (its
+//     column pairs differ), but ordering each 8 keys 0, 2, 4, 6, 1, 3, 5, 7
+//     in both P and V (a sum's order over k is free) makes the
+//     accumulator's elements the A fragment as they are, so P stays in
+//     registers. TF32 wgmma takes B K-major only (the transpose bit is for
+//     16-bit types), so at D = 64 the warpgroup writes V's TF32 parts
+//     transposed into shared memory, keys in that order, once a tile, and
+//     takes PV on m64n64k8 wgmma. At D = 128 the two parts of V^T (64 KB a
+//     warpgroup) do not fit beside the ring, and PV runs on mma.sync
+//     m16n8k8, each warp its 16 rows, reading V's rows where TMA put them
+//     and splitting them in registers: each warp reads and splits the whole
+//     tile, four times the work of the transpose (PERF.md times both at
+//     zamba2's shape with repro_torch.kernels.compare);
 //   - ex2.approx stays, as in bf16: its 2^-22 is below the split's.
 //
 // The entry point launches on the caller's stream, allocates nothing, does
@@ -107,15 +112,27 @@ constexpr int kPParts = 3;                            // bf16 parts of p in PV
 constexpr int kBoxBytes = 64 * 128;                   // one box: 64 rows of one 128-byte swizzle row, 8 KB
 constexpr int kSmemMax = 232448;                      // what a block may use
 
+// f32 O += P V runs on TF32 wgmma over V^T where V^T fits beside the ring
+// (D = 64), on mma.sync where it does not (D = 128). Building with
+// -DFA_F32_PV_MMA_SYNC takes mma.sync at D = 64 as well, which
+// repro_torch.kernels.compare times against the default.
+#ifdef FA_F32_PV_MMA_SYNC
+constexpr bool kPvWgmmaAt64 = false;
+#else
+constexpr bool kPvWgmmaAt64 = true;
+#endif
+
 // The shared memory of one block, in bytes from a 1 KB boundary. A box is
 // 64 rows of 128 bytes (64 bf16 or 32 f32 columns), a tile 64 rows of D.
 // f32 also keeps Q's small TF32 part beside Q (split in place) and, for
 // each consumer warpgroup, the small part of 64 columns of its K tile (the
-// big part is written over the tile in place); its ring is 4 tiles deep at
-// D = 64 and 2 at D = 128, what 227 KB hold.
+// big part is written over the tile in place), then of its V^T when PV
+// runs on wgmma, whose big part has two boxes of its own; the ring is 4
+// tiles deep at D = 64 and 2 at D = 128, what 227 KB hold.
 template <typename T, int D>
 struct TcSmem {
   static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr bool kPvWgmma = kF32 && D == 64 && kPvWgmmaAt64;
   static constexpr int kBoxCols = 128 / sizeof(T);
   static constexpr int kBoxes = D / kBoxCols;
   static constexpr int kTile = kBoxBytes * kBoxes;
@@ -125,7 +142,8 @@ struct TcSmem {
   static constexpr int kK = kQs + (kF32 ? kTile : 0);
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kKs = kV + kStages * kTile;   // + wg * 2 boxes
-  static constexpr int kBars = kKs + (kF32 ? kConsumers * 2 * kBoxBytes : 0);  // q, full[], empty[]
+  static constexpr int kVt = kKs + (kF32 ? kConsumers * 2 * kBoxBytes : 0);  // + wg * 2 boxes
+  static constexpr int kBars = kVt + (kPvWgmma ? kConsumers * 2 * kBoxBytes : 0);  // q, full[], empty[]
   // after the walk the stages hold warpgroup 1's m, l and acc for warpgroup 0
   static constexpr int kXchg = kK;
   static_assert(sizeof(float) * 128 * (4 + 32 * (D / 64)) <= 2 * kStages * kTile, "exchange");
@@ -256,6 +274,17 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t
       ", %32, %33, p, 1, 1;\n}\n"
       : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 8, TF32 in registers) B (8 x 64), B TF32
+// in shared memory, K-major. A's fragment is mma_tf32's, warp w rows 16w..
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D32_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 #undef WG_D64_REGS
@@ -495,8 +524,8 @@ __device__ __forceinline__ void pv_bf16(float (&acc)[32 * (D / 64)], const float
 }
 
 // O += P V for f32, as three TF32 products Pb Vb + Pb Vs + Ps Vb with
-// mma.sync m16n8k8, each warp its 16 rows. TF32 wgmma would need V^T (keys
-// contiguous) in shared memory; mma.sync reads V's rows as TMA wrote them.
+// mma.sync m16n8k8, each warp its 16 rows (D = 128, where V^T does not fit
+// for wgmma); mma.sync reads V's rows as TMA wrote them.
 // P stays in registers: within each 8 keys, logical column c of the A
 // fragment is key 2c and column c + 4 key 2c + 1, so the accumulator's own
 // elements (4kk, 4kk+2; 4kk+1, 4kk+3) are the fragment, and B takes V's
@@ -531,6 +560,65 @@ __device__ __forceinline__ void pv_tf32(float (&acc)[32 * (D / 64)], const float
       mma_tf32(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3], as, b0, b1);
     }
   }
+}
+
+// O += P V for f32 at D = 64 on TF32 wgmma, the three products as
+// pv_tf32 takes them. TF32 wgmma reads B K-major only, so the warpgroup
+// first writes its V tile's TF32 parts transposed, V^T (64 columns of V by
+// 64 keys, two boxes of 32 keys, swizzled as TMA writes K) into vt
+// (big) and vts (small). Each 8 keys go in P's fragment order 0, 2, 4, 6,
+// 1, 3, 5, 7 (see pv_tf32), so P's accumulator elements are the A
+// fragment as they are. In step k thread t reads key t % 64, columns
+// 4 (t / 64 + 2k)..: the eight lanes of a quarter warp read eight rows,
+// each another 16-byte chunk of its 128 bytes, and a warp's 32 keys fill
+// one 128-byte row of V^T, so neither side conflicts on the banks. The
+// caller keeps vts free (the named barriers around this) and makes the
+// writes visible to wgmma.
+__device__ __forceinline__ void transpose_v_tf32(const uint8_t* v_tile, uint8_t* vt, uint8_t* vts,
+                                                 int tid) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int key = tid % 64, c4 = tid / 64 + 2 * k;  // columns 4 c4..
+    const float4 v = *reinterpret_cast<const float4*>(
+        v_tile + (c4 / 8) * kBoxBytes + key * 128 + (((c4 % 8) ^ (key % 8)) * 16));
+    const int r = key % 8, pos = key - r + (r % 2 ? 4 + r / 2 : r / 2);
+    const int box = pos / 32, pp = pos % 32;
+    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * c4 + j;
+      const int off = box * kBoxBytes + n * 128 + (((pp / 4) ^ (n % 8)) * 16) + (pp % 4) * 4;
+      uint32_t big, small;
+      tf32_split(e[j], big, small);
+      *reinterpret_cast<uint32_t*>(vt + off) = big;
+      *reinterpret_cast<uint32_t*>(vts + off) = small;
+    }
+  }
+}
+
+__device__ __forceinline__ void pv_tf32_wgmma(float (&acc)[32], const float (&sc)[32], uint32_t vt_s,
+                                              uint32_t vts_s) {
+  uint32_t ab[8][4], as[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    tf32_split(sc[4 * kk], ab[kk][0], as[kk][0]);
+    tf32_split(sc[4 * kk + 2], ab[kk][1], as[kk][1]);
+    tf32_split(sc[4 * kk + 1], ab[kk][2], as[kk][2]);
+    tf32_split(sc[4 * kk + 3], ab[kk][3], as[kk][3]);
+  }
+  fence_regs(acc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    const uint64_t vb = smem_desc(vt_s + off, 16), vs = smem_desc(vts_s + off, 16);
+    wgmma_tf32_rs(acc, ab[kk], vb);
+    wgmma_tf32_rs(acc, ab[kk], vs);
+    wgmma_tf32_rs(acc, as[kk], vb);
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(acc);
 }
 
 template <typename T, int D>
@@ -619,7 +707,14 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
       scores_bf16<D>(sc, q_s, k_s);
     softmax_tile(sc, acc, m0, m1, l0, l1, t * kBK, q0, qpos0, qpos1, cq, kv_lim, causal, q_offset,
                  scale);
-    if constexpr (SM::kF32)
+    if constexpr (SM::kPvWgmma) {
+      const int ks = SM::kKs + wg * 2 * kBoxBytes, vt = SM::kVt + wg * 2 * kBoxBytes;
+      named_sync(2 + wg, 128);  // every warp's score products have read ks
+      transpose_v_tf32(gbase + SM::kV + s * SM::kTile, gbase + vt, gbase + ks, tid);
+      fence_proxy_async();
+      named_sync(2 + wg, 128);
+      pv_tf32_wgmma(acc, sc, base + vt, base + ks);
+    } else if constexpr (SM::kF32)
       pv_tf32<D>(acc, sc, gbase + SM::kV + s * SM::kTile, lane);
     else
       pv_bf16<D>(acc, sc, v_s);

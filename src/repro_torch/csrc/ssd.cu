@@ -25,10 +25,13 @@
 //
 // Prefill (ssd_split_kernel), the design:
 //   * each sequence is split across the blocks of a thread-block cluster:
-//     grid (n_split, B * H), the n_split blocks of one (b, h) one cluster.
+//     a grid of n_split * B * H blocks along x (as many as a grid takes),
+//     the n_split consecutive blocks of one (b, h) one cluster.
 //     The caller passes n_split (1 to the portable 8), which the wrapper
-//     computes from shapes alone (ref.split_count): at T = 512 and 64
-//     heads, 8, so 512 blocks where one block a (b, h) gave 64 on 132 SMs.
+//     computes from shapes alone (ref.split_count): the most whose
+//     clusters are all resident at once, as a cluster left for a second
+//     wave waits a whole block's time; at T = 512 and 64 heads, 2, so 128
+//     blocks where one block a (b, h) gave 64 on 132 SMs.
 //     Block j takes consecutive whole chunks, [j C / n, (j+1) C / n) of the
 //     C = ceil(T / kC), so the work of one sequence runs side by side;
 //   * pass 1, from a zero state: each block walks its chunks, forming its
@@ -160,9 +163,9 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
   return fmaf(a.w, b.w, s);
 }
 
-// Two blocks an SM (128 registers a thread): 30 clusters of 8 resident on
-// an H100 (chip_smoke.py's check_scans reports the count), so zamba2's 64
-// take three waves. Three blocks an SM (85 registers) keep more resident
+// Two blocks an SM (128 registers a thread): an H100 keeps 132 clusters
+// of 2 resident, 62 of 4 and 30 of 8 (ref.RESIDENT_CLUSTERS, which the
+// card tests check). Three blocks an SM (85 registers) keep more resident
 // but spill more, and ran slower there.
 template <int P, int N>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -187,9 +190,9 @@ ssd_split_kernel(const float* __restrict__ x, long long x_sb, long long x_st, lo
   float* misc = smem + LT::kMisc;
 
   cg::cluster_group cluster = cg::this_cluster();
-  const int n_split = gridDim.x;
+  const int n_split = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.x / n_split, b = bh / H, h = bh % H;
   const int tid = threadIdx.x, lane = tid % 32;
   const float a = a_log_decay[h], d = dskip[h];
   const int n_chunks = (T + kC - 1) / kC;
@@ -477,14 +480,13 @@ int launch(const float* x, const long long* xs, const float* dt, const long long
                                                             bs[0], cm, cs[0], a, d, s0, y, s_out, h);
     return static_cast<int>(cudaGetLastError());
   }
-  if (b * h > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = ssd_split_kernel<P, N>;
   const size_t smem = Layout<P, N>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, b * h);
+  cfg.gridDim = dim3(n_split * b * h);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -509,7 +511,7 @@ int max_clusters(int n_split, int* out) {
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, 1);
+  cfg.gridDim = dim3(n_split);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];

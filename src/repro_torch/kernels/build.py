@@ -8,7 +8,8 @@ use (never at import), one nvcc process per source, all started together.
 Nothing here falls back: a missing nvcc or a failed compile raises.
 
 The routing helpers at the end are shared by every wrapper in ``ops.py``:
-CPU tensors take the plain version, CUDA tensors the kernel.
+CPU tensors take the plain version, CUDA tensors the kernel; so is the
+rule by which the cluster kernels split a sequence (``split_count``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import torch
 
@@ -123,3 +124,19 @@ def vector_aligned(t: torch.Tensor) -> bool:
 def strides(t: torch.Tensor, dims: int):
     """The element strides of ``t``'s first ``dims`` dims as a C array."""
     return (ctypes.c_longlong * dims)(*t.stride()[:dims])
+
+
+MAX_SPLIT = 8  # blocks of one thread-block cluster, the portable most
+
+
+def split_count(units: int, min_units: int, wider: Callable[[int], bool]) -> int:
+    """How many blocks of a cluster a kernel splits each sequence over, the
+    rule the cluster kernels share: from 1, doubled up to MAX_SPLIT while
+    each of the doubled splits keeps at least ``min_units`` of the
+    sequence's ``units`` and ``wider(n)``, the kernel's own occupancy rule
+    at the current count n, allows it. From shapes alone, so a wrapper
+    computes it without reading the card and passes it to the kernel."""
+    n = 1
+    while n < MAX_SPLIT and units // (2 * n) >= min_units and wider(n):
+        n *= 2
+    return n

@@ -6,6 +6,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
+
 
 def ssd_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None):
     """x: (b, T, H, P); dt: (b, T, H); A, D: (H,); B, C: (b, T, N);
@@ -30,22 +32,24 @@ def ssd_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None):
 
 
 CHUNK = 32  # steps per chunk in the kernel (kC in csrc/ssd.cu)
-MAX_SPLIT = 8  # blocks of one cluster in the kernel, the portable most
-TARGET_BLOCKS = 512  # split until the grid has this many (about 4 an SM)
+# Clusters of n prefill blocks an H100 keeps resident at once
+# (cudaOccupancyMaxActiveClusters: two blocks on each of 132 SMs, less
+# what a cluster's placement within one GPC loses at 4 and 8). The card
+# tests hold the card to these counts.
+RESIDENT_CLUSTERS = {1: 264, 2: 132, 4: 62, 8: 30}
 
 
 def split_count(t: int, b: int, h: int) -> int:
     """How many blocks of a cluster the kernel splits each (b, h) sequence of
-    ``t`` steps over: from shapes alone, so the wrapper computes it and
-    passes it to the kernel. It doubles up to MAX_SPLIT while the grid (b *
-    h * n_split blocks) is under TARGET_BLOCKS and every block keeps at
-    least one whole chunk. A decode step (t = 1) gets 1; zamba2-1.2b's
-    prompt of 512 steps over 64 heads gets 8."""
-    chunks = -(-t // CHUNK)
-    n = 1
-    while n < MAX_SPLIT and b * h * n < TARGET_BLOCKS and 2 * n <= chunks:
-        n *= 2
-    return n
+    ``t`` steps over (``build.split_count``): doubled up to 8 while every
+    block keeps at least one whole chunk and the b * h clusters of the
+    doubled count are all resident at once. A block waits at the cluster
+    barrier for its cluster's others, so a cluster left for a second wave
+    runs after a whole block's time: on the H100, zamba2-1.2b's prompt
+    (T = 512, 64 heads) took 0.092 ms at 2 (one wave), 0.109 at 4 (two)
+    and 0.098 at 8 (three; PERF.md, repro_torch.kernels.compare). A decode
+    step (t = 1) gets 1; that prompt gets 2."""
+    return build.split_count(-(-t // CHUNK), 1, lambda n: b * h <= RESIDENT_CLUSTERS[2 * n])
 
 
 def split_chunks(t: int, n_split: int, j: int):

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30
 
 
@@ -44,22 +46,18 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
     return o.reshape(b, hq, d).to(q.dtype)
 
 
-MAX_SPLIT = 8  # blocks of one cluster in the kernel, the portable most
 MIN_SPAN = 64  # positions a split takes at the least
 TARGET_BLOCKS = 512  # split until the grid has this many (about 4 an SM)
 
 
 def split_count(cap: int, hkv: int, b: int) -> int:
     """How many blocks the kernel splits each of ``b`` sequences of
-    ``cap = pp * ps`` positions over, at ``hkv`` KV heads: from shapes
-    alone, so the wrapper computes it without reading lengths back and
-    passes it to the kernel. It doubles up to MAX_SPLIT while the grid
-    (hkv * b * n_split blocks) is under TARGET_BLOCKS and the spans keep at
-    least MIN_SPAN positions."""
-    n = 1
-    while n < MAX_SPLIT and hkv * b * n < TARGET_BLOCKS and cap // (2 * n) >= MIN_SPAN:
-        n *= 2
-    return n
+    ``cap = pp * ps`` positions over, at ``hkv`` KV heads
+    (``build.split_count``): doubled up to 8 while the grid (hkv * b *
+    n_split blocks) is under TARGET_BLOCKS and the spans keep at least
+    MIN_SPAN positions. The blocks are short and independent until the
+    merge, so the grid may take several waves."""
+    return build.split_count(cap, MIN_SPAN, lambda n: hkv * b * n < TARGET_BLOCKS)
 
 
 def paged_attention_split_ref(q, k_pages, v_pages, page_table, lengths, n_split: int):

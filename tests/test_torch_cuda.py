@@ -506,11 +506,11 @@ def test_ssd_kernel_takes_the_split_it_is_given(scans, n_split, state):
 @pytest.mark.parametrize("t", [1, 512])
 def test_ssd_at_zamba2_width_in_place(scans, t):
     """zamba2-1.2b's widths (64 heads, P = N = 64): the prompt of 512 over a
-    cluster of 8, and the decode path (T = 1, 8 slots), in place with
+    cluster of 2, and the decode path (T = 1, 8 slots), in place with
     s_out the given state itself, against both plain versions."""
     _, ssd = scans
     b = 1 if t > 1 else 8
-    assert ssd.split_count(t, b, 64) == (8 if t > 1 else 1)
+    assert ssd.split_count(t, b, 64) == (2 if t > 1 else 1)
     args = _ssd_args(70 + t, b, t, 64, 64, 64, True, True)
     y, s = ssd.ssd_chunked(*args)
     cache = args[6].clone()
@@ -521,13 +521,30 @@ def test_ssd_at_zamba2_width_in_place(scans, t):
     _scan_close((y, s), ssd.ssd_split_ref(*args, n_split=ssd.split_count(t, b, 64)))
 
 
-def test_ssd_prefill_clusters_fit_the_card(scans):
-    """64 clusters of 8 prefill blocks (zamba2's prompt) run in at most three
-    waves (two blocks an SM: 30 clusters resident on an H100)."""
+@pytest.mark.parametrize("pn", [16, 32, 64])
+def test_ssd_prefill_clusters_fit_the_card(scans, pn):
+    """The card keeps at least as many prefill clusters of each count
+    resident as ``split_count`` assumes, at every built P = N; so the 64
+    clusters of zamba2's prompt (split 2) run in one wave."""
+    _, ssd = scans
+    from repro_torch.kernels.mamba2_scan import ops, ref
+
+    fit = {n: ops.max_active_clusters(pn, pn, n) for n in ref.RESIDENT_CLUSTERS}
+    assert all(fit[n] >= c for n, c in ref.RESIDENT_CLUSTERS.items()), fit
+    assert fit[ssd.split_count(512, 1, 64)] >= 64
+
+
+@pytest.mark.parametrize("n_split", [1, 2])
+def test_ssd_prefill_grid_past_65535_sequences(scans, n_split):
+    """A prefill of 1025 sequences at 64 heads (65,600 (b, h) pairs, past
+    the 65,535 a grid's y or z dim takes) launches, against the plain
+    version."""
     _, ssd = scans
     from repro_torch.kernels.mamba2_scan import ops
 
-    assert 3 * ops.max_active_clusters(64, 64, 8) >= 64
+    args = _ssd_args(90 + n_split, 1025, 64, 64, 16, 16, False, True)
+    out = ops._launch(*args, None, n_split)
+    _scan_close(out, ssd.ssd_ref(*args))
 
 
 def test_scans_refuse_what_they_are_not_built_for(scans):

@@ -81,11 +81,11 @@ def test_split_short_sequences(t, n_split):
 
 
 def test_split_at_zamba2_width():
-    """zamba2-1.2b's prefill: T = 512 over 8 blocks, P = N = 64, from a
-    given state, four of its 64 heads."""
+    """zamba2-1.2b's prefill: T = 512 over the 2 blocks its 64 heads get,
+    P = N = 64, from a given state, four of the heads."""
     arrs = _inputs(30, 1, 512, 4, 64, 64, True)
-    assert split_count(512, 1, 64) == 8
-    y, s = ssd_split_ref(*_torch(arrs), n_split=8)
+    assert split_count(512, 1, 64) == 2
+    y, s = ssd_split_ref(*_torch(arrs), n_split=2)
     yp, sp = ssd_ref(*_torch(arrs))
     _close(y, yp)
     _close(s, sp)
@@ -95,13 +95,15 @@ def test_split_at_zamba2_width():
 
 
 def test_split_count_comes_from_shapes():
-    """Decode gets 1; zamba2's prompt of 512 over 64 heads 8; the split
-    doubles while the grid is under 512 blocks and each block keeps a
-    chunk; never more than 8."""
+    """Decode gets 1; zamba2's prompt of 512 over 64 heads 2; the split
+    doubles while each block keeps a chunk and the clusters of the doubled
+    count all stay resident on an H100; never more than 8."""
     assert split_count(1, 8, 64) == 1
-    assert split_count(512, 1, 64) == 8
-    assert split_count(512, 8, 64) == 1  # 512 blocks already
-    assert split_count(64, 1, 64) == 2  # two chunks
+    assert [split_count(t, 1, 64) for t in (256, 512, 1024)] == [2, 2, 2]
+    assert split_count(512, 1, 62) == 4  # 62 clusters of 4 fit
+    assert split_count(512, 1, 30) == 8  # as do 30 of 8
+    assert split_count(512, 3, 64) == 1  # 192 clusters of 2 would not
+    assert split_count(64, 1, 16) == 2  # two chunks
     assert split_count(31, 1, 1) == 1
     assert split_count(10_000, 1, 1) == 8
     for t in (1, 31, 32, 33, 100, 300, 512, 1000):
