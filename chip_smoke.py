@@ -29,8 +29,8 @@ Phases (any failure raises, so the script exits non-zero):
      Mamba2 SSD at zamba2-1.2b's (64 heads, P = N = 64), each on a prompt
      of 512 from a zero and from a random state and on a decode step of 8
      slots, with decays up to e^-10 a step: y and the final state within
-     the stated f32 tolerance of the plain version; the SSD prompt split
-     over a cluster of ``split_count`` blocks, whose clusters must all be
+     the stated f32 tolerance of the plain version; each prompt split over
+     a cluster of ``split_count`` blocks, whose clusters must all be
      resident on the card at once;
 3. the main path: a device-tiered ``ServingEngine`` over full-width
    smollm-360m (32 layers, random weights from a seed) answering 16 Web1
@@ -183,37 +183,19 @@ def zero_launch_counts():
 
 
 def kernel_inputs(near_dtype, seed: int = 0):
-    """The serving step's store at full width: 1024 pages of D = 20480, 307
-    of them near (their slots a permutation), the rest far int8 with
+    """The serving step's store at full width
+    (``repro_torch.kernels.compare.serving_store``): 1024 pages of D = 20480,
+    307 of them near (their slots a permutation), the rest far int8 with
     per-row scales; 512 gathers (8 ragged slot walks over shared prefix
     pages, padded to the 512 bucket into segment 8, as lookup_segments does)."""
-    import torch
+    from repro_torch.kernels.compare import serving_store
 
-    rng = np.random.default_rng(seed)
-    n_pages, near_cap, d, n_seg = 1024, 307, 2 * 32 * 5 * 64, 9
-    tier = np.ones(n_pages, np.int32)
-    near_pages = rng.choice(n_pages, near_cap, replace=False)
-    tier[near_pages] = 0
-    slot = np.arange(n_pages, dtype=np.int32)
-    slot[near_pages] = rng.permutation(near_cap).astype(np.int32)
-    walks = [rng.choice(n_pages, int(rng.integers(40, 60)), replace=False) for _ in range(8)]
-    ids = np.concatenate(walks)
-    seg = np.repeat(np.arange(8, dtype=np.int32), [w.size for w in walks])
-    pad = 512 - ids.size
-    ids = np.concatenate([ids, np.zeros(pad, np.int64)]).astype(np.int32)
-    seg = np.concatenate([seg, np.full(pad, n_seg - 1, np.int32)])
-    dev = "cuda"
-    t = lambda a, dt: torch.as_tensor(a).to(dt).to(dev)
+    hot, cold_q, cold_scales, tier, slot, ids, seg_of, n_seg = serving_store(seed)
     return {
-        "hot": torch.randn(near_cap, d, generator=torch.Generator().manual_seed(seed)).to(near_dtype).to(dev),
-        "cold_q": t(rng.integers(-127, 128, (n_pages, d)), torch.int8),
-        "cold_scales": t(rng.uniform(1e-3, 1e-1, n_pages), torch.float32),
-        "tier": t(tier, torch.int32),
-        "slot": t(slot, torch.int32),
-        "ids": t(ids, torch.int32),
-        "seg_of": t(seg, torch.int32),
-        "n_segments": n_seg,
-        "np": {"tier": tier, "slot": slot, "ids": ids, "d": d},
+        "hot": hot.to(near_dtype), "cold_q": cold_q, "cold_scales": cold_scales, "tier": tier,
+        "slot": slot, "ids": ids, "seg_of": seg_of, "n_segments": n_seg,
+        "np": {"tier": tier.cpu().numpy(), "slot": slot.cpu().numpy(), "ids": ids.cpu().numpy(),
+               "d": hot.shape[1]},
     }
 
 
@@ -577,13 +559,18 @@ def check_scans():
             errs[label] = max(float((a - b_).abs().max()) for a, b_ in zip(out, ref))
         log(f"{name}: max_abs_err vs plain {errs} (tolerance rtol {SCAN_RTOL}, atol {SCAN_RTOL} x max|plain|)")
         if name == "ssd":
-            from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+            from repro_torch.kernels.mamba2_scan import ops as scan_ops
 
             split = mamba2_scan.split_count(PREFILL_LEN, 1, h)
-            fit = ssd_ops.max_active_clusters(hd, hd, split)
-            log(f"ssd prefill: each (b, h) split over a cluster of {split} blocks ({h * split} blocks, "
-                f"one launch); {fit} such clusters resident at once")
-            assert fit >= h, (split, fit)  # one wave
+            fit = scan_ops.max_active_clusters(hd, hd, split)
+        else:
+            from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+
+            split = rwkv6_scan.split_count(PREFILL_LEN, 1, h)
+            fit = scan_ops.max_active_clusters(hd, split)
+        log(f"{name} prefill: each (b, h) split over a cluster of {split} blocks ({h * split} blocks, "
+            f"one launch); {fit} such clusters resident at once")
+        assert fit >= h, (name, split, fit)  # one wave
         res = {}
         for label in ("prefill", "decode"):
             args = cases[label]
@@ -732,7 +719,7 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
         f"prefill included); step time p50 {pct(step_ms, 50):.3f} ms, p99 {pct(step_ms, 99):.3f} ms "
         f"(device timeline between step ends)" + (f"; {EAGER_BASELINE}" if arch == "smollm-360m" else ""))
     log(f"{arch} main path [{card}]: tiered lookup op per step p50 {pct(gather_ms, 50):.4f} ms, "
-        f"p99 {pct(gather_ms, 99):.4f} ms (device span of the op: counter zeroing + kernel)")
+        f"p99 {pct(gather_ms, 99):.4f} ms (device span of the op: one kernel, which also writes the hit table)")
     log(f"{arch} main path [{card}]: near {dev['near_hits']} far {dev['far_hits']} "
         f"(near-hit rate {dev['near_hit_rate']:.4f}), dispatches/step {dev['dispatches_per_step']}, "
         f"host syncs/step {dev['host_syncs_per_step']:.4f}, moved rows {dev['moved_rows']}, "

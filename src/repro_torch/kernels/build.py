@@ -140,3 +140,11 @@ def split_count(units: int, min_units: int, wider: Callable[[int], bool]) -> int
     while n < MAX_SPLIT and units // (2 * n) >= min_units and wider(n):
         n *= 2
     return n
+
+
+def chunk_span(chunks: int, n_split: int, j: int):
+    """The chunks block ``j`` of ``n_split`` takes of a sequence's ``chunks``,
+    as the cluster scan kernels split it: [j C / n, (j + 1) C / n), so each
+    block takes floor(C / n) or one more, consecutive, and a block takes
+    none when n > C."""
+    return j * chunks // n_split, (j + 1) * chunks // n_split

@@ -53,11 +53,9 @@ def split_count(t: int, b: int, h: int) -> int:
 
 
 def split_chunks(t: int, n_split: int, j: int):
-    """The chunks block ``j`` of ``n_split`` takes: [j C / n, (j + 1) C / n)
-    of the C = ceil(t / CHUNK) chunks, so each block takes floor(C / n) or
-    one more, consecutive, and a block takes none when n > C."""
-    chunks = -(-t // CHUNK)
-    return j * chunks // n_split, (j + 1) * chunks // n_split
+    """The chunks block ``j`` of ``n_split`` takes of the C = ceil(t / CHUNK)
+    chunks (``build.chunk_span``)."""
+    return build.chunk_span(-(-t // CHUNK), n_split, j)
 
 
 def ssd_split_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, n_split: int = 1):

@@ -13,8 +13,11 @@ plain version in ``ref.py``. CUDA tensors launch the hand-written kernel
 of ``csrc/wkv6.cu`` (built at first use), which reads r, k, v and lw
 through their strides (unit stride along hd) and masks its ragged last
 chunk, so unlike the TPU op nothing is transposed to (B, H, T, hd) and T
-is not padded to a chunk multiple; a decode step (T = 1) does one token's
-work. ``LAUNCHES`` counts kernel launches, and only kernel launches.
+is not padded to a chunk multiple. A prompt is split over the blocks of a
+cluster, as many as ``ref.split_count`` gives from the shapes; a decode
+step (T = 1) streams the state through registers. ``LAUNCHES`` counts
+kernel launches, and only kernel launches. ``ref.wkv6_split_ref`` is the
+prefill kernel's algorithm in plain PyTorch, for tests.
 """
 from __future__ import annotations
 
@@ -37,8 +40,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("wkv6")
     if not getattr(lib, "_declared", False):
         lib.wkv6_forward.argtypes = [_P, _S, _P, _S, _P, _S, _P, _S, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _P]
+                                     _I, _I, _I, _I, _I, _P]
         lib.wkv6_forward.restype = _I
+        lib.wkv6_max_active_clusters.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        lib.wkv6_max_active_clusters.restype = _I
         lib._declared = True
     return lib
 
@@ -68,8 +73,18 @@ def wkv6_chunked(r, k, v, lw, u, state: Optional[torch.Tensor] = None, *, inplac
         need(x.stride(-1) == 1, f"{name} needs unit stride along head_dim")
     need(u.is_contiguous() and (state is None or state.is_contiguous()),
          "u and state must be contiguous")
+    need(state is None or state.data_ptr() % 16 == 0, "state must start on a 16-byte boundary")
+    return _launch(r, k, v, lw, u, state, state if inplace else None, ref.split_count(t, b, h))
+
+
+def _launch(r, k, v, lw, u, state, s_out, n_split: int):
+    """The kernel on checked CUDA inputs, each sequence split over
+    ``n_split`` blocks of a cluster, the final state into ``s_out`` (a new
+    tensor when None); the kernel raises for n_split outside 1..8."""
+    b, t, h, hd = r.shape
     y = torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
-    s_out = state if inplace else torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    if s_out is None:
+        s_out = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
     if b * h == 0:
         return y, s_out
     lib = _lib()
@@ -78,8 +93,17 @@ def wkv6_chunked(r, k, v, lw, u, state: Optional[torch.Tensor] = None, *, inplac
             r.data_ptr(), build.strides(r, 3), k.data_ptr(), build.strides(k, 3),
             v.data_ptr(), build.strides(v, 3), lw.data_ptr(), build.strides(lw, 3),
             u.data_ptr(), None if state is None else state.data_ptr(), y.data_ptr(),
-            s_out.data_ptr(), b, t, h, hd, torch.cuda.current_stream(r.device).cuda_stream,
+            s_out.data_ptr(), b, t, h, hd, n_split, torch.cuda.current_stream(r.device).cuda_stream,
         )
     build.check(lib, err, "wkv6")
     LAUNCHES["wkv6"] += 1
     return y, s_out
+
+
+def max_active_clusters(hd: int, n_split: int) -> int:
+    """How many clusters of ``n_split`` prefill blocks at head_dim ``hd`` the
+    current card keeps resident at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _lib()
+    out = _I(0)
+    build.check(lib, lib.wkv6_max_active_clusters(hd, n_split, ctypes.byref(out)), "wkv6")
+    return out.value

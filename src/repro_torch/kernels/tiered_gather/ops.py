@@ -69,7 +69,7 @@ def _launch_tiered(hot, cold_q, cold_scales, tier, slot, ids, seg_of, n_segments
     n, d = ids.shape[0], hot.shape[1]
     dev = hot.device
     rows = torch.empty((n, d), dtype=torch.float32, device=dev)
-    hits = torch.zeros((n_segments, 2), dtype=torch.int32, device=dev)
+    hits = torch.empty((n_segments, 2), dtype=torch.int32, device=dev)  # the kernel writes it whole
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.tg_tiered_lookup(

@@ -93,6 +93,61 @@ def test_tiered_kernels_bit_exact(card, near_dtype, d, kind):
     assert ops.LAUNCHES["tiered_gather"] - before["tiered_gather"] == launched
 
 
+def _edge_store(kind, near_dtype):
+    """A store for the lookup's edges: negative and out-of-range ids and
+    slots, segment ids outside [0, n_seg), and per kind an empty near or
+    far store (their rows read as zeros), widths off 16 bytes, one gather."""
+    rng = np.random.default_rng(7)
+    d = {"unaligned": 13, "unaligned_wide": 20483}.get(kind, 64)
+    n = 1 if kind == "one_gather" else 300
+    n_pages, n_seg = 50, 5
+    near_rows = 0 if kind == "empty_near" else 20
+    far_rows = 0 if kind == "empty_far" else 40
+    cuda = lambda a, dt: torch.as_tensor(a).to(dt).cuda()
+    return {
+        "hot": cuda(rng.standard_normal((near_rows, d)), near_dtype),
+        "cold_q": cuda(rng.integers(-127, 128, (far_rows, d)), torch.int8),
+        "cold_scales": cuda(rng.uniform(1e-3, 1e-1, far_rows), torch.float32),
+        "tier": cuda(rng.integers(0, 2, n_pages), torch.int32),
+        "slot": cuda(rng.integers(-3, 45, n_pages), torch.int32),
+        "ids": cuda(rng.integers(-n_pages - 2, n_pages + 2, n), torch.int32),
+        "seg_of": cuda(rng.integers(-2, n_seg + 2, n), torch.int32),
+        "n_seg": n_seg,
+    }
+
+
+@pytest.mark.parametrize("kind", ["main", "empty_near", "empty_far", "unaligned", "unaligned_wide",
+                                  "one_gather"])
+@pytest.mark.parametrize("near_dtype", [torch.float32, torch.bfloat16])
+def test_tiered_lookup_edges_bit_exact(card, near_dtype, kind):
+    """B1 (segments) and B2 (one segment) at the serving step's store (512
+    gathers of D = 20480, 307 of 1024 pages near, 9 segments) and at the
+    edges: rows and counters bit-exact, one launch each. The kernel writes
+    the whole hit table itself, so a table of garbage would show."""
+    ops, ref = card
+    if kind == "main":
+        from repro_torch.kernels.compare import serving_store
+
+        *store, seg_of, n_seg = serving_store()
+        store[0] = store[0].to(near_dtype)
+    else:
+        x = _edge_store(kind, near_dtype)
+        store = [x[k] for k in ("hot", "cold_q", "cold_scales", "tier", "slot", "ids")]
+        seg_of, n_seg = x["seg_of"], x["n_seg"]
+    before = dict(ops.LAUNCHES)
+    junk = torch.full((128,), -7, dtype=torch.int32, device="cuda")
+    del junk  # the hit tables' torch.empty likely reuses this block
+    rows_k, hits_k = ops.tiered_lookup_segments(*store, seg_of, n_seg)
+    rk, nk, fk = ops.tiered_lookup_counted(*store)
+    rows_p, hits_p = ref.tiered_lookup_segments_ref(*store, seg_of, n_seg)
+    rp, np_, fp = ref.tiered_lookup_counted_ref(*store)
+    torch.cuda.synchronize()
+    assert torch.equal(rows_k, rows_p) and torch.equal(hits_k, hits_p)
+    assert torch.equal(rk, rp) and int(nk) == int(np_) and int(fk) == int(fp)
+    assert ops.LAUNCHES["tiered_segmented"] - before["tiered_segmented"] == 1
+    assert ops.LAUNCHES["tiered_gather"] - before["tiered_gather"] == 1
+
+
 @pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("scaled", [False, True])
 @pytest.mark.parametrize("d", [24, 20480])
@@ -439,14 +494,17 @@ def test_ssd_kernel_against_plain(scans, p, n, b, t, strong, state):
 @pytest.mark.parametrize("t", [1, 40])
 def test_scans_write_the_state_in_place(scans, t):
     """The model's decode: the final state over the initial one, bit for
-    bit what a separate output gets, and the same tensor returned."""
+    bit what a separate output gets, and the same tensor returned; WKV6 at
+    each built hd (T = 1 streams the state through registers)."""
     wkv, ssd = scans
-    args = _wkv6_args(1, 4, t, 2, 64, False, True)
-    y, s = wkv.wkv6_chunked(*args)
-    cache = args[5].clone()
-    yi, si = wkv.wkv6_chunked(*args[:5], cache, inplace=True)
-    torch.cuda.synchronize()
-    assert si is cache and torch.equal(cache, s) and torch.equal(yi, y)
+    for hd in (16, 32, 64):
+        args = _wkv6_args(1 + hd, 4, t, 2, hd, False, True)
+        y, s = wkv.wkv6_chunked(*args)
+        cache = args[5].clone()
+        yi, si = wkv.wkv6_chunked(*args[:5], cache, inplace=True)
+        torch.cuda.synchronize()
+        assert si is cache and torch.equal(cache, s) and torch.equal(yi, y)
+        _scan_close((y, s), wkv.wkv6_ref(*args))
     args = _ssd_args(2, 4, t, 2, 64, 64, False, True)
     y, s = ssd.ssd_chunked(*args)
     cache = args[6].clone()
@@ -532,6 +590,76 @@ def test_ssd_prefill_clusters_fit_the_card(scans, pn):
     fit = {n: ops.max_active_clusters(pn, pn, n) for n in ref.RESIDENT_CLUSTERS}
     assert all(fit[n] >= c for n, c in ref.RESIDENT_CLUSTERS.items()), fit
     assert fit[ssd.split_count(512, 1, 64)] >= 64
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 5, 8])
+def test_wkv6_kernel_takes_the_split_it_is_given(scans, n_split, state):
+    """The WKV6 prefill kernel splits each sequence over the cluster count its
+    caller passes (the wrapper's is ``split_count``): against the split
+    plain version at that count and the sequential one, T = 300 (ten
+    chunks, the last ragged), strong decays, bit-equal reruns; a count
+    outside 1..8 is refused."""
+    wkv, _ = scans
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    args = _wkv6_args(80 + n_split, 2, 300, 3, 64, True, state)
+    before = wkv.LAUNCHES["wkv6"]
+    out = ops._launch(*args, None, n_split)
+    again = ops._launch(*args, None, n_split)
+    torch.cuda.synchronize()
+    assert wkv.LAUNCHES["wkv6"] - before == 2
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    _scan_close(out, wkv.wkv6_split_ref(*args, n_split=n_split))
+    _scan_close(out, wkv.wkv6_ref(*args))
+    for bad in (0, 9):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            ops._launch(*args, None, bad)
+    assert wkv.LAUNCHES["wkv6"] - before == 2
+
+
+@pytest.mark.parametrize("t", [1, 512])
+def test_wkv6_at_rwkv6_width_in_place(scans, t):
+    """rwkv6-7b's widths (64 heads of 64): the prompt of 512 over a cluster of
+    2, and the decode path (T = 1, 8 slots), in place with s_out the given
+    state itself, against both plain versions."""
+    wkv, _ = scans
+    b = 1 if t > 1 else 8
+    assert wkv.split_count(t, b, 64) == (2 if t > 1 else 1)
+    args = _wkv6_args(100 + t, b, t, 64, 64, True, True)
+    y, s = wkv.wkv6_chunked(*args)
+    cache = args[5].clone()
+    yi, si = wkv.wkv6_chunked(*args[:5], cache, inplace=True)
+    torch.cuda.synchronize()
+    assert si is cache and torch.equal(cache, s) and torch.equal(yi, y)
+    _scan_close((y, s), wkv.wkv6_ref(*args))
+    _scan_close((y, s), wkv.wkv6_split_ref(*args, n_split=wkv.split_count(t, b, 64)))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_wkv6_prefill_clusters_fit_the_card(scans, hd):
+    """The card keeps at least as many WKV6 prefill clusters of each count
+    resident as ``split_count`` assumes, at every built hd; so the 64
+    clusters of rwkv6-7b's prompt (split 2) run in one wave."""
+    wkv, _ = scans
+    from repro_torch.kernels.rwkv6_scan import ops, ref
+
+    fit = {n: ops.max_active_clusters(hd, n) for n in ref.RESIDENT_CLUSTERS}
+    assert all(fit[n] >= c for n, c in ref.RESIDENT_CLUSTERS.items()), fit
+    assert fit[wkv.split_count(512, 1, 64)] >= 64
+
+
+@pytest.mark.parametrize("n_split", [1, 2])
+def test_wkv6_prefill_grid_past_65535_sequences(scans, n_split):
+    """A WKV6 prefill of 1025 sequences at 64 heads (65,600 (b, h) pairs,
+    past the 65,535 a grid's y or z dim takes) launches, against the plain
+    version."""
+    wkv, _ = scans
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    args = _wkv6_args(110 + n_split, 1025, 40, 64, 16, False, True)
+    out = ops._launch(*args, None, n_split)
+    _scan_close(out, wkv.wkv6_ref(*args))
 
 
 @pytest.mark.parametrize("n_split", [1, 2])
