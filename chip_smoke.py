@@ -34,10 +34,11 @@ Phases (any failure raises, so the script exits non-zero):
      resident on the card at once;
 3. the main path: a device-tiered ``ServingEngine`` over full-width
    smollm-360m (32 layers, random weights from a seed) answering 16 Web1
-   requests -- every request finishes, one tiered-gather launch per step,
-   one flash launch per layer per prefill and one paged launch per layer
-   per decode, both tiers hit, logits finite, decode-only steps free of
-   host reads, and a profile of decode steps;
+   requests, each decode dispatch one replay of the decode the engine
+   captured as a CUDA graph -- every request finishes, one tiered-gather
+   launch per step, one flash launch per layer per prefill and one paged
+   launch per layer per decode, both tiers hit, logits finite, decode-only
+   steps free of host reads, and a profile of decode steps;
    3b. the same over full-width qwen2.5-3b (36 layers, d 2048, 16/2 heads,
    d_ff 11008, vocab 151936) on 6 Web1 requests;
    3c. the same over full-width rwkv6-7b (32 layers, d 4096, 64 wkv heads
@@ -48,15 +49,27 @@ Phases (any failure raises, so the script exits non-zero):
    of 32 heads of 64) on 8 Web1 requests: one SSD launch per layer, and
    one flash (prefill) or paged (decode) launch per application, per
    dispatch;
+   3x. after each model's main path, continuous batching with chunked
+   prefill on the same params and requests (``prefill_chunk=64``): every
+   request finishes, one model and one tiered dispatch a step, no prefill
+   dispatch, no host read in any step that does not drain, and the model
+   kernels once a layer per whole-batch decode (a decode step, or a chunk
+   column, each a graph replay); TTFT, tokens/s, step time, and the share
+   of requests whose tokens equal the whole-slot engine's;
 4. the verify paths at full width on 4 requests: identity scales with the
    in-line flat-mirror probe (no read error), the per-slot lookup baseline
    (same drained hit totals), device tiering off (same live counters); and
-   reduced smollm, rwkv6 and zamba2 models on the card (kernels) against
-   the same engine on the CPU (plain versions);
+   reduced smollm, rwkv6 and zamba2 models on the card (kernels, graphs)
+   against the same engine on the CPU (plain versions), whole-slot and
+   chunked;
 5. one JSON line with every kernel's numbers, then the result line.
 
 Each path's kernel launch counts are zeroed just before it and read just
-after, so the counts show which kernels each path went through.
+after, so the counts show which kernels each path went through. A path's
+launches are the wrappers' counts (eager launches: the prefills, the
+tiered lookups) plus the engine's graph replays times the launches each
+captured graph holds (``ServingEngine.graph_launches``): the wrappers'
+counts are Python increments, made once at capture and not at a replay.
 """
 from __future__ import annotations
 
@@ -169,7 +182,9 @@ def _counters():
 
 
 def launch_counts() -> dict:
-    return {k: v for counts in _counters() for k, v in counts.items()}
+    from repro_torch import kernels
+
+    return kernels.launch_counts()
 
 
 def zero_launch_counts():
@@ -619,30 +634,78 @@ def make_engine(api, params, **ecfg):
     return eng
 
 
-def drive(eng, reqs, step_events: bool = False):
-    """Submit ``reqs`` and step until every one finishes. Returns (per-step
-    next tokens on the host, wall seconds, device ms between step ends)."""
+def drive(eng, reqs, step_events: bool = False, quiet_check: bool = False) -> dict:
+    """Submit ``reqs`` and step until every one finishes. Returns a dict:
+    the per-step next tokens on the host ("toks"), the wall seconds, the
+    device ms between step ends ("step_ms"), each request's token stream
+    ("streams": the slot's next token after each step it is active and not
+    mid-prompt, as ``tests/test_torch_continuous_batching.py`` reads them)
+    and the step at whose end its first token existed ("first"). With
+    ``quiet_check`` every step that does not drain the counter plane runs
+    under ``torch.cuda.set_sync_debug_mode("warn")``, and "quiet" holds
+    their count, the host reads they made and the sync warnings they drew."""
     import torch
 
+    from repro_torch.device import HOST_READS
+
+    snaps, mid = [], []
+    orig = eng._admit
+
+    def admit():
+        orig()
+        snaps.append({i: s.seq_id for i, s in enumerate(eng.slots) if s.active})
+
+    eng._admit = admit
     for r in reqs:
         eng.submit(r)
     toks, events = [], []
+    quiet, reads = 0, 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if step_events:
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
-    while eng.queue or any(s.active for s in eng.slots):
-        eng.step()
-        toks.append(eng.next_tokens.clone())
-        if step_events:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-        assert eng.engine_steps < 5000, "engine did not drain"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        while eng.queue or any(s.active for s in eng.slots):
+            drains = (eng.engine_steps + 1) % eng.ecfg.placement_window == 0
+            check = quiet_check and not drains
+            reads0 = HOST_READS["copies"]
+            torch.cuda.set_sync_debug_mode("warn" if check else 0)
+            eng.step()
+            torch.cuda.set_sync_debug_mode(0)
+            if check:
+                quiet += 1
+                reads += HOST_READS["copies"] - reads0
+            mid.append({i for i, s in enumerate(eng.slots) if s.prefilling})
+            toks.append(eng.next_tokens.clone())
+            if step_events:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            assert eng.engine_steps < 5000, "engine did not drain"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    return torch.stack(toks).cpu(), wall, step_ms
+    del eng._admit
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    host = torch.stack(toks).cpu()
+    streams, first = {}, {}
+    for j, (snap, busy) in enumerate(zip(snaps, mid)):
+        for i, sid in snap.items():
+            if i not in busy:
+                streams.setdefault(sid, []).append(int(host[j, i]))
+                first.setdefault(sid, j)
+    return {"toks": host, "wall": wall, "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+            "events": events, "streams": streams, "first": first,
+            "quiet": {"steps": quiet, "reads": reads, "syncs": syncs}}
+
+
+def path_launches(eng, eager: dict) -> dict:
+    """A path's kernel launches: the wrappers' own counts (eager launches)
+    plus the engine's graph replays times the launches each graph holds
+    (the wrappers count a capture once, not its replays)."""
+    replayed = eng.graph_launches()
+    return {k: eager[k] + replayed[k] for k in eager}
 
 
 def pct(xs, q):
@@ -687,21 +750,29 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
     tiered_kv_mod.tiered_lookup_segments = timed
     zero_launch_counts()
     try:
-        toks, wall, step_ms = drive(eng, reqs, step_events=True)
+        run = drive(eng, reqs, step_events=True)
     finally:
         tiered_kv_mod.tiered_lookup_segments = orig
-    launches = launch_counts()
+    wall, step_ms = run["wall"], run["step_ms"]
+    eager = launch_counts()
+    launches = path_launches(eng, eager)
     st = eng.stats()
     dev = st["device_tiering"]
     decodes = eng.model_dispatches - eng.prefill_dispatches
-    log(f"{arch} main path launches: {launches}, engine steps {eng.engine_steps}, "
+    graph = eng._graphs["decode"]
+    log(f"{arch} main path launches: {launches} (eager {eager}; the decode graph holds "
+        f"{graph.launches}, replayed {graph.replays} times), engine steps {eng.engine_steps}, "
         f"{eng.prefill_dispatches} prefill and {decodes} decode dispatches")
     assert st["requests_finished"] == len(reqs), st["requests_finished"]
     assert dev["dispatches_per_step"] == 1.0, dev["dispatches_per_step"]
     assert launches["tiered_segmented"] == eng.engine_steps > 0, (launches, eng.engine_steps)
     assert eng.prefill_dispatches > 0 and decodes > 0, (eng.prefill_dispatches, decodes)
+    # every decode dispatch is one replay of the captured decode; the
+    # prefills run eagerly
+    assert graph.replays == decodes == eng.batch_decodes, (graph.replays, decodes)
     want = kernel_launches(cfg, eng.prefill_dispatches, decodes)
     assert {k: launches[k] for k in want} == want, (launches, want)
+    assert {k: eager[k] for k in want} == kernel_launches(cfg, eng.prefill_dispatches, 0), eager
     assert dev["near_hits"] > 0 and dev["far_hits"] > 0, dev
     # the logits of one more decode of the final batch, and of one prefill
     cache = {k: v.clone() for k, v in eng.cache.items()}
@@ -725,8 +796,8 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
         f"host syncs/step {dev['host_syncs_per_step']:.4f}, moved rows {dev['moved_rows']}, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     budget = decode_budget(api, params, web1_requests(cfg, 4, seed=1), card, arch)
-    return {"launches": launches, "api": api, "params": params, "cfg": cfg,
-            "tokens_per_s": toks_per_s, "profile": budget}
+    return {"launches": launches, "api": api, "params": params, "cfg": cfg, "reqs": reqs,
+            "streams": run["streams"], "tokens_per_s": toks_per_s, "profile": budget}
 
 
 def decode_budget(api, params, reqs, card: str, arch: str):
@@ -788,6 +859,70 @@ def decode_budget(api, params, reqs, card: str, arch: str):
     return {"step_ms": step_ms, "busy_ms": busy_ms, "kernels_per_step": kernels, "attention_ms": attn_ms}
 
 
+CHUNK = 64  # the chunked phase's prefill-chunk token budget a step
+
+
+def serve_chunked(card: str, arch: str, mp: dict) -> dict:
+    """Continuous batching with chunked prefill on one model at full width:
+    phase 3's params and Web1 requests through an engine with
+    ``prefill_chunk=CHUNK``. Every request finishes; each step is one model
+    dispatch and one tiered dispatch; the steps that do not drain read
+    nothing back (under ``torch.cuda.set_sync_debug_mode``); no prefill
+    dispatch, and the model kernels launch once a layer (an application of
+    zamba2's shared block) a whole-batch decode, all of them from graph
+    replays: one a decode step, one a chunk column. Logs TTFT (device
+    timeline, from submission to the end of the step that made the first
+    token, and in engine steps), tokens/s, step p50/p99 and the share of
+    requests whose tokens equal the whole-slot engine's (not asserted: bf16
+    flash prefill and per-token decode round differently at full width)."""
+    from repro_torch.models.api import kernel_launches
+
+    api, params, cfg, reqs = mp["api"], mp["params"], mp["cfg"], mp["reqs"]
+    eng = make_engine(api, params, **ECFG, prefill_chunk=CHUNK)
+    assert eng.chunking
+    zero_launch_counts()
+    run = drive(eng, [dataclasses.replace(r) for r in reqs], step_events=True, quiet_check=True)
+    eager = launch_counts()
+    launches = path_launches(eng, eager)
+    st = eng.stats()
+    dev, sv, q = st["device_tiering"], st["serving"], run["quiet"]
+    g = eng._graphs
+    log(f"{arch} chunked [{card}]: launches {launches} (eager {eager}), {eng.engine_steps} steps, "
+        f"{eng.chunk_columns} chunk columns, {g['decode'].replays} decode steps, {q['steps']} steps "
+        f"checked: {q['reads']} host reads, {len(q['syncs'])} sync warnings {q['syncs'][:3]}")
+    assert st["requests_finished"] == len(reqs), st["requests_finished"]
+    assert dev["dispatches_per_step"] == 1.0 and eng.tiered.dispatches == eng.engine_steps, dev
+    assert sv["model_dispatches"] == eng.engine_steps and sv["prefill_dispatches"] == 0, sv
+    assert q["steps"] > 0 and q["reads"] == 0 and not q["syncs"], q
+    assert g["column"].replays == eng.chunk_columns > 0, (g["column"].replays, eng.chunk_columns)
+    assert g["decode"].replays + g["column"].replays == eng.batch_decodes, eng.batch_decodes
+    want = kernel_launches(cfg, 0, eng.batch_decodes)
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert all(eager[k] == 0 for k in want), eager
+    assert launches["tiered_segmented"] == eng.engine_steps, launches
+    # TTFT on the device timeline: every request is submitted before the
+    # first step, whose start is events[0]
+    ev = run["events"]
+    ttft_ms = [ev[0].elapsed_time(ev[j + 1]) for j in run["first"].values()]
+    ws = mp["streams"]
+    same = [run["streams"][rid][1:] == ws[rid] for rid in ws]
+    res = {
+        "ttft_p50_ms": pct(ttft_ms, 50), "ttft_p99_ms": pct(ttft_ms, 99),
+        "ttft_p50_steps": sv["ttft_p50"], "ttft_p99_steps": sv["ttft_p99"],
+        "tokens_per_s": st["tokens_decoded"] / run["wall"],
+        "step_p50_ms": pct(run["step_ms"], 50), "step_p99_ms": pct(run["step_ms"], 99),
+        "steps": eng.engine_steps, "columns": eng.chunk_columns, "wall_s": run["wall"],
+        "same_tokens_share": sum(same) / len(same), "launches": launches,
+    }
+    log(f"{arch} chunked [{card}]: {len(reqs)} requests, {st['tokens_decoded']} tokens decoded, "
+        f"{st['prefill_tokens']} prompt tokens in chunks of {CHUNK}, {run['wall']:.3f} s wall; "
+        f"TTFT p50 {res['ttft_p50_ms']:.1f} ms, p99 {res['ttft_p99_ms']:.1f} ms (device timeline; "
+        f"{res['ttft_p50_steps']:.1f} / {res['ttft_p99_steps']:.1f} steps); {res['tokens_per_s']:.1f} "
+        f"tokens/s; step p50 {res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms; "
+        f"requests with the whole-slot engine's tokens {sum(same)} of {len(same)}")
+    return res
+
+
 def verify_paths(mp, card: str):
     import torch
 
@@ -800,7 +935,8 @@ def verify_paths(mp, card: str):
     def run(label, **over):
         eng = make_engine(api, params, **{**ECFG, **over})
         zero_launch_counts()
-        toks, wall, _ = drive(eng, [dataclasses.replace(r) for r in reqs])
+        ran = drive(eng, [dataclasses.replace(r) for r in reqs])
+        toks, wall = ran["toks"], ran["wall"]
         launches = launch_counts()
         st = eng.stats()
         log(f"verify {label}: {eng.engine_steps} steps, launches {launches}, {wall:.2f} s")
@@ -847,8 +983,9 @@ def reduced_models():
 
 
 def reduced_on_card_vs_cpu(small, label: str):
-    """A reduced model on the card (kernels) against the same engine on the
-    CPU (plain versions): prefill logits, books and tokens."""
+    """A reduced model on the card (kernels, under graphs) against the same
+    engine on the CPU (plain versions), on the whole-slot path and on the
+    chunked path (prefill_chunk 8): prefill logits, books and tokens."""
     import torch
 
     from repro_torch.configs.workloads import get_profile
@@ -859,38 +996,42 @@ def reduced_on_card_vs_cpu(small, label: str):
     sapi = get_model(small)
     prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
                                prefix_share=0.5, n_prefixes=2)
-    res = {}
-    for where in ("cuda", "cpu"):
-        sp = sapi.init(seed=0, device=where)
-        e = ServingEngine(sapi, sp, EngineConfig(
-            max_batch=4, max_len=64, n_pages=256, near_frac=0.02, placement_window=4,
-            device_tiering=True, tiered_identity_scales=True, tiered_verify=True,
-        ), seed=0, device=where)
-        gen = RequestGenerator(prof, vocab_size=small.vocab_size, seed=0)
-        toks = []
-        for _ in range(6):
-            e.submit(next(gen))
-        zero_launch_counts()
-        while e.queue or any(s.active for s in e.slots):
-            e.step()
-            toks.append(e.next_tokens.cpu().clone())
-        launched = launch_counts()
-        decodes = e.model_dispatches - e.prefill_dispatches
-        want = kernel_launches(small, e.prefill_dispatches, decodes)
-        if where == "cpu":
-            want = dict.fromkeys(want, 0)
-        assert {k: launched[k] for k in want} == want, (label, where, launched, want)
-        logits, _ = sapi.prefill(sp, {"tokens": torch.arange(24, device=where)[None]}, max_len=32)
-        res[where] = (torch.stack(toks), e.live_counters(), e.stats()["device_tiering"], logits.cpu())
-    (tg, lg, dg, pg), (tc, lc, dc, pc) = res["cuda"], res["cpu"]
-    err = float((pg - pc).abs().max())
-    match = float((tg == tc).float().mean())
-    assert err < 1e-3, (label, err)  # f32 on both; summation order differs between the two
-    assert lg == lc and dg == dc, (label, lg, lc, dg, dc)
-    # a greedy argmax may flip at a near-tie under the other summation order
-    assert match >= 0.9, (label, match)
-    log(f"reduced {label} on the card vs the CPU (plain versions): prefill logits max |diff| "
-        f"{err:.3e}, per-step tokens equal {match:.4f}, live counters and device books equal")
+    params = {where: sapi.init(seed=0, device=where) for where in ("cuda", "cpu")}
+    for chunk in (0, 8):
+        res = {}
+        for where, sp in params.items():
+            e = ServingEngine(sapi, sp, EngineConfig(
+                max_batch=4, max_len=64, n_pages=256, near_frac=0.02, placement_window=4,
+                device_tiering=True, tiered_identity_scales=True, tiered_verify=True,
+                prefill_chunk=chunk,
+            ), seed=0, device=where)
+            gen = RequestGenerator(prof, vocab_size=small.vocab_size, seed=0)
+            toks = []
+            for _ in range(6):
+                e.submit(next(gen))
+            zero_launch_counts()
+            while e.queue or any(s.active for s in e.slots):
+                e.step()
+                toks.append(e.next_tokens.cpu().clone())
+            launched = path_launches(e, launch_counts())
+            want = kernel_launches(small, e.prefill_dispatches, e.batch_decodes)
+            if where == "cpu":
+                want = dict.fromkeys(want, 0)
+            assert {k: launched[k] for k in want} == want, (label, where, chunk, launched, want)
+            assert (e.prefill_dispatches == 0) == (chunk > 0) and e.batch_decodes > 0, (label, chunk)
+            logits, _ = sapi.prefill(sp, {"tokens": torch.arange(24, device=where)[None]}, max_len=32)
+            res[where] = (torch.stack(toks), e.live_counters(), e.stats(), logits.cpu())
+        (tg, lg, sg, pg), (tc, lc, sc, pc) = res["cuda"], res["cpu"]
+        err = float((pg - pc).abs().max())
+        match = float((tg == tc).float().mean())
+        assert err < 1e-3, (label, err)  # f32 on both; summation order differs between the two
+        assert lg == lc and sg["device_tiering"] == sc["device_tiering"], (label, chunk, lg, lc)
+        assert sg["serving"] == sc["serving"], (label, chunk, sg["serving"], sc["serving"])
+        # a greedy argmax may flip at a near-tie under the other summation order
+        assert match >= 0.9, (label, chunk, match)
+        path = f"chunked (prefill_chunk {chunk})" if chunk else "whole-slot"
+        log(f"reduced {label}, {path}, on the card vs the CPU (plain versions): prefill logits max "
+            f"|diff| {err:.3e}, per-step tokens equal {match:.4f}, live counters and books equal")
 
 
 def main():
@@ -926,6 +1067,7 @@ def main():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"  ptxas: {line.strip()}")
     sass_counts(libs["flash_attention"])
+    log(f"phase 1 {time.perf_counter() - t_start:.1f} s")
 
     # phase 2: kernels against their plain versions
     kernels = check_kernels()
@@ -934,20 +1076,30 @@ def main():
     kernels.update(check_scans())
     t2 = time.perf_counter()
     log(f"phase 2 {t2 - t_start:.1f} s")
-    # phase 3: the main path, smollm-360m; 3b: qwen2.5-3b; 3c: rwkv6-7b; 3d: zamba2-1.2b
-    paths = {"smollm-360m": serve(card, "smollm-360m", 16, (32, 960, 15, 5, 2560, 49152))}
+    # phase 3: the main path (whole-slot, decode graphs), smollm-360m; 3b:
+    # qwen2.5-3b; 3c: rwkv6-7b; 3d: zamba2-1.2b; each followed (3x) by the
+    # chunked path on the same params and requests
+    paths, chunked = {}, {}
     for arch, n_req, widths, ssm in (
+        ("smollm-360m", 16, (32, 960, 15, 5, 2560, 49152), None),
         ("qwen2.5-3b", 6, (36, 2048, 16, 2, 11008, 151936), None),
         ("rwkv6-7b", 6, (32, 4096, 64, 64, 14336, 65536), (64, 0, 0)),
         ("zamba2-1.2b", 8, (38, 2048, 32, 32, 8192, 32000), (64, 64, 6)),
     ):
         t3 = time.perf_counter()
         paths[arch] = serve(card, arch, n_req, widths, ssm)
-        del paths[arch]["params"], paths[arch]["api"]
-        torch.cuda.empty_cache()
-        log(f"phase 3 {arch} {time.perf_counter() - t3:.1f} s")
+        t3x = time.perf_counter()
+        log(f"phase 3 {arch} {t3x - t3:.1f} s")
+        chunked[arch] = serve_chunked(card, arch, paths[arch])
+        log(f"phase 3x {arch} chunked {time.perf_counter() - t3x:.1f} s")
+        if arch != "smollm-360m":
+            del paths[arch]["params"], paths[arch]["api"]
+            torch.cuda.empty_cache()
     mp = paths["smollm-360m"]
     log(f"phase 3 smollm-360m to zamba2-1.2b {time.perf_counter() - t2:.1f} s")
+    log("chunked paths: " + "; ".join(
+        f"{arch} " + json.dumps({k: v for k, v in c.items() if k != "launches"})
+        for arch, c in chunked.items()))
     # phase 4: the verify paths
     t4 = time.perf_counter()
     vp = verify_paths(mp, card)
@@ -956,6 +1108,9 @@ def main():
     # phase 5: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
+    # chunked_launches: the same kernels' launches on that model's chunked path
+    carrier = {"tiered_segmented": "smollm-360m", "paged_attention": "smollm-360m",
+               "flash_attention": "smollm-360m", "wkv6": "rwkv6-7b", "ssd": "zamba2-1.2b"}
     launches = {"tiered_segmented": mp["launches"]["tiered_segmented"],
                 "tiered_gather": vp["tiered_gather"], "gather_rows": vp["gather_rows"],
                 "paged_attention": mp["launches"]["paged_attention"],
@@ -977,6 +1132,7 @@ def main():
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"chunked_launches": chunked[carrier[name]]["launches"][name]} if name in carrier else {}),
             **{k: r[k] for k in ("qwen2.5-3b", "zamba2-1.2b", "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })

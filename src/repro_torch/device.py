@@ -40,6 +40,16 @@ def to_device(array, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def stage_into(dst: torch.Tensor, array) -> torch.Tensor:
+    """Copy a host array into the existing tensor ``dst`` (same shape), in
+    place and non-blocking from pinned memory on CUDA: how a captured
+    graph's static inputs get a step's values without moving."""
+    t = torch.as_tensor(np.ascontiguousarray(array)).to(dst.dtype)
+    if dst.device.type == "cpu":
+        return dst.copy_(t)
+    return dst.copy_(t.pin_memory(), non_blocking=True)
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
     """One counted device-to-host copy (a sync on CUDA)."""
     HOST_READS["copies"] += 1

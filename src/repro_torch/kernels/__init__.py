@@ -20,3 +20,14 @@ rwkv6_scan      — chunked WKV6 with per-channel decay and a carried (hd, hd)
 mamba2_scan     — chunked Mamba2 SSD with a scalar per-head decay and a
                   carried (P, N) state, zamba2's Mamba2 layers
 """
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's ``LAUNCHES``, merged into one dict of ints (a
+    copy). They count eager launches and captures, not graph replays
+    (``runtime.graphs``)."""
+    from repro_torch.kernels import (flash_attention, mamba2_scan, paged_attention, rwkv6_scan,
+                                     tiered_gather)
+
+    return {k: v for mod in (tiered_gather, flash_attention, paged_attention, rwkv6_scan, mamba2_scan)
+            for k, v in mod.LAUNCHES.items()}

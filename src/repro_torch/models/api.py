@@ -47,9 +47,11 @@ class ModelAPI:
     def prefill(self, params, batch: dict, *, max_len: int):
         return _PORTED[self.family].prefill(params, self.cfg, batch["tokens"], max_len=max_len)
 
-    def decode(self, params, cache: dict, tokens, *, page_size: int = 16):
+    def decode(self, params, cache: dict, tokens, *, page_size: int = 16, active=None):
+        """One decode step, the cache updated in place; a given (B,) bool
+        ``active`` leaves every cache leaf of its False rows as it was."""
         return _PORTED[self.family].decode_step(params, self.cfg, cache, tokens,
-                                                page_size=page_size)
+                                                page_size=page_size, active=active)
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
@@ -72,16 +74,18 @@ def kernel_launches(cfg: ModelConfig, prefills: int, decodes: int) -> dict:
 
 
 def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None, page_size: int = 16):
-    """(params, cache, tokens (B,1)) -> (greedy next_tokens (B,1) int32, cache').
+    """(params, cache, tokens (B,1), active=None) -> (greedy next_tokens (B,1)
+    int32, cache').
 
     ``vocab`` restricts the argmax to the first ``vocab`` logits: the head
     is padded, and a serving caller must never sample a padding id.
     ``page_size`` is the page the card's decode kernel walks a KV cache in
     (the recurrent state of the ssm family has none and ignores it).
+    ``active`` gates the cache update per row (``ModelAPI.decode``).
     """
 
-    def serve_step(params, cache, tokens):
-        logits, cache = api.decode(params, cache, tokens, page_size=page_size)
+    def serve_step(params, cache, tokens, active=None):
+        logits, cache = api.decode(params, cache, tokens, page_size=page_size, active=active)
         v = logits.shape[-1] if vocab is None else vocab
         nxt = torch.argmax(logits[:, -1, :v], dim=-1).to(torch.int32)[:, None]
         return nxt, cache

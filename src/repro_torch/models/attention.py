@@ -15,6 +15,8 @@ the kernel refuses raises.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -81,31 +83,37 @@ def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, block_k
     return _out_proj(p, x.dtype, o), (k, v)
 
 
-def _write_at(cache: torch.Tensor, lengths: torch.Tensor, new: torch.Tensor):
+def _write_at(cache: torch.Tensor, lengths: torch.Tensor, new: torch.Tensor,
+              active: Optional[torch.Tensor] = None):
     """cache[b, :, lengths[b], :] = new[b], in place. A position past the
-    cache's end is dropped, as JAX drops an out-of-range update; the write
-    is a select, so it needs no host read of ``lengths``."""
+    cache's end is dropped, as JAX drops an out-of-range update, and so is
+    every row b with ``active[b]`` False when a (B,) bool ``active`` is
+    given; the write is a select, so it needs no host read of ``lengths``."""
     s = cache.shape[2]
     idx = torch.arange(cache.shape[0], device=cache.device)
     pos = lengths.long().clamp(max=s - 1)
-    keep = (lengths < s)[:, None, None]
-    cache[idx, :, pos, :] = torch.where(keep, new.to(cache.dtype), cache[idx, :, pos, :])
+    keep = lengths < s if active is None else (lengths < s) & active
+    cache[idx, :, pos, :] = torch.where(keep[:, None, None], new.to(cache.dtype),
+                                        cache[idx, :, pos, :])
 
 
-def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_size: int = 16):
+def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_size: int = 16,
+                 active: Optional[torch.Tensor] = None):
     """One-token decode. x: (B, 1, D); caches (B, Hkv, S, hd); lengths (B,).
 
     Writes the new K/V at position ``lengths`` per sequence IN PLACE into
-    ``k_cache``/``v_cache``; attention sees ``lengths + 1`` valid entries.
-    On the card the paged kernel walks the cache as pages of ``page_size``
-    positions (the engine's page size; S must be a multiple of it); the CPU
-    path ignores it. Returns the attention output (B, 1, D).
+    ``k_cache``/``v_cache``, except on the rows where a given (B,) bool
+    ``active`` is False, whose caches stay as they were; attention sees
+    ``lengths + 1`` valid entries. On the card the paged kernel walks the
+    cache as pages of ``page_size`` positions (the engine's page size; S
+    must be a multiple of it); the CPU path ignores it. Returns the
+    attention output (B, 1, D).
     """
     q, k, v = _project_qkv(p, cfg, x)
     positions = lengths[:, None].to(torch.int32)  # (B, 1)
     q, k = _rope(cfg, q, k, positions)
-    _write_at(k_cache, lengths, k[:, :, 0, :])
-    _write_at(v_cache, lengths, v[:, :, 0, :])
+    _write_at(k_cache, lengths, k[:, :, 0, :], active)
+    _write_at(v_cache, lengths, v[:, :, 0, :], active)
     o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size)
     return _out_proj(p, x.dtype, o)
 

@@ -49,6 +49,28 @@ def frozen(t: torch.Tensor, device=None) -> nn.Parameter:
     return nn.Parameter(t.to(device), requires_grad=False)
 
 
+def cast(owner: nn.Module, name: str, dtype) -> torch.Tensor:
+    """Parameter ``name`` of ``owner`` as ``dtype``, cast once and held.
+
+    Casting a fixed tensor is deterministic, so the held cast is bit-equal
+    to ``p.to(dtype)`` on every call. It is held on ``owner`` beside the
+    parameter's identity, storage and version: an in-place load
+    (``load_state_dict``, which bumps the version) or a move to another
+    device casts anew. A non-float leaf, or ``dtype`` None or the leaf's
+    own type, returns the parameter itself.
+    """
+    p = getattr(owner, name)
+    if dtype is None or not p.is_floating_point() or p.dtype == dtype:
+        return p
+    held = owner.__dict__.setdefault("_casts", {})
+    key = (name, dtype)
+    stamp = (id(p), p.data_ptr(), p.device, p._version)
+    entry = held.get(key)
+    if entry is None or entry[0] != stamp:
+        entry = held[key] = (stamp, p.detach().to(dtype))
+    return entry[1]
+
+
 class ParamTree(nn.Module):
     """One node of the reference's parameter tree, under its names: leaves
     are frozen parameters, inner nodes ParamTrees, so ``state_dict`` keys
@@ -64,9 +86,9 @@ class ParamTree(nn.Module):
 
     def tree(self, dtype=None) -> dict:
         """This node as nested dicts of tensors, float leaves cast to
-        ``dtype`` (as the reference's ``cast_tree``/``constrain_tree``)."""
-        out = {n: p if dtype is None or not p.is_floating_point() else p.to(dtype)
-               for n, p in self.named_parameters(recurse=False)}
+        ``dtype`` (as the reference's ``cast_tree``/``constrain_tree``),
+        each cast once and held (:func:`cast`)."""
+        out = {n: cast(self, n, dtype) for n, _ in self.named_parameters(recurse=False)}
         out.update({n: m.tree(dtype) for n, m in self.named_children()})
         return out
 
@@ -238,6 +260,21 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # misc
+
+
+def commit(dst: torch.Tensor, new: torch.Tensor, active=None) -> torch.Tensor:
+    """``dst[:] = new`` in place, batch on axis 0; with a (B,) bool
+    ``active``, only the rows where it is True, the others bit-unchanged.
+    Returns ``dst``."""
+    if active is None:
+        return dst.copy_(new)
+    return dst.copy_(torch.where(active.reshape((-1,) + (1,) * (dst.ndim - 1)), new, dst))
+
+
+def advance(lengths: torch.Tensor, active=None) -> torch.Tensor:
+    """The lengths after one decode: +1 on every row, or on the rows where
+    a given (B,) bool ``active`` is True."""
+    return lengths + 1 if active is None else lengths + active.to(lengths.dtype)
 
 
 def causal_positions(batch: int, seq: int, device=None) -> torch.Tensor:

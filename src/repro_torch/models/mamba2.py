@@ -71,19 +71,25 @@ def init_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     }
 
 
-def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None):
+def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None,
+          active: Optional[torch.Tensor] = None):
     """Full mamba2 block (pre-norm, residual outside). p: the block's leaves
-    as a dict; x: (B, T, D). Returns (out (B, T, D), new state).
+    as a dict (cast to the compute dtype here where the caller has not
+    already); x: (B, T, D). Returns (out (B, T, D), new state).
 
     A given ``state`` (decode's, the cache's own tensors) is updated in
     place (the scan's kernel writes the SSM state over the old one) and its
-    tensors are returned; without one the block starts from zeros."""
+    tensors are returned; without one the block starts from zeros. With a
+    (B,) bool ``active`` beside the state, only its active rows are
+    committed (the scan writes a new tensor first), so an inactive row
+    keeps its conv tail and SSM state bit for bit."""
     p = {n: w.to(common.dt(cfg.compute_dtype)) if w.is_floating_point() else w
          for n, w in p.items()}
     b, t, _ = x.shape
     d_in, nh, ns = dims(cfg)
     hd = cfg.ssm_head_dim
-    inplace = state is not None
+    given = state is not None
+    inplace = given and active is None
     if state is None:  # a zero tail, and a zero SSM state inside the scan
         state = {"conv": init_state(cfg, b, x.device)["conv"], "ssm": None}
     xn = common.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -103,7 +109,8 @@ def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None):
     var = (y * y).mean(dim=-1, keepdim=True)
     y = (y * torch.rsqrt(var + cfg.norm_eps) * p["norm_w"].float()).to(x.dtype)
     out = matmul_f32(y, p["w_out"]).to(x.dtype)
-    if inplace:
-        state["conv"].copy_(conv_tail)
-        conv_tail = state["conv"]
+    if given:
+        conv_tail = common.commit(state["conv"], conv_tail, active)
+        if not inplace:
+            ssm_state = common.commit(state["ssm"], ssm_state, active)
     return out, {"conv": conv_tail, "ssm": ssm_state}

@@ -23,6 +23,8 @@ in place (the kernel writes each layer's new state over the old one).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -105,9 +107,10 @@ def _token_shift(x, prev):
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state):
+def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bool = True):
     """Returns (out (B, T, D), new shift (B, D), new wkv state). A given
-    ``wkv_state`` (decode's, the cache's own tensor) is updated in place."""
+    ``wkv_state`` (decode's, the cache's own tensor) is updated in place
+    unless ``inplace`` is False, when the new state is a new tensor."""
     b, t, d = x.shape
     hd = cfg.ssm_head_dim
     h = d // hd
@@ -128,7 +131,7 @@ def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state):
     g = F.silu(proj(xg, att["wg"]))
     lw = -torch.exp(att["w0"] + matmul_f32(matmul_f32(xw, att["w1"]), att["w2"]))
     y, wkv_state = wkv6_chunked(r, k, v, lw.reshape(b, t, h, hd), att["u"].float(), wkv_state,
-                                inplace=wkv_state is not None)
+                                inplace=inplace and wkv_state is not None)
     # per-head group norm, then gate and output projection
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
@@ -150,9 +153,9 @@ def _channel_mix(ffn: dict, x, shift_prev):
     return gate * kv, xf[:, -1, :]
 
 
-def _block(layer: dict, cfg: ModelConfig, h, att_shift, cm_shift, wkv_state):
+def _block(layer: dict, cfg: ModelConfig, h, att_shift, cm_shift, wkv_state, inplace: bool = True):
     x = layer_norm(h, layer["ln1"]["w"], layer["ln1"]["b"], cfg.norm_eps)
-    a, att_shift, wkv_state = _time_mix(layer["att"], cfg, x, att_shift, wkv_state)
+    a, att_shift, wkv_state = _time_mix(layer["att"], cfg, x, att_shift, wkv_state, inplace)
     h = h + a
     x = layer_norm(h, layer["ln2"]["w"], layer["ln2"]["b"], cfg.norm_eps)
     m, cm_shift = _channel_mix(layer["ffn"], x, cm_shift)
@@ -166,7 +169,7 @@ def _embed(params: RWKV6, cfg: ModelConfig, tokens):
 
 def _logits(params: RWKV6, cfg: ModelConfig, h):
     h = layer_norm(h, params.final_norm.w, params.final_norm.b, cfg.norm_eps)
-    return matmul_f32(h, params.lm_head.to(h.dtype))
+    return matmul_f32(h, common.cast(params, "lm_head", h.dtype))
 
 
 def _layers(params: RWKV6, cfg: ModelConfig, h):
@@ -210,21 +213,29 @@ def prefill(params: RWKV6, cfg: ModelConfig, tokens, *, max_len: int = 0):
 
 
 @torch.no_grad()
-def decode_step(params: RWKV6, cfg: ModelConfig, cache: dict, tokens, *, page_size: int = 16):
+def decode_step(params: RWKV6, cfg: ModelConfig, cache: dict, tokens, *, page_size: int = 16,
+                active: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B, 1). Returns (logits, cache').
 
     The cache's state tensors are updated in place; the returned cache holds
-    the same tensors and the advanced lengths. ``page_size`` is taken for the
-    engine's sake and unused: the state has no pages.
+    the same tensors and the advanced lengths. A given (B,) bool ``active``
+    gates the step per row, as the reference's chunk column gates every
+    cache leaf: the scan then writes its new state into a new tensor, and
+    only the active rows of it, of the shifts and of the lengths are
+    committed, so an inactive row keeps every leaf bit for bit.
+    ``page_size`` is taken for the engine's sake and unused: the state has
+    no pages.
     """
     cdt = common.dt(cfg.compute_dtype)
     h = _embed(params, cfg, tokens)
     for i, blk in enumerate(params.layers):
-        h, a_s, c_s, _ = _block(blk.tree(cdt), cfg, h, cache["att_shift"][i], cache["cm_shift"][i],
-                                cache["wkv"][i])
-        cache["att_shift"][i].copy_(a_s)
-        cache["cm_shift"][i].copy_(c_s)
-    return _logits(params, cfg, h), {**cache, "lengths": cache["lengths"] + 1}
+        h, a_s, c_s, s = _block(blk.tree(cdt), cfg, h, cache["att_shift"][i], cache["cm_shift"][i],
+                                cache["wkv"][i], inplace=active is None)
+        if active is not None:
+            common.commit(cache["wkv"][i], s, active)
+        common.commit(cache["att_shift"][i], a_s, active)
+        common.commit(cache["cm_shift"][i], c_s, active)
+    return _logits(params, cfg, h), {**cache, "lengths": common.advance(cache["lengths"], active)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):

@@ -76,13 +76,16 @@ def _embed_in(params: Transformer, cfg: ModelConfig, tokens):
     return params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
 
 
-def _head_w(params: Transformer, cfg: ModelConfig):
-    return params.embed.T if cfg.tie_embeddings else params.lm_head
+def _head_w(params: Transformer, cfg: ModelConfig, dtype):
+    """The output head as ``dtype``, cast once and held (``common.cast``)."""
+    if cfg.tie_embeddings:
+        return common.cast(params, "embed", dtype).T
+    return common.cast(params, "lm_head", dtype)
 
 
 def _logits_out(params: Transformer, cfg: ModelConfig, h):
     h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
-    return common.matmul_f32(h, _head_w(params, cfg).to(h.dtype))
+    return common.matmul_f32(h, _head_w(params, cfg, h.dtype))
 
 
 def _mlp(layer: dict, cfg: ModelConfig, h):
@@ -139,13 +142,15 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, *, max_len: int,
 
 @torch.no_grad()
 def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, *,
-                page_size: int = 16):
+                page_size: int = 16, active: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B, 1). Returns (logits, cache').
 
     ``cache["k"]``/``cache["v"]`` are updated in place; the returned cache
-    holds the same tensors and the advanced lengths. ``page_size`` is the
-    page the card's decode kernel walks the cache in (the engine passes its
-    own); the CPU path ignores it.
+    holds the same tensors and the advanced lengths. A given (B,) bool
+    ``active`` gates the step per row, as the reference's chunk column
+    gates every cache leaf: a row where it is False keeps its K/V and its
+    length. ``page_size`` is the page the card's decode kernel walks the
+    cache in (the engine passes its own); the CPU path ignores it.
     """
     cdt = common.dt(cfg.compute_dtype)
     h = _embed_in(params, cfg, tokens)
@@ -154,10 +159,10 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, *,
         layer = blk.tree(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_decode(layer["attn"], cfg, x, cache["k"][i], cache["v"][i], lengths,
-                                       page_size)
+                                       page_size, active)
         h = _mlp(layer, cfg, h)
     logits = _logits_out(params, cfg, h)
-    return logits, {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
+    return logits, {"k": cache["k"], "v": cache["v"], "lengths": common.advance(lengths, active)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):

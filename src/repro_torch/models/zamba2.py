@@ -20,6 +20,8 @@ reference attention. ``decode_step`` updates the cache tensors in place.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -107,13 +109,14 @@ def shared_block(sh: dict, cfg: ModelConfig, h, emb0, positions):
 
 
 def shared_block_decode(sh: dict, cfg: ModelConfig, h, emb0, k_cache, v_cache, lengths,
-                        page_size: int):
+                        page_size: int, active: Optional[torch.Tensor] = None):
     """h, emb0: (B, 1, D); caches (B, Hkv, S, hd), written IN PLACE at
-    ``lengths`` (a position past the end is dropped, as JAX drops it)."""
+    ``lengths`` (a position past the end is dropped, as JAX drops it, and
+    so is a row where a given (B,) bool ``active`` is False)."""
     positions = lengths[:, None].to(torch.int32)
     q, k, v = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
-    attention._write_at(k_cache, lengths, k[:, :, 0, :])
-    attention._write_at(v_cache, lengths, v[:, :, 0, :])
+    attention._write_at(k_cache, lengths, k[:, :, 0, :], active)
+    attention._write_at(v_cache, lengths, v[:, :, 0, :], active)
     o = attention.attend_decode(q, k_cache, v_cache, lengths + 1, page_size)
     return _shared_out(sh, cfg, h, emb0, o)
 
@@ -128,7 +131,7 @@ def _embed(params: Zamba2, cfg: ModelConfig, tokens):
 
 def _logits(params: Zamba2, cfg: ModelConfig, h):
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return matmul_f32(h, params.lm_head.to(h.dtype))
+    return matmul_f32(h, common.cast(params, "lm_head", h.dtype))
 
 
 def _split_groups(cfg: ModelConfig, seq):
@@ -146,14 +149,15 @@ def forward(params: Zamba2, cfg: ModelConfig, tokens):
     emb0 = h
     b, t, _ = h.shape
     positions = common.causal_positions(b, t, h.device)
-    sh = params.shared.tree(common.dt(cfg.compute_dtype))
+    cdt = common.dt(cfg.compute_dtype)
+    sh = params.shared.tree(cdt)
     groups, tail = _split_groups(cfg, list(params.layers))
     for grp in groups:
         for blk in grp:
-            h = h + mamba2.apply(blk.tree(), cfg, h)[0]
+            h = h + mamba2.apply(blk.tree(cdt), cfg, h)[0]
         h = shared_block(sh, cfg, h, emb0, positions)[0]
     for blk in tail:
-        h = h + mamba2.apply(blk.tree(), cfg, h)[0]
+        h = h + mamba2.apply(blk.tree(cdt), cfg, h)[0]
     return _logits(params, cfg, h)
 
 
@@ -165,10 +169,11 @@ def prefill(params: Zamba2, cfg: ModelConfig, tokens, *, max_len: int):
     b, t, _ = h.shape
     positions = common.causal_positions(b, t, h.device)
     sh = params.shared.tree()  # as stored: the reference's prefill does not cast it
+    cdt = common.dt(cfg.compute_dtype)
     states, ks, vs = [], [], []
 
     def mamba_layer(h, blk):
-        m, st = mamba2.apply(blk.tree(), cfg, h)
+        m, st = mamba2.apply(blk.tree(cdt), cfg, h)
         states.append(st)
         return h + m
 
@@ -192,32 +197,37 @@ def prefill(params: Zamba2, cfg: ModelConfig, tokens, *, max_len: int):
 
 
 @torch.no_grad()
-def decode_step(params: Zamba2, cfg: ModelConfig, cache: dict, tokens, *, page_size: int = 16):
+def decode_step(params: Zamba2, cfg: ModelConfig, cache: dict, tokens, *, page_size: int = 16,
+                active: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B, 1). Returns (logits, cache').
 
     Every cache tensor is updated in place; the returned cache holds the
-    same tensors and the advanced lengths. On the card the shared block's
-    decode attention walks its cache as pages of ``page_size`` positions
-    (the engine's page size; max_len must be a multiple of it).
+    same tensors and the advanced lengths. A given (B,) bool ``active``
+    gates the step per row, as the reference's chunk column gates every
+    cache leaf: a row where it is False keeps its K/V, conv tails, SSM
+    states and length. On the card the shared block's decode attention
+    walks its cache as pages of ``page_size`` positions (the engine's page
+    size; max_len must be a multiple of it).
     """
     h = _embed(params, cfg, tokens)
     emb0 = h
     lengths = cache["lengths"]
+    cdt = common.dt(cfg.compute_dtype)
     sh = params.shared.tree()  # as stored: the reference's decode does not cast it
 
     def mamba_layer(h, i):
         state = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
-        return h + mamba2.apply(params.layers[i].tree(), cfg, h, state)[0]
+        return h + mamba2.apply(params.layers[i].tree(cdt), cfg, h, state, active)[0]
 
     groups, tail = _split_groups(cfg, list(range(cfg.n_layers)))
     for app, grp in enumerate(groups):
         for i in grp:
             h = mamba_layer(h, i)
         h = shared_block_decode(sh, cfg, h, emb0, cache["k"][app], cache["v"][app], lengths,
-                                page_size)
+                                page_size, active)
     for i in tail:
         h = mamba_layer(h, i)
-    return _logits(params, cfg, h), {**cache, "lengths": lengths + 1}
+    return _logits(params, cfg, h), {**cache, "lengths": common.advance(lengths, active)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):

@@ -1,15 +1,13 @@
-"""Serving engine: batching over paged, tiered, prefix-shared KV (mirrors repro/runtime/serving.py).
+"""Serving engine: continuous batching over paged, tiered, prefix-shared KV
+(mirrors repro/runtime/serving.py).
 
-This slice ports the whole-slot path (``prefill_chunk == 0``): a request's
-prompt prefills whole at admission through ``api.prefill``, and every step
-decodes one token for each active slot. It serves every ported family
-(``models/api.py``: dense, ssm = rwkv6, hybrid = zamba2) with one code
-path: a slot write copies every cache leaf, and the tier store's payload
-rows are a family's k and v vectors where it has a 5-D KV cache ``k``
-(the dense layers', zamba2's shared-block applications') and synthetic
-``counter_rows`` where it has none (rwkv6's O(1) state), as in the
-reference. The paper's three findings run together here as in the
-reference:
+It serves every ported family (``models/api.py``: dense, ssm = rwkv6,
+hybrid = zamba2) with one code path: a slot write copies every cache leaf,
+and the tier store's payload rows are a family's k and v vectors where it
+has a 5-D KV cache ``k`` (the dense layers', zamba2's shared-block
+applications') and synthetic ``counter_rows`` where it has none (rwkv6's
+O(1) state), as in the reference. The paper's three findings run together
+here as in the reference:
 
   * shared KV page table (core/pagetable): requests with common prompt
     prefixes map the same physical pages;
@@ -26,23 +24,49 @@ plane and drained once per profiler window (``drain_tier_counters``). With
 identity scales the device-tiered engine is bit-identical to the
 host-accounted one (same tokens, same counters).
 
-PyTorch runs eagerly, so the reference's ``jax.jit`` decode with donated
-cache buffers (serving.py:361-431) has no counterpart: the step runs the
-model's decode directly and the KV cache is updated in place. The next
-tokens stay on the device between steps; the host reads them only at an
-admit's first-token argmax.
+Two paths, as in the reference. Whole-slot (``prefill_chunk == 0``): a
+request's prompt prefills whole at admission through ``api.prefill`` (one
+more model dispatch, and the one host read of the step, its first token's
+argmax), and every step decodes one token for each slot. Continuous
+batching with chunked prefill (``prefill_chunk > 0``): admission only maps
+pages, zeroes the slot's cache rows in place and arms a ``ChunkState``;
+while any slot is mid-prompt, a step runs the chunk columns of
+``_chunk_plan``, each one decode of the whole batch in which a prompt row
+takes its next prompt token, a decode row its fed-back token, and a row
+inactive in the column keeps every cache leaf bit for bit (the decode's
+``active`` gate). The prompt's KV page reads ride the step's one segmented
+lookup as ROLE_PREFILL segments, its completed pages go through the tiered
+write path, and TTFT closes the step its last prompt token lands. A step
+with no slot mid-prompt is a plain decode, as on the whole-slot path.
+Either way a step is one model dispatch and one tiered dispatch.
+
+Each dispatch writes its results into the engine's own buffers in place:
+the cache and the next tokens (which feed the next step on the device; the
+host never reads them on the serving path), and for the chunk columns the
+plan, staged through pinned memory, and a column counter. So the same
+function serves both devices. On the CPU it runs eagerly. On a CUDA device
+the engine captures it at construction as a CUDA graph (``runtime/graphs``:
+the counterpart of the reference's jitted decode and chunk step) and every
+step replays it: the decode once, the chunk step once a column, as far as
+the last column any row is active in (the columns after it are no-ops
+under the gate). Nothing chooses eager on the card, and a failed capture
+raises. The tier plane (lookups, writes, drains, migrations, whose id
+counts change every step) stays outside the graphs. The kernel wrappers'
+``LAUNCHES`` count a capture once; the engine counts its replays
+(``graph_launches``). An engine's weights stay fixed for its lifetime: its
+graphs read them, and their held casts, where they were at capture.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): chunked prefill (``prefill_chunk > 0``, A4.2), prefetch promotion
-(``prefetch_promote``, A4.3), degraded mode with fenced placement,
-``abort_all`` and ``lost_window`` (A4.4).
+item): prefetch promotion (``prefetch_promote``, A4.3), degraded mode with
+fenced placement, ``abort_all`` and ``lost_window`` (A4.4), the sharded
+engine (``model_shards > 1``, A7).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,11 +76,13 @@ from repro_torch.core.pagetable import SharedKVPageTable
 from repro_torch.core.placement import TieredPlacement
 from repro_torch.core.prefetch import PrefetchEngine
 from repro_torch.core.profiler import AccessProfiler
-from repro_torch.data.requests import Request, RequestGenerator
-from repro_torch.device import resolve_device, to_device, to_host
+from repro_torch.data.requests import ChunkState, Request, RequestGenerator
+from repro_torch.device import resolve_device, stage_into, to_device, to_host
 from repro_torch.env import env_flag
 from repro_torch.models.api import ModelAPI, make_serve_step
 from repro_torch.obs import Counter, MetricsRegistry, default_recorder
+from repro_torch.kernels import launch_counts
+from repro_torch.runtime.graphs import StepGraph
 from repro_torch.runtime.tiered_kv import (
     N_ROLES,
     ROLE_DECODE,
@@ -64,6 +90,11 @@ from repro_torch.runtime.tiered_kv import (
     TieredKVCache,
     sanitize_near_ids,
 )
+
+# families whose decode step can consume prompt tokens one column at a time
+# (the chunked-prefill substrate): the reference's list, less the families
+# the port does not have yet (moe, ROADMAP A8)
+CHUNKABLE_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _env_device_tiering() -> bool:
@@ -80,6 +111,15 @@ def _mix64(x: np.ndarray) -> np.ndarray:
     x *= np.uint64(0x94D049BB133111EB)
     x ^= x >> np.uint64(31)
     return x
+
+
+def _write_back(dst: dict, new: dict):
+    """Copy every leaf of a decode's returned cache that is a new tensor (the
+    advanced lengths) into the engine's cache leaf, in place; the others
+    are the engine's own tensors, written by the decode itself."""
+    for key, t in dst.items():
+        if new[key] is not t:
+            t.copy_(new[key])
 
 
 def counter_rows(seed: int, page_ids, versions, dim: int) -> np.ndarray:
@@ -134,8 +174,10 @@ class EngineConfig:
     prefetch_max_promote: int = 32
     # tensor-sharding degree of one logical replica (ROADMAP A7)
     model_shards: int = 1
-    # prefill-chunk token budget per engine step; 0 = the whole-slot path
-    # (chunked prefill is ROADMAP A4.2)
+    # continuous batching: prefill-chunk token budget per engine step. 0 =
+    # the whole-slot path (the whole prompt prefills at admit through
+    # api.prefill); positive values feed every prompt in chunks of at most
+    # this many tokens, interleaved with decode in the step's one dispatch
     prefill_chunk: int = 0
 
 
@@ -148,10 +190,21 @@ class _Slot:
     # retirement can emit one decode span labeled with its step range
     t_admit: float = 0.0
     start_step: int = 0
+    # chunked prefill: non-None while the slot is still feeding its prompt
+    # (cleared the step its final prompt token lands and its first
+    # generated token is emitted)
+    chunk: Optional[ChunkState] = None
+    chunks_done: int = 0  # prefill chunks this occupancy has dispatched
+    shared_pages: int = 0  # prefix pages shared at admit (span labeling)
+    decode_assigned: int = 0  # decode budget granted at admit
 
     @property
     def active(self) -> bool:
         return self.seq_id >= 0
+
+    @property
+    def prefilling(self) -> bool:
+        return self.active and self.chunk is not None
 
 
 class ServingEngine:
@@ -164,8 +217,6 @@ class ServingEngine:
         recorder=None,
         device=None,
     ):
-        if ecfg.prefill_chunk > 0:
-            raise NotImplementedError("chunked prefill (prefill_chunk > 0) is ROADMAP A4.2")
         if ecfg.prefetch_promote:
             raise NotImplementedError("prefetch promotion (prefetch_promote) is ROADMAP A4.3")
         if ecfg.model_shards != 1:
@@ -192,7 +243,14 @@ class ServingEngine:
         self.profiler = AccessProfiler(e.n_pages, self._page_bytes(), window_len=e.placement_window)
         self.tracer = MemTracer(e.trace_window, e.trace_period)
         self.slots = [_Slot() for _ in range(e.max_batch)]
-        self.cache = api.init_cache(e.max_batch, e.max_len, device=self.device)
+        # the dispatches' buffers, written in place and never rebound (the
+        # card's graphs hold their addresses): the cache, and the
+        # device-resident decode feedback, where the step's argmax lands and
+        # feeds the next step without a host round-trip
+        self._bufs = {
+            "cache": api.init_cache(e.max_batch, e.max_len, device=self.device),
+            "next": torch.zeros((e.max_batch,), dtype=torch.int32, device=self.device),
+        }
         self.queue: Deque[Request] = deque()
         self.finished: List[int] = []
         self.engine_steps = 0
@@ -218,9 +276,6 @@ class ServingEngine:
         self._tenant_index: Dict[str, int] = {}
         # seq id (rid) -> tenant name for every request ever admitted
         self._seq_tenant: Dict[int, str] = {}
-        # device-resident decode feedback: the step's argmax lands here and
-        # feeds the next step without a host round-trip
-        self.next_tokens = torch.zeros((e.max_batch,), dtype=torch.int32, device=self.device)
         # called with (page_ids, is_write) for every accounted block access
         self.access_hooks: List[Callable] = []
         # when True, an external planner owns placement (apply_placement)
@@ -238,9 +293,32 @@ class ServingEngine:
         self.ttft_wall_samples: List[float] = []
         # per-role (decode, prefill) x (near, far) tier hits from the drain
         self.role_hits = np.zeros((N_ROLES, 2), np.int64)
+        # per-slot (start, end) prompt intervals of the chunk step in flight,
+        # set by step() before the dispatch and consumed by _account_decode
+        # and the post-step bookkeeping
+        self._step_chunks: Dict[int, Tuple[int, int]] = {}
+        # chunked prefill is gated per family (see CHUNKABLE_FAMILIES)
+        self.chunking = e.prefill_chunk > 0 and api.family in CHUNKABLE_FAMILIES
+        # whole-batch decodes run: one a decode step, one a chunk column (so
+        # each runs every layer's decode kernel once), and the columns alone
+        self.batch_decodes = 0
+        self.chunk_columns = 0
         # the decode kernel walks the cache in the pages the tier plane accounts
         self._serve = make_serve_step(api, vocab=self.cfg.vocab_size, page_size=e.page_size)
         self._seed = seed
+        if self.chunking:
+            # the chunk step's column plan (token, use-prompt, active, emit),
+            # staged each step, and the column its next column reads
+            self._bufs["plan"] = torch.zeros((4, e.max_batch, e.prefill_chunk), dtype=torch.int32,
+                                             device=self.device)
+            self._bufs["col"] = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        # on the card every dispatch is a captured graph, replayed
+        self._graphs: Dict[str, StepGraph] = {}
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                g = self._graphs["decode"] = StepGraph(self._decode_fn, self._bufs)
+                if self.chunking:
+                    self._graphs["column"] = StepGraph(self._column_fn, self._bufs, pool=g.pool())
         # device-executed tiering: a device-resident near/far store whose
         # tier map mirrors placement.tier
         self.tiered: Optional[TieredKVCache] = None
@@ -265,6 +343,27 @@ class ServingEngine:
         )
 
     # ------------------------------------------------------------------
+    @property
+    def cache(self) -> dict:
+        """The batched cache, updated in place (never rebound)."""
+        return self._bufs["cache"]
+
+    @property
+    def next_tokens(self) -> torch.Tensor:
+        """(max_batch,) int32 on the device: each slot's next fed token."""
+        return self._bufs["next"]
+
+    def graph_launches(self) -> Dict[str, int]:
+        """Kernel launches made by this engine's graph replays (each graph's
+        captured launches times its replays), per kernel; all 0 on the CPU.
+        The wrappers' ``LAUNCHES`` count only the eager launches (and a
+        capture once), so a path's launches are theirs plus these."""
+        out = dict.fromkeys(launch_counts(), 0)
+        for g in self._graphs.values():
+            for k, n in g.replayed().items():
+                out[k] += n
+        return out
+
     @property
     def tokens_decoded(self) -> int:
         return self._m_tokens.value
@@ -354,30 +453,48 @@ class ServingEngine:
         if wall is not None:
             self.ttft_wall_samples.append(time.perf_counter() - wall)
 
+    def _admit_common(self, slot: _Slot, req: Request):
+        """Slot bookkeeping shared by both admission paths. Returns the
+        (truncated) prompt and the pagetable share record."""
+        budget = max(1, self.ecfg.max_len - 2)
+        tokens = req.tokens[:budget]
+        decode_len = max(1, min(req.decode_len, self.ecfg.max_len - len(tokens) - 1))
+        share = self.pagetable.add_sequence(req.rid, tokens)
+        self._m_prefill.inc(len(tokens))
+        self._m_prefill_saved.inc(share["shared"] * self.ecfg.page_size)
+        slot.seq_id = req.rid
+        slot.remaining = decode_len
+        slot.decode_assigned = decode_len
+        slot.request = req
+        slot.t_admit = self.now()
+        slot.start_step = self.engine_steps
+        slot.chunk = None
+        slot.chunks_done = 0
+        self._tenant(req.tenant)  # register the tenant counter index
+        self._seq_tenant[req.rid] = req.tenant
+        # the prefetch buffer is partitioned per tenant
+        self.prefetch.set_stream_partition(req.rid, req.tenant)
+        return tokens, share
+
     def _admit(self):
-        """Fill freed slots from the queue at the top of every step. The
-        prompt prefills whole through ``api.prefill`` (one model dispatch
-        per admit, charged to ``prefill_dispatches``), and its first token
-        is the one host read of the step's argmax."""
+        """Fill freed slots from the queue at the top of every step.
+
+        Whole-slot path: the prompt prefills whole through ``api.prefill``
+        (one model dispatch per admit, charged to ``prefill_dispatches``),
+        and its first token is the one host read of the step's argmax.
+        Chunked path: admission maps pages, zeroes the slot's cache rows in
+        place and arms a ChunkState; the prompt flows through the chunk
+        columns of the following steps, with no host read."""
         for slot_idx, slot in enumerate(self.slots):
             if slot.active or not self.queue:
                 continue
             req = self.queue.popleft()
-            budget = max(1, self.ecfg.max_len - 2)
-            tokens = req.tokens[:budget]
-            decode_len = max(1, min(req.decode_len, self.ecfg.max_len - len(tokens) - 1))
-            share = self.pagetable.add_sequence(req.rid, tokens)
-            self._m_prefill.inc(len(tokens))
-            self._m_prefill_saved.inc(share["shared"] * self.ecfg.page_size)
-            slot.seq_id = req.rid
-            slot.remaining = decode_len
-            slot.request = req
-            slot.t_admit = self.now()
-            slot.start_step = self.engine_steps
-            self._tenant(req.tenant)  # register the tenant counter index
-            self._seq_tenant[req.rid] = req.tenant
-            # the prefetch buffer is partitioned per tenant
-            self.prefetch.set_stream_partition(req.rid, req.tenant)
+            tokens, share = self._admit_common(slot, req)
+            if self.chunking:
+                self._reset_slot(slot_idx)
+                slot.chunk = ChunkState(tokens=tokens)
+                slot.shared_pages = share["shared"]
+                continue
             batch = {"tokens": to_device(np.asarray(tokens)[None, :], torch.int32, self.device)}
             logits1, cache1 = self.api.prefill(self.params, batch, max_len=self.ecfg.max_len)
             self.model_dispatches += 1
@@ -417,6 +534,92 @@ class ServingEngine:
                 dst[slot_idx] = src[0]
             else:
                 dst[:, slot_idx] = src[:, 0]
+
+    def _reset_slot(self, slot_idx: int):
+        """Zero slot ``slot_idx`` of every cache leaf in place (the same axis
+        rule as ``_write_slot``): chunked admission starts prefill from an
+        empty slot, lengths 0 and recurrent state cleared, without
+        allocating a cache."""
+        for leaf in self.cache.values():
+            leaf.select(0 if leaf.ndim == 1 else 1, slot_idx).zero_()
+
+    def _chunk_plan(self):
+        """Column plan for one continuous-batching step: (B, C) token ids
+        plus the use-prompt / active / emit masks of the chunk columns, and
+        the per-slot ``(start, end)`` prompt intervals this dispatch
+        advances. Decode slots occupy column 0 only; each prefilling slot
+        takes up to ``prefill_chunk`` prompt tokens and emits (captures its
+        first generated token) only in the column that consumes its final
+        prompt token."""
+        e = self.ecfg
+        C = e.prefill_chunk
+        B = e.max_batch
+        tok = np.zeros((B, C), np.int32)
+        use_prompt = np.zeros((B, C), bool)
+        active = np.zeros((B, C), bool)
+        emit = np.zeros((B, C), bool)
+        spans: Dict[int, Tuple[int, int]] = {}
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                continue
+            if s.prefilling:
+                c = s.chunk.take(C)
+                n = len(c)
+                tok[i, :n] = c
+                use_prompt[i, :n] = True
+                active[i, :n] = True
+                emit[i, n - 1] = s.chunk.pos + n >= s.chunk.total
+                spans[i] = (s.chunk.pos, s.chunk.pos + n)
+            else:
+                active[i, 0] = True
+                emit[i, 0] = True
+        return tok, use_prompt, active, emit, spans
+
+    # ------------------------------------------------------------------
+    # the dispatches: functions of the buffers, run eagerly on the CPU and
+    # captured once and replayed on the card (module docstring)
+
+    def _decode_fn(self, b: dict):
+        """One decode of every slot with its argmax, the reference's fused
+        decode: results written into the buffers."""
+        nxt, cache = self._serve(self.params, b["cache"], b["next"][:, None])
+        _write_back(b["cache"], cache)
+        b["next"].copy_(nxt[:, 0])
+
+    def _column_fn(self, b: dict):
+        """One chunk column, the body of the reference's chunk scan: prompt
+        rows feed their prompt token and decode rows their fed-back one; a
+        row inactive in the column keeps its cache (the decode's gate), and
+        a row's next token is replaced only in its emit column. Reads the
+        column ``b["col"]`` of the staged plan and advances it."""
+        col = b["plan"].index_select(2, b["col"])[..., 0]  # (4, B)
+        tok, use_prompt, active, emit = col[0], col[1] != 0, col[2] != 0, col[3] != 0
+        fed = torch.where(use_prompt, tok, b["next"])
+        nxt, cache = self._serve(self.params, b["cache"], fed[:, None], active)
+        _write_back(b["cache"], cache)
+        b["next"].copy_(torch.where(emit, nxt[:, 0], b["next"]))
+        b["col"].add_(1)
+
+    def _dispatch(self, name: str):
+        """Run dispatch ``name``: its captured graph on the card, the function
+        itself on the CPU."""
+        if self.device.type == "cuda":
+            self._graphs[name].replay()
+        else:
+            getattr(self, f"_{name}_fn")(self._bufs)
+
+    def _chunk_step(self):
+        """Stage the column plan and run its columns, up to the last one in
+        which any row is active: a column where none is changes nothing."""
+        tok, use_prompt, act, emit, spans = self._chunk_plan()
+        self._step_chunks = spans
+        n_cols = int(np.flatnonzero(act.any(axis=0))[-1]) + 1
+        stage_into(self._bufs["plan"], np.stack([tok, use_prompt, act, emit]))
+        self._bufs["col"].zero_()
+        for _ in range(n_cols):
+            self._dispatch("column")
+        self.chunk_columns += n_cols
+        self.batch_decodes += n_cols
 
     # ------------------------------------------------------------------
     def _tenant(self, name: str) -> Dict[str, Counter]:
@@ -499,34 +702,46 @@ class ServingEngine:
         With device tiering the read is EXECUTED: all active slots' page ids
         go through ONE segmented tiered-gather launch, and the per-slot
         near/far hit counts accumulate into the store's device counter plane
-        (no host read here)."""
+        (no host read here).
+
+        Under chunked prefill a prefilling slot's walk is truncated to the
+        pages whose KV content exists after this step's chunk, and its
+        segment carries ROLE_PREFILL into the counter plane's role
+        accumulator: the mixed prefill/decode step stays ONE lookup."""
         segs = []
         for slot_idx, slot in enumerate(self.slots):
             if not slot.active:
                 continue
-            pages = np.array(self.pagetable.seqs[slot.seq_id], np.int64)
+            pages_all = self.pagetable.seqs[slot.seq_id]
+            role = ROLE_DECODE
+            if slot.prefilling and slot_idx in self._step_chunks:
+                end = self._step_chunks[slot_idx][1]
+                pages = np.array(pages_all[: -(-end // self.ecfg.page_size)], np.int64)
+                role = ROLE_PREFILL
+            else:
+                pages = np.array(pages_all, np.int64)
             if pages.size:
-                segs.append((slot_idx, slot, pages))
+                segs.append((slot_idx, slot, pages, role))
         if not segs:
             return
         segmented = self.tiered is not None and self.ecfg.segmented_lookup
         if segmented:
-            ids = np.concatenate([p for _, _, p in segs])
+            ids = np.concatenate([p for _, _, p, _ in segs])
             seg_of = np.repeat(
-                np.arange(len(segs), dtype=np.int32), [p.size for _, _, p in segs]
+                np.arange(len(segs), dtype=np.int32), [p.size for _, _, p, _ in segs]
             )
             rows = self.tiered.lookup_segments(
                 ids,
                 seg_of,
                 self.ecfg.max_batch + 1,  # last segment absorbs the padding
-                slot_idx=[i for i, _, _ in segs],
-                tenant_idx=[self._tenant_index[s.request.tenant] for _, s, _ in segs],
-                role_idx=[ROLE_DECODE] * len(segs),
+                slot_idx=[i for i, _, _, _ in segs],
+                tenant_idx=[self._tenant_index[s.request.tenant] for _, s, _, _ in segs],
+                role_idx=[r for _, _, _, r in segs],
             )
             if self.ecfg.tiered_verify:
                 self._verify(rows, ids)
         far_total = n_total = 0
-        for slot_idx, slot, pages in segs:
+        for slot_idx, slot, pages, _role in segs:
             far = self.placement.tier[pages] == 1
             far_total += int(far.sum())
             n_total += pages.size
@@ -553,18 +768,78 @@ class ServingEngine:
                 hook(pages, False)
         self.last_step_far_frac = far_total / n_total if n_total else 0.0
 
+    def _finish_chunk(self, slot_idx: int, slot: _Slot):
+        """Post-dispatch bookkeeping for one prefilling slot: advance the
+        chunk cursor, push the prompt pages this chunk completed through
+        the tiered write path (each page keyed by its last prefilled
+        token, as the whole-slot admit seeds them), and, when the final
+        prompt token just landed, close TTFT: the emit column captured the
+        request's first generated token into next_tokens."""
+        start, end = self._step_chunks[slot_idx]
+        slot.chunk.pos = end
+        slot.chunks_done += 1
+        if self.tiered is not None:
+            pages = self.pagetable.seqs[slot.seq_id]
+            ps = self.ecfg.page_size
+            total = slot.chunk.total
+            w_pages: List[int] = []
+            w_pos: List[int] = []
+            for i, pid in enumerate(pages):
+                endpos = min((i + 1) * ps, total)
+                if start < endpos <= end:
+                    w_pages.append(pid)
+                    w_pos.append(endpos - 1)
+            if w_pages:
+                self._tiered_write(self.cache, [slot_idx] * len(w_pages), w_pos, w_pages)
+        t = self.now()
+        if self.recorder is not None:
+            self.recorder.span(
+                "prefill_chunk",
+                slot.seq_id,
+                t,
+                t,
+                tenant=slot.request.tenant,
+                replica=self.host_rid,
+                tokens=end - start,
+                chunk=slot.chunks_done,
+            )
+        if slot.chunk.done:
+            prompt_tokens = slot.chunk.total
+            slot.chunk = None
+            self._record_ttft(slot.request)
+            if self.recorder is not None:
+                self.recorder.span(
+                    "prefill",
+                    slot.seq_id,
+                    slot.t_admit,
+                    t,
+                    tenant=slot.request.tenant,
+                    replica=self.host_rid,
+                    prompt_tokens=prompt_tokens,
+                    chunks=slot.chunks_done,
+                    shared_pages=slot.shared_pages,
+                )
+
     def step(self) -> int:
         """One engine iteration: admit -> decode -> account -> retire.
 
-        One model dispatch (the batched decode with its argmax) and one
-        tiered-gather launch; no host read except an admit's first token
-        and the profiler-window drain. Returns tokens decoded this step.
+        Continuous batching: ``_admit`` runs at the top of every step, so
+        freed slots refill at once. While any slot is mid-prefill the step
+        runs the chunk columns (prefill chunks and decode tokens in one
+        model dispatch); otherwise the plain batched decode with its argmax.
+        Either way one model dispatch and one tiered-gather launch, and no
+        host read but a whole-slot admit's first token and the
+        profiler-window drain. Returns tokens decoded this step.
         """
         self._admit()
         if not any(s.active for s in self.slots):
             return 0
-        nxt, self.cache = self._serve(self.params, self.cache, self.next_tokens[:, None])
-        self.next_tokens = nxt[:, 0]
+        if any(s.prefilling for s in self.slots):
+            self._chunk_step()
+        else:
+            self._step_chunks = {}
+            self._dispatch("decode")
+            self.batch_decodes += 1
         self.model_dispatches += 1
         self._account_decode()
         decoded = 0
@@ -575,6 +850,9 @@ class ServingEngine:
         written_seq: List[int] = []
         for slot_idx, slot in enumerate(self.slots):
             if not slot.active:
+                continue
+            if slot.prefilling:
+                self._finish_chunk(slot_idx, slot)
                 continue
             written.append(self.pagetable.append_token(slot.seq_id))
             written_tenant.append(slot.request.tenant)

@@ -31,6 +31,13 @@ and given states, strong decays, in-place state updates and strided
 inputs; the SSD prefill at every cluster split it takes against the plain
 version of its split algorithm; and the reduced recurrent engines on the
 card against the CPU.
+
+The serving engine replays captured CUDA graphs on the card: against the
+same engine run eagerly on the card they give bit-equal tokens, caches,
+next-step logits, live counters and books, on the whole-slot and the
+chunked path of all three families; the held weight casts are bit-equal
+to per-call casts there; the chunked card engine gives the CPU engine's
+books; and a capture that meets a host read raises.
 """
 import numpy as np
 import pytest
@@ -735,10 +742,212 @@ def test_reduced_engine_on_card_equals_cpu(card, arch):
                 c[k] = 0
         eng.run(RequestGenerator(prof, vocab_size=cfg.vocab_size, seed=0), n_requests=6)
         books[where] = (eng.live_counters(), eng.stats()["device_tiering"])
-        launched = {k: v for c in counters for k, v in c.items()}
+        # the decodes replay a captured graph on the card: its launches are
+        # the graph's captured ones times its replays
+        replayed = eng.graph_launches()
+        launched = {k: v + replayed[k] for c in counters for k, v in c.items()}
         pre, dec = eng.prefill_dispatches, eng.model_dispatches - eng.prefill_dispatches
         want = kernel_launches(cfg, pre, dec)
         assert dec > 0
         assert launched == (want if where == "cuda" else dict.fromkeys(want, 0))
     assert books["cuda"] == books["cpu"]
     assert books["cuda"][1]["max_read_error"] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's captured graphs
+
+
+def _card_cfg(arch):
+    """The reduced configs the attention kernels take (head_dim 64), as in
+    ``test_reduced_engine_on_card_equals_cpu``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    if arch == "smollm-360m":
+        cfg = dataclasses.replace(cfg, d_model=192, n_heads=3, n_kv_heads=1)
+    elif arch == "zamba2-1.2b":
+        cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2)
+    return cfg
+
+
+def _engine_run(api, model, where, chunk, eager=False):
+    """Six Web1 requests through a device-tiered engine: (engine, per-step
+    next tokens, the wrappers' launches, the logits of one more decode)."""
+    import dataclasses
+
+    from repro_torch.configs.workloads import get_profile
+    from repro_torch.data.requests import RequestGenerator
+    from repro_torch.kernels import launch_counts
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+
+    prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
+                               prefix_share=0.5, n_prefixes=2)
+    eng = ServingEngine(api, model, EngineConfig(
+        max_batch=4, max_len=64, n_pages=256, near_frac=0.02, placement_window=4,
+        device_tiering=True, tiered_identity_scales=True, tiered_verify=True, prefill_chunk=chunk,
+    ), seed=0, device=where)
+    if eager:  # what the graphs replay, run as it stands
+        eng._dispatch = lambda name: getattr(eng, f"_{name}_fn")(eng._bufs)
+    before = launch_counts()
+    gen = RequestGenerator(prof, vocab_size=api.cfg.vocab_size, seed=0)
+    for _ in range(6):
+        eng.submit(next(gen))
+    toks = []
+    while eng.queue or any(s.active for s in eng.slots):
+        eng.step()
+        toks.append(eng.next_tokens.cpu().clone())
+    after = launch_counts()
+    cache = {k: v.clone() for k, v in eng.cache.items()}
+    logits, _ = api.decode(model, cache, eng.next_tokens[:, None], page_size=16)
+    return eng, torch.stack(toks), {k: after[k] - before[k] for k in after}, logits
+
+
+@pytest.mark.parametrize("chunk", [0, 8])
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-7b", "zamba2-1.2b"])
+def test_graph_replay_equals_eager(card, arch, chunk):
+    """The engine on the card replays its captured decode and chunk-column
+    graphs; run eagerly instead (the same functions), it gives bit-equal
+    tokens, caches, next-step logits, live counters and books. Launches:
+    the eager run's wrappers count every model kernel, once a layer a
+    prefill and once a layer a whole-batch decode; in the graph run they
+    count only the prefills, and the replays the rest."""
+    from repro_torch.models.api import get_model, kernel_launches
+
+    cfg = _card_cfg(arch)
+    api = get_model(cfg)
+    model = api.init(0, device="cuda")
+    g_eng, g_toks, g_launched, g_logits = _engine_run(api, model, "cuda", chunk)
+    e_eng, e_toks, e_launched, e_logits = _engine_run(api, model, "cuda", chunk, eager=True)
+    assert torch.equal(g_toks, e_toks) and torch.equal(g_logits, e_logits)
+    assert all(torch.equal(g_eng.cache[k], e_eng.cache[k]) for k in g_eng.cache)
+    assert g_eng.live_counters() == e_eng.live_counters()
+    assert g_eng.stats() == e_eng.stats()
+    assert g_eng.stats()["device_tiering"]["max_read_error"] == 0.0
+    model_kernels = ("flash_attention", "paged_attention", "wkv6", "ssd")
+    want = kernel_launches(cfg, g_eng.prefill_dispatches, g_eng.batch_decodes)
+    prefill_only = kernel_launches(cfg, g_eng.prefill_dispatches, 0)
+    replayed = g_eng.graph_launches()
+    assert {k: e_launched[k] for k in want} == want
+    assert {k: g_launched[k] for k in want} == prefill_only
+    assert {k: g_launched[k] + replayed[k] for k in want} == want
+    assert sum(g.replays for g in g_eng._graphs.values()) == g_eng.batch_decodes > 0
+    assert e_eng.graph_launches() == dict.fromkeys(e_eng.graph_launches(), 0)
+    assert g_launched["tiered_segmented"] == e_launched["tiered_segmented"] == g_eng.engine_steps
+    assert all(v == 0 for k, v in replayed.items() if k not in model_kernels)
+    if chunk:
+        assert g_eng.chunk_columns > 0 and g_eng._graphs["column"].replays == g_eng.chunk_columns
+        assert g_eng.prefill_dispatches == 0
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "rwkv6-7b", "zamba2-1.2b"])
+def test_held_casts_on_the_card(card, arch):
+    """At bf16 compute every held cast of a layer, and the head's, is
+    bit-equal to a per-call ``p.to(bfloat16)`` on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common
+    from repro_torch.models.api import get_model
+
+    api = get_model(dataclasses.replace(get_config(arch).reduced(), compute_dtype="bfloat16"))
+    model = api.init(0, device="cuda")
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    for node in (m for m in model.modules() if isinstance(m, common.ParamTree)):
+        held = list(leaves(node.tree(torch.bfloat16)))
+        fresh = [p.to(torch.bfloat16) for _, p in node.named_parameters()]
+        assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(held, fresh))
+    head = "embed" if api.cfg.tie_embeddings else "lm_head"
+    assert torch.equal(common.cast(model, head, torch.bfloat16), getattr(model, head).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-7b", "zamba2-1.2b"])
+def test_chunked_engine_on_card_equals_cpu(card, arch):
+    """The chunked engine (prefill_chunk 8) on the card (graphs over the
+    kernels) against the same engine on the CPU (plain versions): the same
+    books; tokens equal at 0.9 of the steps or more, since an argmax may
+    flip at a near-tie under the other summation order."""
+    from repro_torch.models.api import get_model, kernel_launches
+
+    cfg = _card_cfg(arch)
+    api = get_model(cfg)
+    runs = {where: _engine_run(api, api.init(0, device=where), where, 8) for where in ("cuda", "cpu")}
+    (ge, gt, gl, _), (ce, ct, cl, _) = runs["cuda"], runs["cpu"]
+    assert ge.live_counters() == ce.live_counters()
+    assert ge.stats() == ce.stats()
+    assert ge.chunk_columns == ce.chunk_columns and ge.batch_decodes == ce.batch_decodes
+    assert float((gt == ct).float().mean()) >= 0.9
+    replayed = ge.graph_launches()
+    want = kernel_launches(cfg, 0, ge.batch_decodes)
+    assert {k: gl[k] + replayed[k] for k in want} == want
+    assert {k: cl[k] for k in want} == dict.fromkeys(want, 0)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(15, 5, 64), (16, 2, 128), (32, 32, 64)])
+def test_decode_kernels_replay_in_a_graph(card, hq, hkv, d):
+    """The main path's decode kernels at full width, captured in one graph:
+    paged attention over S = 1024 (each sequence split over a cluster of up
+    to 8 blocks) and the WKV6 and SSD decode steps at 64 heads of 64, in
+    place. Replayed, they give bit for bit what they give run eagerly."""
+    from repro_torch.kernels import mamba2_scan, paged_attention, rwkv6_scan
+    from repro_torch.runtime.graphs import StepGraph
+
+    g = torch.Generator().manual_seed(hq)
+    rand = lambda *shape: torch.randn(*shape, generator=g).cuda()
+    kc, vc = rand(8, hkv, 1024, d).bfloat16(), rand(8, hkv, 1024, d).bfloat16()
+    lengths = torch.tensor([1, 23, 512, 547, 560, 600, 1024, 1300], dtype=torch.int32, device="cuda")
+    wkv = [rand(8, 1, 64, 64) for _ in range(3)] + [-rand(8, 1, 64, 64).abs(), rand(64, 64)]
+    ssd = [rand(8, 1, 64, 64), rand(8, 1, 64).abs(), -rand(64).abs(), rand(8, 1, 64), rand(8, 1, 64),
+           rand(64)]
+    bufs = {"q": rand(8, hq, d).bfloat16(), "out": torch.zeros(8, hq, d, device="cuda").bfloat16(),
+            "wkv": rand(8, 64, 64, 64), "ssd": rand(8, 64, 64, 64), "y": torch.zeros(2, 8, 64, 64, device="cuda")}
+
+    def step(b):
+        kp, vp, table = paged_attention.cache_as_pages(kc, vc, 16)
+        b["out"].copy_(paged_attention.paged_attention(b["q"], kp, vp, table, lengths))
+        y, _ = rwkv6_scan.wkv6_chunked(*wkv, b["wkv"], inplace=True)
+        b["y"][0].copy_(y[:, 0])
+        y, _ = mamba2_scan.ssd_chunked(*ssd, b["ssd"], inplace=True)
+        b["y"][1].copy_(y[:, 0])
+
+    eager = {k: v.clone() for k, v in bufs.items()}
+    step(eager)
+    graph = StepGraph(step, bufs)
+    assert paged_attention.split_count(1024, hkv, 8) > 1
+    assert graph.launches["paged_attention"] == graph.launches["wkv6"] == graph.launches["ssd"] == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(bufs[k], eager[k]) for k in bufs)
+
+
+def test_failed_capture_raises(card):
+    """A dispatch that reads the host under capture fails the capture, and
+    the failure raises, from the graph and from the engine that would have
+    replayed it; nothing runs it eagerly instead."""
+    from repro_torch.models.api import get_model
+    from repro_torch.runtime.graphs import StepGraph
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+
+    x = {"x": torch.zeros(4, device="cuda")}
+    with pytest.raises(RuntimeError):
+        StepGraph(lambda b: b["x"].add_(float(b["x"].sum().item())), x)
+    api = get_model(_card_cfg("smollm-360m"))
+    model = api.init(0, device="cuda")
+    decode = api.decode
+
+    def reads_the_host(*a, **k):
+        logits, cache = decode(*a, **k)
+        logits.sum().item()
+        return logits, cache
+
+    api.decode = reads_the_host
+    with pytest.raises(RuntimeError):
+        ServingEngine(api, model, EngineConfig(max_batch=4, max_len=64, n_pages=256), seed=0,
+                      device="cuda")
+    torch.cuda.synchronize()

@@ -21,7 +21,7 @@ def _is_reference(name: str) -> bool:
 def test_port_imports_no_jax_and_no_reference_package():
     code = (
         "import json, sys\n"
-        "import repro_torch.runtime.serving, repro_torch.parity\n"
+        "import repro_torch.runtime.serving, repro_torch.runtime.graphs, repro_torch.parity\n"
         "import repro_torch.kernels.tiered_gather.ops\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.paged_attention.ops\n"
         "import repro_torch.kernels.rwkv6_scan.ops, repro_torch.kernels.mamba2_scan.ops\n"
@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, check=True, cwd=ROOT)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.runtime.serving" in mods
+    assert "repro_torch.runtime.serving" in mods and "repro_torch.runtime.graphs" in mods
     assert "repro_torch.kernels.flash_attention.ref" in mods
     assert "repro_torch.kernels.paged_attention.ref" in mods
     for mod in ("kernels.rwkv6_scan.ref", "kernels.mamba2_scan.ref", "models.rwkv6",

@@ -207,7 +207,7 @@ def test_counter_rows_match_reference():
 
 
 def test_unported_options_name_their_roadmap_item(port):
-    for over, item in ((dict(prefill_chunk=8), "A4.2"), (dict(prefetch_promote=True), "A4.3")):
+    for over, item in ((dict(prefetch_promote=True), "A4.3"), (dict(model_shards=2), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             _engine(port, True, **over)
     eng = _engine(port, True)
