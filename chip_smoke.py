@@ -62,7 +62,20 @@ Phases (any failure raises, so the script exits non-zero):
    reduced smollm, rwkv6 and zamba2 models on the card (kernels, graphs)
    against the same engine on the CPU (plain versions), whole-slot and
    chunked;
-5. one JSON line with every kernel's numbers, then the result line.
+5. the fleet (``repro_torch.fleet``) at full width: the objects
+   ``build_fleet`` wires (router, admission with the chaos study's two
+   tenants, AutoTierer, elastic layer, chaos engine) over 3 device-tiered
+   smollm-360m engines sharing phase 3's params, trace prediction and the
+   prefetch issue window on, through a crash with a replacement host, a
+   hang, and a degraded host whose window holds two placement epochs: one
+   tiered launch a step on every host, no host read in a step that neither
+   drains nor admits, no near hit on the degraded host in its window and
+   its pushes rejected, pages promoted, every fault applied on time, every
+   request completed, failed or shed, and each host's model kernels once
+   a layer per prefill and per decode; then the same wiring over the
+   reduced head_dim-64 smollm on the card and on the CPU, with equal chaos
+   logs, outcome ledgers and fleet books;
+6. one JSON line with every kernel's numbers, then the result line.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -1034,6 +1047,264 @@ def reduced_on_card_vs_cpu(small, label: str):
             f"|diff| {err:.3e}, per-step tokens equal {match:.4f}, live counters and books equal")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the fleet over the port's engines
+
+
+# the full-width fleet's engines: the main path's, with trace-driven
+# prediction and the prefetch issue window on (trace windows as the chaos
+# study's fleet sets them), and a near tier of 5% of the pages. Under the
+# tenants' admission SLOs a host holds a few requests at once, whose pages
+# a 30% near tier (307 pages) always covers once the AutoTierer has planned:
+# no page in use is ever far, and the window would have nothing to promote.
+FLEET_ECFG = dict(ECFG, near_frac=0.05, predictor="trace", prefetch_promote=True, trace_window=16,
+                  trace_period=32)
+# the reduced fleet's engines: build_fleet's defaults with the same options
+FLEET_REDUCED_ECFG = dict(max_batch=4, max_len=64, n_pages=512, device_tiering=True, predictor="trace",
+                          prefetch_promote=True, trace_window=16, trace_period=32)
+# the chaos study's two tenants (benchmarks/chaos_bench.py): profile, the
+# study's overrides of it (its reduced-size traffic), arrival rate, and
+# queueing SLO in steps; at full width the profiles are served as they are
+FLEET_TENANTS = {
+    "web": ("Web1", dict(prompt_mean=24, decode_mean=8, prefix_share=0.9, n_prefixes=3), 8.0, 96.0),
+    "cache": ("Cache1", dict(prompt_mean=8, decode_mean=6, prefix_share=0.0, n_prefixes=4), 32.0, 12.0),
+}
+# (kind, vtime, host, duration): the chaos study's crash of host 1 (a
+# replacement host joins after 6) and hang of host 0, and host 2 degraded
+# over 14-26, a window that holds the AutoTierer's epochs at 16 and 24
+FLEET_SCENARIO = [("crash", 6.0, 1, 6.0), ("hang", 10.0, 0, 3.0), ("degrade", 14.0, 2, 12.0)]
+
+
+def fleet_traffic(vocab: int, n: int, reduced: bool):
+    """``n`` requests of the two tenants merged by arrival time: the
+    published profiles, or with ``reduced`` the chaos study's overrides."""
+    from repro_torch.configs.workloads import get_profile
+    from repro_torch.data.requests import RequestGenerator, interleave
+
+    gens = []
+    for i, (t, (base, over, rate, _slo)) in enumerate(sorted(FLEET_TENANTS.items())):
+        prof = dataclasses.replace(get_profile(base), **(over if reduced else {}))
+        gens.append(RequestGenerator(prof, vocab_size=vocab, seed=i, rate=rate, tenant=t))
+    return interleave(gens, n)
+
+
+def wire_fleet(api, params, device: str, ecfg: dict, step_hook=None):
+    """The objects ``repro_torch.fleet.build_fleet`` wires, over the given
+    model: 3 replicas (engine seed = host id), least-loaded routing, the two
+    tenants' admission SLOs, the AutoTierer (30% near, an epoch every 8
+    units of virtual time), the elastic layer (1 to 4 hosts) and the chaos
+    scenario. Returns the router and every replica it ever had (crashed
+    and added ones too). ``step_hook(replica, step)`` wraps each engine's
+    step."""
+    from repro_torch.fleet import (AdmissionController, AutoTierer, ChaosEngine, ElasticFleet,
+                                   FaultEvent, FleetRouter, LeastLoadedPolicy, Replica, SLOModel)
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+
+    built = []
+
+    def make_replica(rid: int) -> Replica:
+        eng = ServingEngine(api, params, EngineConfig(**ecfg), seed=rid, device=device)
+        r = Replica(rid, eng, 128)
+        if step_hook is not None:
+            eng.step = step_hook(r, eng.step)
+        built.append(r)
+        return r
+
+    replicas = [make_replica(i) for i in range(3)]
+    slos = {t: SLOModel(max_delay_steps=v[3]) for t, v in FLEET_TENANTS.items()}
+    router = FleetRouter(replicas, LeastLoadedPolicy(),
+                         admission=AdmissionController(SLOModel(max_delay_steps=64.0), tenant_slos=slos))
+    router.autotierer = AutoTierer(replicas, near_frac=0.30, epoch_steps=8)
+    router.on_step.append(router.autotierer)
+    router.elastic = ElasticFleet(router, make_replica, autotierer=router.autotierer, min_replicas=1,
+                                  max_replicas=4)
+    router.on_step.append(router.elastic)
+    ChaosEngine(router, [FaultEvent(t, kind, rid=rid, duration=d) for kind, t, rid, d in FLEET_SCENARIO],
+                dispatch_timeout=8.0, max_retries=3)
+    return router, built
+
+
+def _plain(x):
+    """Plain Python values: dataclasses as dicts, arrays as lists."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return _plain({f.name: getattr(x, f.name) for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def fleet_books(router) -> dict:
+    """What a fleet run must reproduce wherever it runs (no wall clock
+    enters any of it)."""
+    return {"log": [list(e) for e in router.chaos.log], "outcome": _plain(router.outcome_report()),
+            "fleet_stats": _plain(router.fleet_stats())}
+
+
+def serve_fleet(card: str, api, params, cfg, device: str = "cuda", n_requests: int = 48) -> dict:
+    """The fleet at full width: ``wire_fleet`` over the main path's engines
+    and smollm-360m params (shared by every replica, with their held casts),
+    through the crash, hang and degrade scenario. Asserts, with every
+    engine step watched: one tiered dispatch a step on every replica; no
+    host read and no sync warning in a step that neither drains nor admits
+    (a whole-slot admission reads its first token back); zero near hits on
+    the degraded host inside its window and the pushes there rejected as
+    ``degraded``; pages promoted by the prefetch window; every fault
+    applied as scheduled; every offered request completed, failed or shed;
+    and each replica's model kernels launched once a layer per prefill and
+    per whole-batch decode (its eager launches plus its graphs' captured
+    launches times their replays)."""
+    import torch
+
+    from repro_torch.device import HOST_READS
+    from repro_torch.models.api import kernel_launches
+
+    cuda = device == "cuda"
+    books = {}
+
+    def step_hook(r, step):
+        b = books[r.rid] = {"eager": dict.fromkeys(launch_counts(), 0), "quiet": 0, "reads": 0,
+                            "degraded_steps": 0, "degraded_near_pages": 0}
+        eng = r.engine
+
+        def watched():
+            quiet = ((eng.engine_steps + 1) % eng.ecfg.placement_window != 0
+                     and not (eng.queue and any(not s.active for s in eng.slots)))
+            before, reads0 = launch_counts(), HOST_READS["copies"]
+            if quiet and cuda:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = step()
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(0)
+            after = launch_counts()
+            for k in after:
+                b["eager"][k] += after[k] - before[k]
+            b["quiet"] += quiet
+            b["reads"] += (HOST_READS["copies"] - reads0) if quiet else 0
+            if eng.degraded:
+                b["degraded_steps"] += 1
+                b["degraded_near_pages"] += int((eng.placement.tier == 0).sum()) + eng.tiered.near_count
+            return out
+
+        return watched
+
+    router, built = wire_fleet(api, params, device, FLEET_ECFG, step_hook)
+    # the degraded host's window: its books at entry (enter_degraded drains
+    # first) and at exit (drained here, just before the recovery)
+    victim = built[2].engine
+    window = {}
+    enter, leave = victim.enter_degraded, victim.exit_degraded
+
+    def entered(**k):
+        out = enter(**k)
+        window["enter"] = (victim.placement.stats.near_hits, victim.placement.stats.far_hits)
+        return out
+
+    def left(**k):
+        victim.drain_tier_counters()
+        window["leave"] = (victim.placement.stats.near_hits, victim.placement.stats.far_hits)
+        return leave(**k)
+
+    victim.enter_degraded, victim.exit_degraded = entered, left
+    reqs = fleet_traffic(cfg.vocab_size, n_requests, reduced=False)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stats = router.run(iter(reqs), n_requests=n_requests, max_steps=2000, submit_per_step=3)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    rep = router.outcome_report()
+    log_ = router.chaos.log
+    per = {}
+    for r in built:
+        eng, b = r.engine, books[r.rid]
+        st = eng.stats()
+        dev = st["device_tiering"]
+        launched = path_launches(eng, b["eager"])
+        want = kernel_launches(cfg, eng.prefill_dispatches, eng.batch_decodes)
+        if not cuda:
+            want = dict.fromkeys(want, 0)
+        assert {k: launched[k] for k in want} == want, (r.rid, launched, want)
+        assert eng.tiered.dispatches == eng.engine_steps, (r.rid, eng.tiered.dispatches, eng.engine_steps)
+        assert launched["tiered_segmented"] == (eng.engine_steps if cuda else 0), (r.rid, launched)
+        assert b["reads"] == 0, (r.rid, b)
+        per[r.rid] = {"steps": eng.engine_steps, "quiet_steps": b["quiet"], "alive": r.alive,
+                      "near_hit_rate": dev["near_hit_rate"], "promoted": st["prefetch_promoted_pages"],
+                      "prefill_dispatches": eng.prefill_dispatches, "batch_decodes": eng.batch_decodes,
+                      "tokens": st["tokens_decoded"], "launches": launched}
+    assert not syncs, syncs[:3]
+    # every fault applied at its time, and each recovery at its time + duration
+    assert [(t, a, rid) for t, a, rid, ok in log_ if "recover" not in a] == [
+        (t, kind, rid) for kind, t, rid, _ in FLEET_SCENARIO], log_
+    assert [(t, a) for t, a, _, ok in log_ if ok and "recover" in a] == [
+        (t + d, f"{kind}_recover") for kind, t, _, d in sorted(FLEET_SCENARIO, key=lambda f: f[1] + f[3])], log_
+    assert all(ok for *_, ok in log_), log_
+    # the degraded host: no near page and no near hit inside its window
+    vb = books[2]
+    near_in = window["leave"][0] - window["enter"][0]
+    far_in = window["leave"][1] - window["enter"][1]
+    rejected = victim.metrics.snapshot().flat().get("placement_rejected{reason=degraded,replica=2}", 0)
+    assert vb["degraded_steps"] > 0 and vb["degraded_near_pages"] == 0 and near_in == 0 and far_in > 0, (
+        vb, window)
+    assert rejected > 0, victim.metrics.snapshot().flat()
+    promoted = sum(p["promoted"] for p in per.values())
+    assert promoted > 0, per
+    outs = rep["outcomes"]
+    assert rep["complete"] and rep["offered"] == n_requests == sum(outs.values()), rep
+    assert outs.get("completed", 0) == stats["requests_finished"], (outs, stats["requests_finished"])
+    scale = [(e.vtime, e.action, e.rid) for e in router.elastic.events]
+    quiet = sum(b["quiet"] for b in books.values())
+    log(f"fleet [{card}]: {n_requests} requests over {len(built)} hosts, {wall:.2f} s wall, "
+        f"{stats['tokens_decoded']} tokens decoded ({stats['tokens_decoded'] / wall:.1f} tokens/s), "
+        f"virtual time {stats['virtual_time']}, outcomes {outs}, failovers {stats['failovers']}, "
+        f"lost tokens {stats['lost_tokens']}, fleet near-hit rate {stats['near_hit_rate']:.4f}")
+    log(f"fleet [{card}]: chaos log {log_}; elastic events {scale}")
+    log(f"fleet [{card}]: degraded host 2: {vb['degraded_steps']} steps in its window, near/far hits "
+        f"there {near_in}/{far_in}, {rejected} pushes rejected as degraded; {quiet} quiet steps "
+        f"checked: 0 host reads, 0 sync warnings; prefetch window promoted {promoted} pages")
+    for rid, p in per.items():
+        log(f"fleet [{card}] host {rid}: " + json.dumps({k: v for k, v in p.items() if k != "launches"})
+            + f" launches {p['launches']}")
+    launches = {k: sum(p["launches"][k] for p in per.values()) for k in launch_counts()}
+    return {"wall_s": wall, "tokens": stats["tokens_decoded"], "promoted": promoted, "per_host": per,
+            "launches": launches, "books": fleet_books(router)}
+
+
+def reduced_fleet_card_vs_cpu(card: str):
+    """The same wiring over the reduced head_dim-64 smollm (the first of
+    ``reduced_models``), at build_fleet's engine sizes and the chaos study's
+    traffic, on the card and on the CPU: the chaos log, outcome ledger and
+    fleet_stats (per-replica books included) are equal, since a fleet's
+    books follow its schedule, not its token values."""
+    from repro_torch.models.api import get_model
+
+    small, _label = reduced_models()[0]
+    sapi = get_model(small)
+    res = {}
+    for where in ("cuda", "cpu"):
+        router, _ = wire_fleet(sapi, sapi.init(seed=0, device=where), where, FLEET_REDUCED_ECFG)
+        router.run(iter(fleet_traffic(small.vocab_size, 24, reduced=True)), n_requests=24, max_steps=600,
+                   submit_per_step=3)
+        res[where] = fleet_books(router)
+    same = {k: res["cuda"][k] == res["cpu"][k] for k in res["cuda"]}
+    log(f"reduced fleet on the card vs the CPU: {same}; outcomes {res['cuda']['outcome']['outcomes']}, "
+        f"promoted {sum(p['prefetch_promoted_pages'] for p in res['cuda']['fleet_stats']['per_replica'])}")
+    assert all(same.values()), same
+    return res
+
+
 def main():
     import torch
 
@@ -1105,10 +1376,20 @@ def main():
     vp = verify_paths(mp, card)
     log(f"phase 4 {time.perf_counter() - t4:.1f} s")
 
-    # phase 5: summary. Each row's launches are those of the main path that
+    # phase 5: the fleet at full width over smollm-360m's params, then the
+    # reduced fleet on the card against the CPU
+    t5 = time.perf_counter()
+    fleet = serve_fleet(card, mp["api"], mp["params"], mp["cfg"])
+    t5r = time.perf_counter()
+    log(f"phase 5 fleet {t5r - t5:.1f} s")
+    reduced_fleet_card_vs_cpu(card)
+    log(f"phase 5r reduced fleet {time.perf_counter() - t5r:.1f} s")
+
+    # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
-    # chunked_launches: the same kernels' launches on that model's chunked path
+    # chunked_launches: the same kernels' launches on that model's chunked path;
+    # fleet_launches: on the fleet's path, summed over its hosts
     carrier = {"tiered_segmented": "smollm-360m", "paged_attention": "smollm-360m",
                "flash_attention": "smollm-360m", "wkv6": "rwkv6-7b", "ssd": "zamba2-1.2b"}
     launches = {"tiered_segmented": mp["launches"]["tiered_segmented"],
@@ -1133,6 +1414,7 @@ def main():
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"chunked_launches": chunked[carrier[name]]["launches"][name]} if name in carrier else {}),
+            **({"fleet_launches": fleet["launches"][name]} if carrier.get(name) == "smollm-360m" else {}),
             **{k: r[k] for k in ("qwen2.5-3b", "zamba2-1.2b", "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })

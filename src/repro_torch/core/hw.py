@@ -1,0 +1,56 @@
+"""Hardware model: the card the port runs on + memory-tier specs.
+
+The card's figures are its published peaks, for an NVIDIA H100 80GB HBM3,
+700 W (the SXM part): 3.35 TB/s of HBM3, and a PCIe Gen5 x16 host link at
+64 GB/s each way. Tier specs mirror the paper's Table 4 (near =
+HB-DIMM-like: 2x BW, 2x cost; far = CXL-like: DDR BW, higher latency) as
+the reference has them, so the planner reproduces Table 5 with the paper's
+own constants; the serving tiers (device HBM vs host DRAM over the host
+link) are the deployment analogue.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+# --- NVIDIA H100 80GB HBM3, 700 W (published peaks) -------------------------
+HBM_BW = 3.35e12  # B/s
+# host link (far tier for serving state): PCIe Gen5 x16, one direction
+HOST_LINK_BW = 64e9  # B/s
+
+
+@dataclasses.dataclass(frozen=True)
+class TierSpec:
+    name: str
+    capacity_frac: float  # fraction of total workload memory capacity
+    bw: float  # B/s usable peak
+    latency_rel: float  # relative load latency (near == 1.0)
+    cost_per_unit: float  # relative $ per byte (DDR == 1.0)
+
+    @property
+    def cost(self) -> float:
+        return self.capacity_frac * self.cost_per_unit
+
+
+# --- the paper's Table 4 configurations ------------------------------------
+GB = 1e9
+BASELINE = (TierSpec("ddr", 1.0, 100 * GB, 1.0, 1.0),)
+IDEAL = (TierSpec("hb-dimm", 1.0, 200 * GB, 1.0, 2.0),)
+TIERED = (
+    TierSpec("hb-dimm", 0.375, 200 * GB, 1.0, 2.0),
+    TierSpec("cxl", 0.625, 100 * GB, 1.8, 1.0),
+)
+
+# --- serving tiers (deployment analogue) ------------------------------------
+# The relative figures (capacity 0.30 / 0.70, far latency 6.0x, cost 8.0 /
+# 1.0) are the reference's virtual-time model, kept as they are so that the
+# fleet's books (the router's far-latency pricing, the planner's split)
+# match the reference's; they are not a measurement of this card. Only the
+# bandwidths are the card's, and the planner does not read them.
+SERVING_TIERED = (
+    TierSpec("hbm", 0.30, HBM_BW, 1.0, 8.0),
+    TierSpec("host-dram", 0.70, HOST_LINK_BW, 6.0, 1.0),
+)
+
+# utilization knee: production workloads can't push DDR past ~60-70% without
+# the latency blow-up the paper describes (Fig. 4); microbenchmarks can.
+BW_KNEE = 0.68

@@ -13,8 +13,10 @@ here as in the reference:
     prefixes map the same physical pages;
   * tiered placement (core/placement): hot pages stay in the near tier,
     cold pages demote to the far tier, driven by windowed access counts;
-  * software prefetch (core/prefetch): the decode walk is predicted and its
-    accuracy/coverage accounted (promotion is not ported yet).
+  * software prefetch (core/prefetch): the decode walk is predicted, its
+    accuracy/coverage accounted, and with ``prefetch_promote`` the predicted
+    far pages are promoted into the near tier at each placement-window
+    boundary (``_prefetch_window``) ahead of the steps that will read them.
 
 Device tiering (``EngineConfig.device_tiering``): every step's KV page reads
 run against the device-resident tiered store (runtime/tiered_kv) — ALL
@@ -56,10 +58,17 @@ counts change every step) stays outside the graphs. The kernel wrappers'
 (``graph_launches``). An engine's weights stay fixed for its lifetime: its
 graphs read them, and their held casts, where they were at capture.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): prefetch promotion (``prefetch_promote``, A4.3), degraded mode with
-fenced placement, ``abort_all`` and ``lost_window`` (A4.4), the sharded
-engine (``model_shards > 1``, A7).
+The fleet drives an engine through the same interface as the reference's:
+``load``, ``step_cost`` and ``backlog_tokens`` for routing and admission,
+epoch-fenced ``apply_placement`` for the fleet's tier plans, and the failure
+machinery: degraded far-tier-only serving (``enter_degraded`` /
+``exit_degraded``), ``stranded_requests``, ``abort_all`` and ``lost_window``.
+An aborted slot is refilled in place by the next admission, as any freed
+slot is (``_write_slot`` on the whole-slot path, ``_reset_slot`` on the
+chunked one); the graphs' buffers never move.
+
+Not ported yet: the sharded engine (``model_shards > 1``, ROADMAP A7),
+which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -74,7 +83,7 @@ import torch
 from repro_torch.core.memtrace import MemTracer
 from repro_torch.core.pagetable import SharedKVPageTable
 from repro_torch.core.placement import TieredPlacement
-from repro_torch.core.prefetch import PrefetchEngine
+from repro_torch.core.prefetch import PrefetchEngine, train_tenant_successors
 from repro_torch.core.profiler import AccessProfiler
 from repro_torch.data.requests import ChunkState, Request, RequestGenerator
 from repro_torch.device import resolve_device, stage_into, to_device, to_host
@@ -168,9 +177,13 @@ class EngineConfig:
     # differential probe: compare every tiered read against the flat
     # buffer in-line (tracks the max divergence in stats())
     tiered_verify: bool = False
-    # trace-driven far-tier prefetch promotion (ROADMAP A4.3)
+    # trace-driven far-tier prefetch: at every placement-window boundary,
+    # chase each active stream's predictor chain and promote predicted far
+    # pages into the near tier ahead of the steps that will read them
     prefetch_promote: bool = False
+    # how many predicted transitions ahead of each stream's head to chase
     prefetch_lookahead: int = 4
+    # cap on promoted pages per issue window (bounds wasted bandwidth)
     prefetch_max_promote: int = 32
     # tensor-sharding degree of one logical replica (ROADMAP A7)
     model_shards: int = 1
@@ -217,8 +230,6 @@ class ServingEngine:
         recorder=None,
         device=None,
     ):
-        if ecfg.prefetch_promote:
-            raise NotImplementedError("prefetch promotion (prefetch_promote) is ROADMAP A4.3")
         if ecfg.model_shards != 1:
             raise NotImplementedError("the sharded engine (model_shards > 1) is ROADMAP A7")
         self.device = resolve_device(device)
@@ -280,6 +291,18 @@ class ServingEngine:
         self.access_hooks: List[Callable] = []
         # when True, an external planner owns placement (apply_placement)
         self.external_placement = False
+        # degraded far-tier-only mode (enter_degraded): placement planning,
+        # prefetch promotion and external pushes are suspended; lookups keep
+        # flowing through the same single segmented dispatch, all far hits
+        self.degraded = False
+        # epoch fence for apply_placement: plans stamped at or below it
+        # predate a failover/degrade transition and are rejected as stale
+        self._placement_fence = 0
+        # engine step of the last counter-plane drain (sizes lost_window)
+        self._last_drain_step = 0
+        # virtual-time cost of one step for the fleet's event scheduler;
+        # None -> 1.0 (must stay 1.0 for lockstep-exact replays)
+        self.step_cost_fn: Optional[Callable[["ServingEngine"], float]] = None
         # host-visible far fraction of this step's KV page reads
         self.last_step_far_frac = 0.0
         # model-dispatch books: every model pass launched, and the prefill
@@ -673,6 +696,7 @@ class ServingEngine:
         stats/placement boundaries). The books are bit-identical whatever the
         drain cadence, because the plane is a pure sum."""
         d = None
+        self._last_drain_step = self.engine_steps
         if self.tiered is not None:
             d = self.tiered.drain_counters()
             if d["near"] or d["far"]:
@@ -911,12 +935,143 @@ class ServingEngine:
         # host books, then run the TPP epoch (unless a planner owns placement)
         if self.engine_steps % self.ecfg.placement_window == 0:
             self.drain_tier_counters()
-            if not self.external_placement:
+            # degraded mode suspends placement planning and prefetch
+            # promotion (there is no near capacity to plan into); the drain
+            # above still runs, so degraded books keep the same cadence
+            if not self.external_placement and not self.degraded:
                 wins = self.profiler.windows("kv")
                 if wins:
                     self.placement.step(wins[-1])
                     self._sync_device_tiers()
+            # the prefetch issue window runs right after the boundary drain:
+            # its migration sees a clean counter plane and reads nothing back
+            if self.ecfg.prefetch_promote and not self.degraded:
+                if self.prefetch.predictor == "trace":
+                    # tenant-partitioned local training: trace streams are
+                    # seq ids, and _seq_tenant maps them to their tenant
+                    self.prefetch.load_successors(
+                        train_tenant_successors(self.tracer.windows[-32:], self._seq_tenant),
+                        merge=True,
+                    )
+                self._prefetch_window()
         return decoded
+
+    def _prefetch_window(self) -> int:
+        """Chase each predicted page chain and promote the predicted FAR
+        pages into the near tier ahead of the decode steps that will read
+        them (the paper's trace-driven prefetcher, acting).
+
+        Candidates come from two predictions the placement counters cannot
+        make: (a) each active walk's chain links and tail successors, and
+        (b) the chains of QUEUED requests, whose first full prefix page
+        names their template through the pagetable's chunk hash, chased
+        through the trained successor table before a count exists for it.
+
+        Swaps are ranked by value, not by count: a page's value for the next
+        window is the number of readers it will serve, the active slots
+        mapping it (pagetable ref) plus the queued requests about to walk it.
+        Ties never churn. Among zero-value victims, pages deepest in the
+        allocator's LIFO free list go first.
+
+        The swap goes through ``apply_placement``, so promotions are real
+        far->near dequant copies charged to the migration books and the
+        device-moved-bytes counters. Returns pages promoted.
+        """
+        e = self.ecfg
+        preds: List[int] = []
+        seen = set()
+        upcoming: Dict[int, int] = {}  # page -> queued readers about to walk it
+        part_of: Dict[int, str] = {}  # page -> tenant partition that predicted it
+
+        def add(p: int, tenant: str):
+            if p not in seen:
+                seen.add(p)
+                preds.append(p)
+                part_of[p] = tenant
+
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            tenant = slot.request.tenant
+            pages = self.pagetable.seqs.get(slot.seq_id, [])
+            if not pages:
+                continue
+            if slot.prefilling:
+                # the remaining chunk steps will read the not-yet-prefilled
+                # tail of the mapped chain: count those pages as upcoming
+                # readers, so mid-prefill promotion is amortized over chunks
+                for p in pages[slot.chunk.pos // e.page_size:]:
+                    upcoming[p] = upcoming.get(p, 0) + 1
+                    add(p, tenant)
+            # the decode walk re-reads the whole chain next step: one
+            # predicted hop from every mapped page, then ``lookahead`` hops
+            # past the tail (the pages about to be allocated and written)
+            for src in pages:
+                for p in self.prefetch.predict_chain(int(src), stream=slot.seq_id, lookahead=1):
+                    if 0 <= p < e.n_pages:
+                        add(p, tenant)
+            for p in self.prefetch.predict_chain(
+                int(pages[-1]), stream=slot.seq_id, lookahead=e.prefetch_lookahead
+            ):
+                if 0 <= p < e.n_pages:
+                    add(p, tenant)
+        ps = e.page_size
+        for req in list(self.queue)[: e.max_batch]:
+            if len(req.tokens) < ps:
+                continue
+            pid = self.pagetable.chains.get(self.pagetable._chain(0, req.tokens[:ps]))
+            if pid is None or self.pagetable.pages[pid].ref <= 0:
+                continue
+            # chase the whole template chain from the successor table, in
+            # the queued request's own tenant partition
+            chain = [int(pid)] + self.prefetch.predict_chain(
+                int(pid),
+                stream=-1,
+                lookahead=max(e.prefetch_lookahead, e.max_len // e.page_size),
+                partition=req.tenant,
+            )
+            for p in chain:
+                if not 0 <= p < e.n_pages:
+                    continue
+                upcoming[p] = upcoming.get(p, 0) + 1
+                add(p, req.tenant)
+        if not preds:
+            return 0
+
+        def value(p: int) -> int:
+            # readers the page serves next window: the active mappers plus
+            # the queued walkers
+            return self.pagetable.pages[p].ref + upcoming.get(p, 0)
+
+        # stale successors may name pages the allocator has reclaimed
+        cand = [p for p in preds if self.pagetable.pages[p].ref > 0]
+        cand = [p for p in cand if self.placement.tier[p] == 1]
+        if not cand:
+            return 0
+        cand.sort(key=value, reverse=True)
+        near_ids = np.flatnonzero(self.placement.tier == 0)
+        free_pos = {int(pid): i for i, pid in enumerate(self.pagetable.free)}
+        victims = sorted((int(b) for b in near_ids), key=lambda b: (value(b), free_pos.get(b, -1)))
+        promote: List[int] = []
+        evict: List[int] = []
+        for c, v in zip(cand, victims):
+            if len(promote) >= e.prefetch_max_promote or value(c) <= value(v):
+                break  # sorted both ways: no later pair can be profitable
+            promote.append(c)
+            evict.append(v)
+        if not promote:
+            return 0
+        promote_a = np.asarray(promote, np.int64)
+        evict_a = np.asarray(evict, np.int64)
+        keep = np.setdiff1d(near_ids, evict_a, assume_unique=True)
+        # demoted pages leave the buffer first (unused ones are waste), and
+        # promotions enter it as prefetched-not-yet-used, each charged to
+        # the tenant partition whose prediction named it
+        self.prefetch.evict(evict_a)
+        self.apply_placement(np.concatenate([keep, promote_a]))
+        self.prefetch.mark_prefetched(promote_a, partitions=[part_of.get(p, "") for p in promote])
+        self._m_pf_promoted.inc(len(promote))
+        return len(promote)
 
     def run(self, gen: RequestGenerator, n_requests: int, max_steps: int = 10_000) -> dict:
         for _ in range(n_requests):
@@ -928,19 +1083,73 @@ class ServingEngine:
         return self.stats()
 
     # ------------------------------------------------------------------
+    # fleet interface (fleet/replica.py wraps these)
+
+    @property
+    def load(self) -> int:
+        """Backlog metric for routing: busy slots + queued requests."""
+        return sum(1 for s in self.slots if s.active) + len(self.queue)
+
+    def step_cost(self) -> float:
+        """Virtual-time units one call to ``step`` costs (fleet scheduler):
+        1.0, or what the ``step_cost_fn`` hook prices from live state."""
+        if self.step_cost_fn is None:
+            return 1.0
+        cost = float(self.step_cost_fn(self))
+        if cost <= 0.0:
+            raise ValueError(f"step_cost_fn must return > 0, got {cost}")
+        return cost
+
+    def backlog_tokens(self, prefill_weight: float = 1.0) -> float:
+        """Pending work in token-equivalents (admission's backlog estimate).
+
+        ``prefill_weight`` discounts prompt tokens as the caller's SLO cost
+        model does. Chunk-aware: a prefilling slot owes its REMAINING chunk
+        tokens, weighted like queued prompt work, not its whole prompt."""
+        q = sum(prefill_weight * len(r.tokens) + r.decode_len for r in self.queue)
+        a = 0.0
+        for s in self.slots:
+            if not s.active:
+                continue
+            a += s.remaining
+            if s.prefilling:
+                a += prefill_weight * s.chunk.remaining
+        return q + a
+
     def apply_placement(self, near_ids: np.ndarray, epoch: Optional[int] = None) -> int:
-        """Push an externally-planned near-tier set. Replaces the local TPP
-        view wholesale; returns the number of pages whose tier changed.
-        Epoch-fenced pushes belong to the failure machinery (ROADMAP A4.4)."""
-        if epoch is not None:
-            raise NotImplementedError("epoch-fenced apply_placement is ROADMAP A4.4")
+        """Push an externally-planned near-tier set (fleet autotier).
+        Replaces the local TPP view wholesale; returns the number of pages
+        whose tier changed.
+
+        ``epoch`` is the planner's sequence number. A push at or below the
+        placement fence was planned from profiles gathered before a
+        failover/degrade transition on this host and is rejected (counted,
+        recorded, zero pages moved); so is any push while degraded."""
         # drain first: hits observed under the outgoing tier map are charged
         # before the map changes, so every epoch's books are exact
         self.drain_tier_counters()
+        if epoch is not None and int(epoch) <= self._placement_fence:
+            self.metrics.counter("placement_rejected", reason="stale_epoch").inc()
+            if self.recorder is not None:
+                self.recorder.instant(
+                    "placement_rejected", -1, self.now(), replica=self.host_rid,
+                    reason="stale_epoch", epoch=int(epoch), fence=self._placement_fence,
+                )
+            return 0
+        if self.degraded:
+            self.metrics.counter("placement_rejected", reason="degraded").inc()
+            if self.recorder is not None:
+                self.recorder.instant(
+                    "placement_rejected", -1, self.now(), replica=self.host_rid,
+                    reason="degraded",
+                )
+            return 0
         return self._apply_near_set(near_ids)
 
     def _apply_near_set(self, near_ids: np.ndarray) -> int:
-        """Unconditional tier rewrite under the shared sanitize rule."""
+        """Unconditional tier rewrite under the shared sanitize rule (the
+        body ``apply_placement`` guards; ``enter_degraded`` calls it with the
+        empty set while the degraded flag is up)."""
         near_ids = sanitize_near_ids(
             near_ids, self.ecfg.n_pages, self.placement.near_capacity
         )
@@ -971,19 +1180,104 @@ class ServingEngine:
         return promoted + demoted
 
     # ------------------------------------------------------------------
-    # failure machinery: a later slice (ROADMAP A4.4)
+    # failure machinery: degraded mode, epoch fencing, abort/strand books
+
+    def fence_placement(self, epoch: int):
+        """Raise the placement fence: plans stamped at or below ``epoch``
+        predate this failover transition and will be rejected as stale."""
+        self._placement_fence = max(self._placement_fence, int(epoch))
 
     def enter_degraded(self, fence_epoch: Optional[int] = None) -> int:
-        raise NotImplementedError("degraded far-tier-only mode is ROADMAP A4.4")
+        """Drop to far-tier-only serving: the near tier is capacity-zeroed.
+
+        One accounting boundary: drain the hits observed under the old map,
+        then demote every near row through the real migration path (it
+        quantizes each into the far tier). Placement planning, prefetch
+        promotion and external pushes are suspended until ``exit_degraded``;
+        a step is unchanged (the same single segmented lookup, every read a
+        far hit). Returns pages whose tier changed. Idempotent."""
+        if self.degraded:
+            return 0
+        self.drain_tier_counters()
+        self.degraded = True
+        if self.tiered is not None:
+            self.tiered.set_degraded(True)
+        if fence_epoch is not None:
+            self.fence_placement(fence_epoch)
+        changed = self._apply_near_set(np.empty(0, np.int64))
+        self.metrics.counter("degraded_entries").inc()
+        if self.recorder is not None:
+            self.recorder.instant("degraded", -1, self.now(), replica=self.host_rid, demoted=changed)
+        return changed
 
     def exit_degraded(self, fence_epoch: Optional[int] = None):
-        raise NotImplementedError("degraded far-tier-only mode is ROADMAP A4.4")
+        """Restore near-tier capacity. The near set stays empty until the
+        next placement epoch refills it. Idempotent."""
+        if not self.degraded:
+            return
+        self.degraded = False
+        if self.tiered is not None:
+            self.tiered.set_degraded(False)
+        if fence_epoch is not None:
+            self.fence_placement(fence_epoch)
+        if self.recorder is not None:
+            self.recorder.instant("restored", -1, self.now(), replica=self.host_rid)
 
-    def abort_all(self):
-        raise NotImplementedError("abort_all is ROADMAP A4.4")
+    def stranded_requests(self) -> List[Tuple[Request, int]]:
+        """Every request this engine would strand if it vanished now: the
+        queued ones and the slot residents, each with the decode tokens
+        already produced for it. Read-only: a crashed host is inventoried,
+        never mutated."""
+        out: List[Tuple[Request, int]] = [(r, 0) for r in self.queue]
+        for slot in self.slots:
+            if slot.active:
+                done = 0 if slot.chunk is not None else slot.decode_assigned - slot.remaining
+                out.append((slot.request, max(0, done)))
+        return out
+
+    def abort_all(self) -> List[Tuple[Request, int]]:
+        """Abort every queued and resident request (hung-host quarantine).
+
+        Frees pagetable mappings, predictor streams and slots, so a later
+        re-dispatch of the same rid re-prefills cleanly from its prompt; the
+        next admission refills a freed slot in place. Returns (request,
+        decode tokens discarded) pairs; tokens already decoded stay in the
+        books."""
+        out: List[Tuple[Request, int]] = []
+        for req in self.queue:
+            self._enq_vt.pop(req.rid, None)
+            self._enq_wall.pop(req.rid, None)
+            out.append((req, 0))
+        self.queue.clear()
+        for slot in self.slots:
+            if not slot.active:
+                continue
+            req = slot.request
+            done = 0 if slot.chunk is not None else slot.decode_assigned - slot.remaining
+            self.pagetable.free_sequence(slot.seq_id)
+            self.prefetch.drop_stream(slot.seq_id)
+            self._enq_vt.pop(slot.seq_id, None)
+            self._enq_wall.pop(slot.seq_id, None)
+            slot.seq_id = -1
+            slot.request = None
+            slot.chunk = None
+            slot.remaining = 0
+            out.append((req, max(0, done)))
+        if out:
+            self.metrics.counter("requests_aborted").inc(len(out))
+        return out
 
     def lost_window(self) -> dict:
-        raise NotImplementedError("lost_window is ROADMAP A4.4")
+        """The undrained remainder a crash leaves behind: the counter plane
+        since the last drain, read through the quarantine drain
+        (``discard=True``: returned, never folded into the books), and its
+        size in steps."""
+        out = {"steps_undrained": int(self.engine_steps - self._last_drain_step), "near": 0, "far": 0}
+        if self.tiered is not None:
+            d = self.tiered.drain_counters(discard=True)
+            out["near"] = int(d["near"])
+            out["far"] = int(d["far"])
+        return out
 
     # ------------------------------------------------------------------
     def live_counters(self) -> dict:

@@ -951,3 +951,152 @@ def test_failed_capture_raises(card):
         ServingEngine(api, model, EngineConfig(max_batch=4, max_len=64, n_pages=256), seed=0,
                       device="cuda")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the failure machinery and the fleet on the card
+
+
+def _quiet(eng) -> bool:
+    """A step that neither drains the counter plane nor admits (a whole-slot
+    admission reads its first token back)."""
+    drains = (eng.engine_steps + 1) % eng.ecfg.placement_window == 0
+    return not drains and not (eng.queue and any(not s.active for s in eng.slots))
+
+
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_degraded_engine_keeps_the_step_budget(card, chunk):
+    """Far-tier-only serving on the card: every near row demoted through the
+    real migration, then one tiered launch a step, no host read and no sync
+    in a step that neither drains nor admits, every read a far hit."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.configs.workloads import get_profile
+    from repro_torch.data.requests import RequestGenerator
+    from repro_torch.device import HOST_READS
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.api import get_model
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+
+    api = get_model(_card_cfg("smollm-360m"))
+    eng = ServingEngine(api, api.init(0, device="cuda"), EngineConfig(
+        max_batch=4, max_len=64, n_pages=256, near_frac=0.05, placement_window=4,
+        device_tiering=True, prefill_chunk=chunk), seed=0, device="cuda")
+    assert eng.enter_degraded() == eng.placement.near_capacity
+    assert eng.tiered.near_count == 0 and eng.tiered.degraded
+    prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
+                               prefix_share=0.5, n_prefixes=2)
+    gen = RequestGenerator(prof, vocab_size=api.cfg.vocab_size, seed=0)
+    for _ in range(6):
+        eng.submit(next(gen))
+    quiet = reads = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        while eng.queue or any(s.active for s in eng.slots):
+            check, before, reads0 = _quiet(eng), launch_counts(), HOST_READS["copies"]
+            torch.cuda.set_sync_debug_mode("warn" if check else 0)
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert launch_counts()["tiered_segmented"] - before["tiered_segmented"] == 1
+            quiet += check
+            reads += (HOST_READS["copies"] - reads0) if check else 0
+    syncs = [w for w in caught if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+    dev = eng.stats()["device_tiering"]
+    assert quiet > 0 and reads == 0 and not syncs
+    assert eng.tiered.dispatches == eng.engine_steps
+    assert dev["near_hits"] == 0 and dev["far_hits"] > 0 and dev["near_count"] == 0
+
+
+def _abort_run(api, model, chunk, eager):
+    """Six requests, three steps, ``abort_all``, the aborted requests
+    re-submitted, and the run to its end: (engine, tokens, aborted pairs)."""
+    import dataclasses
+
+    from repro_torch.configs.workloads import get_profile
+    from repro_torch.data.requests import RequestGenerator
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+
+    eng = ServingEngine(api, model, EngineConfig(
+        max_batch=4, max_len=64, n_pages=256, near_frac=0.05, placement_window=4,
+        device_tiering=True, predictor="trace", prefetch_promote=True, prefill_chunk=chunk,
+    ), seed=0, device="cuda")
+    if eager:
+        eng._dispatch = lambda name: getattr(eng, f"_{name}_fn")(eng._bufs)
+    prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
+                               prefix_share=0.5, n_prefixes=2)
+    gen = RequestGenerator(prof, vocab_size=api.cfg.vocab_size, seed=0)
+    for _ in range(6):
+        eng.submit(next(gen))
+    toks = []
+    for _ in range(3):
+        eng.step()
+        toks.append(eng.next_tokens.cpu().clone())
+    mid_prompt = sum(s.prefilling for s in eng.slots)
+    aborted = eng.abort_all()
+    for r, _ in aborted:
+        eng.submit(r)
+    while eng.queue or any(s.active for s in eng.slots):
+        eng.step()
+        toks.append(eng.next_tokens.cpu().clone())
+    return eng, torch.stack(toks), [(r.rid, d) for r, d in aborted], mid_prompt
+
+
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_abort_and_readmit_under_graphs_equals_eager(card, chunk):
+    """Slots freed by ``abort_all`` are refilled in place by the next
+    admission (a slot write on the whole-slot path, a zeroing on the
+    chunked one, a mid-prompt slot's chunk plan gone): under graph replay
+    the tokens, caches and books are bit-equal to eager dispatch."""
+    from repro_torch.models.api import get_model
+
+    api = get_model(_card_cfg("smollm-360m"))
+    model = api.init(0, device="cuda")
+    g_eng, g_toks, g_ab, g_mid = _abort_run(api, model, chunk, eager=False)
+    e_eng, e_toks, e_ab, e_mid = _abort_run(api, model, chunk, eager=True)
+    assert g_ab == e_ab and len(g_ab) > 0 and (g_mid > 0) == (chunk > 0) and g_mid == e_mid
+    assert torch.equal(g_toks, e_toks)
+    assert all(torch.equal(g_eng.cache[k], e_eng.cache[k]) for k in g_eng.cache)
+    assert g_eng.stats() == e_eng.stats()
+    assert g_eng.stats()["requests_finished"] == 6
+    assert sum(g.replays for g in g_eng._graphs.values()) == g_eng.batch_decodes > 0
+
+
+def test_reduced_fleet_on_card_equals_cpu(card):
+    """``build_fleet`` on the card and on the CPU, over the head_dim-64
+    reduced smollm (put in its model cache for both devices), through a
+    crash with a replacement host, a hang and a degraded host, trace
+    prediction and the prefetch window on: the chaos log, the outcome
+    ledger and the fleet books are equal."""
+    import dataclasses
+
+    import repro_torch.fleet as fleet_mod
+    from repro_torch.configs.workloads import get_profile
+    from repro_torch.data.requests import RequestGenerator, interleave
+    from repro_torch.models.api import get_model
+
+    cfg = _card_cfg("smollm-360m")
+    api = get_model(cfg)
+    books = {}
+    for where in ("cuda", "cpu"):
+        fleet_mod._MODEL_CACHE[("smollm-360m", where)] = (cfg, api, api.init(0, device=where))
+        try:
+            fl = fleet_mod.build_fleet(
+                3, policy="least-loaded", seed=0, device=where, device_tiering=True,
+                predictor="trace", prefetch_promote=True, trace_window=16, trace_period=32,
+                admission=fleet_mod.AdmissionController(fleet_mod.SLOModel(max_delay_steps=64.0)),
+                autotier=dict(near_frac=0.30, epoch_steps=8), elastic=dict(max_replicas=4))
+        finally:
+            fleet_mod._MODEL_CACHE.pop(("smollm-360m", where))
+        fleet_mod.ChaosEngine(fl, [fleet_mod.FaultEvent(6.0, "crash", rid=1, duration=6.0),
+                                   fleet_mod.FaultEvent(10.0, "hang", rid=0, duration=3.0),
+                                   fleet_mod.FaultEvent(14.0, "degrade", rid=2, duration=12.0)])
+        gens = [RequestGenerator(dataclasses.replace(get_profile(base), prompt_mean=pm, decode_mean=dm),
+                                 vocab_size=cfg.vocab_size, seed=i, tenant=t)
+                for i, (t, base, pm, dm) in enumerate((("cache", "Cache1", 8, 6), ("web", "Web1", 24, 8)))]
+        stats = fl.run(iter(interleave(gens, 24)), n_requests=24, max_steps=600, submit_per_step=3)
+        books[where] = (list(fl.chaos.log), fl.outcome_report(), repr(stats))
+    assert books["cuda"] == books["cpu"]
+    assert books["cuda"][1]["complete"] and len(books["cuda"][0]) == 6

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX package,
 chip_smoke.py imports neither, and an engine asked for no device wants the card."""
 import ast
+import dataclasses
 import json
 import os
 import subprocess
@@ -26,6 +27,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.paged_attention.ops\n"
         "import repro_torch.kernels.rwkv6_scan.ops, repro_torch.kernels.mamba2_scan.ops\n"
         "import repro_torch.models.rwkv6, repro_torch.models.mamba2, repro_torch.models.zamba2\n"
+        "import repro_torch.fleet, repro_torch.core.tiering\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -35,6 +37,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "repro_torch.runtime.serving" in mods and "repro_torch.runtime.graphs" in mods
     assert "repro_torch.kernels.flash_attention.ref" in mods
     assert "repro_torch.kernels.paged_attention.ref" in mods
+    assert "repro_torch.fleet.router" in mods and "repro_torch.core.hw" in mods
     for mod in ("kernels.rwkv6_scan.ref", "kernels.mamba2_scan.ref", "models.rwkv6",
                 "models.mamba2", "models.zamba2"):
         assert f"repro_torch.{mod}" in mods, mod
@@ -66,7 +69,66 @@ COPIED = [
     "configs/zamba2_1_2b.py", "core/distribution.py", "core/pagetable.py",
     "core/placement.py", "core/profiler.py", "core/memtrace.py", "core/prefetch.py",
     "data/requests.py", "obs/__init__.py", "obs/metrics.py", "obs/spans.py", "obs/export.py",
+    "core/tiering.py", "fleet/scheduler.py", "fleet/replica.py", "fleet/admission.py",
+    "fleet/aggregator.py", "fleet/autotier.py", "fleet/faults.py",
 ]
+
+# The port's fleet modules that are not plain copies: each change to the
+# reference's code, as (reference snippet, port snippet). Docstrings and
+# comments may differ; the code must be the reference's with exactly these
+# replacements (and the package renamed in imports).
+CHANGED = {
+    "fleet/router.py": [
+        # the serving tiers' relative constants under a name without the TPU
+        ("from repro.core.hw import TPU_TIERED", "from repro.core.hw import SERVING_TIERED"),
+        ("TPU_TIERED[1].latency_rel", "SERVING_TIERED[1].latency_rel"),
+    ],
+    "fleet/elastic.py": [
+        # checkpoint restore is not ported (ROADMAP A9): raise, import nothing
+        ("""    from repro.runtime.elastic import elastic_restore
+
+    def source():
+        state, _extras = elastic_restore(manager, template, mesh, specs=specs, step=step)
+        return state
+
+    return source
+""", """    raise NotImplementedError("restoring a serving checkpoint (restored_params_source) is ROADMAP A9")
+"""),
+    ],
+    "fleet/__init__.py": [
+        # no JAX: the device every replica runs on
+        ("import jax\n\n", "from repro.device import resolve_device\n"),
+        ("    recorder=None,\n    **engine_kwargs,", "    recorder=None,\n    device=None,\n    **engine_kwargs,"),
+        # the model cache is keyed on (arch, device); the port's init takes a seed
+        ("""    if arch not in _MODEL_CACHE:
+        cfg = get_config(arch).reduced()
+        api = get_model(cfg)
+        _MODEL_CACHE[arch] = (cfg, api, api.init(jax.random.PRNGKey(0)))
+    cfg, api, params = _MODEL_CACHE[arch]""", """    dev = resolve_device(device)
+    key = (arch, str(dev))
+    if key not in _MODEL_CACHE:
+        cfg = get_config(arch).reduced()
+        api = get_model(cfg)
+        _MODEL_CACHE[key] = (cfg, api, api.init(0, device=dev))
+    cfg, api, params = _MODEL_CACHE[key]"""),
+        # no sharded engine yet (ROADMAP A7): ServingEngine raises for it
+        ("""        ecfg = EngineConfig(**kw)
+        if ecfg.model_shards > 1:
+            # one LOGICAL replica spanning chips: still one routing target,
+            # one profile export, one tenant book — the shards are invisible
+            # to the router and merge by summation everywhere above this
+            from repro.runtime.sharded import ShardedServingEngine
+
+            eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid)
+        else:
+            eng = ServingEngine(api, p, ecfg, seed=seed + rid)""",
+         "        eng = ServingEngine(api, p, EngineConfig(**kw), seed=seed + rid, device=dev)"),
+        # the vocab comes from the config alone, not the (now per-device) cache
+        ("""    if arch in _MODEL_CACHE:
+        return _MODEL_CACHE[arch][0].vocab_size
+""", ""),
+    ],
+}
 
 
 def _code(source: str, package: str) -> str:
@@ -94,6 +156,33 @@ def test_copied_modules_keep_the_reference_code():
         port = (ROOT / "src" / "repro_torch" / rel).read_text()
         assert _code(ref, "repro") == _code(port, "repro_torch"), rel
         assert len(ref.splitlines()) == len(port.splitlines()), rel
+
+
+def test_changed_modules_differ_only_as_named():
+    for rel, changes in CHANGED.items():
+        ref = (ROOT / "src" / "repro" / rel).read_text()
+        for old, new in changes:
+            assert ref.count(old) == 1, (rel, old)
+            ref = ref.replace(old, new)
+        port = (ROOT / "src" / "repro_torch" / rel).read_text()
+        assert _code(ref, "repro") == _code(port, "repro_torch"), rel
+
+
+def test_hw_holds_the_card_not_the_tpu():
+    """The port's hardware model: the card's memory figures, no TPU v5e
+    constant, and the reference's tier specs and knee as they are."""
+    import repro.core.hw as ref_hw
+    import repro_torch.core.hw as hw
+
+    assert (hw.HBM_BW, hw.HOST_LINK_BW) == (3.35e12, 64e9)
+    assert not [n for n in vars(hw) if "TPU" in n or n in ("ICI_BW_PER_LINK", "VMEM_BYTES", "DCI_BW")]
+    assert "v5e" not in (ROOT / "src" / "repro_torch" / "core" / "hw.py").read_text()
+    spec = lambda specs: [dataclasses.astuple(s) for s in specs]
+    for name in ("BASELINE", "IDEAL", "TIERED"):
+        assert spec(getattr(hw, name)) == spec(getattr(ref_hw, name)), name
+    assert (hw.BW_KNEE, hw.GB) == (ref_hw.BW_KNEE, ref_hw.GB)
+    rel = lambda specs: [(s.name, s.capacity_frac, s.latency_rel, s.cost_per_unit) for s in specs]
+    assert rel(hw.SERVING_TIERED) == rel(ref_hw.TPU_TIERED)
 
 
 def test_engine_without_device_wants_the_card():
