@@ -18,8 +18,9 @@ Phases (any failure raises, so the script exits non-zero):
      pages near, 9 segments): rows and counters bit-exact;
    - flash attention (prefill of 512 tokens) and paged decode attention
      (8 slots, S = 1024, pages of 16, through the cache view, each sequence
-     split over a cluster of blocks) at the widths of smollm-360m and
-     qwen2.5-3b, bf16, and zamba2-1.2b, f32 (flash on TF32 tensor cores,
+     split over a cluster of blocks) at the widths of smollm-360m,
+     qwen2.5-3b and granite-moe-3b (24/8 heads of 64), bf16, and
+     zamba2-1.2b, f32 (flash on TF32 tensor cores,
      three products a product): within one bf16 step (2e-5 in f32) of the
      plain version, and within 2e-2 of the model's eager attention;
    - B5 over prompts of 64 to 1024 and B4 over lengths all 1, the main
@@ -49,6 +50,13 @@ Phases (any failure raises, so the script exits non-zero):
    of 32 heads of 64) on 8 Web1 requests: one SSD launch per layer, and
    one flash (prefill) or paged (decode) launch per application, per
    dispatch;
+   3e. the same over full-width granite-moe-3b-a800m (32 layers, d 1536,
+   24/8 heads of 64, 40 experts top-8 of 512, capacity-bounded routing of
+   the whole batch as one group inside the captured decode) on 6 Web1
+   requests: one flash launch per layer per prefill and one paged launch
+   per layer per decode; then one decode of 8 slots through the sort
+   dispatch held to the einsum dispatch's logits (``SORT_TOL``), and the
+   experts' share of a decode step;
    3x. after each model's main path, continuous batching with chunked
    prefill on the same params and requests (``prefill_chunk=64``): every
    request finishes, one model and one tiered dispatch a step, no prefill
@@ -75,7 +83,13 @@ Phases (any failure raises, so the script exits non-zero):
    a layer per prefill and per decode; then the same wiring over the
    reduced head_dim-64 smollm on the card and on the CPU, with equal chaos
    logs, outcome ledgers and fleet books;
-6. one JSON line with every kernel's numbers, then the result line.
+6. one JSON line with every kernel's numbers, then the result line,
+   printed last, after phase 7;
+7. the sharded engine on one card: phase 3's smollm-360m params and
+   requests with the tiered store split into 1, 2 and 4 page-interleaved
+   shards (``model_shards``): bit-identical tokens, equal merged drained
+   planes and books, B1 once per non-empty shard a step, no host read in
+   a step that neither drains nor admits, one read a dirty shard a drain.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -115,8 +129,9 @@ KERNELS = {
     "wkv6": ("wkv6.cu", "src/repro/kernels/rwkv6_scan/kernel.py:77"),
     "ssd": ("ssd.cu", "src/repro/kernels/mamba2_scan/kernel.py:76"),
 }
-# the attention widths of the two served models: (query heads, KV heads, head_dim)
-ATTN_WIDTHS = {"smollm-360m": (15, 5, 64), "qwen2.5-3b": (16, 2, 128), "zamba2-1.2b": (32, 32, 64)}
+# the attention widths of the served models: (query heads, KV heads, head_dim)
+ATTN_WIDTHS = {"smollm-360m": (15, 5, 64), "qwen2.5-3b": (16, 2, 128), "zamba2-1.2b": (32, 32, 64),
+               "granite-moe-3b-a800m": (24, 8, 64)}
 # zamba2's shared block runs uncast f32 weights (as the reference's prefill
 # and decode do): f32 q, k, v in prefill, an f32 query over the bf16 cache
 # in decode; the dense models feed bf16 throughout
@@ -127,9 +142,11 @@ PREFILL_LEN = 512  # Web1's mean prompt
 # a length past the cache's end (an inactive slot that kept decoding)
 DECODE_S, DECODE_PAGE = 1024, 16
 DECODE_LENGTHS = (1, 23, 512, 547, 560, 600, 1024, 1300)
-# the main path's engine, for both models
+# the main path's engine, for every model
 ECFG = dict(max_batch=8, max_len=1024, page_size=16, n_pages=1024, near_frac=0.3,
             device_tiering=True)
+# the models whose attention numbers ride beside smollm-360m's in the kernels line
+MODELS_BESIDE = ("qwen2.5-3b", "zamba2-1.2b", "granite-moe-3b-a800m")
 # the main path on smollm-360m with eager attention, as measured at commit
 # 0f3184b (NVIDIA H100 80GB HBM3, 700 W)
 EAGER_BASELINE = ("eager attention at commit 0f3184b on NVIDIA H100 80GB HBM3, 700 W: "
@@ -656,7 +673,9 @@ def drive(eng, reqs, step_events: bool = False, quiet_check: bool = False) -> di
     and the step at whose end its first token existed ("first"). With
     ``quiet_check`` every step that does not drain the counter plane runs
     under ``torch.cuda.set_sync_debug_mode("warn")``, and "quiet" holds
-    their count, the host reads they made and the sync warnings they drew."""
+    their count, the host reads they made and the sync warnings they drew
+    (a whole-slot step that admits reads its first token back, and is not
+    checked either)."""
     import torch
 
     from repro_torch.device import HOST_READS
@@ -682,7 +701,8 @@ def drive(eng, reqs, step_events: bool = False, quiet_check: bool = False) -> di
         warnings.simplefilter("always")
         while eng.queue or any(s.active for s in eng.slots):
             drains = (eng.engine_steps + 1) % eng.ecfg.placement_window == 0
-            check = quiet_check and not drains
+            admits = not eng.chunking and eng.queue and any(not s.active for s in eng.slots)
+            check = quiet_check and not drains and not admits
             reads0 = HOST_READS["copies"]
             torch.cuda.set_sync_debug_mode("warn" if check else 0)
             eng.step()
@@ -934,6 +954,58 @@ def serve_chunked(card: str, arch: str, mp: dict) -> dict:
         f"tokens/s; step p50 {res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms; "
         f"requests with the whole-slot engine's tokens {sum(same)} of {len(same)}")
     return res
+
+
+# moe_sort against moe_einsum on one decode step at granite-moe-3b's full
+# width: |logits difference| <= SORT_TOL of the largest einsum logit. Both
+# compute in bf16 and differ in rounding only: einsum's combine sums a
+# token's k expert outputs in f32 and rounds once, sort rounds each weighted
+# output and each of the k - 1 adds to bf16, some 8 roundings of up to
+# 2**-9 a layer where einsum makes one, carried through 32 layers. The same
+# decode on the CPU at granite's d_model, depth, expert count and top-8
+# (experts of 32 wide) gave 0.020 and 0.021 of the largest logit over two
+# seeds; the tolerance leaves five times that.
+SORT_TOL = 0.1
+
+
+def moe_checks(card: str, mp: dict) -> dict:
+    """Phase 3e's checks of the moe family at full width: one decode of 8
+    slots (prompts of 64 tokens, prefilled as one batch) through
+    ``moe_sort`` held to ``moe_einsum``'s logits within ``SORT_TOL``; and
+    the experts' share of a decode step, from one layer's ``moe_ffn`` at
+    the decode's shape (8 rows routed as one group) timed alone, times the
+    layers, over the step's device busy time (phase 3's profile)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    api, params, cfg = mp["api"], mp["params"], mp["cfg"]
+    tokens = np.stack([r.tokens[:64] for r in web1_requests(cfg, 8, seed=2)])
+    logits, cache = api.prefill(params, {"tokens": torch.as_tensor(tokens).cuda()},
+                                max_len=ECFG["max_len"])
+    nxt = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1).to(torch.int32)[:, None]
+    out = {}
+    for disp in ("einsum", "sort"):
+        out[disp], _ = moe.decode_step(params, cfg, {k: v.clone() for k, v in cache.items()}, nxt,
+                                       page_size=ECFG["page_size"], dispatch=disp)
+    le, ls = out["einsum"].float(), out["sort"].float()
+    assert bool(torch.isfinite(le).all() and torch.isfinite(ls).all())
+    diff, top = float((le - ls).abs().max()), float(le.abs().max())
+    same = float((le[..., : cfg.vocab_size].argmax(-1) == ls[..., : cfg.vocab_size].argmax(-1)).float().mean())
+    log(f"{cfg.name} moe_sort vs moe_einsum, one decode of 8 slots: max |logits diff| {diff:.4f}, "
+        f"largest logit {top:.4f} (ratio {diff / top:.4f}, tolerance {SORT_TOL}); greedy tokens equal "
+        f"on {same:.3f} of the rows")
+    assert diff <= SORT_TOL * top, (diff, top)
+    layer = params.layers[0].tree(torch.bfloat16)
+    x = torch.randn(1, 8, cfg.d_model, generator=torch.Generator().manual_seed(6)).to(torch.bfloat16).cuda()
+    ffn_ms = {disp: time_ms(lambda: moe.moe_ffn(layer, cfg, x, disp)) for disp in ("einsum", "sort")}
+    busy = mp["profile"]["busy_ms"]
+    share = cfg.n_layers * ffn_ms["einsum"] / busy
+    log(f"{cfg.name} profile [{card}]: one layer's moe_ffn at the decode's shape {ffn_ms['einsum']:.4f} ms "
+        f"(sort {ffn_ms['sort']:.4f} ms), x {cfg.n_layers} layers = {cfg.n_layers * ffn_ms['einsum']:.3f} ms "
+        f"of the step's {busy:.3f} ms device busy: the experts' share {share:.4f}")
+    return {"sort_vs_einsum": diff / top, "sort_same_tokens": same, "moe_ffn_ms": ffn_ms,
+            "experts_share": share}
 
 
 def verify_paths(mp, card: str):
@@ -1305,6 +1377,116 @@ def reduced_fleet_card_vs_cpu(card: str):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the sharded engine on one card
+
+
+SHARDS = (1, 2, 4)
+# the books a split store counts per shard and not per logical lookup
+SHARD_BUDGET_KEYS = ("lookups", "dispatches", "host_syncs", "drains", "dispatches_per_step",
+                     "host_syncs_per_step", "shards", "shard_near_capacity", "shard_dispatches",
+                     "shard_near_hits", "shard_far_hits")
+
+
+def serve_sharded(card: str, mp: dict) -> dict:
+    """Phase 3's smollm-360m params and 16 Web1 requests through the main
+    path's engine with its tiered store split into 1, 2 and 4
+    page-interleaved shards (``ServingEngine`` with ``model_shards``; the
+    parameters stay whole on the card). Asserts: tokens bit-identical at
+    every count; the merged drained near/far counts and slot, tenant and
+    role planes, the live counters and the books equal; the shard-labeled
+    counter rows sum to the totals; each step's lookup launches B1 once per
+    non-empty shard (at most N); every request finishes; no host read in a
+    step that neither drains nor admits; each drain reads back once per
+    dirty shard; and the model kernels once a layer a prefill and a decode."""
+    import torch
+
+    from repro_torch.device import HOST_READS
+    from repro_torch.kernels import tiered_gather
+    from repro_torch.models.api import kernel_launches
+
+    api, params, cfg, reqs = mp["api"], mp["params"], mp["cfg"], mp["reqs"]
+    runs = {}
+    for n in SHARDS:
+        eng = make_engine(api, params, **ECFG, model_shards=n)
+        store = eng.tiered
+        shards = getattr(store, "shards", [store])
+        assert len(shards) == n and (type(eng).__name__ == "ShardedServingEngine") == (n > 1)
+        lookups, drains = [], []
+        merged = {"near": 0, "far": 0, "slot": np.zeros((0, 2), np.int64),
+                  "tenant": np.zeros((0, 2), np.int64), "role": 0}
+
+        def lookup(ids, *a, _orig=store.lookup_segments, **k):
+            busy = np.unique(np.asarray(ids, np.int64) % n).size
+            before = tiered_gather.LAUNCHES["tiered_segmented"]
+            out = _orig(ids, *a, **k)
+            lookups.append((busy, tiered_gather.LAUNCHES["tiered_segmented"] - before))
+            return out
+
+        def drain(discard=False, _orig=store.drain_counters):
+            dirty = sum(sh._plane_dirty for sh in shards)
+            reads0 = HOST_READS["copies"]
+            d = _orig(discard=discard)
+            drains.append((dirty, HOST_READS["copies"] - reads0))
+            merged["near"] += d["near"]
+            merged["far"] += d["far"]
+            merged["role"] = merged["role"] + np.asarray(d["role"], np.int64)
+            for plane in ("slot", "tenant"):
+                a, b = merged[plane], np.asarray(d[plane], np.int64)
+                k = max(a.shape[0], b.shape[0])
+                merged[plane] = np.pad(a, ((0, k - a.shape[0]), (0, 0))) + np.pad(b, ((0, k - b.shape[0]), (0, 0)))
+            return d
+
+        store.lookup_segments, store.drain_counters = lookup, drain
+        zero_launch_counts()
+        run = drive(eng, [dataclasses.replace(r) for r in reqs], quiet_check=True)
+        launches = path_launches(eng, launch_counts())
+        st = eng.stats()
+        dev, q = st["device_tiering"], run["quiet"]
+        decodes = eng.model_dispatches - eng.prefill_dispatches
+        want = kernel_launches(cfg, eng.prefill_dispatches, decodes)
+        assert {k: launches[k] for k in want} == want, (n, launches, want)
+        assert st["requests_finished"] == len(reqs), (n, st["requests_finished"])
+        assert q["steps"] > 0 and q["reads"] == 0 and not q["syncs"], (n, q)
+        assert all(b == l and 1 <= b <= n for b, l in lookups), (n, lookups)
+        assert launches["tiered_segmented"] == sum(l for _, l in lookups) == dev["dispatches"], (n, launches)
+        assert drains and all(d == r for d, r in drains), (n, drains)
+        if n > 1:
+            assert sum(dev["shard_near_hits"]) == dev["near_hits"] > 0, dev
+            assert sum(dev["shard_far_hits"]) == dev["far_hits"] > 0, dev
+            assert eng.metrics.total("shard_near_hits") == dev["near_hits"], dev
+            assert eng.metrics.total("shard_far_hits") == dev["far_hits"], dev
+        busy = [b for b, _ in lookups]
+        runs[n] = {"toks": run["toks"], "merged": merged, "live": eng.live_counters(), "role": eng.role_hits,
+                   "books": {**st, "device_tiering": {k: v for k, v in dev.items() if k not in SHARD_BUDGET_KEYS}},
+                   "launches": launches["tiered_segmented"], "steps": eng.engine_steps, "wall": run["wall"],
+                   "busy": {b: busy.count(b) for b in sorted(set(busy))}, "drains": len(drains),
+                   "drain_reads": sum(r for _, r in drains), "quiet": q["steps"],
+                   "shard_hits": (dev.get("shard_near_hits"), dev.get("shard_far_hits"))}
+        log(f"sharded [{card}] model_shards {n}: {eng.engine_steps} steps, B1 launches {runs[n]['launches']} "
+            f"(lookups by non-empty shards {runs[n]['busy']}), {len(drains)} drains reading back "
+            f"{runs[n]['drain_reads']} times (one a dirty shard), {q['steps']} quiet steps with 0 host reads; "
+            f"near {dev['near_hits']} far {dev['far_hits']}, per shard {runs[n]['shard_hits']}; "
+            f"{run['wall']:.3f} s wall")
+    one = runs[SHARDS[0]]
+    for n in SHARDS[1:]:
+        r = runs[n]
+        assert torch.equal(r["toks"], one["toks"]), n
+        assert r["live"] == one["live"] and r["books"] == one["books"], n
+        assert np.array_equal(r["role"], one["role"]), n
+        m1, mn = one["merged"], r["merged"]
+        assert (mn["near"], mn["far"]) == (m1["near"], m1["far"]) and np.array_equal(mn["role"], m1["role"]), n
+        for plane in ("slot", "tenant"):
+            k = max(m1[plane].shape[0], mn[plane].shape[0])
+            pad = lambda a: np.pad(a, ((0, k - a.shape[0]), (0, 0)))
+            assert np.array_equal(pad(m1[plane]), pad(mn[plane])), (n, plane)
+    log(f"sharded [{card}]: model_shards {list(SHARDS)} give bit-identical tokens "
+        f"({one['toks'].shape[0]} steps x {one['toks'].shape[1]} slots), equal live counters, books and "
+        f"merged drained planes (near {one['merged']['near']}, far {one['merged']['far']})")
+    return {str(n): {k: v for k, v in r.items() if k not in ("toks", "merged", "live", "role", "books")}
+            for n, r in runs.items()}
+
+
 def main():
     import torch
 
@@ -1348,14 +1530,16 @@ def main():
     t2 = time.perf_counter()
     log(f"phase 2 {t2 - t_start:.1f} s")
     # phase 3: the main path (whole-slot, decode graphs), smollm-360m; 3b:
-    # qwen2.5-3b; 3c: rwkv6-7b; 3d: zamba2-1.2b; each followed (3x) by the
-    # chunked path on the same params and requests
-    paths, chunked = {}, {}
+    # qwen2.5-3b; 3c: rwkv6-7b; 3d: zamba2-1.2b; 3e: granite-moe-3b (with
+    # its moe checks); each followed (3x) by the chunked path on the same
+    # params and requests
+    paths, chunked, moe_res = {}, {}, {}
     for arch, n_req, widths, ssm in (
         ("smollm-360m", 16, (32, 960, 15, 5, 2560, 49152), None),
         ("qwen2.5-3b", 6, (36, 2048, 16, 2, 11008, 151936), None),
         ("rwkv6-7b", 6, (32, 4096, 64, 64, 14336, 65536), (64, 0, 0)),
         ("zamba2-1.2b", 8, (38, 2048, 32, 32, 8192, 32000), (64, 64, 6)),
+        ("granite-moe-3b-a800m", 6, (32, 1536, 24, 8, 512, 49155), None),
     ):
         t3 = time.perf_counter()
         paths[arch] = serve(card, arch, n_req, widths, ssm)
@@ -1363,11 +1547,15 @@ def main():
         log(f"phase 3 {arch} {t3x - t3:.1f} s")
         chunked[arch] = serve_chunked(card, arch, paths[arch])
         log(f"phase 3x {arch} chunked {time.perf_counter() - t3x:.1f} s")
+        if paths[arch]["cfg"].family == "moe":
+            t3e = time.perf_counter()
+            moe_res[arch] = moe_checks(card, paths[arch])
+            log(f"phase 3e {arch} moe checks {time.perf_counter() - t3e:.1f} s")
         if arch != "smollm-360m":
             del paths[arch]["params"], paths[arch]["api"]
             torch.cuda.empty_cache()
     mp = paths["smollm-360m"]
-    log(f"phase 3 smollm-360m to zamba2-1.2b {time.perf_counter() - t2:.1f} s")
+    log(f"phase 3 smollm-360m to granite-moe-3b {time.perf_counter() - t2:.1f} s")
     log("chunked paths: " + "; ".join(
         f"{arch} " + json.dumps({k: v for k, v in c.items() if k != "launches"})
         for arch, c in chunked.items()))
@@ -1385,11 +1573,17 @@ def main():
     reduced_fleet_card_vs_cpu(card)
     log(f"phase 5r reduced fleet {time.perf_counter() - t5r:.1f} s")
 
+    # phase 7: the sharded engine over smollm-360m's params, 1, 2 and 4 shards
+    t7 = time.perf_counter()
+    sharded = serve_sharded(card, mp)
+    log(f"phase 7 sharded {time.perf_counter() - t7:.1f} s")
+
     # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
     # chunked_launches: the same kernels' launches on that model's chunked path;
-    # fleet_launches: on the fleet's path, summed over its hosts
+    # fleet_launches: on the fleet's path, summed over its hosts;
+    # sharded_launches: B1's on phase 7's path at each shard count
     carrier = {"tiered_segmented": "smollm-360m", "paged_attention": "smollm-360m",
                "flash_attention": "smollm-360m", "wkv6": "rwkv6-7b", "ssd": "zamba2-1.2b"}
     launches = {"tiered_segmented": mp["launches"]["tiered_segmented"],
@@ -1404,7 +1598,7 @@ def main():
             **{k: per[arch][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")
                if k in per[arch]},
-            "launches": paths[arch]["launches"][name]} for arch in ("qwen2.5-3b", "zamba2-1.2b")}}
+            "launches": paths[arch]["launches"][name]} for arch in MODELS_BESIDE}}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kernels[name]
@@ -1415,10 +1609,14 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"chunked_launches": chunked[carrier[name]]["launches"][name]} if name in carrier else {}),
             **({"fleet_launches": fleet["launches"][name]} if carrier.get(name) == "smollm-360m" else {}),
-            **{k: r[k] for k in ("qwen2.5-3b", "zamba2-1.2b", "shapes") if k in r},
+            **({"sharded_launches": {n: v["launches"] for n, v in sharded.items()}}
+               if name == "tiered_segmented" else {}),
+            **{k: r[k] for k in (*MODELS_BESIDE, "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })
     log("decode step profiles: " + "; ".join(f"{arch} {p['profile']}" for arch, p in paths.items()))
+    log("moe checks: " + json.dumps(moe_res))
+    log("sharded engine: " + json.dumps(sharded))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -166,8 +166,16 @@ def build_fleet(
 
     def make_replica(rid: int, speed: float = 1.0) -> Replica:
         p = params_source() if params_source is not None else params
-        # model_shards > 1 raises in the engine (the sharded engine is ROADMAP A7)
-        eng = ServingEngine(api, p, EngineConfig(**kw), seed=seed + rid, device=dev)
+        ecfg = EngineConfig(**kw)
+        if ecfg.model_shards > 1:
+            # one LOGICAL replica over a sharded store: still one routing
+            # target, one profile export, one tenant book — the shards are
+            # invisible to the router and merge by summation above this
+            from repro_torch.runtime.sharded import ShardedServingEngine
+
+            eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid, device=dev)
+        else:
+            eng = ServingEngine(api, p, ecfg, seed=seed + rid, device=dev)
         return Replica(rid, eng, live_cache_blocks, speed=speed)
 
     replicas = [

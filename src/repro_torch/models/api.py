@@ -1,8 +1,8 @@
 """Model API for the port (mirrors repro/models/api.py, serving subset).
 
-Ported families: dense (``transformer``), ssm (``rwkv6``) and hybrid
-(``zamba2``). The others (moe, vlm, audio) raise ``NotImplementedError``
-naming their ROADMAP item (A8).
+Ported families: dense (``transformer``), moe (``moe``), ssm (``rwkv6``)
+and hybrid (``zamba2``). The others (vlm, audio) raise
+``NotImplementedError`` naming their ROADMAP item (A8).
 """
 from __future__ import annotations
 
@@ -13,9 +13,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv6, transformer, zamba2
+from repro_torch.models import moe, rwkv6, transformer, zamba2
 
-_PORTED = {"dense": transformer, "ssm": rwkv6, "hybrid": zamba2}
+_PORTED = {"dense": transformer, "moe": moe, "ssm": rwkv6, "hybrid": zamba2}
 
 
 @dataclasses.dataclass
@@ -60,11 +60,12 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
 
 def kernel_launches(cfg: ModelConfig, prefills: int, decodes: int) -> dict:
     """The model kernels' launches on the card over ``prefills`` prefill and
-    ``decodes`` decode dispatches: attention once per dense layer or per
+    ``decodes`` decode dispatches: attention once per dense or moe layer or per
     application of zamba2's shared block (flash in prefill, paged in
-    decode), and a scan once per recurrent layer in either."""
+    decode), and a scan once per recurrent layer in either. The moe family
+    launches as the dense one: its experts are plain products."""
     n = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"flash_attention": n * prefills, "paged_attention": n * decodes, "wkv6": 0, "ssd": 0}
     if cfg.family == "ssm":
         return {"flash_attention": 0, "paged_attention": 0, "wkv6": n * (prefills + decodes), "ssd": 0}

@@ -1,6 +1,6 @@
 """GQA attention layer: prefill/decode application (mirrors repro/models/attention.py).
 
-Layout: projections (drawn by ``transformer._init_layer``) are stored
+Layout: projections (drawn by ``transformer.init_attn``) are stored
 flat and in JAX's (in, out) order — wq: (D, Hq*hd), wk/wv: (D, Hkv*hd),
 wo: (Hq*hd, D) — so ``x @ W`` mirrors the reference's einsums. KV cache per layer: k/v (B, Hkv, S, hd) plus
 per-sequence lengths (B,). The apply functions take the layer's weights as
@@ -116,6 +116,29 @@ def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_s
     _write_at(v_cache, lengths, v[:, :, 0, :], active)
     o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size)
     return _out_proj(p, x.dtype, o)
+
+
+def _read_at(cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """cache[b, :, lengths[b], :] for every row b (clamped to the cache's end,
+    as ``_write_at`` clamps)."""
+    idx = torch.arange(cache.shape[0], device=cache.device)
+    return cache[idx, :, lengths.long().clamp(max=cache.shape[2] - 1), :]
+
+
+def apply_decode_every_row(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths,
+                           page_size: int = 16, active: Optional[torch.Tensor] = None):
+    """``apply_decode`` for a family whose rows meet after attention (moe
+    routes the whole batch as one group, so an inactive row's output still
+    moves the others'): every row attends over its new K/V, as the
+    reference computes each row before its gate, and the rows where a given
+    ``active`` is False then get their old cache entries back."""
+    if active is None:
+        return apply_decode(p, cfg, x, k_cache, v_cache, lengths, page_size)
+    old_k, old_v = _read_at(k_cache, lengths), _read_at(v_cache, lengths)
+    out = apply_decode(p, cfg, x, k_cache, v_cache, lengths, page_size)
+    _write_at(k_cache, lengths, old_k, ~active)
+    _write_at(v_cache, lengths, old_v, ~active)
+    return out
 
 
 def attend_decode(q, k_cache, v_cache, kv_len, page_size: int) -> torch.Tensor:

@@ -24,8 +24,9 @@ from repro_torch.models import attention, common
 from repro_torch.models.common import ParamTree, frozen
 
 
-def _init_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+def init_attn(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    """One layer's attention projections (and zero biases with ``qkv_bias``)."""
+    d, hd = cfg.d_model, cfg.head_dim
     q_dim, kv_dim = cfg.n_heads * hd, cfg.n_kv_heads * hd
     out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
     attn = dict(
@@ -37,10 +38,16 @@ def _init_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
     if cfg.qkv_bias:
         attn.update(bq=torch.zeros((q_dim,), dtype=dtype), bk=torch.zeros((kv_dim,), dtype=dtype),
                     bv=torch.zeros((kv_dim,), dtype=dtype))
+    return ParamTree(**attn)
+
+
+def _init_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    d, f = cfg.d_model, cfg.d_ff
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
     return ParamTree(
         ln1=torch.ones((d,), dtype=dtype),
         ln2=torch.ones((d,), dtype=dtype),
-        attn=ParamTree(**attn),
+        attn=init_attn(cfg, g, dtype),  # drawn before the MLP
         mlp=ParamTree(
             w_gate=common.dense_init((d, f), g, dtype=dtype),
             w_up=common.dense_init((d, f), g, dtype=dtype),
@@ -50,13 +57,17 @@ def _init_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Embedding, layers and head; ``init_layer`` draws one layer (the moe
+    family passes its own)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device=None,
+                 init_layer=_init_layer):
         super().__init__()
         dtype = common.dt(cfg.param_dtype)
         d, vp = cfg.d_model, cfg.padded_vocab
         self.embed = frozen(common.embed_init((vp, d), generator, dtype), device)
         # drawn on the CPU and moved one layer at a time: host memory holds one layer
-        self.layers = nn.ModuleList(_init_layer(cfg, generator, dtype).to(device)
+        self.layers = nn.ModuleList(init_layer(cfg, generator, dtype).to(device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = frozen(torch.ones((d,), dtype=dtype), device)
         if not cfg.tie_embeddings:

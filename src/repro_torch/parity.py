@@ -3,8 +3,9 @@
 ``params_from_jax`` takes the JAX package's parameter tree with its leaves
 already converted to numpy (``jax.tree.map(np.asarray, params)``), so this
 module needs no JAX. Layer leaves are stacked on a leading L axis there and
-split onto ``layers.<i>`` here; the result loads with the port's model's
-``load_state_dict(..., strict=True)``.
+split onto ``layers.<i>`` here, and nested subtrees (the moe family's
+``experts`` and ``shared``) keep their paths; the result loads with the
+port's model's ``load_state_dict(..., strict=True)``.
 """
 from __future__ import annotations
 

@@ -1,10 +1,10 @@
 """Serving engine: continuous batching over paged, tiered, prefix-shared KV
 (mirrors repro/runtime/serving.py).
 
-It serves every ported family (``models/api.py``: dense, ssm = rwkv6,
+It serves every ported family (``models/api.py``: dense, moe, ssm = rwkv6,
 hybrid = zamba2) with one code path: a slot write copies every cache leaf,
 and the tier store's payload rows are a family's k and v vectors where it
-has a 5-D KV cache ``k`` (the dense layers', zamba2's shared-block
+has a 5-D KV cache ``k`` (the dense and moe layers', zamba2's shared-block
 applications') and synthetic ``counter_rows`` where it has none (rwkv6's
 O(1) state), as in the reference. The paper's three findings run together
 here as in the reference:
@@ -67,8 +67,10 @@ An aborted slot is refilled in place by the next admission, as any freed
 slot is (``_write_slot`` on the whole-slot path, ``_reset_slot`` on the
 chunked one); the graphs' buffers never move.
 
-Not ported yet: the sharded engine (``model_shards > 1``, ROADMAP A7),
-which raises ``NotImplementedError``.
+With ``model_shards > 1`` the engine is a ``runtime.sharded.ShardedServingEngine``,
+whose tiered store is split into that many page-interleaved shards on the
+engine's device (``ServingEngine(...)`` constructs one); ``model_shards``
+must divide ``n_pages``.
 """
 from __future__ import annotations
 
@@ -101,9 +103,8 @@ from repro_torch.runtime.tiered_kv import (
 )
 
 # families whose decode step can consume prompt tokens one column at a time
-# (the chunked-prefill substrate): the reference's list, less the families
-# the port does not have yet (moe, ROADMAP A8)
-CHUNKABLE_FAMILIES = ("dense", "ssm", "hybrid")
+# (the chunked-prefill substrate), as in the reference
+CHUNKABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _env_device_tiering() -> bool:
@@ -185,7 +186,8 @@ class EngineConfig:
     prefetch_lookahead: int = 4
     # cap on promoted pages per issue window (bounds wasted bandwidth)
     prefetch_max_promote: int = 32
-    # tensor-sharding degree of one logical replica (ROADMAP A7)
+    # page-interleaved shards of one logical replica's tiered store
+    # (runtime/sharded; the parameters stay whole on the one card)
     model_shards: int = 1
     # continuous batching: prefill-chunk token budget per engine step. 0 =
     # the whole-slot path (the whole prompt prefills at admit through
@@ -221,6 +223,14 @@ class _Slot:
 
 
 class ServingEngine:
+    def __new__(cls, api: ModelAPI, params, ecfg: EngineConfig, *args, **kwargs):
+        # model_shards > 1 is one logical replica over a sharded store
+        if cls is ServingEngine and ecfg.model_shards > 1:
+            from repro_torch.runtime.sharded import ShardedServingEngine
+
+            cls = ShardedServingEngine
+        return super().__new__(cls)
+
     def __init__(
         self,
         api: ModelAPI,
@@ -230,8 +240,6 @@ class ServingEngine:
         recorder=None,
         device=None,
     ):
-        if ecfg.model_shards != 1:
-            raise NotImplementedError("the sharded engine (model_shards > 1) is ROADMAP A7")
         self.device = resolve_device(device)
         self.api = api
         self.cfg = api.cfg

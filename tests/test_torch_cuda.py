@@ -202,7 +202,7 @@ def _randn(shape, seed, dtype):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("lq,lk", [(512, 512), (1, 77), (100, 230), (130, 200)])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (15, 5), (16, 2)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (15, 5), (16, 2), (24, 8)])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_against_plain(attn, dtype, d, hq, hkv, lq, lk, causal):
@@ -380,7 +380,7 @@ def test_flash_tf32_at_zamba2_width(attn):
 @pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16),
                                               (torch.float32, torch.bfloat16),
                                               (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("hq,hkv,d", [(16, 2, 128), (15, 5, 64), (32, 32, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 2, 128), (15, 5, 64), (32, 32, 64), (24, 8, 64)])
 def test_paged_split_at_main_path_width(attn, hq, hkv, d, q_dtype, kv_dtype):
     """S = 1024 in pages of 16, so the kernel splits each sequence over a
     cluster of 8 blocks of 128 positions (at 32 KV heads, whose grid is
@@ -391,7 +391,7 @@ def test_paged_split_at_main_path_width(attn, hq, hkv, d, q_dtype, kv_dtype):
     kp, vp, table = pa.cache_as_pages(kc, vc, 16)
     q = _randn((8, hq, d), 31, q_dtype)
     lengths = torch.tensor([1, 127, 128, 129, 600, 1023, 1024, 1300], dtype=torch.int32).cuda()
-    assert pa.split_count(1024, hkv, 8) == {2: 8, 5: 8, 32: 2}[hkv]
+    assert pa.split_count(1024, hkv, 8) == {2: 8, 5: 8, 8: 8, 32: 2}[hkv]
     before = pa.LAUNCHES["paged_attention"]
     out = pa.paged_attention(q, kp, vp, table, lengths)
     again = pa.paged_attention(q, kp, vp, table, lengths)
@@ -700,7 +700,7 @@ def test_scans_refuse_what_they_are_not_built_for(scans):
                          torch.zeros(2, 64), s0)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "rwkv6-7b", "zamba2-1.2b"])
 def test_reduced_engine_on_card_equals_cpu(card, arch):
     """The whole device-tiered engine at reduced size: the card (kernels) and
     the CPU (plain versions) give the same books. The books follow the
@@ -708,24 +708,18 @@ def test_reduced_engine_on_card_equals_cpu(card, arch):
     summation order flips cannot change them. On the card every layer runs
     its kernel once per dispatch: attention per dense layer, WKV6 per rwkv6
     layer, SSD per zamba2 layer and attention per application of zamba2's
-    shared block. The attention kernels are built for head_dim 64 and 128,
-    so smollm keeps its head_dim and GQA group (3 query heads of 64 over 1
-    KV head) and zamba2's block takes 2 heads of 64 over d 128; the scans
-    take the reduced widths of 16 as they are."""
+    shared block (``_card_cfg``: the attention kernels are built for
+    head_dim 64 and 128); the scans take the reduced widths of 16 as they
+    are."""
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.workloads import get_profile
     from repro_torch.data.requests import RequestGenerator
     from repro_torch.kernels import flash_attention, mamba2_scan, paged_attention, rwkv6_scan
     from repro_torch.models.api import get_model, kernel_launches
     from repro_torch.runtime.serving import EngineConfig, ServingEngine
 
-    cfg = get_config(arch).reduced()
-    if arch == "smollm-360m":
-        cfg = dataclasses.replace(cfg, d_model=192, n_heads=3, n_kv_heads=1)
-    elif arch == "zamba2-1.2b":
-        cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2)
+    cfg = _card_cfg(arch)
     api = get_model(cfg)
     prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
                                prefix_share=0.5, n_prefixes=2)
@@ -759,23 +753,26 @@ def test_reduced_engine_on_card_equals_cpu(card, arch):
 
 
 def _card_cfg(arch):
-    """The reduced configs the attention kernels take (head_dim 64), as in
-    ``test_reduced_engine_on_card_equals_cpu``."""
+    """The reduced configs the attention kernels take (head_dim 64): smollm
+    and granite-moe keep a GQA group of 3 (3 query heads of 64 over 1 KV
+    head), qwen2-moe and zamba2's shared block take 2/2 heads of 64 over d
+    128."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch).reduced()
-    if arch == "smollm-360m":
+    if arch in ("smollm-360m", "granite-moe-3b-a800m"):
         cfg = dataclasses.replace(cfg, d_model=192, n_heads=3, n_kv_heads=1)
-    elif arch == "zamba2-1.2b":
+    elif arch in ("zamba2-1.2b", "qwen2-moe-a2.7b"):
         cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2)
     return cfg
 
 
-def _engine_run(api, model, where, chunk, eager=False):
-    """Six Web1 requests through a device-tiered engine: (engine, per-step
-    next tokens, the wrappers' launches, the logits of one more decode)."""
+def _engine_run(api, model, where, chunk, eager=False, **over):
+    """Six Web1 requests through a device-tiered engine (``over``: more
+    engine options): (engine, per-step next tokens, the wrappers' launches,
+    the logits of one more decode)."""
     import dataclasses
 
     from repro_torch.configs.workloads import get_profile
@@ -788,6 +785,7 @@ def _engine_run(api, model, where, chunk, eager=False):
     eng = ServingEngine(api, model, EngineConfig(
         max_batch=4, max_len=64, n_pages=256, near_frac=0.02, placement_window=4,
         device_tiering=True, tiered_identity_scales=True, tiered_verify=True, prefill_chunk=chunk,
+        **over,
     ), seed=0, device=where)
     if eager:  # what the graphs replay, run as it stands
         eng._dispatch = lambda name: getattr(eng, f"_{name}_fn")(eng._bufs)
@@ -806,7 +804,8 @@ def _engine_run(api, model, where, chunk, eager=False):
 
 
 @pytest.mark.parametrize("chunk", [0, 8])
-@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
+                                  "rwkv6-7b", "zamba2-1.2b"])
 def test_graph_replay_equals_eager(card, arch, chunk):
     """The engine on the card replays its captured decode and chunk-column
     graphs; run eagerly instead (the same functions), it gives bit-equal
@@ -842,7 +841,8 @@ def test_graph_replay_equals_eager(card, arch, chunk):
         assert g_eng.prefill_dispatches == 0
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "rwkv6-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "granite-moe-3b-a800m", "rwkv6-7b",
+                                  "zamba2-1.2b"])
 def test_held_casts_on_the_card(card, arch):
     """At bf16 compute every held cast of a layer, and the head's, is
     bit-equal to a per-call ``p.to(bfloat16)`` on the card."""
@@ -1100,3 +1100,73 @@ def test_reduced_fleet_on_card_equals_cpu(card):
         books[where] = (list(fl.chaos.log), fl.outcome_report(), repr(stats))
     assert books["cuda"] == books["cpu"]
     assert books["cuda"][1]["complete"] and len(books["cuda"][0]) == 6
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine (one card) and the moe family's routing on the card
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_store_on_card_equals_cpu(card, n_shards):
+    """The same global stream through a sharded store on the card and on
+    the CPU: rows, drained planes, migration books, per-shard budget and the
+    per-shard drain deltas are equal; an idle shard launches nothing."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.runtime.sharded import ShardedTieredKV
+
+    rows = np.random.default_rng(0).integers(-127, 128, size=(64, 40)).astype(np.float32)
+    books = {}
+    for where in ("cuda", "cpu"):
+        store = ShardedTieredKV(64, 40, 10, n_shards, identity_scales=True, counter_slots=6,
+                                device=where)
+        store.write(np.arange(64), torch.as_tensor(rows, device=where))
+        rng = np.random.default_rng(7)
+        got, moved = [], []
+        for _ in range(6):
+            moved.append(store.migrate(rng.choice(64, size=rng.integers(0, 11), replace=False)))
+            sizes = rng.integers(1, 9, size=rng.integers(1, 7))
+            ids = rng.integers(0, 64, size=sizes.sum())
+            before = launch_counts()["tiered_segmented"]
+            got.append(store.lookup_segments(
+                ids, np.repeat(np.arange(sizes.size), sizes).astype(np.int32), 7,
+                slot_idx=list(range(sizes.size)), tenant_idx=list(rng.integers(0, 3, sizes.size)),
+                role_idx=list(rng.integers(0, 2, sizes.size))).cpu())
+            busy = np.unique(ids % n_shards).size
+            assert launch_counts()["tiered_segmented"] - before == (busy if where == "cuda" else 0)
+        d = store.drain_counters()
+        books[where] = (torch.cat(got), moved, {k: np.asarray(v).tolist() for k, v in d.items()},
+                        store.take_shard_drains(), store.stats())
+    (rg, mg, dg, sg, stg), (rc, mc, dc, sc, stc) = books["cuda"], books["cpu"]
+    assert torch.equal(rg, rc) and mg == mc and dg == dc and sg == sc and stg == stc
+
+
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_sharded_engine_on_card_equals_cpu(card, chunk):
+    """A 2-shard engine on the card (graphs, kernels) against the same on
+    the CPU: live counters and books equal, and its tokens and books equal
+    the 1-shard engine's on the card; at most one tiered launch per shard a
+    step."""
+    from repro_torch.models.api import get_model
+
+    cfg = _card_cfg("smollm-360m")
+    api = get_model(cfg)
+    model = api.init(0, device="cuda")
+    cpu_model = api.init(0, device="cpu")
+    runs = {}
+    for label, where, n in (("card2", "cuda", 2), ("card1", "cuda", 1), ("cpu2", "cpu", 2)):
+        eng, toks, launched, _ = _engine_run(api, model if where == "cuda" else cpu_model, where,
+                                             chunk, model_shards=n)
+        runs[label] = (eng, toks, launched)
+    e2, t2, l2 = runs["card2"]
+    e1, t1, l1 = runs["card1"]
+    ec, _, _ = runs["cpu2"]
+    assert e2.live_counters() == ec.live_counters() == e1.live_counters()
+    strip = lambda st: {**st, "device_tiering": {k: v for k, v in st["device_tiering"].items()
+                                                 if not k.startswith("shard") and k not in
+                                                 ("lookups", "dispatches", "host_syncs", "drains",
+                                                  "dispatches_per_step", "host_syncs_per_step")}}
+    assert e2.stats()["device_tiering"] == ec.stats()["device_tiering"]
+    assert strip(e2.stats()) == strip(e1.stats())
+    assert torch.equal(t2, t1)
+    assert e2.engine_steps <= l2["tiered_segmented"] <= 2 * e2.engine_steps
+

@@ -37,6 +37,7 @@ from repro_torch.data.requests import RequestGenerator, interleave  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.obs import FlightRecorder  # noqa: E402
 from repro_torch.parity import params_from_jax  # noqa: E402
+from repro_torch.runtime.sharded import ShardedServingEngine  # noqa: E402
 
 ARCH = "smollm-360m"
 N_REQUESTS = 24
@@ -198,8 +199,9 @@ def test_build_fleet_wants_the_card_and_names_what_is_missing():
         pytest.skip("a CUDA device is visible: device=None resolves to it")
     with pytest.raises(RuntimeError, match="CUDA"):
         port_fleet.build_fleet(1)
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_fleet.build_fleet(1, device="cpu", model_shards=2)
+    sharded = port_fleet.build_fleet(2, device="cpu", device_tiering=True, model_shards=2)
+    assert all(isinstance(r.engine, ShardedServingEngine) and r.engine.tiered.n_shards == 2
+               for r in sharded.replicas)
     with pytest.raises(NotImplementedError, match="A9"):
         port_fleet.restored_params_source(None, None)
     port_fleet._MODEL_CACHE.pop((ARCH, "cpu"), None)

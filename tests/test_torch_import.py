@@ -27,6 +27,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch.kernels.flash_attention.ops, repro_torch.kernels.paged_attention.ops\n"
         "import repro_torch.kernels.rwkv6_scan.ops, repro_torch.kernels.mamba2_scan.ops\n"
         "import repro_torch.models.rwkv6, repro_torch.models.mamba2, repro_torch.models.zamba2\n"
+        "import repro_torch.models.moe, repro_torch.runtime.sharded\n"
         "import repro_torch.fleet, repro_torch.core.tiering\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -39,7 +40,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "repro_torch.kernels.paged_attention.ref" in mods
     assert "repro_torch.fleet.router" in mods and "repro_torch.core.hw" in mods
     for mod in ("kernels.rwkv6_scan.ref", "kernels.mamba2_scan.ref", "models.rwkv6",
-                "models.mamba2", "models.zamba2"):
+                "models.mamba2", "models.zamba2", "models.moe", "runtime.sharded"):
         assert f"repro_torch.{mod}" in mods, mod
     assert [m for m in mods if _is_reference(m)] == []
 
@@ -111,18 +112,11 @@ CHANGED = {
         api = get_model(cfg)
         _MODEL_CACHE[key] = (cfg, api, api.init(0, device=dev))
     cfg, api, params = _MODEL_CACHE[key]"""),
-        # no sharded engine yet (ROADMAP A7): ServingEngine raises for it
-        ("""        ecfg = EngineConfig(**kw)
-        if ecfg.model_shards > 1:
-            # one LOGICAL replica spanning chips: still one routing target,
-            # one profile export, one tenant book — the shards are invisible
-            # to the router and merge by summation everywhere above this
-            from repro.runtime.sharded import ShardedServingEngine
-
-            eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid)
-        else:
-            eng = ServingEngine(api, p, ecfg, seed=seed + rid)""",
-         "        eng = ServingEngine(api, p, EngineConfig(**kw), seed=seed + rid, device=dev)"),
+        # every engine, sharded or not, on the fleet's device
+        ("eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid)",
+         "eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid, device=dev)"),
+        ("eng = ServingEngine(api, p, ecfg, seed=seed + rid)",
+         "eng = ServingEngine(api, p, ecfg, seed=seed + rid, device=dev)"),
         # the vocab comes from the config alone, not the (now per-device) cache
         ("""    if arch in _MODEL_CACHE:
         return _MODEL_CACHE[arch][0].vocab_size
@@ -204,8 +198,8 @@ def test_unported_family_names_its_roadmap_item():
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
 
-    for arch in ("granite-moe-3b-a800m", "qwen2-vl-7b", "whisper-base"):
+    for arch in ("qwen2-vl-7b", "whisper-base"):
         with pytest.raises(NotImplementedError, match="A8"):
             get_model(get_config(arch))
-    for arch in ("smollm-360m", "rwkv6-7b", "zamba2-1.2b"):
-        assert get_model(get_config(arch)).family in ("dense", "ssm", "hybrid")
+    for arch in ("smollm-360m", "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "rwkv6-7b", "zamba2-1.2b"):
+        assert get_model(get_config(arch)).family in ("dense", "moe", "ssm", "hybrid")

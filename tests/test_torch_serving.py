@@ -29,6 +29,7 @@ from repro_torch.data.requests import RequestGenerator  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.parity import params_from_jax  # noqa: E402
 from repro_torch.runtime.serving import EngineConfig, ServingEngine, counter_rows  # noqa: E402
+from repro_torch.runtime.sharded import ShardedServingEngine  # noqa: E402
 
 ARCH = "smollm-360m"
 N_REQUESTS = 6
@@ -207,6 +208,10 @@ def test_counter_rows_match_reference():
 
 
 def test_unported_options_name_their_roadmap_item(port):
-    """The sharded engine is the one engine option not ported yet."""
-    with pytest.raises(NotImplementedError, match="A7"):
-        _engine(port, True, model_shards=2)
+    """Every engine option is ported: ``model_shards`` builds the sharded
+    engine (ROADMAP A7, done) and refuses only a count that does not divide
+    ``n_pages``."""
+    eng = _engine(port, True, model_shards=2)
+    assert isinstance(eng, ShardedServingEngine) and eng.tiered.n_shards == 2
+    with pytest.raises(ValueError, match="divide"):
+        _engine(port, True, model_shards=3)
