@@ -19,10 +19,17 @@ Phases (any failure raises, so the script exits non-zero):
    - flash attention (prefill of 512 tokens) and paged decode attention
      (8 slots, S = 1024, pages of 16, through the cache view, each sequence
      split over a cluster of blocks) at the widths of smollm-360m,
-     qwen2.5-3b and granite-moe-3b (24/8 heads of 64), bf16, and
-     zamba2-1.2b, f32 (flash on TF32 tensor cores,
+     qwen2.5-3b, granite-moe-3b (24/8 heads of 64), qwen2-vl-7b (28/4
+     heads of 128, a GQA group of 7) and whisper-base's decoder (8/8 of
+     64), bf16, and zamba2-1.2b, f32 (flash on TF32 tensor cores,
      three products a product): within one bf16 step (2e-5 in f32) of the
      plain version, and within 2e-2 of the model's eager attention;
+   - flash attention at whisper-base's three non-causal sites, 8 heads of
+     64 over its 1500 frames (23 key tiles of 64 and a ragged one of 28):
+     the encoder (1 x 1500 queries, bf16), the cross-attention at prefill
+     (a prompt of 512 queries, bf16) and at decode (8 slots x 1 query, f32
+     as the model feeds it), the last beside the paged kernel over the
+     same bf16 cross cache viewed as pages of 20;
    - B5 over prompts of 64 to 1024 and B4 over lengths all 1, the main
      ones and all 1024, beside the timing's floor, to show where their
      time goes;
@@ -57,19 +64,35 @@ Phases (any failure raises, so the script exits non-zero):
    per layer per decode; then one decode of 8 slots through the sort
    dispatch held to the einsum dispatch's logits (``SORT_TOL``), and the
    experts' share of a decode step;
+   3f. the same over full-width qwen2-vl-7b (28 layers, d 3584, 28/4
+   heads of 128, qkv bias, M-RoPE sections (16, 24, 24), vocab 152064,
+   untied head) on 6 Web1 requests, prefilled from the embedding rows
+   with the three M-RoPE channels at the text positions; then one prefill
+   with 3-D positions (text, an image block at one t over a 16 x 16 grid,
+   text) with finite logits, and one with three equal channels whose
+   logits equal the token path's bit for bit;
+   3g. the same over full-width whisper-base (6 encoder and 6 decoder
+   layers, d 512, 8/8 heads of 64, 1500 audio frames of the front end's
+   stub, zeros) on 8 Web1 requests: one flash launch per encoder layer and
+   two per decoder layer per prefill, one paged (self) and one flash
+   (cross, inside the captured decode) per decoder layer per decode, the
+   flash launches counted site by site where they are made;
    3x. after each model's main path, continuous batching with chunked
    prefill on the same params and requests (``prefill_chunk=64``): every
    request finishes, one model and one tiered dispatch a step, no prefill
    dispatch, no host read in any step that does not drain, and the model
    kernels once a layer per whole-batch decode (a decode step, or a chunk
    column, each a graph replay); TTFT, tokens/s, step time, and the share
-   of requests whose tokens equal the whole-slot engine's;
+   of requests whose tokens equal the whole-slot engine's. qwen2-vl-7b and
+   whisper-base are not chunkable (as in the reference): with the same
+   chunk budget they prefill whole at admission, capture no column graph,
+   and give the whole-slot engine's tokens;
 4. the verify paths at full width on 4 requests: identity scales with the
    in-line flat-mirror probe (no read error), the per-slot lookup baseline
    (same drained hit totals), device tiering off (same live counters); and
-   reduced smollm, rwkv6 and zamba2 models on the card (kernels, graphs)
-   against the same engine on the CPU (plain versions), whole-slot and
-   chunked;
+   reduced smollm, rwkv6, zamba2, qwen2-vl and whisper models on the card
+   (kernels, graphs) against the same engine on the CPU (plain versions),
+   whole-slot and with a chunk budget;
 5. the fleet (``repro_torch.fleet``) at full width: the objects
    ``build_fleet`` wires (router, admission with the chaos study's two
    tenants, AutoTierer, elastic layer, chaos engine) over 3 device-tiered
@@ -100,7 +123,9 @@ counts are Python increments, made once at capture and not at a replay.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -131,7 +156,7 @@ KERNELS = {
 }
 # the attention widths of the served models: (query heads, KV heads, head_dim)
 ATTN_WIDTHS = {"smollm-360m": (15, 5, 64), "qwen2.5-3b": (16, 2, 128), "zamba2-1.2b": (32, 32, 64),
-               "granite-moe-3b-a800m": (24, 8, 64)}
+               "granite-moe-3b-a800m": (24, 8, 64), "qwen2-vl-7b": (28, 4, 128), "whisper-base": (8, 8, 64)}
 # zamba2's shared block runs uncast f32 weights (as the reference's prefill
 # and decode do): f32 q, k, v in prefill, an f32 query over the bf16 cache
 # in decode; the dense models feed bf16 throughout
@@ -146,7 +171,14 @@ DECODE_LENGTHS = (1, 23, 512, 547, 560, 600, 1024, 1300)
 ECFG = dict(max_batch=8, max_len=1024, page_size=16, n_pages=1024, near_frac=0.3,
             device_tiering=True)
 # the models whose attention numbers ride beside smollm-360m's in the kernels line
-MODELS_BESIDE = ("qwen2.5-3b", "zamba2-1.2b", "granite-moe-3b-a800m")
+MODELS_BESIDE = ("qwen2.5-3b", "zamba2-1.2b", "granite-moe-3b-a800m", "qwen2-vl-7b", "whisper-base")
+CROSS_PAGE = 20  # whisper's 1500 frames = 75 pages of 20: the cross cache as pages for the paged kernel
+# the functions that hold whisper-base's flash sites: the flash launches
+# of each are counted on its main path as the rise of the flash wrapper's
+# count over that function's calls (see ``flash_site_counts``)
+WHISPER_FLASH_SITES = {"encoder": ("repro_torch.models.whisper", "encode"),
+                       "self": ("repro_torch.models.attention", "apply_prefill"),
+                       "cross": ("repro_torch.models.whisper", "_cross_attend")}
 # the main path on smollm-360m with eager attention, as measured at commit
 # 0f3184b (NVIDIA H100 80GB HBM3, 700 W)
 EAGER_BASELINE = ("eager attention at commit 0f3184b on NVIDIA H100 80GB HBM3, 700 W: "
@@ -343,9 +375,119 @@ def within_one_bf16_step(out, plain) -> bool:
     return bool(((a - b).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-6).all())
 
 
+def flash_sites(frames: int) -> list:
+    """B5's sites, each (model, site, batch, Lq, Lk, q dtype, causal, where
+    k and v come from): every served model's prompt of ``PREFILL_LEN``
+    (causal; q and k out of rope contiguous, v a transposed view of the
+    projection), and whisper-base's non-causal ones over its ``frames``:
+    the encoder (q, k, v transposed projection views; every key valid, the
+    last of 24 key tiles 28 rows of TMA's zero fill), the cross-attention
+    at prefill (a prompt's queries over the cross K/V, views of their
+    projection) and at decode (one f32 query a slot over the bf16 cross
+    cache upcast to f32: whisper's decode runs the stored f32 weights, so
+    its q comes out f32)."""
+    prompts = [(arch, "prompt", 1, PREFILL_LEN, PREFILL_LEN, "f32" if arch in ATTN_F32_Q else "bf16",
+                True, "rope") for arch in ATTN_WIDTHS]
+    return prompts + [
+        ("whisper-base", "encoder", 1, frames, frames, "bf16", False, "projection"),
+        ("whisper-base", "cross_prefill", 1, PREFILL_LEN, frames, "bf16", False, "projection"),
+        ("whisper-base", "cross_decode", 8, 1, frames, "f32", False, "cache"),
+    ]
+
+
+def log_row(name: str, label: str, r: dict):
+    log(f"{name} [{label}] {r['shapes']}: max_abs_err vs plain {r['max_abs_err']:.3e} "
+        f"(one bf16 step; f32 2e-5), vs eager {r['err_vs_eager']:.3e}; kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+        f"{r['bytes'] / 1e6:.2f} MB), library {r['library_ms']:.4f} ms")
+    if "bound_cuda_cores_ms" in r:
+        log(f"{name} [{label}]: bound on TF32 tensor cores ({TF32_PRODUCTS} products) "
+            f"{r['bound_ms']:.4f} ms, on the CUDA cores (f32) {r['bound_cuda_cores_ms']:.4f} ms "
+            f"(share {r['bound_cuda_cores_ms'] / r['ms']:.4f}); vs its TF32 algorithm "
+            f"{r['err_vs_tf32_algorithm']:.3e}")
+    log(f"{name} [{label}]: at {r['bound_ms'] / r['ms']:.4f} of its bound; "
+        f"{r['ms'] / r['library_ms']:.3f}x the library's time")
+
+
+def check_flash(q, k, v, causal: bool, shapes: str) -> dict:
+    """B5 on one site's inputs: within one bf16 step (2e-5 in f32) of its
+    plain version and within 2e-2 of the model's eager attention, then
+    timed beside the plain version and SDPA, with its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common
+
+    f32 = q.dtype == torch.float32
+    b, hq, lq, d = q.shape
+    lk = k.shape[2]
+    kw = dict(causal=causal, lk_valid=lk, q_offset=0)
+    call = lambda: fa.flash_attention(q, k, v, **kw)
+    out, plain = call(), fa.flash_attention_ref(q, k, v, **kw)
+    eager = common.attention_chunked(q, k, v, causal=causal, block_k=256)
+    torch.cuda.synchronize()
+    close = (lambda a, b: bool(torch.allclose(a, b, rtol=2e-5, atol=2e-5))) if f32 else within_one_bf16_step
+    assert close(out, plain), f"flash_attention differs from plain ({shapes})"
+    torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
+    nbytes = float(2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size())  # q, o, k, v
+    pairs = lq * (lq + 1) / 2 if causal else lq * lk  # causal: Lq = Lk, q row 0 at position 0
+    nops = 4.0 * b * hq * d * pairs  # QK^T and PV
+    b_ms, b_by = bound(nbytes, nops, FP32_OPS_PER_S if f32 else BF16_OPS_PER_S)
+    extra = {}
+    if f32:
+        # f32-exact products on the tensor cores take TF32_PRODUCTS TF32
+        # products each: the least time for this work on them; the CUDA
+        # cores' f32 bound stays beside it
+        tf32 = fa.flash_attention_tf32_ref(q, k, v, **kw)
+        assert close(out, tf32), f"flash_attention differs from its TF32 algorithm ({shapes})"
+        extra = {"bound_cuda_cores_ms": b_ms, "err_vs_tf32_algorithm": float((out - tf32).abs().max())}
+        b_ms, b_by = bound(nbytes, TF32_PRODUCTS * nops, TF32_OPS_PER_S)
+    return {**extra, "shapes": shapes,
+            "max_abs_err": float((out.float() - plain.float()).abs().max()),
+            "err_vs_eager": float((out.float() - eager.float()).abs().max()),
+            "ms": time_ms(call),
+            "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))}
+
+
+def paged_over_pages(q, ck, cv) -> dict:
+    """A measured alternative to B5 at whisper-base's decode cross-attention:
+    the paged kernel (B4) over the bf16 cross cache viewed as pages of
+    ``CROSS_PAGE``, no upcast, within 2e-5 of B5 over the upcast cache,
+    beside the upcast's own time."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    b, _, n, _ = ck.shape
+    out = fa.flash_attention(q, ck.float(), cv.float(), causal=False, lk_valid=n, q_offset=0)[:, :, 0]
+    assert n % CROSS_PAGE == 0, (n, CROSS_PAGE)
+    qd = q[:, :, 0]
+    kp, vp, table = pa.cache_as_pages(ck, cv, CROSS_PAGE)
+    lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    paged = lambda: pa.paged_attention(qd, kp, vp, table, lengths)
+    po = paged()
+    torch.cuda.synchronize()
+    assert torch.allclose(po, out, rtol=2e-5, atol=2e-5), "paged over the cross cache differs"
+    nbytes = float(2 * ck.numel() * 2 + 2 * qd.numel() * 4 + table.numel() * 4 + 4 * b)
+    r = {"upcast_ms": time_ms(lambda: (ck.float(), cv.float())),
+         "paged_over_pages_ms": time_ms(paged),
+         "paged_vs_flash_err": float((po - out).abs().max()),
+         "paged_bound_ms": bound(nbytes, 4.0 * q.shape[1] * q.shape[3] * b * n, FP32_OPS_PER_S)[0]}
+    log(f"whisper-base cross decode: the upcast of one layer's cross K/V {r['upcast_ms']:.4f} ms; the paged "
+        f"kernel over the bf16 cache as {n // CROSS_PAGE} pages of {CROSS_PAGE} {r['paged_over_pages_ms']:.4f} ms "
+        f"(bound {r['paged_bound_ms']:.4f} ms), vs flash {r['paged_vs_flash_err']:.3e}")
+    return r
+
+
 def check_attention():
-    """B5 and B4 at each served model's widths and types as the model feeds
-    them: bf16 for the dense models, f32 queries for zamba2's shared block.
+    """B5 at every site of ``flash_sites`` and B4 at each served model's
+    widths, with the types the model feeds them: bf16 for the dense models,
+    f32 queries for zamba2's shared block and whisper's decode.
 
     The kernels and their plain versions both compute in f32 and differ in
     summation order only, so they agree to one bf16 step in bf16 and to
@@ -353,65 +495,53 @@ def check_attention():
     attention rounds p to bf16 before PV (the kernels, like the TPU
     kernels, do not), so it is held at the JAX tests' bf16 tolerance, 2e-2.
     ``library_ms`` times ``scaled_dot_product_attention``, which the port
-    never calls."""
+    never calls. Returns {kernel: {model: row}}; a model's B5 row is its
+    prompt's, with its other sites under "sites"."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.configs import get_config
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import common
 
     bf = torch.bfloat16
+    dtypes = {"bf16": bf, "f32": torch.float32}
+    sites = flash_sites(get_config("whisper-base").n_audio_frames)
     results = {"flash_attention": {}, "paged_attention": {}}
     for arch, (hq, hkv, d) in ATTN_WIDTHS.items():
         g = torch.Generator().manual_seed(3)
-        qdt = torch.float32 if arch in ATTN_F32_Q else bf
-        qsz = 4 if qdt == torch.float32 else 2
-        rand = lambda *shape, dtype=qdt: torch.randn(*shape, generator=g).to(dtype).cuda()
+        rand = lambda *shape, dtype: torch.randn(*shape, generator=g).to(dtype).cuda()
+        # a projection's output (B, L, H * d) viewed as (B, H, L, d)
+        proj = lambda b, n, h, dtype: rand(b, n, h * d, dtype=dtype).reshape(b, n, h, d).transpose(1, 2)
+        for _, site, b, lq, lk, qname, causal, kv in (s for s in sites if s[0] == arch):
+            qdt = dtypes[qname]
+            q = rand(b, hq, lq, d, dtype=qdt) if kv == "rope" else proj(b, lq, hq, qdt)
+            if kv == "cache":
+                ck, cv = rand(b, hkv, lk, d, dtype=bf), rand(b, hkv, lk, d, dtype=bf)
+                k, v = ck.to(qdt), cv.to(qdt)
+            else:
+                k = rand(b, hkv, lk, d, dtype=qdt) if kv == "rope" else proj(b, lk, hkv, qdt)
+                v = proj(b, lk, hkv, qdt)
+            shapes = (f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) {qname}"
+                      + (" (the bf16 cache upcast)" if kv == "cache" else "")
+                      + (", causal" if causal else ", non-causal"))
+            r = check_flash(q, k, v, causal, shapes)
+            log_row("flash_attention", arch if site == "prompt" else f"{arch} {site}", r)
+            if kv == "cache":
+                r.update(paged_over_pages(q, ck, cv))
+            if site == "prompt":
+                results["flash_attention"][arch] = r
+            else:
+                results["flash_attention"][arch].setdefault("sites", {})[site] = r
+        qdt = dtypes["f32" if arch in ATTN_F32_Q else "bf16"]
+        qname, qsz = ("f32", 4) if qdt == torch.float32 else ("bf16", 2)
         close = (lambda a, b: bool(torch.allclose(a, b, rtol=2e-5, atol=2e-5))) if qdt == torch.float32 \
             else within_one_bf16_step
         peak = FP32_OPS_PER_S if qdt == torch.float32 else BF16_OPS_PER_S
-        qname = "f32" if qdt == torch.float32 else "bf16"
-        # B5: one prompt's prefill; q and k come out of rope contiguous, v
-        # is a transposed view of the projection, as the model hands them in
-        n = PREFILL_LEN
-        q, k = rand(1, hq, n, d), rand(1, hkv, n, d)
-        v = rand(1, n, hkv * d).reshape(1, n, hkv, d).transpose(1, 2)
-        call = lambda: fa.flash_attention(q, k, v, causal=True, lk_valid=n, q_offset=0)
-        out = call()
-        plain = fa.flash_attention_ref(q, k, v, causal=True, lk_valid=n, q_offset=0)
-        eager = common.attention_chunked(q, k, v, causal=True, block_k=256)
-        torch.cuda.synchronize()
-        assert close(out, plain), f"flash_attention differs from plain ({arch})"
-        torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
-        nbytes = float((2 * q.numel() + 2 * k.numel()) * qsz)  # q and o, k and v
-        nops = 4.0 * hq * d * n * (n + 1) / 2  # QK^T and PV over the causal pairs
-        b_ms, b_by = bound(nbytes, nops, peak)
-        extra = {}
-        if qdt == torch.float32:
-            # f32-exact products on the tensor cores take TF32_PRODUCTS TF32
-            # products each: the least time for this work on them; the CUDA
-            # cores' f32 bound stays beside it
-            tf32 = fa.flash_attention_tf32_ref(q, k, v, causal=True, lk_valid=n, q_offset=0)
-            assert close(out, tf32), f"flash_attention differs from its TF32 algorithm ({arch})"
-            extra = {"bound_cuda_cores_ms": b_ms,
-                     "err_vs_tf32_algorithm": float((out - tf32).abs().max())}
-            b_ms, b_by = bound(nbytes, TF32_PRODUCTS * nops, TF32_OPS_PER_S)
-        results["flash_attention"][arch] = {**extra,
-            "shapes": f"q (1, {hq}, {n}, {d}), k/v (1, {hkv}, {n}, {d}) {qname}, causal",
-            "max_abs_err": float((out.float() - plain.float()).abs().max()),
-            "err_vs_eager": float((out.float() - eager.float()).abs().max()),
-            "ms": time_ms(call),
-            "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True, lk_valid=n,
-                                                               q_offset=0)),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)),
-        }
         # B4: one decode step of 8 slots over the engine's per-slot cache,
         # viewed as pages without a copy
         kc, vc = rand(8, hkv, DECODE_S, d, dtype=bf), rand(8, hkv, DECODE_S, d, dtype=bf)
-        qd = rand(8, hq, d)
+        qd = rand(8, hq, d, dtype=qdt)
         lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
         kp, vp, table = pa.cache_as_pages(kc, vc, DECODE_PAGE)
         call = lambda: pa.paged_attention(qd, kp, vp, table, lengths)
@@ -440,19 +570,8 @@ def check_attention():
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qd[:, :, None], kl, vl, attn_mask=mask, enable_gqa=True)),
         }
-    for name, per in results.items():
-        for arch, r in per.items():
-            log(f"{name} [{arch}] {r['shapes']}: max_abs_err vs plain {r['max_abs_err']:.3e} "
-                f"(one bf16 step; f32 2e-5), vs eager {r['err_vs_eager']:.3e}; kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                f"{r['bytes'] / 1e6:.2f} MB), library {r['library_ms']:.4f} ms")
-            if "bound_cuda_cores_ms" in r:
-                log(f"{name} [{arch}]: bound on TF32 tensor cores ({TF32_PRODUCTS} products) "
-                    f"{r['bound_ms']:.4f} ms, on the CUDA cores (f32) {r['bound_cuda_cores_ms']:.4f} ms "
-                    f"(share {r['bound_cuda_cores_ms'] / r['ms']:.4f}); vs its TF32 algorithm "
-                    f"{r['err_vs_tf32_algorithm']:.3e}")
-            log(f"{name} [{arch}]: at {r['bound_ms'] / r['ms']:.4f} of its bound; "
-                f"{r['ms'] / r['library_ms']:.3f}x the library's time")
+    for arch, r in results["paged_attention"].items():
+        log_row("paged_attention", arch, r)
     return results
 
 
@@ -741,18 +860,51 @@ def path_launches(eng, eager: dict) -> dict:
     return {k: eager[k] + replayed[k] for k in eager}
 
 
+@contextlib.contextmanager
+def flash_site_counts(sites: dict):
+    """Count flash launches by call site while the block runs: each site's
+    function (``sites``: name -> (module, attribute)) is wrapped so that the
+    rise of the flash wrapper's count over its calls adds to that site's
+    count. Yields the counts; the functions are restored on exit."""
+    import importlib
+
+    from repro_torch.kernels import flash_attention as fa
+
+    counts, saved = dict.fromkeys(sites, 0), []
+    for site, (mod_name, attr) in sites.items():
+        mod = importlib.import_module(mod_name)
+        orig = getattr(mod, attr)
+
+        def counted(*a, _site=site, _orig=orig, **k):
+            n0 = fa.LAUNCHES["flash_attention"]
+            out = _orig(*a, **k)
+            counts[_site] += fa.LAUNCHES["flash_attention"] - n0
+            return out
+
+        saved.append((mod, attr, orig))
+        setattr(mod, attr, counted)
+    try:
+        yield counts
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+
+
 def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
+def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None, sites=None):
     """The main path on one model at full width: an engine answering
     ``n_requests`` Web1 requests, every kernel launch counted. ``widths``:
     (layers, d_model, heads, KV heads, d_ff, vocab); ``ssm``: (ssm_head_dim,
-    ssm_state, shared_attn_every) of a recurrent family."""
+    ssm_state, shared_attn_every) of a recurrent family; ``sites``: the
+    functions holding the model's flash sites (``flash_site_counts``),
+    whose launches are then counted site by site."""
     import torch
 
     import repro_torch.runtime.tiered_kv as tiered_kv_mod
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model, kernel_launches
 
@@ -779,13 +931,17 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
         spans.append((s, e))
         return out
 
-    eng = make_engine(api, params, **ECFG)
-    tiered_kv_mod.tiered_lookup_segments = timed
-    zero_launch_counts()
-    try:
-        run = drive(eng, reqs, step_events=True)
-    finally:
-        tiered_kv_mod.tiered_lookup_segments = orig
+    with flash_site_counts(sites or {}) as per_site:
+        flash0 = fa.LAUNCHES["flash_attention"]
+        eng = make_engine(api, params, **ECFG)
+        at_capture, captured = dict(per_site), fa.LAUNCHES["flash_attention"] - flash0
+        tiered_kv_mod.tiered_lookup_segments = timed
+        zero_launch_counts()
+        try:
+            run = drive(eng, reqs, step_events=True)
+        finally:
+            tiered_kv_mod.tiered_lookup_segments = orig
+        eager_sites = {site: n - at_capture[site] for site, n in per_site.items()}
     wall, step_ms = run["wall"], run["step_ms"]
     eager = launch_counts()
     launches = path_launches(eng, eager)
@@ -806,12 +962,23 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
     want = kernel_launches(cfg, eng.prefill_dispatches, decodes)
     assert {k: launches[k] for k in want} == want, (launches, want)
     assert {k: eager[k] for k in want} == kernel_launches(cfg, eng.prefill_dispatches, 0), eager
+    assert {k: graph.launches.get(k, 0) for k in want} == kernel_launches(cfg, 0, 1), graph.launches
     assert dev["near_hits"] > 0 and dev["far_hits"] > 0, dev
+    flash_sites = None
+    if sites:
+        # the eager sites hold every eager flash launch; and every flash
+        # launch made while the engine warmed up and captured its decode came
+        # from one site's function, so the decode graph's are that site's
+        owner = [site for site, n in at_capture.items() if n]
+        assert sum(at_capture.values()) == captured and len(owner) <= 1, (at_capture, captured)
+        assert sum(eager_sites.values()) == eager["flash_attention"], (eager_sites, eager)
+        flash_sites = {"prefill": eager_sites, "decode_graph": {
+            site: graph.launches["flash_attention"] * graph.replays for site in owner}}
+        log(f"{arch} flash launches by site: {flash_sites} (of {launches['flash_attention']})")
     # the logits of one more decode of the final batch, and of one prefill
     cache = {k: v.clone() for k, v in eng.cache.items()}
     logits, _ = api.decode(params, cache, eng.next_tokens[:, None], page_size=ECFG["page_size"])
-    pre, _ = api.prefill(params, {"tokens": torch.as_tensor(reqs[0].tokens[None, :64]).cuda()},
-                         max_len=64)
+    pre, _ = api.prefill(params, eng._prefill_batch(reqs[0].tokens[:64]), max_len=64)
     assert logits.shape == (8, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
     assert bool(torch.isfinite(pre).all())
     gather_ms = [s.elapsed_time(e) for s, e in spans]
@@ -830,7 +997,8 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None):
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     budget = decode_budget(api, params, web1_requests(cfg, 4, seed=1), card, arch)
     return {"launches": launches, "api": api, "params": params, "cfg": cfg, "reqs": reqs,
-            "streams": run["streams"], "tokens_per_s": toks_per_s, "profile": budget}
+            "streams": run["streams"], "tokens_per_s": toks_per_s, "profile": budget,
+            "flash_sites": flash_sites}
 
 
 def decode_budget(api, params, reqs, card: str, arch: str):
@@ -895,6 +1063,25 @@ def decode_budget(api, params, reqs, card: str, arch: str):
 CHUNK = 64  # the chunked phase's prefill-chunk token budget a step
 
 
+def path_summary(eng, run: dict, same: list, launches: dict) -> dict:
+    """A second pass over a main path's requests (``drive`` with step
+    events): TTFT on the device timeline (every request is submitted before
+    the first step, whose start is events[0]) and in steps, tokens/s, step
+    p50/p99, and the share of requests whose tokens equal the whole-slot
+    engine's (``same``)."""
+    st = eng.stats()
+    sv, ev = st["serving"], run["events"]
+    ttft_ms = [ev[0].elapsed_time(ev[j + 1]) for j in run["first"].values()]
+    return {
+        "ttft_p50_ms": pct(ttft_ms, 50), "ttft_p99_ms": pct(ttft_ms, 99),
+        "ttft_p50_steps": sv["ttft_p50"], "ttft_p99_steps": sv["ttft_p99"],
+        "tokens_per_s": st["tokens_decoded"] / run["wall"],
+        "step_p50_ms": pct(run["step_ms"], 50), "step_p99_ms": pct(run["step_ms"], 99),
+        "steps": eng.engine_steps, "columns": eng.chunk_columns, "wall_s": run["wall"],
+        "same_tokens_share": sum(same) / len(same), "launches": launches,
+    }
+
+
 def serve_chunked(card: str, arch: str, mp: dict) -> dict:
     """Continuous batching with chunked prefill on one model at full width:
     phase 3's params and Web1 requests through an engine with
@@ -933,20 +1120,9 @@ def serve_chunked(card: str, arch: str, mp: dict) -> dict:
     assert {k: launches[k] for k in want} == want, (launches, want)
     assert all(eager[k] == 0 for k in want), eager
     assert launches["tiered_segmented"] == eng.engine_steps, launches
-    # TTFT on the device timeline: every request is submitted before the
-    # first step, whose start is events[0]
-    ev = run["events"]
-    ttft_ms = [ev[0].elapsed_time(ev[j + 1]) for j in run["first"].values()]
     ws = mp["streams"]
     same = [run["streams"][rid][1:] == ws[rid] for rid in ws]
-    res = {
-        "ttft_p50_ms": pct(ttft_ms, 50), "ttft_p99_ms": pct(ttft_ms, 99),
-        "ttft_p50_steps": sv["ttft_p50"], "ttft_p99_steps": sv["ttft_p99"],
-        "tokens_per_s": st["tokens_decoded"] / run["wall"],
-        "step_p50_ms": pct(run["step_ms"], 50), "step_p99_ms": pct(run["step_ms"], 99),
-        "steps": eng.engine_steps, "columns": eng.chunk_columns, "wall_s": run["wall"],
-        "same_tokens_share": sum(same) / len(same), "launches": launches,
-    }
+    res = path_summary(eng, run, same, launches)
     log(f"{arch} chunked [{card}]: {len(reqs)} requests, {st['tokens_decoded']} tokens decoded, "
         f"{st['prefill_tokens']} prompt tokens in chunks of {CHUNK}, {run['wall']:.3f} s wall; "
         f"TTFT p50 {res['ttft_p50_ms']:.1f} ms, p99 {res['ttft_p99_ms']:.1f} ms (device timeline; "
@@ -954,6 +1130,84 @@ def serve_chunked(card: str, arch: str, mp: dict) -> dict:
         f"tokens/s; step p50 {res['step_p50_ms']:.3f} ms, p99 {res['step_p99_ms']:.3f} ms; "
         f"requests with the whole-slot engine's tokens {sum(same)} of {len(same)}")
     return res
+
+
+def serve_unchunkable(card: str, arch: str, mp: dict) -> dict:
+    """A family the reference never chunks (vlm, audio) given the chunked
+    phase's budget (``prefill_chunk=CHUNK``): the engine prefills whole at
+    admission as on the main path and captures no column graph, and each
+    request's tokens equal the whole-slot engine's (the same kernels on the
+    same inputs); launches as ``kernel_launches`` counts them; no host
+    read in a step that neither drains nor admits."""
+    from repro_torch.models.api import kernel_launches
+
+    api, params, cfg, reqs = mp["api"], mp["params"], mp["cfg"], mp["reqs"]
+    eng = make_engine(api, params, **ECFG, prefill_chunk=CHUNK)
+    assert not eng.chunking and sorted(eng._graphs) == ["decode"], (eng.chunking, sorted(eng._graphs))
+    zero_launch_counts()
+    run = drive(eng, [dataclasses.replace(r) for r in reqs], step_events=True, quiet_check=True)
+    launches = path_launches(eng, launch_counts())
+    st = eng.stats()
+    sv, q = st["serving"], run["quiet"]
+    decodes = eng.model_dispatches - eng.prefill_dispatches
+    want = kernel_launches(cfg, eng.prefill_dispatches, decodes)
+    assert st["requests_finished"] == len(reqs), st["requests_finished"]
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert eng.prefill_dispatches == len(reqs) and eng.chunk_columns == 0, sv
+    assert q["steps"] > 0 and q["reads"] == 0 and not q["syncs"], q
+    ws = mp["streams"]
+    same = [run["streams"][rid] == ws[rid] for rid in ws]
+    assert all(same), [rid for rid, ok in zip(ws, same) if not ok]
+    res = path_summary(eng, run, same, launches)
+    log(f"{arch} with prefill_chunk {CHUNK} [{card}]: not chunkable, {eng.prefill_dispatches} whole prefills "
+        f"at admission, no column graph; launches {launches}; {q['steps']} quiet steps, {q['reads']} host "
+        f"reads; every request's tokens equal the whole-slot engine's ({len(same)} of {len(same)}); "
+        f"{res['tokens_per_s']:.1f} tokens/s, TTFT p50 {res['ttft_p50_ms']:.1f} ms")
+    return res
+
+
+def vlm_checks(card: str, mp: dict) -> dict:
+    """Phase 3f's checks of M-RoPE at qwen2-vl-7b's full width: a prefill of
+    an image's embeddings at 3-D positions (16 text tokens, a 16 x 16 grid
+    of patches at one t, 32 text tokens, the channels resuming past the
+    grid) gives finite logits that differ from the same embeddings at 1-D
+    positions; and the engine's input (the embedding rows, three equal
+    channels at the text positions) gives the token path's logits and cache
+    bit for bit."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    api, params, cfg = mp["api"], mp["params"], mp["cfg"]
+    g = torch.Generator().manual_seed(9)
+    before, grid, after = 16, 16, 32
+    toks = torch.as_tensor(mp["reqs"][1].tokens[: before + after]).long().cuda()
+    patches = (torch.randn(1, grid * grid, cfg.d_model, generator=g) * 0.02).cuda()
+    emb = torch.cat([params.embed[toks[:before]][None], patches, params.embed[toks[before:]][None]], dim=1)
+    ii, jj = torch.meshgrid(torch.arange(grid), torch.arange(grid), indexing="ij")
+    text0, text1 = torch.arange(before), before + grid + torch.arange(after)
+    pos = torch.stack([torch.cat([text0, torch.full((grid * grid,), before), text1]),
+                       torch.cat([text0, before + ii.reshape(-1), text1]),
+                       torch.cat([text0, before + jj.reshape(-1), text1])]).to(torch.int32)[:, None].cuda()
+    n = emb.shape[1]
+    logits, cache = api.prefill(params, {"embeds": emb, "mrope_positions": pos}, max_len=ECFG["max_len"])
+    flat = torch.arange(n, dtype=torch.int32, device="cuda").expand(3, 1, n)
+    logits_1d, _ = api.prefill(params, {"embeds": emb, "mrope_positions": flat}, max_len=ECFG["max_len"])
+    assert logits.shape == (1, n, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    moved = float((logits - logits_1d).abs().max())
+    assert moved > 0, moved
+    t = toks[None].to(torch.int32)
+    le, ce = api.prefill(params, {"embeds": params.embed[t.long()],
+                                  "mrope_positions": torch.arange(t.shape[1], dtype=torch.int32,
+                                                                  device="cuda").expand(3, 1, t.shape[1])},
+                         max_len=ECFG["max_len"])
+    lt, ct = transformer.prefill(params, cfg, t, max_len=ECFG["max_len"])
+    equal = bool(torch.equal(le, lt)) and all(torch.equal(ce[k], ct[k]) for k in ce)
+    log(f"{cfg.name} M-RoPE [{card}]: a prefill of {before} + {grid}x{grid} image patches + {after} tokens "
+        f"at 3-D positions: logits finite, max |diff| from 1-D positions {moved:.4f}; embeds with three equal "
+        f"channels vs the token path over {t.shape[1]} tokens: logits and cache bit-equal {equal}")
+    assert equal
+    return {"grid_vs_1d_max_diff": moved, "equal_channels_bit_equal": equal}
 
 
 # moe_sort against moe_einsum on one decode step at granite-moe-3b's full
@@ -1064,6 +1318,14 @@ def reduced_models():
         # the shared block's attention at head_dim 64: 2/2 heads over d 128
         (dataclasses.replace(get_config("zamba2-1.2b").reduced(), d_model=128, n_heads=2, n_kv_heads=2),
          "zamba2 (16 SSD heads of 16, N 16, 2/2 attention heads of 64; ssd + flash + paged)"),
+        # qwen2-vl's GQA group of 7 at head_dim 64: 7 query heads over 1 KV
+        # head, the M-RoPE sections summing to 64 / 2
+        (dataclasses.replace(get_config("qwen2-vl-7b").reduced(), d_model=448, n_heads=7, n_kv_heads=1,
+                             mrope_sections=(8, 12, 12)),
+         "qwen2-vl (head_dim 64, 7/1 heads, M-RoPE (8, 12, 12); flash + paged)"),
+        # whisper at head_dim 64: 2/2 heads over d 128, 16 audio frames
+        (dataclasses.replace(get_config("whisper-base").reduced(), d_model=128, n_heads=2, n_kv_heads=2),
+         "whisper (2 + 2 layers, head_dim 64, 2/2 heads, 16 frames; flash non-causal + causal + paged)"),
     ]
 
 
@@ -1076,7 +1338,7 @@ def reduced_on_card_vs_cpu(small, label: str):
     from repro_torch.configs.workloads import get_profile
     from repro_torch.data.requests import RequestGenerator
     from repro_torch.models.api import get_model, kernel_launches
-    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+    from repro_torch.runtime.serving import CHUNKABLE_FAMILIES, EngineConfig, ServingEngine
 
     sapi = get_model(small)
     prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8,
@@ -1103,8 +1365,9 @@ def reduced_on_card_vs_cpu(small, label: str):
             if where == "cpu":
                 want = dict.fromkeys(want, 0)
             assert {k: launched[k] for k in want} == want, (label, where, chunk, launched, want)
-            assert (e.prefill_dispatches == 0) == (chunk > 0) and e.batch_decodes > 0, (label, chunk)
-            logits, _ = sapi.prefill(sp, {"tokens": torch.arange(24, device=where)[None]}, max_len=32)
+            assert (e.prefill_dispatches == 0) == e.chunking and e.batch_decodes > 0, (label, chunk)
+            assert e.chunking == (chunk > 0 and small.family in CHUNKABLE_FAMILIES), (label, chunk)
+            logits, _ = sapi.prefill(sp, e._prefill_batch(np.arange(24)), max_len=32)
             res[where] = (torch.stack(toks), e.live_counters(), e.stats(), logits.cpu())
         (tg, lg, sg, pg), (tc, lc, sc, pc) = res["cuda"], res["cpu"]
         err = float((pg - pc).abs().max())
@@ -1115,6 +1378,8 @@ def reduced_on_card_vs_cpu(small, label: str):
         # a greedy argmax may flip at a near-tie under the other summation order
         assert match >= 0.9, (label, chunk, match)
         path = f"chunked (prefill_chunk {chunk})" if chunk else "whole-slot"
+        if chunk and small.family not in CHUNKABLE_FAMILIES:
+            path = f"whole-slot (prefill_chunk {chunk}, not chunkable)"
         log(f"reduced {label}, {path}, on the card vs the CPU (plain versions): prefill logits max "
             f"|diff| {err:.3e}, per-step tokens equal {match:.4f}, live counters and books equal")
 
@@ -1487,6 +1752,24 @@ def serve_sharded(card: str, mp: dict) -> dict:
             for n, r in runs.items()}
 
 
+def whisper_flash_sites(attention: dict, wp: dict, keep: tuple) -> dict:
+    """whisper-base's B5 entries in the kernels line: its decoder's causal
+    prompt and ``check_attention``'s other sites, each with the launches
+    counted at its site on phase 3g's path (``serve``'s ``flash_sites``:
+    the prompt is the decoder's self-attention at prefill, and the
+    cross-attention's decode launches are its decode graph's), and the
+    launches of every site together, which they must add up to."""
+    counted = wp["flash_sites"]
+    by_site = {site: counted[where].get(fn, 0) for site, (where, fn) in (
+        ("prompt", ("prefill", "self")), ("encoder", ("prefill", "encoder")),
+        ("cross_prefill", ("prefill", "cross")), ("cross_decode", ("decode_graph", "cross")))}
+    every_site = wp["launches"]["flash_attention"]
+    assert sum(by_site.values()) == every_site, (by_site, every_site)
+    return {"launches": by_site["prompt"], "launches_every_site": every_site,
+            **{site: {**{k: r[k] for k in keep if k in r}, "launches": by_site[site]}
+               for site, r in attention["flash_attention"]["whisper-base"]["sites"].items()}}
+
+
 def main():
     import torch
 
@@ -1531,31 +1814,47 @@ def main():
     log(f"phase 2 {t2 - t_start:.1f} s")
     # phase 3: the main path (whole-slot, decode graphs), smollm-360m; 3b:
     # qwen2.5-3b; 3c: rwkv6-7b; 3d: zamba2-1.2b; 3e: granite-moe-3b (with
-    # its moe checks); each followed (3x) by the chunked path on the same
-    # params and requests
-    paths, chunked, moe_res = {}, {}, {}
+    # its moe checks); 3f: qwen2-vl-7b (with its M-RoPE checks); 3g:
+    # whisper-base; each followed (3x) by the chunked path on the same
+    # params and requests, or for vlm and audio the same chunk budget,
+    # which they prefill whole under
+    from repro_torch.runtime.serving import CHUNKABLE_FAMILIES
+
+    paths, chunked, moe_res, vlm_res = {}, {}, {}, {}
     for arch, n_req, widths, ssm in (
         ("smollm-360m", 16, (32, 960, 15, 5, 2560, 49152), None),
         ("qwen2.5-3b", 6, (36, 2048, 16, 2, 11008, 151936), None),
         ("rwkv6-7b", 6, (32, 4096, 64, 64, 14336, 65536), (64, 0, 0)),
         ("zamba2-1.2b", 8, (38, 2048, 32, 32, 8192, 32000), (64, 64, 6)),
         ("granite-moe-3b-a800m", 6, (32, 1536, 24, 8, 512, 49155), None),
+        ("qwen2-vl-7b", 6, (28, 3584, 28, 4, 18944, 152064), None),
+        ("whisper-base", 8, (6, 512, 8, 8, 2048, 51865), None),
     ):
         t3 = time.perf_counter()
-        paths[arch] = serve(card, arch, n_req, widths, ssm)
+        paths[arch] = serve(card, arch, n_req, widths, ssm,
+                            sites=WHISPER_FLASH_SITES if arch == "whisper-base" else None)
         t3x = time.perf_counter()
         log(f"phase 3 {arch} {t3x - t3:.1f} s")
-        chunked[arch] = serve_chunked(card, arch, paths[arch])
+        family = paths[arch]["cfg"].family
+        if family in CHUNKABLE_FAMILIES:
+            chunked[arch] = serve_chunked(card, arch, paths[arch])
+        else:
+            chunked[arch] = serve_unchunkable(card, arch, paths[arch])
         log(f"phase 3x {arch} chunked {time.perf_counter() - t3x:.1f} s")
-        if paths[arch]["cfg"].family == "moe":
+        if family == "moe":
             t3e = time.perf_counter()
             moe_res[arch] = moe_checks(card, paths[arch])
             log(f"phase 3e {arch} moe checks {time.perf_counter() - t3e:.1f} s")
+        if family == "vlm":
+            t3f = time.perf_counter()
+            vlm_res[arch] = vlm_checks(card, paths[arch])
+            log(f"phase 3f {arch} M-RoPE checks {time.perf_counter() - t3f:.1f} s")
         if arch != "smollm-360m":
             del paths[arch]["params"], paths[arch]["api"]
+            gc.collect()
             torch.cuda.empty_cache()
     mp = paths["smollm-360m"]
-    log(f"phase 3 smollm-360m to granite-moe-3b {time.perf_counter() - t2:.1f} s")
+    log(f"phase 3 smollm-360m to whisper-base {time.perf_counter() - t2:.1f} s")
     log("chunked paths: " + "; ".join(
         f"{arch} " + json.dumps({k: v for k, v in c.items() if k != "launches"})
         for arch, c in chunked.items()))
@@ -1592,13 +1891,15 @@ def main():
                 "flash_attention": mp["launches"]["flash_attention"],
                 "wkv6": paths["rwkv6-7b"]["launches"]["wkv6"],
                 "ssd": paths["zamba2-1.2b"]["launches"]["ssd"]}
+    keep = ("shapes", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "upcast_ms",
+            "paged_over_pages_ms", "paged_bound_ms")
     for name in ("paged_attention", "flash_attention"):
         per = attention[name]
-        kernels[name] = {**per["smollm-360m"], **{arch: {
-            **{k: per[arch][k] for k in ("shapes", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")
-               if k in per[arch]},
+        kernels[name] = {**{k: v for k, v in per["smollm-360m"].items() if k != "sites"}, **{arch: {
+            **{k: per[arch][k] for k in keep if k in per[arch]},
             "launches": paths[arch]["launches"][name]} for arch in MODELS_BESIDE}}
+    kernels["flash_attention"]["whisper-base"].update(
+        whisper_flash_sites(attention, paths["whisper-base"], keep))
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kernels[name]
@@ -1616,6 +1917,7 @@ def main():
         })
     log("decode step profiles: " + "; ".join(f"{arch} {p['profile']}" for arch, p in paths.items()))
     log("moe checks: " + json.dumps(moe_res))
+    log("M-RoPE checks: " + json.dumps(vlm_res))
     log("sharded engine: " + json.dumps(sharded))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))

@@ -1,8 +1,8 @@
 """Model API for the port (mirrors repro/models/api.py, serving subset).
 
-Ported families: dense (``transformer``), moe (``moe``), ssm (``rwkv6``)
-and hybrid (``zamba2``). The others (vlm, audio) raise
-``NotImplementedError`` naming their ROADMAP item (A8).
+Every family of the reference is ported: dense (``transformer``), moe
+(``moe``), ssm (``rwkv6``), hybrid (``zamba2``), vlm (``vlm``: embeds and
+M-RoPE positions in) and audio (``whisper``: tokens and audio frames in).
 """
 from __future__ import annotations
 
@@ -13,20 +13,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import moe, rwkv6, transformer, zamba2
+from repro_torch.models import moe, rwkv6, transformer, vlm, whisper, zamba2
 
-_PORTED = {"dense": transformer, "moe": moe, "ssm": rwkv6, "hybrid": zamba2}
+_PORTED = {"dense": transformer, "moe": moe, "ssm": rwkv6, "hybrid": zamba2, "vlm": vlm,
+           "audio": whisper}
 
 
 @dataclasses.dataclass
 class ModelAPI:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        if self.cfg.family not in _PORTED:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} ({self.cfg.name}) is not ported yet: ROADMAP A8"
-            )
 
     @property
     def family(self) -> str:
@@ -45,7 +40,14 @@ class ModelAPI:
         )
 
     def prefill(self, params, batch: dict, *, max_len: int):
-        return _PORTED[self.family].prefill(params, self.cfg, batch["tokens"], max_len=max_len)
+        """The reference's batch keys: ``embeds`` and ``mrope_positions`` for
+        vlm, ``tokens`` and ``frames`` for audio, ``tokens`` otherwise."""
+        mod, cfg = _PORTED[self.family], self.cfg
+        if self.family == "vlm":
+            return mod.prefill(params, cfg, batch["embeds"], batch["mrope_positions"], max_len=max_len)
+        if self.family == "audio":
+            return mod.prefill(params, cfg, batch["tokens"], batch["frames"], max_len=max_len)
+        return mod.prefill(params, cfg, batch["tokens"], max_len=max_len)
 
     def decode(self, params, cache: dict, tokens, *, page_size: int = 16, active=None):
         """One decode step, the cache updated in place; a given (B,) bool
@@ -60,13 +62,19 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
 
 def kernel_launches(cfg: ModelConfig, prefills: int, decodes: int) -> dict:
     """The model kernels' launches on the card over ``prefills`` prefill and
-    ``decodes`` decode dispatches: attention once per dense or moe layer or per
-    application of zamba2's shared block (flash in prefill, paged in
+    ``decodes`` decode dispatches: attention once per dense, moe or vlm layer
+    or per application of zamba2's shared block (flash in prefill, paged in
     decode), and a scan once per recurrent layer in either. The moe family
-    launches as the dense one: its experts are plain products."""
+    launches as the dense one (its experts are plain products), and so does
+    vlm (the dense backbone). Whisper's prefill runs flash in every encoder
+    layer and twice in every decoder layer (self- and cross-attention), its
+    decode paged (self) and flash (cross) once a decoder layer."""
     n = cfg.n_layers
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return {"flash_attention": n * prefills, "paged_attention": n * decodes, "wkv6": 0, "ssd": 0}
+    if cfg.family == "audio":
+        return {"flash_attention": (cfg.n_encoder_layers + 2 * n) * prefills + n * decodes,
+                "paged_attention": n * decodes, "wkv6": 0, "ssd": 0}
     if cfg.family == "ssm":
         return {"flash_attention": 0, "paged_attention": 0, "wkv6": n * (prefills + decodes), "ssd": 0}
     apps = zamba2.n_attn_apps(cfg)

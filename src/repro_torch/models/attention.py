@@ -40,9 +40,12 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
-def _rope(cfg: ModelConfig, q, k, positions):
+def _rope(cfg: ModelConfig, q, k, positions, mrope_positions=None):
     if cfg.rope_theta <= 0:
         return q, k
+    if mrope_positions is not None:
+        return (common.apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections),
+                common.apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections))
     return (common.apply_rope(q, positions, cfg.rope_theta),
             common.apply_rope(k, positions, cfg.rope_theta))
 
@@ -62,19 +65,20 @@ def attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
     return common.attention_chunked(q, k, v, causal=causal, block_k=block_k)
 
 
-def apply_train(p: dict, cfg: ModelConfig, x, positions, *, causal: bool = True,
-                block_k: int = 1024) -> torch.Tensor:
+def apply_train(p: dict, cfg: ModelConfig, x, positions, mrope_positions=None, *,
+                causal: bool = True, block_k: int = 1024) -> torch.Tensor:
     """Full-sequence attention (forward without cache return)."""
     q, k, v = _project_qkv(p, cfg, x)
-    q, k = _rope(cfg, q, k, positions)
+    q, k = _rope(cfg, q, k, positions, mrope_positions)
     o = attend(q, k, v, causal=causal, block_k=block_k)
     return _out_proj(p, x.dtype, o)
 
 
-def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, block_k: int = 1024):
+def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, mrope_positions=None,
+                  block_k: int = 1024):
     """As apply_train but also returns the (padded-to-max_len) KV for caching."""
     q, k, v = _project_qkv(p, cfg, x)
-    q, k = _rope(cfg, q, k, positions)
+    q, k = _rope(cfg, q, k, positions, mrope_positions)
     o = attend(q, k, v, causal=True, block_k=block_k)
     l = x.shape[1]
     if max_len > l:
@@ -98,7 +102,7 @@ def _write_at(cache: torch.Tensor, lengths: torch.Tensor, new: torch.Tensor,
 
 
 def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_size: int = 16,
-                 active: Optional[torch.Tensor] = None):
+                 active: Optional[torch.Tensor] = None, mrope_positions=None):
     """One-token decode. x: (B, 1, D); caches (B, Hkv, S, hd); lengths (B,).
 
     Writes the new K/V at position ``lengths`` per sequence IN PLACE into
@@ -111,7 +115,7 @@ def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_s
     """
     q, k, v = _project_qkv(p, cfg, x)
     positions = lengths[:, None].to(torch.int32)  # (B, 1)
-    q, k = _rope(cfg, q, k, positions)
+    q, k = _rope(cfg, q, k, positions, mrope_positions)
     _write_at(k_cache, lengths, k[:, :, 0, :], active)
     _write_at(v_cache, lengths, v[:, :, 0, :], active)
     o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size)

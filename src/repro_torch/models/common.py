@@ -159,6 +159,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, H, L, D); positions: (3, B, L) int
+    [t, h, w]; ``sections`` sum to D/2: the first sections[0] frequencies
+    take the t position, the next the h, the rest the w. With three equal
+    channels the angles are apply_rope's products, so the result is
+    bit-equal to it."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (D/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])  # (D/2,)
+    pos_sel = positions.float()[sec].permute(1, 2, 0)  # (B, L, D/2)
+    ang = pos_sel[:, None, :, :] * freqs  # (B,1,L,D/2)
+    cos = torch.cat([torch.cos(ang)] * 2, dim=-1)
+    sin = torch.cat([torch.sin(ang)] * 2, dim=-1)
+    xf = x.float()
+    return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 
@@ -258,6 +275,13 @@ def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     return matmul_f32(h, w_down).to(x.dtype)
 
 
+def gelu_mlp(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
+    """Whisper's MLP; ``jax.nn.gelu`` defaults to the tanh approximation."""
+    h = matmul_f32(x, w_in) + b_in
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return (matmul_f32(h, w_out) + b_out).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # misc
 
@@ -279,3 +303,14 @@ def advance(lengths: torch.Tensor, active=None) -> torch.Tensor:
 
 def causal_positions(batch: int, seq: int, device=None) -> torch.Tensor:
     return torch.arange(seq, dtype=torch.int32, device=device)[None, :].expand(batch, seq)
+
+
+def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor:
+    """(length, d_model) f32: sin at the even channels, cos at the odd."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d_model))
+    pe = torch.zeros((length, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

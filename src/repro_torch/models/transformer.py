@@ -1,4 +1,5 @@
-"""Dense decoder-only LM (smollm / qwen2.5 / internlm2 / qwen1.5-110b), forward only.
+"""Dense decoder-only LM (smollm / qwen2.5 / internlm2 / qwen1.5-110b), forward only;
+also the backbone of the vlm family (``models/vlm.py``: embeds in, M-RoPE).
 
 Mirrors repro/models/transformer.py. Parameters are ``common.ParamTree``
 nodes under the reference's names, one node per layer (the reference
@@ -83,8 +84,12 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transform
 # blocks
 
 
-def _embed_in(params: Transformer, cfg: ModelConfig, tokens):
-    return params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
+def _embed_in(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None):
+    """The residual stream's input in the compute dtype: the embedding rows
+    of ``tokens``, or given ``embeds`` (B, L, D) as they are."""
+    if embeds is None:
+        embeds = params.embed[tokens.long()]
+    return embeds.to(common.dt(cfg.compute_dtype))
 
 
 def _head_w(params: Transformer, cfg: ModelConfig, dtype):
@@ -106,17 +111,20 @@ def _mlp(layer: dict, cfg: ModelConfig, h):
 
 
 @torch.no_grad()
-def forward(params: Transformer, cfg: ModelConfig, tokens, *, block_k: Optional[int] = None):
-    """Full-sequence forward -> logits (B, S, Vp) f32."""
+def forward(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mrope_positions=None,
+            *, block_k: Optional[int] = None):
+    """Full-sequence forward -> logits (B, S, Vp) f32, from ``tokens`` or
+    from ``embeds`` (with (3, B, S) ``mrope_positions`` for M-RoPE)."""
     block_k = block_k or cfg.attn_block_k
     cdt = common.dt(cfg.compute_dtype)
-    h = _embed_in(params, cfg, tokens)
+    h = _embed_in(params, cfg, tokens, embeds)
     b, l, _ = h.shape
     positions = common.causal_positions(b, l, h.device)
     for blk in params.layers:
         layer = blk.tree(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
-        h = h + attention.apply_train(layer["attn"], cfg, x, positions, block_k=block_k)
+        h = h + attention.apply_train(layer["attn"], cfg, x, positions, mrope_positions,
+                                      block_k=block_k)
         h = _mlp(layer, cfg, h)
     return _logits_out(params, cfg, h)
 
@@ -126,12 +134,12 @@ def forward(params: Transformer, cfg: ModelConfig, tokens, *, block_k: Optional[
 
 
 @torch.no_grad()
-def prefill(params: Transformer, cfg: ModelConfig, tokens, *, max_len: int,
-            block_k: Optional[int] = None):
+def prefill(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mrope_positions=None,
+            *, max_len: int, block_k: Optional[int] = None):
     """Forward + KV cache construction. Returns (logits, cache)."""
     block_k = block_k or cfg.attn_block_k
     cdt = common.dt(cfg.compute_dtype)
-    h = _embed_in(params, cfg, tokens)
+    h = _embed_in(params, cfg, tokens, embeds)
     b, l, _ = h.shape
     positions = common.causal_positions(b, l, h.device)
     ks, vs = [], []
@@ -139,7 +147,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, *, max_len: int,
         layer = blk.tree(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         a, (k, v) = attention.apply_prefill(layer["attn"], cfg, x, positions, max_len,
-                                            block_k=block_k)
+                                            mrope_positions, block_k=block_k)
         h = _mlp(layer, cfg, h + a)
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
@@ -152,12 +160,14 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, *, max_len: int,
 
 
 @torch.no_grad()
-def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, *,
+def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, mrope_positions=None, *,
                 page_size: int = 16, active: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B, 1). Returns (logits, cache').
 
     ``cache["k"]``/``cache["v"]`` are updated in place; the returned cache
-    holds the same tensors and the advanced lengths. A given (B,) bool
+    holds the same tensors and the advanced lengths. Given (3, B, 1)
+    ``mrope_positions``, the new token's q and k take M-RoPE at them, else
+    RoPE at ``lengths``. A given (B,) bool
     ``active`` gates the step per row, as the reference's chunk column
     gates every cache leaf: a row where it is False keeps its K/V and its
     length. ``page_size`` is the page the card's decode kernel walks the
@@ -170,7 +180,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, *,
         layer = blk.tree(cdt)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_decode(layer["attn"], cfg, x, cache["k"][i], cache["v"][i], lengths,
-                                       page_size, active)
+                                       page_size, active, mrope_positions)
         h = _mlp(layer, cfg, h)
     logits = _logits_out(params, cfg, h)
     return logits, {"k": cache["k"], "v": cache["v"], "lengths": common.advance(lengths, active)}

@@ -1,0 +1,232 @@
+"""Whisper-base backbone: encoder-decoder transformer, forward only
+(mirrors repro/models/whisper.py).
+
+The conv1d mel front end is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, n_audio_frames, D). Sinusoidal positions,
+LayerNorm and a GELU MLP, bidirectional encoder self-attention, causal
+decoder self-attention and cross-attention. The cross-attention K/V is
+computed once per request at prefill and only read by decode.
+
+Parameters are ``common.ParamTree`` nodes under the reference's names,
+one node per layer (``parity.params_from_jax`` splits the reference's
+stacked ``enc_layers`` and ``dec_layers``). Where the reference's
+``constrain_tree`` casts a layer (encode, forward, prefill) every float
+leaf is cast to the compute dtype once and held (``ParamTree.tree``); its
+decode casts nothing, so decode runs the stored weights, as the reference
+does (bf16 activations meet f32 weights, and the cross-attention's q comes
+out f32). The norms after the stacks run as stored, and the tied head is
+cast once and held.
+
+Attention follows the tensors' device (``attention.attend`` /
+``attention.apply_decode``): on the card the encoder and the
+cross-attention run the flash kernel non-causal over every key, decoder
+self-attention the flash kernel in prefill and the paged kernel in decode;
+on the CPU the eager references run.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common, transformer
+from repro_torch.models.common import ParamTree, frozen
+
+BLOCK_K = 1024  # the reference's k-block for every attention of this model
+
+
+def _init_ln(d: int, dtype) -> ParamTree:
+    return ParamTree(w=torch.ones((d,), dtype=dtype), b=torch.zeros((d,), dtype=dtype))
+
+
+def _init_mlp(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    d, f = cfg.d_model, cfg.d_ff
+    return ParamTree(
+        w_in=common.dense_init((d, f), g, dtype=dtype),
+        b_in=torch.zeros((f,), dtype=dtype),
+        w_out=common.dense_init((f, d), g, scale=1.0 / (2 * cfg.n_layers) ** 0.5, dtype=dtype),
+        b_out=torch.zeros((d,), dtype=dtype),
+    )
+
+
+def _init_enc_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    return ParamTree(ln1=_init_ln(cfg.d_model, dtype), attn=transformer.init_attn(cfg, g, dtype),
+                     ln2=_init_ln(cfg.d_model, dtype), mlp=_init_mlp(cfg, g, dtype))
+
+
+def _init_dec_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
+    return ParamTree(ln1=_init_ln(cfg.d_model, dtype), self_attn=transformer.init_attn(cfg, g, dtype),
+                     ln2=_init_ln(cfg.d_model, dtype), cross_attn=transformer.init_attn(cfg, g, dtype),
+                     ln3=_init_ln(cfg.d_model, dtype), mlp=_init_mlp(cfg, g, dtype))
+
+
+class Whisper(nn.Module):
+    """The tied embedding, the encoder and decoder stacks, and their norms."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        dtype = common.dt(cfg.param_dtype)
+        d = cfg.d_model
+        self.embed = frozen(common.embed_init((cfg.padded_vocab, d), generator, dtype), device)
+        # drawn on the CPU and moved one layer at a time
+        self.enc_layers = nn.ModuleList(_init_enc_layer(cfg, generator, dtype).to(device)
+                                        for _ in range(cfg.n_encoder_layers))
+        self.dec_layers = nn.ModuleList(_init_dec_layer(cfg, generator, dtype).to(device)
+                                        for _ in range(cfg.n_layers))
+        self.enc_norm = _init_ln(d, dtype).to(device)
+        self.dec_norm = _init_ln(d, dtype).to(device)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Whisper:
+    """Random init drawn on the CPU from ``generator``, placed on ``device``."""
+    return Whisper(cfg, generator, device)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+
+
+def _ln(x, p: dict, eps: float):
+    return common.layer_norm(x, p["w"], p["b"], eps)
+
+
+def _mlp(x, p: dict):
+    return common.gelu_mlp(x, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+
+
+def _logits_out(params: Whisper, cfg: ModelConfig, h):
+    h = _ln(h, params.dec_norm.tree(), cfg.norm_eps)
+    return common.matmul_f32(h, common.cast(params, "embed", h.dtype).T)
+
+
+def _embed_tokens(params: Whisper, cfg: ModelConfig, tokens):
+    return params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
+
+
+@torch.no_grad()
+def encode(params: Whisper, cfg: ModelConfig, frames) -> torch.Tensor:
+    """frames: (B, T_enc, D) precomputed embeddings (the front end's stub)."""
+    cdt = common.dt(cfg.compute_dtype)
+    h = frames.to(cdt) + common.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device).to(cdt)
+    for blk in params.enc_layers:
+        layer = blk.tree(cdt)
+        x = _ln(h, layer["ln1"], cfg.norm_eps)
+        q, k, v = attention._project_qkv(layer["attn"], cfg, x)
+        o = attention.attend(q, k, v, causal=False, block_k=BLOCK_K)
+        h = h + attention._out_proj(layer["attn"], h.dtype, o)
+        h = h + _mlp(_ln(h, layer["ln2"], cfg.norm_eps), layer["mlp"])
+    return _ln(h, params.enc_norm.tree(), cfg.norm_eps)
+
+
+def _cross_kv(layer: dict, cfg: ModelConfig, enc_out):
+    """Cross-attention K/V from the encoder's output: (B, Hkv, T_enc, hd)
+    each, a plain ``@`` in the reference (the promoted type)."""
+    b, t, _ = enc_out.shape
+    hd = cfg.head_dim
+    p = layer["cross_attn"]
+    k = common.matmul_promoted(enc_out, p["wk"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = common.matmul_promoted(enc_out, p["wv"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    return k, v
+
+
+def _cross_attend(layer: dict, cfg: ModelConfig, x, ck, cv):
+    b, t, _ = x.shape
+    p = layer["cross_attn"]
+    q = common.matmul_promoted(x, p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    o = attention.attend(q, ck.to(q.dtype), cv.to(q.dtype), causal=False, block_k=BLOCK_K)
+    return attention._out_proj(p, x.dtype, o)
+
+
+def _dec_in(params: Whisper, cfg: ModelConfig, tokens):
+    cdt = common.dt(cfg.compute_dtype)
+    h = _embed_tokens(params, cfg, tokens)
+    return h + common.sinusoidal_positions(tokens.shape[1], cfg.d_model, h.device).to(cdt)
+
+
+@torch.no_grad()
+def forward(params: Whisper, cfg: ModelConfig, tokens, frames):
+    """Teacher-forced decoder over encode(frames) -> logits (B, S, Vp) f32."""
+    enc_out = encode(params, cfg, frames)
+    cdt = common.dt(cfg.compute_dtype)
+    h = _dec_in(params, cfg, tokens)
+    for blk in params.dec_layers:
+        layer = blk.tree(cdt)
+        x = _ln(h, layer["ln1"], cfg.norm_eps)
+        q, k, v = attention._project_qkv(layer["self_attn"], cfg, x)
+        o = attention.attend(q, k, v, causal=True, block_k=BLOCK_K)
+        h = h + attention._out_proj(layer["self_attn"], h.dtype, o)
+        ck, cv = _cross_kv(layer, cfg, enc_out)
+        h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), ck, cv)
+        h = h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"])
+    return _logits_out(params, cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# serving
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+    cache = attention.init_cache(cfg, cfg.n_layers, batch, max_len, dtype, device)
+    cross = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.n_audio_frames, cfg.head_dim)
+    cache["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
+    cache["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
+    return cache
+
+
+@torch.no_grad()
+def prefill(params: Whisper, cfg: ModelConfig, tokens, frames, *, max_len: int):
+    """Encode the audio and teacher-force the prompt; build the decoder's
+    caches, every leaf in bf16 whatever the compute dtype (the reference's).
+    Returns (logits, cache)."""
+    enc_out = encode(params, cfg, frames)
+    cdt = common.dt(cfg.compute_dtype)
+    h = _dec_in(params, cfg, tokens)
+    b, s = tokens.shape
+    positions = common.causal_positions(b, s, h.device)
+    kvs = {"k": [], "v": [], "cross_k": [], "cross_v": []}
+    for blk in params.dec_layers:
+        layer = blk.tree(cdt)
+        x = _ln(h, layer["ln1"], cfg.norm_eps)
+        a, (k, v) = attention.apply_prefill(layer["self_attn"], cfg, x, positions, max_len,
+                                            block_k=BLOCK_K)
+        h = h + a
+        ck, cv = _cross_kv(layer, cfg, enc_out)
+        h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), ck, cv)
+        h = h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"])
+        for name, t in (("k", k), ("v", v), ("cross_k", ck), ("cross_v", cv)):
+            kvs[name].append(t.to(torch.bfloat16))
+    cache = {name: torch.stack(ts) for name, ts in kvs.items()}
+    cache["lengths"] = torch.full((b,), s, dtype=torch.int32, device=h.device)
+    return _logits_out(params, cfg, h), cache
+
+
+@torch.no_grad()
+def decode_step(params: Whisper, cfg: ModelConfig, cache: dict, tokens, *,
+                page_size: int = 16, active: Optional[torch.Tensor] = None):
+    """One decode step. tokens: (B, 1). Returns (logits, cache').
+
+    The self-attention K/V is written in place (``attention.apply_decode``,
+    ``page_size`` the page the card's paged kernel walks); the cross caches
+    are only read. A given (B,) bool ``active`` leaves its False rows'
+    K/V and length as they were; the rows never meet after attention, so
+    the gate on the write is all they need. The position embedding is the
+    row of ``lengths``, clamped to the cache's last position as JAX clamps
+    an out-of-range gather (an inactive slot may run past ``max_len``).
+    """
+    cdt = common.dt(cfg.compute_dtype)
+    lengths = cache["lengths"]
+    s = cache["k"].shape[3]
+    h = _embed_tokens(params, cfg, tokens)
+    pe = common.sinusoidal_positions(s, cfg.d_model, h.device).to(cdt)
+    h = h + pe[lengths.long().clamp(max=s - 1)][:, None, :]
+    for i, blk in enumerate(params.dec_layers):
+        layer = blk.tree()  # the reference's decode casts no weight
+        x = _ln(h, layer["ln1"], cfg.norm_eps)
+        h = h + attention.apply_decode(layer["self_attn"], cfg, x, cache["k"][i], cache["v"][i], lengths,
+                                       page_size, active)
+        h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), cache["cross_k"][i],
+                              cache["cross_v"][i])
+        h = h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"])
+    return _logits_out(params, cfg, h), dict(cache, lengths=common.advance(lengths, active))

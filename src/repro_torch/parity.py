@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the JAX package's parameter tree with its leaves
 already converted to numpy (``jax.tree.map(np.asarray, params)``), so this
 module needs no JAX. Layer leaves are stacked on a leading L axis there and
-split onto ``layers.<i>`` here, and nested subtrees (the moe family's
+split onto ``layers.<i>`` here (whisper's ``enc_layers`` and ``dec_layers``
+onto ``enc_layers.<i>`` and ``dec_layers.<i>``), and nested subtrees (the moe family's
 ``experts`` and ``shared``) keep their paths; the result loads with the
 port's model's ``load_state_dict(..., strict=True)``.
 """
@@ -33,14 +34,18 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# the reference's subtrees stacked on a leading layer axis
+_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     """Reference param tree (numpy leaves) -> state_dict of the port's model."""
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(tree).items():
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
+        stack, _, rest = name.partition(".")
+        if stack in _STACKS and rest:
             for i in range(np.asarray(leaf).shape[0]):
-                state[f"layers.{i}.{rest}"] = _tensor(np.asarray(leaf)[i])
+                state[f"{stack}.{i}.{rest}"] = _tensor(np.asarray(leaf)[i])
         else:
             state[name] = _tensor(leaf)
     return state

@@ -1,11 +1,12 @@
 """Serving engine: continuous batching over paged, tiered, prefix-shared KV
 (mirrors repro/runtime/serving.py).
 
-It serves every ported family (``models/api.py``: dense, moe, ssm = rwkv6,
-hybrid = zamba2) with one code path: a slot write copies every cache leaf,
-and the tier store's payload rows are a family's k and v vectors where it
-has a 5-D KV cache ``k`` (the dense and moe layers', zamba2's shared-block
-applications') and synthetic ``counter_rows`` where it has none (rwkv6's
+It serves every family (``models/api.py``: dense, moe, ssm = rwkv6, hybrid
+= zamba2, vlm = qwen2-vl, audio = whisper) with one code path: a slot
+write copies every cache leaf (whisper's cross caches too), and the tier
+store's payload rows are a family's k and v vectors where it has a 5-D KV
+cache ``k`` (the dense, moe and vlm layers', zamba2's shared-block
+applications', whisper's decoder self-attention) and synthetic ``counter_rows`` where it has none (rwkv6's
 O(1) state), as in the reference. The paper's three findings run together
 here as in the reference:
 
@@ -102,8 +103,11 @@ from repro_torch.runtime.tiered_kv import (
     sanitize_near_ids,
 )
 
-# families whose decode step can consume prompt tokens one column at a time
-# (the chunked-prefill substrate), as in the reference
+# families whose decode_step can consume prompt tokens incrementally (the
+# chunked-prefill substrate). Excluded: "audio" (whisper's cross-attention
+# caches exist only after an encode+prefill pass) and "vlm" (prompt embeds
+# carry M-RoPE positions the decode path does not reconstruct) — both fall
+# back to monolithic prefill at admit regardless of the chunk budget.
 CHUNKABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
@@ -526,8 +530,8 @@ class ServingEngine:
                 slot.chunk = ChunkState(tokens=tokens)
                 slot.shared_pages = share["shared"]
                 continue
-            batch = {"tokens": to_device(np.asarray(tokens)[None, :], torch.int32, self.device)}
-            logits1, cache1 = self.api.prefill(self.params, batch, max_len=self.ecfg.max_len)
+            logits1, cache1 = self.api.prefill(self.params, self._prefill_batch(tokens),
+                                               max_len=self.ecfg.max_len)
             self.model_dispatches += 1
             self.prefill_dispatches += 1
             self._write_slot(slot_idx, cache1)
@@ -554,6 +558,23 @@ class ServingEngine:
                     prompt_tokens=len(tokens),
                     shared_pages=share["shared"],
                 )
+
+    def _prefill_batch(self, tokens) -> dict:
+        """A batch-1 prefill input in the family's keys, as the reference
+        builds it: vlm's embeds are the (uncast) embedding rows with the
+        three M-RoPE channels all at the text positions; audio's frames are
+        the front end's stub, zeros."""
+        t = to_device(np.asarray(tokens)[None, :], torch.int32, self.device)
+        fam = self.api.family
+        if fam == "vlm":
+            n = t.shape[1]
+            pos = torch.arange(n, dtype=torch.int32, device=self.device).expand(3, 1, n)
+            return {"embeds": self.params.embed[t.long()], "mrope_positions": pos}
+        if fam == "audio":
+            frames = torch.zeros((1, self.cfg.n_audio_frames, self.cfg.d_model), dtype=torch.bfloat16,
+                                 device=self.device)
+            return {"tokens": t, "frames": frames}
+        return {"tokens": t}
 
     def _write_slot(self, slot_idx: int, cache1: dict):
         """Copy a batch-1 prefill cache into slot ``slot_idx`` of the batched

@@ -15,10 +15,12 @@ from them only in summation order (bf16 flash takes p into its
 tensor-core product as three bf16 parts, all 24 bits of it; f32 flash
 takes each product as three TF32 products of split operands, some 21-22
 bits): f32 outputs agree to 2e-5, bf16 outputs to one bf16 step (2**-7 of
-the value), the final rounding. They cover head_dim 64 and 128, GQA groups of 1, 3 and 8,
-ragged lengths, lengths past the cache's end, and causal and non-causal
-prefill; the redesigned kernels also against the plain versions of their
-own algorithms (tiles of 64 keys; spans merged in split order), at one
+the value), the final rounding. They cover head_dim 64 and 128, GQA
+groups of 1, 3, 7 and 8, ragged lengths, lengths past the cache's end,
+causal and non-causal prefill, and whisper's non-causal sites over 1500
+keys (one of them, a single query, inside a captured graph); the
+redesigned kernels also against the plain versions of their own
+algorithms (tiles of 64 keys; spans merged in split order), at one
 tile, at 1000 tokens, with q_offset and lk_valid, and at S = 1024, where
 paged decode splits over a cluster of 8 blocks.
 
@@ -35,7 +37,8 @@ card against the CPU.
 The serving engine replays captured CUDA graphs on the card: against the
 same engine run eagerly on the card they give bit-equal tokens, caches,
 next-step logits, live counters and books, on the whole-slot and the
-chunked path of all three families; the held weight casts are bit-equal
+chunked path of all the families (vlm and audio prefill whole under a
+chunk budget); the held weight casts are bit-equal
 to per-call casts there; the chunked card engine gives the CPU engine's
 books; and a capture that meets a host read raises.
 """
@@ -202,7 +205,7 @@ def _randn(shape, seed, dtype):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("lq,lk", [(512, 512), (1, 77), (100, 230), (130, 200)])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (15, 5), (16, 2), (24, 8)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (15, 5), (16, 2), (24, 8), (28, 4)])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_against_plain(attn, dtype, d, hq, hkv, lq, lk, causal):
@@ -278,6 +281,54 @@ def test_attention_refuses_unbuilt_shapes_on_the_card(attn):
     x = _randn((1, 4, 16, 65), 13, torch.bfloat16)[..., 1:]  # rows off 16-byte boundaries
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,lq", [(1, 1500), (1, 512), (8, 1)])
+def test_flash_non_causal_over_1500_keys(attn, b, lq, dtype):
+    """whisper-base's three non-causal sites: the encoder (1 x 1500 frames
+    over themselves), a prefill's cross-attention (a prompt of 512 over
+    1500 keys) and a decode's (8 slots x 1 query over 1500 keys), 8/8
+    heads of 64: 23 key tiles of 64 and a ragged one of 28,
+    which TMA zero-fills and ``lk_valid`` masks. On random inputs (the
+    engine's frames are zeros) and on keys past 1500 that must not count."""
+    fa, _ = attn
+    q = _randn((b, lq, 8 * 64), 40, dtype).reshape(b, lq, 8, 64).transpose(1, 2)
+    k, v = _randn((b, 8, 1500, 64), 41, dtype), _randn((b, 8, 1500, 64), 42, dtype)
+    case = _flash_case if dtype == torch.bfloat16 else _flash_tf32_case
+    case(fa, q, k, v, causal=False, lk_valid=1500, q_offset=0)
+    # keys past lk_valid are masked: 1500 valid of a 1536-row buffer
+    kx, vx = (torch.cat([t, _randn((b, 8, 36, 64), 43, dtype) * 50], dim=2) for t in (k, v))
+    out = fa.flash_attention(q, kx, vx, causal=False, lk_valid=1500, q_offset=0)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=False, lk_valid=1500, q_offset=0))
+
+
+def test_flash_one_query_replays_in_a_graph(attn):
+    """whisper-base's decode cross-attention inside a captured graph: B5 at
+    one f32 query a slot over the 1500 keys of a fixed cache (its tensor
+    maps encoded at capture, over addresses that stay fixed), its output
+    in the graph's pool. Replayed after the query changes, it gives bit for
+    bit what an eager call gives, and the capture counts one launch."""
+    from repro_torch.runtime.graphs import StepGraph
+
+    fa, _ = attn
+    ck, cv = _randn((8, 8, 1500, 64), 44, torch.bfloat16), _randn((8, 8, 1500, 64), 45, torch.bfloat16)
+    bufs = {"q": _randn((8, 1, 512), 46, torch.float32), "out": torch.zeros(8, 8, 1, 64, device="cuda")}
+
+    def step(b):
+        q = b["q"].reshape(8, 1, 8, 64).transpose(1, 2)
+        b["out"].copy_(fa.flash_attention(q, ck.float(), cv.float(), causal=False, lk_valid=1500, q_offset=0))
+
+    graph = StepGraph(step, bufs)
+    assert graph.launches["flash_attention"] == 1
+    for seed in (47, 48):
+        bufs["q"].copy_(_randn((8, 1, 512), seed, torch.float32))
+        eager = {k: v.clone() for k, v in bufs.items()}
+        step(eager)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(bufs["out"], eager["out"])
+    assert graph.replays == 2
 
 
 def _flash_case(fa, q, k, v, **args):
@@ -380,7 +431,7 @@ def test_flash_tf32_at_zamba2_width(attn):
 @pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.bfloat16, torch.bfloat16),
                                               (torch.float32, torch.bfloat16),
                                               (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("hq,hkv,d", [(16, 2, 128), (15, 5, 64), (32, 32, 64), (24, 8, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 2, 128), (15, 5, 64), (32, 32, 64), (24, 8, 64), (28, 4, 128)])
 def test_paged_split_at_main_path_width(attn, hq, hkv, d, q_dtype, kv_dtype):
     """S = 1024 in pages of 16, so the kernel splits each sequence over a
     cluster of 8 blocks of 128 positions (at 32 KV heads, whose grid is
@@ -391,7 +442,7 @@ def test_paged_split_at_main_path_width(attn, hq, hkv, d, q_dtype, kv_dtype):
     kp, vp, table = pa.cache_as_pages(kc, vc, 16)
     q = _randn((8, hq, d), 31, q_dtype)
     lengths = torch.tensor([1, 127, 128, 129, 600, 1023, 1024, 1300], dtype=torch.int32).cuda()
-    assert pa.split_count(1024, hkv, 8) == {2: 8, 5: 8, 8: 8, 32: 2}[hkv]
+    assert pa.split_count(1024, hkv, 8) == {2: 8, 4: 8, 5: 8, 8: 8, 32: 2}[hkv]
     before = pa.LAUNCHES["paged_attention"]
     out = pa.paged_attention(q, kp, vp, table, lengths)
     again = pa.paged_attention(q, kp, vp, table, lengths)
@@ -700,7 +751,8 @@ def test_scans_refuse_what_they_are_not_built_for(scans):
                          torch.zeros(2, 64), s0)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "rwkv6-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "rwkv6-7b", "zamba2-1.2b",
+                                  "qwen2-vl-7b", "whisper-base"])
 def test_reduced_engine_on_card_equals_cpu(card, arch):
     """The whole device-tiered engine at reduced size: the card (kernels) and
     the CPU (plain versions) give the same books. The books follow the
@@ -755,8 +807,9 @@ def test_reduced_engine_on_card_equals_cpu(card, arch):
 def _card_cfg(arch):
     """The reduced configs the attention kernels take (head_dim 64): smollm
     and granite-moe keep a GQA group of 3 (3 query heads of 64 over 1 KV
-    head), qwen2-moe and zamba2's shared block take 2/2 heads of 64 over d
-    128."""
+    head), qwen2-vl its group of 7 (7 over 1, M-RoPE sections summing to
+    32), qwen2-moe, zamba2's shared block and whisper take 2/2 heads of 64
+    over d 128."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -764,8 +817,10 @@ def _card_cfg(arch):
     cfg = get_config(arch).reduced()
     if arch in ("smollm-360m", "granite-moe-3b-a800m"):
         cfg = dataclasses.replace(cfg, d_model=192, n_heads=3, n_kv_heads=1)
-    elif arch in ("zamba2-1.2b", "qwen2-moe-a2.7b"):
+    elif arch in ("zamba2-1.2b", "qwen2-moe-a2.7b", "whisper-base"):
         cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2)
+    elif arch == "qwen2-vl-7b":
+        cfg = dataclasses.replace(cfg, d_model=448, n_heads=7, n_kv_heads=1, mrope_sections=(8, 12, 12))
     return cfg
 
 
@@ -805,7 +860,7 @@ def _engine_run(api, model, where, chunk, eager=False, **over):
 
 @pytest.mark.parametrize("chunk", [0, 8])
 @pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
-                                  "rwkv6-7b", "zamba2-1.2b"])
+                                  "rwkv6-7b", "zamba2-1.2b", "qwen2-vl-7b", "whisper-base"])
 def test_graph_replay_equals_eager(card, arch, chunk):
     """The engine on the card replays its captured decode and chunk-column
     graphs; run eagerly instead (the same functions), it gives bit-equal
@@ -814,6 +869,7 @@ def test_graph_replay_equals_eager(card, arch, chunk):
     prefill and once a layer a whole-batch decode; in the graph run they
     count only the prefills, and the replays the rest."""
     from repro_torch.models.api import get_model, kernel_launches
+    from repro_torch.runtime.serving import CHUNKABLE_FAMILIES
 
     cfg = _card_cfg(arch)
     api = get_model(cfg)
@@ -836,9 +892,13 @@ def test_graph_replay_equals_eager(card, arch, chunk):
     assert e_eng.graph_launches() == dict.fromkeys(e_eng.graph_launches(), 0)
     assert g_launched["tiered_segmented"] == e_launched["tiered_segmented"] == g_eng.engine_steps
     assert all(v == 0 for k, v in replayed.items() if k not in model_kernels)
-    if chunk:
+    # vlm and audio are not chunkable: with a chunk budget they prefill whole
+    assert g_eng.chunking == (chunk > 0 and cfg.family in CHUNKABLE_FAMILIES)
+    if g_eng.chunking:
         assert g_eng.chunk_columns > 0 and g_eng._graphs["column"].replays == g_eng.chunk_columns
         assert g_eng.prefill_dispatches == 0
+    else:
+        assert sorted(g_eng._graphs) == ["decode"] and g_eng.prefill_dispatches > 0
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "granite-moe-3b-a800m", "rwkv6-7b",
