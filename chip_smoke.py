@@ -107,12 +107,22 @@ Phases (any failure raises, so the script exits non-zero):
    reduced head_dim-64 smollm on the card and on the CPU, with equal chaos
    logs, outcome ledgers and fleet books;
 6. one JSON line with every kernel's numbers, then the result line,
-   printed last, after phase 7;
+   printed last, after phases 7 and 8;
 7. the sharded engine on one card: phase 3's smollm-360m params and
    requests with the tiered store split into 1, 2 and 4 page-interleaved
    shards (``model_shards``): bit-identical tokens, equal merged drained
    planes and books, B1 once per non-empty shard a step, no host read in
-   a step that neither drains nor admits, one read a dirty shard a drain.
+   a step that neither drains nor admits, one read a dirty shard a drain;
+8. training: the loss and gradients of reduced smollm and granite-moe
+   (head_dim 64, f32) on the card against the CPU; then full-width
+   smollm-360m taking 5 AdamW steps (clip_norm 1.0) through
+   ``make_train_step`` on one fixed batch of 8 x 4,096 tokens in 2
+   micro-batches, remat on: every attention layer's forward on B5 with
+   its softmax stats, twice a layer a micro-batch (forward and remat
+   recompute), the backward the reference's in plain PyTorch; no host
+   read inside a step; the loss falls; step time, tokens/s, peak memory
+   and the device-busy shares of one profiled step. Phase 2 holds B5 with
+   its stats at that shape to its plain version and times it.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -619,6 +629,68 @@ def attention_scaling():
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         row.append(f"L {n}: {t:.4f} (SDPA {lib:.4f})")
     log("flash_attention [zamba2-1.2b] f32 causal prompts, ms: " + "; ".join(row))
+
+
+# the training phase: smollm-360m at train_4k's sequence length, with 8
+# sequences a step (cut from train_4k's 256) in 2 micro-batches of 4
+TRAIN_SEQ, TRAIN_ROWS, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 2, 5
+TRAIN_LR = 1e-3
+# B5's lse against its plain version: both are m + log(l) over the same
+# f32 scores (exact bf16 products, summed in other orders), the kernel's
+# exponentials on the special-function unit (2^-22 relative each); over
+# 4,096 keys that moves log(l) by some 1e-6, and lse is O(10)
+LSE_TOL = 1e-4
+
+
+def check_train_attention():
+    """B5 asked for its softmax stats at the training forward's shape:
+    smollm-360m's heads (15/5 of 64), bf16, causal, a micro-batch of
+    ``TRAIN_ROWS // TRAIN_ACCUM`` sequences of ``TRAIN_SEQ``. The output
+    within one bf16 step of the plain version and equal to the launch
+    without stats bit for bit; the lse within ``LSE_TOL``. Timed with and
+    without the stats, beside the plain version and one PyTorch call that
+    also returns a logsumexp (``aten._scaled_dot_product_flash_attention``,
+    K/V repeated to the query heads), with the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    hq, hkv, d = ATTN_WIDTHS["smollm-360m"]
+    b, n = TRAIN_ROWS // TRAIN_ACCUM, TRAIN_SEQ
+    g = torch.Generator().manual_seed(6)
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
+    q, k = rand(b, hq, n, d), rand(b, hkv, n, d)
+    v = rand(b, n, hkv * d).reshape(b, n, hkv, d).transpose(1, 2)  # the projection's view, as the model's
+    kw = dict(causal=True, lk_valid=n, q_offset=0)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    bare = fa.flash_attention(q, k, v, **kw)
+    plain, plain_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    krep, vrep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, krep, vrep, 0.0, True)
+    lib_lse = library()[1]
+    torch.cuda.synchronize()
+    lse_err = float((lse - plain_lse).abs().max())
+    assert torch.equal(out, bare), "B5's output changed when asked for its stats"
+    assert within_one_bf16_step(out, plain), "flash_attention with lse differs from plain"
+    assert lse.shape == (b, hq, n) and lse.dtype == torch.float32 and lse_err <= LSE_TOL, lse_err
+    nbytes = float(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4)  # q, o, k, v, lse
+    nops = 4.0 * b * hq * d * n * (n + 1) / 2
+    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    r = {"shapes": f"q ({b}, {hq}, {n}, {d}), k/v ({b}, {hkv}, {n}, {d}) bf16, causal, lse f32 ({b}, {hq}, {n})",
+         "max_abs_err": float((out.float() - plain.float()).abs().max()), "lse_max_abs_err": lse_err,
+         "lse_vs_library": float((lse - lib_lse.float()).abs().max()),
+         "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw, return_lse=True)),
+         "ms_without_lse": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+         "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw, return_lse=True), reps=10),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+         "library_ms": time_ms(library)}
+    log(f"flash_attention [training forward, with lse] {r['shapes']}: max_abs_err vs plain "
+        f"{r['max_abs_err']:.3e} (one bf16 step), lse {lse_err:.3e} (tolerance {LSE_TOL}), lse vs the "
+        f"library's {r['lse_vs_library']:.3e}; kernel {r['ms']:.4f} ms, without lse {r['ms_without_lse']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+        f"{nops / 1e9:.1f} GFLOP), library {r['library_ms']:.4f} ms; at {b_ms / r['ms']:.4f} of its bound, "
+        f"{r['ms'] / r['library_ms']:.3f}x the library's time")
+    return r
 
 
 SCAN_CHUNK = 32  # the scan kernels' chunk (kC in csrc/wkv6.cu and csrc/ssd.cu)
@@ -1385,6 +1457,266 @@ def reduced_on_card_vs_cpu(small, label: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: training (loss, gradients, AdamW) on the card
+
+
+def train_batch(cfg, rows: int, seq: int, seed: int, device: str) -> dict:
+    """``rows`` sequences of ``seq`` tokens drawn with numpy from ``seed``,
+    Zipf-like over the vocabulary (p ~ 1 / (rank + 10)), the labels the
+    next token (the last position ignored): a fixed batch a model can
+    learn from in a few steps."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    p = 1.0 / (np.arange(cfg.vocab_size) + 10.0)
+    tokens = rng.choice(cfg.vocab_size, size=(rows, seq + 1), p=p / p.sum()).astype(np.int32)
+    labels = tokens[:, 1:].copy()
+    labels[:, -1] = -1
+    return {"tokens": torch.from_numpy(tokens[:, :-1].copy()).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+def train_models():
+    """Reduced configs the training path takes on the card: attention
+    head_dim 64 (the kernel's), f32 compute as ``.reduced()`` sets it (B5
+    on TF32 tensor cores, three products a product)."""
+    from repro_torch.configs import get_config
+
+    return [
+        (dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3, n_kv_heads=1),
+         "smollm (head_dim 64, 3/1 heads)"),
+        (dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(), d_model=192, n_heads=3,
+                             n_kv_heads=1),
+         "granite-moe (head_dim 64, 3/1 heads, 8 experts top-2)"),
+    ]
+
+
+# the reduced loss and gradients on the card against the CPU: both f32,
+# B5's products on the card are three TF32 products (21-22 bits, 2e-5 on
+# its outputs against plain) and every sum runs in another order, which
+# two layers carry into each gradient leaf at some 1e-5 of its scale
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+
+
+def train_reduced_card_vs_cpu():
+    """One loss and gradient of each reduced training model on the card
+    (B5 in the attention Function's forward) and on the CPU (the plain
+    online softmax), from the same seed-0 weights and batch: the loss and
+    its metrics within ``TRAIN_LOSS_RTOL``, each gradient leaf within
+    ``TRAIN_GRAD_TOL`` of its largest magnitude; B5 launched twice a layer
+    on the card (the forward and its remat recompute)."""
+    import torch
+
+    from repro_torch.models.api import get_model, trainable
+
+    out = {}
+    for small, label in train_models():
+        api = get_model(small)
+        res = {}
+        for where in ("cuda", "cpu"):
+            model = api.init(seed=0, device=where)
+            named = trainable(model)
+            for prm in named.values():
+                prm.requires_grad_(True)
+            zero_launch_counts()
+            loss, metrics = api.loss(model, train_batch(small, 4, 64, seed=1, device=where))
+            grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True, materialize_grads=True)
+            launched = launch_counts()["flash_attention"]
+            assert launched == (2 * small.n_layers if where == "cuda" else 0), (label, where, launched)
+            res[where] = (loss.detach().cpu(), {k: v.detach().cpu() for k, v in metrics.items()},
+                          {n: g.cpu() for n, g in zip(named, grads)})
+        (lg, mg, gg), (lc, mc, gc) = res["cuda"], res["cpu"]
+        assert abs(float(lg - lc)) <= TRAIN_LOSS_RTOL * abs(float(lc)), (label, float(lg), float(lc))
+        for k in mc:
+            assert abs(float(mg[k] - mc[k])) <= TRAIN_LOSS_RTOL * max(abs(float(mc[k])), 1.0), (label, k)
+        worst = max(float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-30) for n in gc)
+        assert worst <= TRAIN_GRAD_TOL and all(bool(torch.isfinite(g).all()) for g in gg.values()), (label, worst)
+        log(f"training [{label}] on the card vs the CPU: loss {float(lg):.6f} vs {float(lc):.6f}, worst gradient "
+            f"leaf {worst:.3e} of its scale (tolerance {TRAIN_GRAD_TOL}), {len(gc)} leaves, B5 2 a layer")
+        out[label] = {"loss_card": float(lg), "loss_cpu": float(lc), "worst_grad_rel": worst}
+    return out
+
+
+@contextlib.contextmanager
+def annotated(names: dict):
+    """Profiler ranges around functions of ``repro_torch.models.common``
+    for one profiled step, the functions themselves unchanged: each name of
+    ``names`` -> the range's label. ``matmul_f32``'s range covers only its
+    operands' upcast."""
+    import torch
+    from torch.profiler import record_function
+
+    from repro_torch.models import common
+
+    saved = {n: getattr(common, n) for n in names}
+
+    def upcast_matmul(a, b):
+        with record_function(names["matmul_f32"]):
+            a, b = a.float(), b.float()
+        return torch.matmul(a, b)
+
+    def ranged(fn, label):
+        def inner(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return inner
+
+    try:
+        for n, label in names.items():
+            setattr(common, n, upcast_matmul if n == "matmul_f32" else ranged(saved[n], label))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(common, n, fn)
+
+
+def range_device_ms(prof, label: str, ops=None, backward: bool = False) -> float:
+    """Device time of the kernels launched inside every ``label`` range of
+    a profile (through the ops under it, or only those named in ``ops``);
+    with ``backward``, also those of the backward nodes of the ops run
+    inside the ranges (an autograd node carries its forward op's thread and
+    sequence number)."""
+    events = prof.events()
+    roots = [ev for ev in events if ev.name == label and ev.device_type.name == "CPU"]
+    if backward:
+        seqs = set()
+
+        def mark(ev):
+            if ev.sequence_nr >= 0:
+                seqs.add((ev.thread, ev.sequence_nr))
+            for child in ev.cpu_children:
+                mark(child)
+
+        for ev in roots:
+            mark(ev)
+        roots += [ev for ev in events if ev.name.startswith("autograd::engine::evaluate_function")
+                  and (ev.fwd_thread, ev.sequence_nr) in seqs]
+    total = 0.0
+
+    def walk(ev, inside_op):
+        nonlocal total
+        inside_op = inside_op or ops is None or ev.name in ops
+        if inside_op:
+            total += sum(k.duration for k in ev.kernels)
+        for child in ev.cpu_children:
+            walk(child, inside_op)
+
+    for ev in roots:
+        walk(ev, False)
+    return total / 1e3
+
+
+def train_full_width(card: str):
+    """smollm-360m at full width (32 layers, d 960, 15/5 heads of 64, tied
+    49,152 vocabulary) taking ``TRAIN_STEPS`` AdamW steps (clip_norm 1.0) on
+    one fixed batch of ``TRAIN_ROWS`` x ``TRAIN_SEQ`` tokens in
+    ``TRAIN_ACCUM`` micro-batches, remat on. Every step: B5 launched
+    2 x 32 a micro-batch (forward and remat recompute) and no other
+    kernel of the port; no host read inside it (CUDA sync checking on);
+    the metrics read at its end. The loss must fall from step 1 to the
+    last, the gradient norm stay finite. Then one more step under the
+    profiler for where its device time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model, make_train_step, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), grad_accum=TRAIN_ACCUM)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size, cfg.tie_embeddings,
+            cfg.remat, cfg.remat_policy) == (32, 960, 15, 5, 49152, True, True, "nothing"), cfg
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold on the card
+    model = api.init(seed=0, device="cuda")
+    batch = train_batch(cfg, TRAIN_ROWS, TRAIN_SEQ, seed=0, device="cuda")
+    named = trainable(model)
+    n_params = sum(p.numel() for p in named.values())
+    state = adamw_init({n: p.detach() for n, p in named.items()})
+    step = make_train_step(api, AdamWConfig(lr=TRAIN_LR, clip_norm=1.0))
+    log(f"training smollm-360m: {n_params / 1e6:.1f} M params, {len(named)} leaves, batch {TRAIN_ROWS} x "
+        f"{TRAIN_SEQ} in {TRAIN_ACCUM} micro-batches, set-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, step_ms, b5 = [], [], []
+    for i in range(TRAIN_STEPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        zero_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                s.record()
+                model, state, m = step(model, state, batch)
+                e.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counts = launch_counts()
+        syncs = [f"{Path(w.filename).name}:{w.lineno} {str(w.message).splitlines()[0]}" for w in caught
+                 if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+        torch.cuda.synchronize()  # the step's end: its metrics are read here
+        hist.append({k: float(v) for k, v in m.items()})
+        step_ms.append(s.elapsed_time(e))
+        b5.append(counts["flash_attention"])
+        log(f"training step {i + 1}: loss {hist[-1]['loss']:.5f} (z {hist[-1]['zloss']:.5f}, accuracy "
+            f"{hist[-1]['accuracy']:.5f}), grad_norm {hist[-1]['grad_norm']:.4f}, {step_ms[-1]:.1f} ms "
+            f"(device timeline), B5 launches {b5[-1]}, sync warnings {len(syncs)} {syncs[:2]}")
+        assert not syncs, syncs
+        assert counts["flash_attention"] == 2 * TRAIN_ACCUM * cfg.n_layers, counts
+        assert sum(counts.values()) == counts["flash_attention"], counts
+        assert np.isfinite(hist[-1]["loss"]) and np.isfinite(hist[-1]["grad_norm"]), hist[-1]
+    assert hist[-1]["loss"] < hist[0]["loss"], [h["loss"] for h in hist]
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    steady = float(np.median(step_ms[1:]))
+    # one more step under the profiler
+    labels = {"matmul_f32": "train.upcast", "_attention_bwd": "train.attention_bwd",
+              "_ce_chunk": "train.fused_ce"}
+    torch.cuda.synchronize()
+    with annotated(labels), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model, state, m = step(model, state, batch)
+        torch.cuda.synchronize()
+    dev_us = lambda ev: getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+    avgs = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA" and dev_us(ev) > 0
+            and not ev.key.startswith("train.")]
+    busy = sum(dev_us(ev) for ev in avgs) / 1e3
+    top = sorted(avgs, key=dev_us, reverse=True)[:8]
+    b5_ms = sum(dev_us(ev) for ev in avgs if "fa_tc_kernel" in ev.key) / 1e3
+    bwd_ms = range_device_ms(prof, labels["_attention_bwd"])
+    bwd_products_ms = range_device_ms(prof, labels["_attention_bwd"], ("aten::mm", "aten::bmm"))
+    upcast_ms = range_device_ms(prof, labels["matmul_f32"])
+    # the fused CE: its chunks' forward and remat recompute, and the
+    # backward nodes of the forward's ops
+    ce_ms = range_device_ms(prof, labels["_ce_chunk"], backward=True)
+    shares = {"flash_attention (B5)": b5_ms / busy, "attention backward": bwd_ms / busy,
+              "attention backward products": bwd_products_ms / busy, "fused CE": ce_ms / busy,
+              "matmul_f32 upcasts": upcast_ms / busy}
+    r = {"losses": [h_["loss"] for h_ in hist], "grad_norms": [h_["grad_norm"] for h_ in hist],
+         "step_ms": step_ms, "steady_step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
+         "peak_bytes": peak, "held_before_bytes": held, "busy_ms": busy, "idle_share": 1 - busy / steady,
+         "b5_launches_per_step": b5, "device_ms": {"b5": b5_ms, "attention_bwd": bwd_ms,
+                                                    "attention_bwd_products": bwd_products_ms,
+                                                    "fused_ce": ce_ms, "upcasts": upcast_ms},
+         "shares": shares, "params_m": n_params / 1e6}
+    log(f"training smollm-360m [{card}]: losses {r['losses']}; grad_norms {r['grad_norms']}")
+    log(f"training smollm-360m [{card}]: step {steady:.1f} ms (median of steps 2-{TRAIN_STEPS}, device "
+        f"timeline; step 1 {step_ms[0]:.1f} ms), {r['tokens_per_s']:.0f} tokens/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB earlier "
+        f"phases hold), device busy {busy:.1f} ms a profiled step (idle share {r['idle_share']:.4f})")
+    log(f"training smollm-360m [{card}]: device-busy shares " + "; ".join(
+        f"{k} {v:.4f}" for k, v in shares.items()) + f" (ms: {r['device_ms']})")
+    log(f"training smollm-360m [{card}]: top kernels of the profiled step: " + "; ".join(
+        f"{ev.key[:60]} {dev_us(ev) / 1e3:.1f} ms" for ev in top))
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the fleet over the port's engines
 
 
@@ -1809,6 +2141,7 @@ def main():
     kernels = check_kernels()
     attention = check_attention()
     attention_scaling()
+    train_attention = check_train_attention()
     kernels.update(check_scans())
     t2 = time.perf_counter()
     log(f"phase 2 {t2 - t_start:.1f} s")
@@ -1877,6 +2210,16 @@ def main():
     sharded = serve_sharded(card, mp)
     log(f"phase 7 sharded {time.perf_counter() - t7:.1f} s")
 
+    # phase 8: training: reduced smollm and granite-moe losses and gradients
+    # on the card against the CPU, then full-width smollm-360m taking AdamW
+    # steps (its launch counts zeroed before each step, read after)
+    t8 = time.perf_counter()
+    train_reduced = train_reduced_card_vs_cpu()
+    t8f = time.perf_counter()
+    log(f"phase 8 reduced training card vs CPU {t8f - t8:.1f} s")
+    train = train_full_width(card)
+    log(f"phase 8 training smollm-360m {time.perf_counter() - t8f:.1f} s")
+
     # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
@@ -1900,6 +2243,12 @@ def main():
             "launches": paths[arch]["launches"][name]} for arch in MODELS_BESIDE}}
     kernels["flash_attention"]["whisper-base"].update(
         whisper_flash_sites(attention, paths["whisper-base"], keep))
+    # B5 on phase 8's training path: launches a step (2 x 32 a micro-batch),
+    # and phase 2's numbers at the training shape, with and without lse
+    kernels["flash_attention"]["training"] = {
+        **{k: v for k, v in train_attention.items() if k != "bytes"},
+        "launches": sum(train["b5_launches_per_step"]), "launches_per_step": train["b5_launches_per_step"],
+        "launches_per_micro_batch": train["b5_launches_per_step"][0] // TRAIN_ACCUM}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kernels[name]
@@ -1912,13 +2261,14 @@ def main():
             **({"fleet_launches": fleet["launches"][name]} if carrier.get(name) == "smollm-360m" else {}),
             **({"sharded_launches": {n: v["launches"] for n, v in sharded.items()}}
                if name == "tiered_segmented" else {}),
-            **{k: r[k] for k in (*MODELS_BESIDE, "shapes") if k in r},
+            **{k: r[k] for k in (*MODELS_BESIDE, "training", "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })
     log("decode step profiles: " + "; ".join(f"{arch} {p['profile']}" for arch, p in paths.items()))
     log("moe checks: " + json.dumps(moe_res))
     log("M-RoPE checks: " + json.dumps(vlm_res))
     log("sharded engine: " + json.dumps(sharded))
+    log("training: " + json.dumps({"reduced_card_vs_cpu": train_reduced, "smollm-360m": train}))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -39,7 +39,12 @@
 //     it; exponentials go to the special-function unit (ex2.approx);
 //   * scores are scaled by 1/sqrt(d), masked to -1e30, acc and l rescaled
 //     by exp(m - m_new), the final divide clamped at 1e-30; every sum runs
-//     in a fixed order, so two runs give the same bits.
+//     in a fixed order, so two runs give the same bits;
+//   * on request (a non-null lse pointer) the epilogue also writes each
+//     row's softmax stats, lse = m + log(l) in f32, 0 where l = 0: what the
+//     training backward recomputes p = exp(s - lse) from, as the
+//     reference's custom VJP saves it (src/repro/models/common.py:184-186).
+//     A serving launch passes null and stores nothing more.
 //
 // bf16, the products: both on `wgmma.mma_async` with f32 accumulators
 // (m64n64k16; m64n128k16 for P V at D = 128), issued by the warpgroup that
@@ -624,8 +629,8 @@ __device__ __forceinline__ void pv_tf32_wgmma(float (&acc)[32], const float (&sc
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-             const __grid_constant__ CUtensorMap v_map, T* __restrict__ o, int hq, int group,
-             int lq, int lk, int causal, int lk_valid, int q_offset, float scale) {
+             const __grid_constant__ CUtensorMap v_map, T* __restrict__ o, float* __restrict__ lse,
+             int hq, int group, int lq, int lk, int causal, int lk_valid, int q_offset, float scale) {
   using SM = TcSmem<T, D>;
   constexpr int kStages = SM::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -742,6 +747,8 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     const float a1 = expf(m1 - mn1), b1 = expf(mo1 - mn1);
     l0 = l0 * a0 + xchg[2 * 128 + tid] * b0;
     l1 = l1 * a1 + xchg[3 * 128 + tid] * b1;
+    m0 = mn0;
+    m1 = mn1;
 #pragma unroll
     for (int i = 0; i < 32 * (D / 64); ++i) {
       const float other = xchg[(4 + i) * 128 + tid];
@@ -751,6 +758,14 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   const long long row_base = (static_cast<long long>(b) * hq + h) * lq;
+  // the softmax stats a backward recomputes p from, when asked: lse = m +
+  // log(l) in the units of s (scaled scores, natural log: exp_fast takes
+  // e^x), 0 where l = 0 (a row no key reached); the 4 lanes of a row hold
+  // the same m and l, and the first writes
+  if (lse != nullptr && lane % 4 == 0) {
+    if (qpos0 < lq) lse[row_base + qpos0] = l0 > 0.0f ? m0 + logf(l0) : 0.0f;
+    if (qpos1 < lq) lse[row_base + qpos1] = l1 > 0.0f ? m1 + logf(l1) : 0.0f;
+  }
 #pragma unroll
   for (int c = 0; c < D / 64; ++c)
 #pragma unroll
@@ -825,8 +840,8 @@ bool make_map(CUtensorMap* map, const void* ptr, const long long* strides, int b
 
 template <typename T, int D>
 int launch_tc(const void* q, const long long* qs, const void* k, const long long* ks,
-              const void* v, const long long* vs, void* o, int b, int hq, int hkv, int lq,
-              int lk, int causal, int lk_valid, int q_offset, float scale, cudaStream_t st) {
+              const void* v, const long long* vs, void* o, float* lse, int b, int hq, int hkv,
+              int lq, int lk, int causal, int lk_valid, int q_offset, float scale, cudaStream_t st) {
   constexpr int kElem = sizeof(T);
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, qs, b, hq, lq, D, kElem) || !make_map(&km, k, ks, b, hkv, lk, D, kElem) ||
@@ -838,7 +853,7 @@ int launch_tc(const void* q, const long long* qs, const void* k, const long long
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((lq + kBQ - 1) / kBQ, hq, b);
-  kern<<<grid, kTcThreads, smem, st>>>(qm, km, vm, static_cast<T*>(o), hq, hq / hkv, lq, lk,
+  kern<<<grid, kTcThreads, smem, st>>>(qm, km, vm, static_cast<T*>(o), lse, hq, hq / hkv, lq, lk,
                                        causal, lk_valid, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -853,16 +868,18 @@ const char* repro_error_string(int code) {
 }
 
 // q (B, Hq, Lq, D), k and v (B, Hkv, Lk, D), each with element strides
-// {batch, head, row} and unit stride along D; o (B, Hq, Lq, D) contiguous.
+// {batch, head, row} and unit stride along D; o (B, Hq, Lq, D) contiguous;
+// lse null, or f32 (B, Hq, Lq) contiguous for each row's log-sum-exp of
+// its scaled, masked scores (0 for a row no key reached).
 // kind: 0 = float32, 1 = bfloat16; head_dim 64 or 128. Returns a CUDA error
 // code (cudaErrorInvalidValue for a kind or head_dim not built).
 int fa_forward(const void* q, const long long* q_strides, const void* k,
                const long long* k_strides, const void* v, const long long* v_strides,
                void* o, int kind, int head_dim, int b, int hq, int hkv, int lq, int lk,
-               int causal, int lk_valid, int q_offset, float scale, void* stream) {
+               int causal, int lk_valid, int q_offset, float scale, float* lse, void* stream) {
   if (b == 0 || lq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, q_strides, k, k_strides, v, v_strides, o, b, hq, hkv, lq, lk, causal, \
+#define FA_ARGS q, q_strides, k, k_strides, v, v_strides, o, lse, b, hq, hkv, lq, lk, causal, \
                 lk_valid, q_offset, scale, st
   if (kind == 0 && head_dim == 64) return launch_tc<float, 64>(FA_ARGS);
   if (kind == 0 && head_dim == 128) return launch_tc<float, 128>(FA_ARGS);

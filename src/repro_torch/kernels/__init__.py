@@ -10,7 +10,8 @@ tiered_gather   — near/far tiered row gather: tier resolve + select + int8
                   engine's device-tiering path (runtime/tiered_kv)
 flash_attention — blocked causal/non-causal attention forward with GQA, the
                   prefill attention on the card of the dense model and of
-                  zamba2's shared block
+                  zamba2's shared block, and the training forward's
+                  attention (with its softmax stats, for the backward)
 paged_attention — one-query GQA decode attention over a paged K/V pool, the
                   decode attention on the card of the dense model and of
                   zamba2's shared block, over the per-slot cache viewed as

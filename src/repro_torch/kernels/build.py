@@ -97,13 +97,25 @@ def check(lib: ctypes.CDLL, err: int, what: str):
 
 
 def on_cuda(what: str, *tensors) -> bool:
-    """True when the inputs lie on one CUDA device, False when on the CPU."""
-    devs = {t.device for t in tensors if t is not None}
+    """True when the inputs lie on one CUDA device, False when on the CPU.
+
+    A kernel fills its output through a raw pointer, so autograd records
+    nothing for it: on the card, under grad mode, an input that requires
+    grad raises here rather than give an output without history. A caller
+    that differentiates through a kernel wraps it in a
+    ``torch.autograd.Function``, whose forward runs with grad mode off.
+    The plain versions on the CPU are differentiable and pass.
+    """
+    present = [t for t in tensors if t is not None]
+    devs = {t.device for t in present}
     if len(devs) != 1:
         raise ValueError(f"{what}: inputs lie on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {dev}")
+    if dev.type == "cuda" and torch.is_grad_enabled() and any(t.requires_grad for t in present):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an input requires grad; "
+                           "call it under torch.no_grad() or inside an autograd.Function")
     return dev.type == "cuda"
 
 

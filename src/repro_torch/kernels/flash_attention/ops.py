@@ -16,8 +16,12 @@ k and v through their strides, so the model's transposed projection views
 go in without a copy;
 they need unit stride along head_dim and 16-byte aligned rows, and raise
 otherwise. Unlike the TPU op nothing is padded: ragged tiles are
-zero-filled and masked. ``LAUNCHES`` counts kernel launches, and only
-kernel launches. ``ref.flash_attention_tiled_ref`` and
+zero-filled and masked. With ``return_lse`` the kernel also writes each
+row's softmax stats (lse, f32), which the training forward's attention
+Function (``models.common.AttentionFn``) saves for its backward; a call
+without it stores nothing more. ``LAUNCHES`` counts kernel launches, and
+only kernel launches. Under grad mode an input that requires grad raises
+(``build.on_cuda``): the kernel records no autograd history. ``ref.flash_attention_tiled_ref`` and
 ``ref.flash_attention_tf32_ref`` are the bf16 and f32 kernels' algorithms
 (tiles of 64 keys; p in three bf16 parts, or three TF32 products) in
 plain PyTorch, for tests.
@@ -45,15 +49,21 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_declared", False):
         lib.fa_forward.argtypes = [_P, _S, _P, _S, _P, _S, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, ctypes.c_float, _P]
+                                   _I, _I, _I, ctypes.c_float, _P, _P]
         lib.fa_forward.restype = _I
         lib._declared = True
     return lib
 
 
 def flash_attention(q, k, v, *, causal: bool = True, lk_valid: Optional[int] = None,
-                    q_offset: Optional[int] = None):
-    """q: (B, Hq, Lq, D); k/v: (B, Hkv, Lk, D) -> (B, Hq, Lq, D) in q.dtype."""
+                    q_offset: Optional[int] = None, return_lse: bool = False):
+    """q: (B, Hq, Lq, D); k/v: (B, Hkv, Lk, D) -> (B, Hq, Lq, D) in q.dtype.
+
+    With ``return_lse`` it returns ``(out, lse)``, lse f32 (B, Hq, Lq): each
+    row's log-sum-exp of its scaled, masked scores, the softmax stats a
+    backward recomputes p from (the kernel writes 0 for a row that no key
+    reached; see ``ref.flash_attention_ref``).
+    """
     need(q.ndim == 4 and k.ndim == 4 and v.ndim == 4,
          f"q, k, v must be (B, H, L, D), got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     b, hq, lq, d = q.shape
@@ -67,20 +77,23 @@ def flash_attention(q, k, v, *, causal: bool = True, lk_valid: Optional[int] = N
     lk_valid = lk if lk_valid is None else int(lk_valid)
     q_offset = lk_valid - lq if q_offset is None else int(q_offset)
     if not build.on_cuda("flash_attention", q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, lk_valid=lk_valid, q_offset=q_offset)
+        return ref.flash_attention_ref(q, k, v, causal=causal, lk_valid=lk_valid, q_offset=q_offset,
+                                       return_lse=return_lse)
     for name, t in (("q", q), ("k", k), ("v", v)):
         need(build.vector_aligned(t), f"{name} needs unit stride along head_dim and 16-byte aligned rows")
     out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.fa_forward(
             q.data_ptr(), build.strides(q, 3), k.data_ptr(), build.strides(k, 3),
             v.data_ptr(), build.strides(v, 3), out.data_ptr(), _KIND[q.dtype], d, b, hq, hkv,
             lq, lk, int(causal), lk_valid, q_offset, 1.0 / math.sqrt(d),
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(lib, err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

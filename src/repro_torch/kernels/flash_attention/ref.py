@@ -20,8 +20,14 @@ TF32_DROP = 13  # mantissa bits that TF32 drops of an f32 (23 - 10)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, lk_valid: Optional[int] = None,
-                        q_offset: Optional[int] = None):
-    """q: (B, Hq, Lq, D); k/v: (B, Hkv, Lk, D); Hq % Hkv == 0 -> (B, Hq, Lq, D)."""
+                        q_offset: Optional[int] = None, return_lse: bool = False):
+    """q: (B, Hq, Lq, D); k/v: (B, Hkv, Lk, D); Hq % Hkv == 0 -> (B, Hq, Lq, D).
+
+    With ``return_lse`` also each row's f32 log-sum-exp of its scaled,
+    masked scores, (B, Hq, Lq). A row with no valid key has every score at
+    -1e30 here and gets about -1e30, where the kernel, which walks no key
+    for it, writes 0; no training path has such a row.
+    """
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -35,8 +41,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, lk_valid: Optional[int]
         valid = valid & (kpos[None, :] <= torch.arange(lq, device=q.device)[:, None] + q_offset)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(b, hq, lq, d).to(q.dtype)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()).reshape(b, hq, lq, d).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, hq, lq)
+    return o
 
 
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, lk_valid: Optional[int] = None,

@@ -1,19 +1,24 @@
-"""Model API for the port (mirrors repro/models/api.py, serving subset).
+"""Model API for the port (mirrors repro/models/api.py).
 
-Every family of the reference is ported: dense (``transformer``), moe
-(``moe``), ssm (``rwkv6``), hybrid (``zamba2``), vlm (``vlm``: embeds and
-M-RoPE positions in) and audio (``whisper``: tokens and audio frames in).
+Every family of the reference is ported for serving: dense
+(``transformer``), moe (``moe``), ssm (``rwkv6``), hybrid (``zamba2``),
+vlm (``vlm``: embeds and M-RoPE positions in) and audio (``whisper``:
+tokens and audio frames in). The loss, its gradients and the train step
+(``make_train_step``, AdamW) cover the families whose trunk is attention
+and MLP: dense, moe and vlm.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import moe, rwkv6, transformer, vlm, whisper, zamba2
+from repro_torch.models import common, moe, rwkv6, transformer, vlm, whisper, zamba2
+from repro_torch.optim import AdamWConfig, adamw_update
 
 _PORTED = {"dense": transformer, "moe": moe, "ssm": rwkv6, "hybrid": zamba2, "vlm": vlm,
            "audio": whisper}
@@ -38,6 +43,26 @@ class ModelAPI:
         return _PORTED[self.family].init_cache(
             self.cfg, batch, max_len, device=resolve_device(device)
         )
+
+    def loss(self, params, batch: dict, *, remat: Optional[bool] = None):
+        """Trunk + fused sequence-chunked head and CE (+ the moe aux loss):
+        (loss, metrics), every value an f32 tensor, differentiable w.r.t.
+        the parameters that require grad. The full (B, S, Vp) logits are
+        never materialized (``common.fused_ce_loss``)."""
+        if self.family not in ("dense", "moe", "vlm"):
+            raise NotImplementedError(
+                f"the {self.family} family's loss and gradients (a differentiable scan or a backward "
+                "kernel for the recurrent families, whisper's casts and encoder) are ROADMAP A13")
+        cfg = self.cfg
+        ce = functools.partial(common.fused_ce_loss, labels=batch["labels"], vocab_size=cfg.vocab_size)
+        if self.family == "dense":
+            return ce(*transformer.features(params, cfg, batch["tokens"], remat=remat))
+        if self.family == "moe":
+            h, w, aux = moe.features(params, cfg, batch["tokens"], remat=remat)
+            loss, metrics = ce(h, w)
+            metrics["aux_loss"] = aux
+            return loss + aux, metrics
+        return ce(*vlm.features(params, cfg, batch["embeds"], batch["mrope_positions"], remat=remat))
 
     def prefill(self, params, batch: dict, *, max_len: int):
         """The reference's batch keys: ``embeds`` and ``mrope_positions`` for
@@ -80,6 +105,82 @@ def kernel_launches(cfg: ModelConfig, prefills: int, decodes: int) -> dict:
     apps = zamba2.n_attn_apps(cfg)
     return {"flash_attention": apps * prefills, "paged_attention": apps * decodes, "wkv6": 0,
             "ssd": n * (prefills + decodes)}
+
+
+def trainable(params: torch.nn.Module) -> dict:
+    """The float parameters a train step updates, by ``state_dict`` name."""
+    return {n: p for n, p in params.named_parameters() if p.is_floating_point()}
+
+
+def _split(name: str, x: torch.Tensor, ga: int) -> torch.Tensor:
+    """A batch leaf as ``ga`` micro-batches on a new leading axis; vlm's
+    (3, B, S) ``mrope_positions`` split on their batch axis 1."""
+    axis = 1 if name == "mrope_positions" else 0
+    b = x.shape[axis]
+    if b % ga:
+        raise ValueError(f"batch {name}: {b} rows do not split into {ga} micro-batches")
+    x = x.reshape(*x.shape[:axis], ga, b // ga, *x.shape[axis + 1:])
+    return x.movedim(axis, 0)
+
+
+def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optional[dict] = None,
+                    grad_accum: Optional[int] = None, storage_specs: Optional[dict] = None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``params`` is the model (an ``nn.Module``), ``opt_state`` the
+    ``optim.adamw_init`` of ``trainable(params)``, ``batch`` the loss's
+    batch (``labels`` and the family's inputs). The step switches
+    ``requires_grad`` on for the trainable leaves, takes the loss and its
+    gradients, switches it off again (so a serving path never sees a leaf
+    that requires grad), and writes AdamW's new values into the leaves in
+    place under ``torch.no_grad()``: the held casts see the new version and
+    cast anew. Every metric is a 0-d f32 tensor on the model's device; the
+    step reads nothing back to the host.
+
+    ``grad_accum`` (default ``cfg.grad_accum``): the batch split into that
+    many micro-batches, run one after another; their gradients summed in
+    f32 and, like their metrics, divided by the count.
+
+    ``compute_specs`` and ``storage_specs`` are the reference's sharding
+    constraints; on one device they are None and change nothing.
+    """
+    if compute_specs is not None or storage_specs is not None:
+        raise NotImplementedError("sharded parameters and gradients (compute_specs, storage_specs) "
+                                  "are ROADMAP A11")
+    ga = grad_accum if grad_accum is not None else api.cfg.grad_accum
+
+    def grads_of(params, named: dict, batch: dict):
+        loss, metrics = api.loss(params, batch)
+        g = torch.autograd.grad(loss, list(named.values()), allow_unused=True, materialize_grads=True)
+        return dict(zip(named, g)), metrics
+
+    def train_step(params, opt_state, batch):
+        named = trainable(params)
+        for p in named.values():
+            p.requires_grad_(True)
+        try:
+            micro = {k: _split(k, v, ga) for k, v in batch.items()}
+            grads, metrics = {}, {}
+            for i in range(ga):
+                g, m = grads_of(params, named, {k: v[i] for k, v in micro.items()})
+                for total, part in ((grads, g), (metrics, m)):
+                    for k, x in part.items():
+                        x = x.detach().float()
+                        total[k] = total[k] + x if k in total else x
+            # one micro-batch divides by 1, which changes no bit
+            grads = {n: x / ga for n, x in grads.items()}
+            metrics = {k: x / ga for k, x in metrics.items()}
+        finally:
+            for p in named.values():
+                p.requires_grad_(False)
+        with torch.no_grad():
+            new, opt_state, om = adamw_update(opt_cfg, {n: p.detach() for n, p in named.items()},
+                                              grads, opt_state)
+            for n, p in named.items():
+                p.copy_(new[n])
+        return params, opt_state, {**metrics, **om}
+
+    return train_step
 
 
 def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None, page_size: int = 16):

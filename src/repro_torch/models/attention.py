@@ -11,7 +11,8 @@ Attention itself follows the tensors' device. On the CPU it is the eager
 the reference op for op. On the card prefill runs the hand-written flash
 kernel and decode the paged kernel over the cache itself, viewed as pages
 (``kernels/flash_attention``, ``kernels/paged_attention``); a CUDA tensor
-the kernel refuses raises.
+the kernel refuses raises. A training forward takes ``common.AttentionFn``
+(``attend``).
 """
 from __future__ import annotations
 
@@ -59,7 +60,12 @@ def _out_proj(p: dict, x_dtype, o: torch.Tensor) -> torch.Tensor:
 def attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
     """Full-sequence attention, (B, Hq, L, hd) -> (B, Hq, L, hd): the flash
     kernel on the card (every key valid, q row 0 at position 0), the eager
-    online-softmax reference on the CPU."""
+    online-softmax reference on the CPU. A training forward (grad mode on
+    and an input that requires grad) goes through ``common.attention_train``
+    instead, whose forward is the same kernel (or the same reference) and
+    whose backward is the reference's."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return common.attention_train(q, k, v, causal=causal, block_k=block_k)
     if q.is_cuda:
         return flash_attention(q, k, v, causal=causal, lk_valid=k.shape[2], q_offset=0)
     return common.attention_chunked(q, k, v, causal=causal, block_k=block_k)

@@ -1,9 +1,14 @@
-"""Shared model primitives, forward only (mirrors repro/models/common.py).
+"""Shared model primitives (mirrors repro/models/common.py).
 
 * attention for prefill is chunked: a loop over KV blocks with an online
   softmax and f32 accumulators, so a long prompt never materializes an
-  (Lq, Lk) matrix;
+  (Lq, Lk) matrix; ``AttentionFn`` is its training form, the reference's
+  custom VJP: the forward keeps (q, k, v, out, lse), and the backward
+  recomputes p for each key block from the lse;
 * decode (Lq == 1) is a direct masked product over the cache;
+* the losses: ``cross_entropy`` and the sequence-chunked ``fused_ce_loss``
+  (each chunk's head product and CE under ``torch.utils.checkpoint``), and
+  ``maybe_remat``, per-layer activation checkpointing;
 * every matmul goes through :func:`matmul_f32`. The JAX einsums ask for
   f32 results (``preferred_element_type``); a product of bf16 inputs
   accumulated and returned in f32 is the f32 product of the upcast inputs,
@@ -17,6 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
+
+from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -58,10 +66,18 @@ def cast(owner: nn.Module, name: str, dtype) -> torch.Tensor:
     (``load_state_dict``, which bumps the version) or a move to another
     device casts anew. A non-float leaf, or ``dtype`` None or the leaf's
     own type, returns the parameter itself.
+
+    A leaf that requires grad, under grad mode (a training forward), is
+    cast fresh on every call and nothing is held: the cast is then a node
+    of the graph, which carries the gradient back to the f32 leaf. Serving
+    runs under ``torch.no_grad()`` on leaves that require none, and keeps
+    its held casts.
     """
     p = getattr(owner, name)
     if dtype is None or not p.is_floating_point() or p.dtype == dtype:
         return p
+    if p.requires_grad and torch.is_grad_enabled():
+        return p.to(dtype)
     held = owner.__dict__.setdefault("_casts", {})
     key = (name, dtype)
     stamp = (id(p), p.data_ptr(), p.device, p._version)
@@ -213,13 +229,9 @@ def _block_scores(qg, kblk, iblk, *, scale, block_k, lk, lq, q_offset, causal, b
     return s + bias
 
 
-def attention_chunked(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                      block_k: int = 1024, bidirectional: bool = False) -> torch.Tensor:
-    """Online-softmax attention, O(L * block_k) memory (forward only).
-
-    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D). GQA via Hq % Hkv == 0.
-    Returns (B, Hq, Lq, D) in q.dtype.
-    """
+def _attention_fwd_impl(q, k, v, causal: bool, q_offset: int, block_k: int, bidirectional: bool):
+    """The online-softmax forward: (out (B, Hq, Lq, D) in q.dtype, lse
+    (B, Hkv, G, Lq) f32), lse = m + log(l), 0 where l = 0."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d)
@@ -241,7 +253,102 @@ def attention_chunked(q, k, v, *, causal: bool = True, q_offset: int = 0,
         acc = acc * corr[..., None] + matmul_f32(p.to(vb.dtype), vb[i][:, :, None])
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, hq, lq, d).to(q.dtype)
+    # flash-style softmax stats: 0 for a row with l = 0, so the backward's
+    # exp(s - lse) stays 0 there (s is NEG_INF) instead of nan
+    lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), 0.0)
+    return out.reshape(b, hq, lq, d).to(q.dtype), lse
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                      block_k: int = 1024, bidirectional: bool = False) -> torch.Tensor:
+    """Online-softmax attention, O(L * block_k) memory.
+
+    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D). GQA via Hq % Hkv == 0.
+    Returns (B, Hq, Lq, D) in q.dtype. Autograd differentiates it op by op
+    (holding every block's residuals); training takes ``attention_train``.
+    """
+    return _attention_fwd_impl(q, k, v, causal, q_offset, block_k, bidirectional)[0]
+
+
+def _contract_gq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum("bhgqk,bhgqd->bhkd", a, b) in f32: one product over the
+    (g, q) rows, the sum over both axes at once."""
+    bb, h, g, lq, n = a.shape
+    a2 = a.permute(0, 1, 4, 2, 3).reshape(bb, h, n, g * lq)
+    return matmul_f32(a2, b.reshape(bb, h, g * lq, b.shape[-1]))
+
+
+def _attention_bwd(causal: bool, q_offset: int, block_k: int, bidirectional: bool,
+                   q, k, v, out, lse, dout):
+    """Flash-attention backward (the reference's ``_attention_bwd``): p
+    recomputed per key block from (q, k, lse) against every query row, the
+    products' operands in the compute dtype and their sums in f32."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qg = _expand_gqa(q, hkv)
+    g = qg.shape[2]
+    kb, vb, nb = _kv_blocks(k, v, block_k)
+    do = _expand_gqa(dout, hkv)  # (B,Hkv,G,Lq,D), compute dtype
+    og = _expand_gqa(out, hkv)
+    delta = (do.float() * og.float()).sum(-1)  # (B,Hkv,G,Lq)
+    dq = torch.zeros((b, hkv, g, lq, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for i in range(nb):
+        kblk, vblk = kb[i], vb[i]
+        s = _block_scores(
+            qg, kblk, i, scale=scale, block_k=block_k, lk=lk, lq=lq,
+            q_offset=q_offset, causal=causal, bidirectional=bidirectional,
+        )
+        p = torch.exp(s - lse[..., None])  # exact probs (B,Hkv,G,Lq,block)
+        dvs.append(_contract_gq(p.to(v.dtype), do))
+        dp = matmul_f32(do, vblk[:, :, None].transpose(-1, -2))
+        ds = (p * (dp - delta[..., None]) * scale).to(k.dtype)
+        dq = dq + matmul_f32(ds, kblk[:, :, None])
+        dks.append(_contract_gq(ds, qg))
+    dk = torch.cat(dks, dim=2)[:, :, :lk]
+    dv = torch.cat(dvs, dim=2)[:, :, :lk]
+    return dq.reshape(b, hq, lq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class AttentionFn(torch.autograd.Function):
+    """Attention with the reference's flash-style custom VJP
+    (``_attention_core``): the forward saves (q, k, v, out, lse) and no
+    per-block residual; the backward recomputes p for each key block of
+    ``block_k`` from the lse (``_attention_bwd``).
+
+    The forward follows the tensors' device: on the card it is the flash
+    kernel (B5), asked for its softmax stats (its key tiles are its own,
+    64 rows); on the CPU the online-softmax forward of
+    ``attention_chunked``. Its forward runs with grad mode off, so the
+    kernel's wrapper takes it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, block_k: int, bidirectional: bool):
+        b, hq, lq, _ = q.shape
+        hkv = k.shape[1]
+        if q.is_cuda:
+            out, lse = flash_attention(q, k, v, causal=causal and not bidirectional,
+                                       lk_valid=k.shape[2], q_offset=q_offset, return_lse=True)
+            lse = lse.reshape(b, hkv, hq // hkv, lq)
+        else:
+            out, lse = _attention_fwd_impl(q, k, v, causal, q_offset, block_k, bidirectional)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, block_k, bidirectional)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _attention_bwd(*ctx.args, q, k, v, out, lse, dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_train(q, k, v, *, causal: bool = True, q_offset: int = 0, block_k: int = 1024,
+                    bidirectional: bool = False) -> torch.Tensor:
+    """``attention_chunked``'s result through ``AttentionFn``: the
+    attention of a training forward. Returns (B, Hq, Lq, D) in q.dtype."""
+    return AttentionFn.apply(q, k, v, causal, q_offset, block_k, bidirectional)
 
 
 def attention_decode(q, k, v, kv_length) -> torch.Tensor:
@@ -283,7 +390,116 @@ def gelu_mlp(x, w_in, b_in, w_out, b_out) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# losses
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                  z_coef: float = 1e-4):
+    """Mean CE over labels >= 0; logits padding beyond vocab_size is masked.
+
+    logits: (B, S, Vp) any float dtype; labels: (B, S) int with -1 = ignore.
+    Returns (loss, metrics dict), every value an f32 tensor.
+    """
+    vp = logits.shape[-1]
+    lf = logits.float()
+    if vp > vocab_size:
+        pad_mask = torch.arange(vp, device=lf.device) >= vocab_size
+        lf = torch.where(pad_mask[None, None, :], NEG_INF, lf)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long().clamp_min(0)[..., None])[..., 0]
+    nll = lse - gold
+    mask = (labels >= 0).float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = (nll * mask).sum() / denom
+    zloss = z_coef * ((lse * mask) ** 2).sum() / denom
+    # accuracy as gold == max, as the reference (no argmax)
+    metrics = {
+        "loss": loss,
+        "zloss": zloss,
+        "tokens": mask.sum(),
+        "accuracy": ((gold >= lf.amax(-1)) * mask).sum() / denom,
+    }
+    return loss + zloss, metrics
+
+
+def _ce_chunk(hc, lc, w, vocab_bias):
+    """One sequence chunk of ``fused_ce_loss``: (nll, z, tokens, correct) sums."""
+    logits = matmul_f32(hc, w.to(hc.dtype)) + vocab_bias
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.long().clamp_min(0)[..., None])[..., 0]
+    msk = (lc >= 0).float()
+    return (((lse - gold) * msk).sum(), ((lse * msk) ** 2).sum(), msk.sum(),
+            ((gold >= logits.amax(-1)) * msk).sum())
+
+
+def fused_ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_size: int, *,
+                  chunk: int = 1024, z_coef: float = 1e-4):
+    """Sequence-chunked fused lm_head + cross-entropy.
+
+    Never materializes the full (B, S, Vp) logits: the head product and the
+    CE run one chunk of the sequence at a time, each under
+    ``torch.utils.checkpoint`` (the backward recomputes the chunk's logits),
+    as the reference's chunk body runs under ``jax.checkpoint``. The
+    vocabulary's padding is masked with an additive -1e30. h: (B, S, D)
+    post-final-norm; w: (D, Vp), cast to h's dtype in each chunk; labels:
+    (B, S) int with -1 = ignore. Returns (loss, metrics) like
+    ``cross_entropy``.
+    """
+    b, s, d = h.shape
+    vp = w.shape[-1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    nc = (s + pad) // chunk
+    hs = h.reshape(b, nc, chunk, d)
+    ls = labels.reshape(b, nc, chunk)
+    vocab_bias = torch.where(torch.arange(vp, device=h.device) < vocab_size, 0.0, NEG_INF).float()
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    nll, zz, ntok, ncorr = zero, zero, zero, zero
+    for i in range(nc):
+        a, z, t, c = _ckpt.checkpoint(_ce_chunk, hs[:, i], ls[:, i], w, vocab_bias,
+                                      use_reentrant=False, preserve_rng_state=False)
+        nll, zz, ntok, ncorr = nll + a, zz + z, ntok + t, ncorr + c
+    denom = torch.clamp_min(ntok, 1.0)
+    loss = nll / denom
+    zloss = z_coef * zz / denom
+    metrics = {"loss": loss, "zloss": zloss, "tokens": ntok, "accuracy": ncorr / denom}
+    return loss + zloss, metrics
+
+
+# ---------------------------------------------------------------------------
 # misc
+
+
+def maybe_remat(fn, enabled: bool, policy: str = "nothing"):
+    """Per-layer activation checkpointing (``torch.utils.checkpoint``,
+    non-reentrant).
+
+    policy="nothing": save only the block's inputs, recompute the rest in
+    the backward (minimum memory); policy="dots": also save the outputs of
+    the 2-D weight products (``aten.mm``), recompute everything else, as
+    the reference's ``dots_with_no_batch_dims_saveable``. The blocks hold
+    no random ops, so no RNG state is kept.
+    """
+    if not enabled:
+        return fn
+    if policy == "nothing":
+        return lambda *args: _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                              preserve_rng_state=False)
+    if policy == "dots":
+        def save_dots(ctx, op, *args, **kwargs):
+            if op is torch.ops.aten.mm.default:
+                return _ckpt.CheckpointPolicy.MUST_SAVE
+            return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+        def contexts():
+            return _ckpt.create_selective_checkpoint_contexts(save_dots)
+
+        return lambda *args: _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                              preserve_rng_state=False, context_fn=contexts)
+    raise ValueError(f"remat policy {policy!r}: 'nothing' or 'dots'")
 
 
 def commit(dst: torch.Tensor, new: torch.Tensor, active=None) -> torch.Tensor:

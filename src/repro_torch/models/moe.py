@@ -1,5 +1,4 @@
-"""Mixture-of-Experts LM (granite-moe / qwen2-moe), forward only (mirrors
-repro/models/moe.py).
+"""Mixture-of-Experts LM (granite-moe / qwen2-moe) (mirrors repro/models/moe.py).
 
 The dense transformer with its MLP replaced by top-k routed experts under a
 capacity bound, plus the shared expert where the config has one. Routing
@@ -107,8 +106,8 @@ def _route(router_w: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor):
 
 
 def aux_losses(probs: torch.Tensor, topi: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """GShard load-balance loss (training-side; no serving path calls it).
-    probs (G,T,E), topi (G,T,k)."""
+    """GShard load-balance loss (the training forward's; no serving path
+    calls it). probs (G,T,E), topi (G,T,k)."""
     e = cfg.n_experts
     frac = _one_hot(topi, e).mean(dim=(1, 2))  # (G,E)
     imp = probs.mean(dim=1)  # (G,E)
@@ -129,12 +128,13 @@ def _expert_ffn(experts: dict, xs: torch.Tensor) -> torch.Tensor:
     return common.matmul_f32(h, experts["w_down"]).to(xs.dtype)
 
 
-def moe_einsum(p: dict, cfg: ModelConfig, xg: torch.Tensor):
-    """GShard dispatch. xg: (G, T, D) -> (out (G, T, D), keep (G, T, k) bool)."""
+def moe_einsum(p: dict, cfg: ModelConfig, xg: torch.Tensor, routing=None):
+    """GShard dispatch. xg: (G, T, D) -> (out (G, T, D), keep (G, T, k) bool).
+    ``routing``: ``_route``'s result for xg, when the caller has it."""
     gdim, t, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     c = _capacity(t, cfg)
-    topv, topi, _ = _route(p["router"], cfg, xg)
+    topv, topi, _ = routing or _route(p["router"], cfg, xg)
     oh = _one_hot(topi, e)  # (G,T,k,E)
     # position of each slot within its expert: cumsum over (T,k) in slot order
     ohf = oh.reshape(gdim, t * k, e)
@@ -183,10 +183,11 @@ def _sort_group(p: dict, cfg: ModelConfig, x, ti, tv, c: int):
     return out, keep_tok
 
 
-def moe_sort(p: dict, cfg: ModelConfig, xg: torch.Tensor):
-    """Sort-based dispatch. xg: (G, T, D) -> (out (G, T, D), keep (G, T, k))."""
+def moe_sort(p: dict, cfg: ModelConfig, xg: torch.Tensor, routing=None):
+    """Sort-based dispatch. xg: (G, T, D) -> (out (G, T, D), keep (G, T, k)).
+    ``routing``: ``_route``'s result for xg, when the caller has it."""
     c = _capacity(xg.shape[1], cfg)
-    topv, topi, _ = _route(p["router"], cfg, xg)
+    topv, topi, _ = routing or _route(p["router"], cfg, xg)
     outs = [_sort_group(p, cfg, xg[i], topi[i], topv[i], c) for i in range(xg.shape[0])]
     return torch.stack([o for o, _ in outs]), torch.stack([kp for _, kp in outs])
 
@@ -198,25 +199,63 @@ def _shared_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (y.float() * gate).to(x.dtype)
 
 
-def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, dispatch: Optional[str] = None):
-    """x: (B, S, D) -> (B, S, D). Routed per batch row (group = row); a
-    sequence longer than ``cfg.moe_group`` and a multiple of it is routed
-    in groups of ``cfg.moe_group`` tokens, as in the reference."""
+def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, dispatch: Optional[str] = None, *,
+            with_aux: bool = False):
+    """x: (B, S, D) -> (B, S, D), or (out, aux loss) ``with_aux`` (the
+    training forward's). Routed per batch row (group = row); a sequence
+    longer than ``cfg.moe_group`` and a multiple of it is routed in groups
+    of ``cfg.moe_group`` tokens, as in the reference."""
     dispatch = dispatch or cfg.moe_dispatch
     fn = moe_einsum if dispatch == "einsum" else moe_sort
     g0, t0, d0 = x.shape
     grp = cfg.moe_group
     if grp and t0 > grp and t0 % grp == 0:
         x = x.reshape(g0 * (t0 // grp), grp, d0)
-    out, _keep = fn(p, cfg, x)
+    routing = _route(p["router"], cfg, x)
+    out, _keep = fn(p, cfg, x, routing)
     out = out.reshape(g0, t0, d0)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(p, x.reshape(g0, t0, d0))
+    if with_aux:
+        _, topi, probs = routing
+        return out, aux_losses(probs, topi, cfg)
     return out
 
 
 # ---------------------------------------------------------------------------
-# serving (mirrors transformer.py; MLP -> MoE)
+# training trunk and serving (mirror transformer.py; MLP -> MoE)
+
+
+def features(params: transformer.Transformer, cfg: ModelConfig, tokens=None, embeds=None, *,
+             remat: Optional[bool] = None, block_k: int = 1024, dispatch: Optional[str] = None):
+    """Trunk -> (post-norm h (B, S, D), head weight as stored, aux loss f32)
+    for the fused CE path, the load-balance losses of every layer summed.
+    Each layer is one remat block (the reference's moe ignores
+    ``remat_every``); ``block_k`` defaults to 1024 here, as the
+    reference's (not ``cfg.attn_block_k``). Routing runs the serving path's
+    ops, so under grad it picks the same experts, ties and capacity drops
+    included."""
+    cdt = common.dt(cfg.compute_dtype)
+    h = transformer._embed_in(params, cfg, tokens, embeds)
+    b, l, _ = h.shape
+    positions = common.causal_positions(b, l, h.device)
+
+    def block(h, aux, blk):
+        layer = blk.tree(cdt)
+        x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
+        h = h + attention.apply_train(layer["attn"], cfg, x, positions, block_k=block_k)
+        x = common.rms_norm(h, layer["ln2"], cfg.norm_eps)
+        y, a = moe_ffn(layer, cfg, x, dispatch, with_aux=True)
+        return h + y, aux + a
+
+    use_remat = cfg.remat if remat is None else remat
+    block = common.maybe_remat(block, use_remat, cfg.remat_policy)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for blk in params.layers:
+        h, aux = block(h, aux, blk)
+    h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
+    return h, transformer._head_param(params, cfg), aux
+
 
 
 @torch.no_grad()

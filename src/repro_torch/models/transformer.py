@@ -1,5 +1,5 @@
-"""Dense decoder-only LM (smollm / qwen2.5 / internlm2 / qwen1.5-110b), forward only;
-also the backbone of the vlm family (``models/vlm.py``: embeds in, M-RoPE).
+"""Dense decoder-only LM (smollm / qwen2.5 / internlm2 / qwen1.5-110b); also the
+backbone of the vlm family (``models/vlm.py``: embeds in, M-RoPE).
 
 Mirrors repro/models/transformer.py. Parameters are ``common.ParamTree``
 nodes under the reference's names, one node per layer (the reference
@@ -12,6 +12,11 @@ the reference's ``constrain_tree`` does. Logits are f32 over
 PyTorch runs eagerly, so there is no counterpart of the reference's
 ``lax.scan`` or ``jax.jit``: layers are a Python loop, and ``decode_step``
 writes the new K/V into the cache tensors in place.
+
+``features`` is the training trunk (the loss's input): it runs with
+autograd, each layer (or each ``remat_every`` layers) under
+``common.maybe_remat``, attention through ``common.AttentionFn``; the
+serving functions run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -99,6 +104,12 @@ def _head_w(params: Transformer, cfg: ModelConfig, dtype):
     return common.cast(params, "lm_head", dtype)
 
 
+def _head_param(params: Transformer, cfg: ModelConfig):
+    """The output head as stored (the tied embedding's transpose for a tied
+    config), uncast: the fused CE casts it per chunk, as the reference's."""
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
 def _logits_out(params: Transformer, cfg: ModelConfig, h):
     h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
     return common.matmul_f32(h, _head_w(params, cfg, h.dtype))
@@ -127,6 +138,50 @@ def forward(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mro
                                       block_k=block_k)
         h = _mlp(layer, cfg, h)
     return _logits_out(params, cfg, h)
+
+
+def _block_train(cfg: ModelConfig, h, blk: nn.Module, positions, mrope_positions, block_k: int):
+    """One layer of the training trunk (the reference's ``_block_train``):
+    the layer's float leaves cast to the compute dtype where it runs (a
+    cast that carries the gradient), then attention and the MLP."""
+    layer = blk.tree(common.dt(cfg.compute_dtype))
+    x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
+    h = h + attention.apply_train(layer["attn"], cfg, x, positions, mrope_positions,
+                                  block_k=block_k)
+    return _mlp(layer, cfg, h)
+
+
+def features(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mrope_positions=None,
+             *, remat: Optional[bool] = None, block_k: Optional[int] = None):
+    """Trunk -> (post-final-norm h (B, S, D), head weight (D, Vp) as stored).
+
+    The loss pairs this with ``common.fused_ce_loss``, so the full logits
+    are never materialized. ``remat`` (default ``cfg.remat``) checkpoints
+    every ``cfg.remat_every`` layers as one block under
+    ``cfg.remat_policy``. Runs with autograd; ``forward`` is the serving
+    form.
+    """
+    block_k = block_k or cfg.attn_block_k
+    h = _embed_in(params, cfg, tokens, embeds)
+    b, l, _ = h.shape
+    positions = common.causal_positions(b, l, h.device)
+    use_remat = cfg.remat if remat is None else remat
+    k = max(cfg.remat_every, 1)
+    n = len(params.layers)
+    if n % k:
+        raise ValueError(f"remat_every {k} does not divide {n} layers")
+
+    def block(h, blks):
+        # k layers per checkpoint: the saved residuals scale as 1/k
+        for blk in blks:
+            h = _block_train(cfg, h, blk, positions, mrope_positions, block_k)
+        return h
+
+    block = common.maybe_remat(block, use_remat, cfg.remat_policy)
+    for i in range(0, n, k):
+        h = block(h, params.layers[i:i + k])
+    h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
+    return h, _head_param(params, cfg)
 
 
 # ---------------------------------------------------------------------------

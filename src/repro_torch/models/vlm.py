@@ -1,4 +1,4 @@
-"""Qwen2-VL-7B text backbone (M-RoPE), forward only (mirrors repro/models/vlm.py).
+"""Qwen2-VL-7B text backbone (M-RoPE) (mirrors repro/models/vlm.py).
 
 The vision tower is a stub, as in the reference: inputs are precomputed
 patch/token embeddings (B, S, D) and (3, B, S) M-RoPE position ids
@@ -20,6 +20,12 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> transform
 
 def forward(params, cfg: ModelConfig, embeds, mrope_positions, **kw):
     return transformer.forward(params, cfg, embeds=embeds, mrope_positions=mrope_positions, **kw)
+
+
+def features(params, cfg: ModelConfig, embeds, mrope_positions, **kw):
+    """The training trunk from ``embeds`` (B, S, D) and (3, B, S)
+    ``mrope_positions``: ``transformer.features``'s (h, head weight)."""
+    return transformer.features(params, cfg, embeds=embeds, mrope_positions=mrope_positions, **kw)
 
 
 def prefill(params, cfg: ModelConfig, embeds, mrope_positions, *, max_len: int, **kw):

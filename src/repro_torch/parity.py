@@ -6,7 +6,8 @@ module needs no JAX. Layer leaves are stacked on a leading L axis there and
 split onto ``layers.<i>`` here (whisper's ``enc_layers`` and ``dec_layers``
 onto ``enc_layers.<i>`` and ``dec_layers.<i>``), and nested subtrees (the moe family's
 ``experts`` and ``shared``) keep their paths; the result loads with the
-port's model's ``load_state_dict(..., strict=True)``.
+port's model's ``load_state_dict(..., strict=True)``. ``tree_from_state``
+goes the other way, for gradients held against ``jax.grad``'s.
 """
 from __future__ import annotations
 
@@ -49,6 +50,34 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
         else:
             state[name] = _tensor(leaf)
     return state
+
+
+def tree_from_state(state: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``params_from_jax``, for a gradient (or parameter)
+    dict keyed by ``state_dict`` names: ``layers.<i>.*`` (and whisper's
+    stacks) stacked back onto a leading L axis, dotted names nested, every
+    leaf numpy (bf16 as f32), so that each leaf lines up with the
+    reference's tree (``jax.grad``'s)."""
+    tree: dict = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    for name, t in state.items():
+        stack, _, rest = name.partition(".")
+        idx, _, leaf = rest.partition(".")
+        if stack in _STACKS and idx.isdigit():
+            stacked.setdefault((stack, *leaf.split(".")), {})[int(idx)] = host(t)
+        else:
+            stacked[tuple(name.split("."))] = {-1: host(t)}
+    for path, parts in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = parts[-1] if -1 in parts else np.stack([parts[i] for i in sorted(parts)])
+    return tree
 
 
 def assert_close(actual, expected, *, atol: float, rtol: float = 0.0, what: str = ""):

@@ -1230,3 +1230,132 @@ def test_sharded_engine_on_card_equals_cpu(card, chunk):
     assert torch.equal(t2, t1)
     assert e2.engine_steps <= l2["tiered_segmented"] <= 2 * e2.engine_steps
 
+
+
+# ---------------------------------------------------------------------------
+# training: B5's softmax stats, the attention Function, and the wrappers'
+# refusal of autograd
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,d,lq,lk,q_offset", [(15, 5, 64, 512, 512, 0), (16, 2, 128, 130, 200, 70),
+                                                     (4, 4, 64, 1, 77, 76), (3, 1, 64, 700, 700, 0)])
+def test_flash_lse_against_plain(attn, dtype, hq, hkv, d, lq, lk, q_offset):
+    """B5 asked for its stats: the output is the launch without them bit
+    for bit, and the lse (B, Hq, Lq) f32 is the plain version's within 1e-4
+    (both m + log(l) over the same f32 scores; the kernel's exponentials on
+    the special-function unit, 2^-22 each)."""
+    fa, _ = attn
+    q = _randn((2, hq, lq, d), 7, dtype)
+    k, v = _randn((2, hkv, lk, d), 8, dtype), _randn((2, hkv, lk, d), 9, dtype)
+    kw = dict(causal=True, lk_valid=lk, q_offset=q_offset)
+    before = fa.LAUNCHES["flash_attention"]
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    bare = fa.flash_attention(q, k, v, **kw)
+    plain, plain_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 2
+    assert torch.equal(out, bare)
+    _close(out, plain)
+    assert lse.shape == (2, hq, lq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, plain_lse, rtol=0, atol=1e-4)
+
+
+def _wrapper_cases():
+    from repro_torch.kernels import (flash_attention as fa, mamba2_scan, paged_attention as pa,
+                                     rwkv6_scan, tiered_gather)
+
+    def flash(r):
+        return [r(1, 4, 64, 64), r(1, 2, 64, 64), r(1, 2, 64, 64)], lambda q, k, v: fa.flash_attention(q, k, v)
+
+    def paged(r):
+        def fn(q, kc, vc):
+            kp, vp, table = pa.cache_as_pages(kc, vc, 16)
+            return pa.paged_attention(q, kp, vp, table, torch.tensor([5, 32], dtype=torch.int32, device="cuda"))
+        return [r(2, 4, 64), r(2, 2, 32, 64), r(2, 2, 32, 64)], fn
+
+    def wkv6(r):
+        return ([r(1, 8, 2, 16), r(1, 8, 2, 16), r(1, 8, 2, 16), -r(1, 8, 2, 16).abs(), r(2, 16)],
+                lambda *a: rwkv6_scan.wkv6_chunked(*a))
+
+    def ssd(r):
+        return ([r(1, 8, 2, 16), r(1, 8, 2).abs(), -r(2).abs(), r(1, 8, 16), r(1, 8, 16), r(2)],
+                lambda *a: mamba2_scan.ssd_chunked(*a))
+
+    ids = lambda: torch.tensor([0, 5, 2, 9], dtype=torch.int32, device="cuda")
+    maps = lambda: (torch.tensor([0] * 4 + [1] * 12, dtype=torch.int32, device="cuda"),
+                    torch.tensor(list(range(16)), dtype=torch.int32, device="cuda"))
+    cold = lambda: torch.zeros((16, 24), dtype=torch.int8, device="cuda")
+
+    def gather(r):
+        return [r(16, 24)], lambda src: tiered_gather.gather_rows(src, ids())
+
+    def lookup(r):
+        return [r(4, 24)], lambda hot: tiered_gather.tiered_lookup_counted(hot, cold(), r(16), *maps(), ids())
+
+    def segments(r):
+        seg = lambda: torch.tensor([0, 0, 1, 1], dtype=torch.int32, device="cuda")
+        return [r(4, 24)], lambda hot: tiered_gather.tiered_lookup_segments(hot, cold(), r(16), *maps(), ids(),
+                                                                          seg(), 2)
+
+    return {"flash_attention": flash, "paged_attention": paged, "wkv6": wkv6, "ssd": ssd,
+            "gather_rows": gather, "tiered_lookup_counted": lookup, "tiered_lookup_segments": segments}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention", "wkv6", "ssd", "gather_rows",
+                                  "tiered_lookup_counted", "tiered_lookup_segments"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(card, name):
+    """A kernel records no autograd history, so under grad mode an input
+    that requires grad raises and launches nothing; without grad, or with
+    no input requiring it, the same call launches."""
+    from repro_torch.kernels import launch_counts
+
+    g = torch.Generator().manual_seed(11)
+    r = lambda *shape: torch.randn(*shape, generator=g).cuda()
+    inputs, fn = _wrapper_cases()[name](r)
+    before = sum(launch_counts().values())
+    inputs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fn(*inputs)
+    assert sum(launch_counts().values()) == before
+    with torch.no_grad():
+        fn(*inputs)
+    inputs[0].requires_grad_(False)
+    fn(*inputs)
+    torch.cuda.synchronize()
+    assert sum(launch_counts().values()) == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hq,hkv,d,n,block_k", [(15, 5, 64, 300, 64), (4, 2, 128, 130, 256), (3, 1, 64, 64, 16)])
+def test_attention_fn_on_the_card_against_autograd_through_eager(attn, dtype, hq, hkv, d, n, block_k):
+    """AttentionFn on the card (B5 with its stats forward, the reference's
+    backward in plain PyTorch) against autograd through the plain eager
+    ``attention_chunked`` on the card. Both compute in f32 from the same
+    inputs: in f32 the kernel's TF32 products keep 21-22 bits, 2e-5 on the
+    outputs; in bf16 the forward's output and the backward's products'
+    operands round to bf16, where the eager attention also rounds p before
+    PV: held at the bf16 tolerance of the model tests, 2e-2."""
+    fa, _ = attn
+    from repro_torch.models import common
+
+    g = torch.Generator().manual_seed(12)
+    r = lambda *shape: torch.randn(*shape, generator=g).to(dtype).cuda()
+    base = [r(2, hq, n, d), r(2, hkv, n, d), r(2, hkv, n, d)]
+    dout = r(2, hq, n, d)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    got_in = [t.clone().requires_grad_(True) for t in base]
+    before = fa.LAUNCHES["flash_attention"]
+    out = common.attention_train(*got_in, causal=True, block_k=block_k)
+    assert fa.LAUNCHES["flash_attention"] - before == 1
+    got = torch.autograd.grad(out, got_in, dout)
+    want_in = [t.clone().requires_grad_(True) for t in base]
+    ref = common.attention_chunked(*want_in, causal=True, block_k=block_k)
+    want = torch.autograd.grad(ref, want_in, dout)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 1  # the eager reference launches nothing
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol * scale, msg=f"d{name}")
