@@ -40,6 +40,14 @@ Phases (any failure raises, so the script exits non-zero):
      the stated f32 tolerance of the plain version; each prompt split over
      a cluster of ``split_count`` blocks, whose clusters must all be
      resident on the card at once;
+   - the training forward's kernels: B5 with its softmax stats at every
+     training site (smollm-360m's layers, whisper-base's non-causal
+     encoder over 1,500 frames, its cross-attention of 4,096 queries over
+     them and its causal decoder, zamba2-1.2b's cast shared block), and B6
+     and B7 writing their chunk-entry states at a micro-batch of 2 x 4,096
+     tokens: outputs bit-equal to the launches without, stats and states
+     within their tolerances of the plain versions, all timed, the scans
+     also at a split of 1 and their chunked VJP;
 3. the main path: a device-tiered ``ServingEngine`` over full-width
    smollm-360m (32 layers, random weights from a seed) answering 16 Web1
    requests, each decode dispatch one replay of the decode the engine
@@ -113,16 +121,22 @@ Phases (any failure raises, so the script exits non-zero):
    shards (``model_shards``): bit-identical tokens, equal merged drained
    planes and books, B1 once per non-empty shard a step, no host read in
    a step that neither drains nor admits, one read a dirty shard a drain;
-8. training: the loss and gradients of reduced smollm and granite-moe
-   (head_dim 64, f32) on the card against the CPU; then full-width
-   smollm-360m taking 5 AdamW steps (clip_norm 1.0) through
-   ``make_train_step`` on one fixed batch of 8 x 4,096 tokens in 2
-   micro-batches, remat on: every attention layer's forward on B5 with
-   its softmax stats, twice a layer a micro-batch (forward and remat
-   recompute), the backward the reference's in plain PyTorch; no host
-   read inside a step; the loss falls; step time, tokens/s, peak memory
-   and the device-busy shares of one profiled step. Phase 2 holds B5 with
-   its stats at that shape to its plain version and times it.
+8. training: the loss and gradients of reduced smollm, granite-moe,
+   rwkv6, zamba2 and whisper (attention head_dim 64, f32; whisper over
+   100 frames) on the card against the CPU; then, through
+   ``make_train_step`` with AdamW (clip_norm 1.0) on one fixed batch of
+   sequences of 4,096 tokens in 2 micro-batches, remat on, at full width:
+   smollm-360m (8 sequences, 5 steps), zamba2-1.2b whole (4, 3 steps),
+   whisper-base whole (8 over 8 clips of 1,500 frames, 3 steps) and
+   rwkv6-7b cut to 4 of its 32 layers (4, 3 steps). Every attention
+   layer's forward runs on B5 with its softmax stats, every rwkv6 layer on
+   B6 and every Mamba2 layer on B7 writing their chunk-entry states, each
+   as often as remat recomputes it (``train_kernel_launches``); the
+   backwards run in plain PyTorch (the reference's attention backward, the
+   scans' chunked VJP); no host read inside a step; the loss falls; step
+   time, tokens/s, peak memory and the device-busy shares of one profiled
+   step. Phase 2 holds these kernels at these shapes to their plain
+   versions and times them.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -631,66 +645,96 @@ def attention_scaling():
     log("flash_attention [zamba2-1.2b] f32 causal prompts, ms: " + "; ".join(row))
 
 
-# the training phase: smollm-360m at train_4k's sequence length, with 8
-# sequences a step (cut from train_4k's 256) in 2 micro-batches of 4
-TRAIN_SEQ, TRAIN_ROWS, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 2, 5
+# the training phase: train_4k's sequence length at full width, each model
+# from random weights on one fixed batch in 2 micro-batches (its rows cut
+# from train_4k's 256 so that a step fits the smoke): smollm-360m 8 rows,
+# 5 steps; zamba2-1.2b and rwkv6-7b 4 rows, whisper-base 8 (over as many
+# clips of 1,500 frames), 3 steps; rwkv6-7b cut to 4 of its 32 layers (its
+# 7.6 B params with AdamW's state need ~122 GB, the card has 80)
+TRAIN_SEQ, TRAIN_ACCUM = 4096, 2
+TRAIN_RUNS = {  # arch -> (rows, steps, layers kept or None)
+    "smollm-360m": (8, 5, None),
+    "zamba2-1.2b": (4, 3, None),
+    "whisper-base": (8, 3, None),
+    "rwkv6-7b": (4, 3, 4),
+}
+# the full widths each run asserts: (layers, d_model, heads, kv heads, d_ff, vocab)
+TRAIN_WIDTHS = {"smollm-360m": (32, 960, 15, 5, 2560, 49152), "zamba2-1.2b": (38, 2048, 32, 32, 8192, 32000),
+                "whisper-base": (6, 512, 8, 8, 2048, 51865), "rwkv6-7b": (32, 4096, 64, 64, 14336, 65536)}
 TRAIN_LR = 1e-3
 # B5's lse against its plain version: both are m + log(l) over the same
 # f32 scores (exact bf16 products, summed in other orders), the kernel's
 # exponentials on the special-function unit (2^-22 relative each); over
 # 4,096 keys that moves log(l) by some 1e-6, and lse is O(10)
 LSE_TOL = 1e-4
+# B5 with its stats at the training forward's sites, bf16, a micro-batch
+# each: (model, site, rows, query heads, kv heads, Lq, Lk, causal)
+TRAIN_ATTN_SITES = [
+    ("smollm-360m", "self", 4, 15, 5, TRAIN_SEQ, TRAIN_SEQ, True),
+    ("whisper-base", "encoder", 4, 8, 8, 1500, 1500, False),
+    ("whisper-base", "self", 4, 8, 8, TRAIN_SEQ, TRAIN_SEQ, True),
+    ("whisper-base", "cross", 4, 8, 8, TRAIN_SEQ, 1500, False),
+    ("zamba2-1.2b", "shared", 2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, True),
+]
 
 
 def check_train_attention():
-    """B5 asked for its softmax stats at the training forward's shape:
-    smollm-360m's heads (15/5 of 64), bf16, causal, a micro-batch of
-    ``TRAIN_ROWS // TRAIN_ACCUM`` sequences of ``TRAIN_SEQ``. The output
-    within one bf16 step of the plain version and equal to the launch
-    without stats bit for bit; the lse within ``LSE_TOL``. Timed with and
-    without the stats, beside the plain version and one PyTorch call that
-    also returns a logsumexp (``aten._scaled_dot_product_flash_attention``,
-    K/V repeated to the query heads), with the bound."""
+    """B5 asked for its softmax stats at each training site
+    (``TRAIN_ATTN_SITES``): smollm-360m's causal layers, whisper-base's
+    non-causal encoder over 1,500 frames (23 key tiles of 64 and one of 28)
+    and cross-attention (4,096 queries over them) and its causal decoder,
+    zamba2-1.2b's cast shared block (32/32 heads). Each output within one
+    bf16 step of the plain version and equal to the launch without stats
+    bit for bit; the lse within ``LSE_TOL``. Timed with and without the
+    stats, beside the plain version and one PyTorch call that also returns
+    a logsumexp (``aten._scaled_dot_product_flash_attention``, K/V
+    repeated to the query heads), with the bound. Returns the rows by
+    "model site"."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
-    hq, hkv, d = ATTN_WIDTHS["smollm-360m"]
-    b, n = TRAIN_ROWS // TRAIN_ACCUM, TRAIN_SEQ
-    g = torch.Generator().manual_seed(6)
-    rand = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
-    q, k = rand(b, hq, n, d), rand(b, hkv, n, d)
-    v = rand(b, n, hkv * d).reshape(b, n, hkv, d).transpose(1, 2)  # the projection's view, as the model's
-    kw = dict(causal=True, lk_valid=n, q_offset=0)
-    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
-    bare = fa.flash_attention(q, k, v, **kw)
-    plain, plain_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
-    krep, vrep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
-    library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, krep, vrep, 0.0, True)
-    lib_lse = library()[1]
-    torch.cuda.synchronize()
-    lse_err = float((lse - plain_lse).abs().max())
-    assert torch.equal(out, bare), "B5's output changed when asked for its stats"
-    assert within_one_bf16_step(out, plain), "flash_attention with lse differs from plain"
-    assert lse.shape == (b, hq, n) and lse.dtype == torch.float32 and lse_err <= LSE_TOL, lse_err
-    nbytes = float(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4)  # q, o, k, v, lse
-    nops = 4.0 * b * hq * d * n * (n + 1) / 2
-    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
-    r = {"shapes": f"q ({b}, {hq}, {n}, {d}), k/v ({b}, {hkv}, {n}, {d}) bf16, causal, lse f32 ({b}, {hq}, {n})",
-         "max_abs_err": float((out.float() - plain.float()).abs().max()), "lse_max_abs_err": lse_err,
-         "lse_vs_library": float((lse - lib_lse.float()).abs().max()),
-         "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw, return_lse=True)),
-         "ms_without_lse": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
-         "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw, return_lse=True), reps=10),
-         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-         "library_ms": time_ms(library)}
-    log(f"flash_attention [training forward, with lse] {r['shapes']}: max_abs_err vs plain "
-        f"{r['max_abs_err']:.3e} (one bf16 step), lse {lse_err:.3e} (tolerance {LSE_TOL}), lse vs the "
-        f"library's {r['lse_vs_library']:.3e}; kernel {r['ms']:.4f} ms, without lse {r['ms_without_lse']:.4f} ms, "
-        f"plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
-        f"{nops / 1e9:.1f} GFLOP), library {r['library_ms']:.4f} ms; at {b_ms / r['ms']:.4f} of its bound, "
-        f"{r['ms'] / r['library_ms']:.3f}x the library's time")
-    return r
+    rows = {}
+    for i, (arch, site, b, hq, hkv, lq, lk, causal) in enumerate(TRAIN_ATTN_SITES):
+        d = 64
+        g = torch.Generator().manual_seed(6 + i)
+        rand = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
+        q, k = rand(b, hq, lq, d), rand(b, hkv, lk, d)
+        v = rand(b, lk, hkv * d).reshape(b, lk, hkv, d).transpose(1, 2)  # the projection's view, as the model's
+        kw = dict(causal=causal, lk_valid=lk, q_offset=0)
+        out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+        bare = fa.flash_attention(q, k, v, **kw)
+        plain, plain_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+        krep, vrep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, krep, vrep, 0.0, causal)
+        lib_lse = library()[1]
+        torch.cuda.synchronize()
+        lse_err = float((lse - plain_lse).abs().max())
+        label = f"{arch} {site}"
+        assert torch.equal(out, bare), f"B5's output changed when asked for its stats ({label})"
+        assert within_one_bf16_step(out, plain), f"flash_attention with lse differs from plain ({label})"
+        assert lse.shape == (b, hq, lq) and lse.dtype == torch.float32 and lse_err <= LSE_TOL, (label, lse_err)
+        nbytes = float(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4)  # q, o, k, v, lse
+        nops = 4.0 * b * hq * d * (lq * (lq + 1) / 2 if causal else lq * lk)
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        r = {"shapes": f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) bf16, "
+                       f"{'causal' if causal else 'non-causal'}, lse f32 ({b}, {hq}, {lq})",
+             "max_abs_err": float((out.float() - plain.float()).abs().max()), "lse_max_abs_err": lse_err,
+             "lse_vs_library": float((lse - lib_lse.float()).abs().max()),
+             "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw, return_lse=True)),
+             "ms_without_lse": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+             "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw, return_lse=True), reps=10),
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+             "library_ms": time_ms(library)}
+        log(f"flash_attention [training forward, {label}, with lse] {r['shapes']}: max_abs_err vs plain "
+            f"{r['max_abs_err']:.3e} (one bf16 step), lse {lse_err:.3e} (tolerance {LSE_TOL}), lse vs the "
+            f"library's {r['lse_vs_library']:.3e}; kernel {r['ms']:.4f} ms, without lse "
+            f"{r['ms_without_lse']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.1f} GFLOP), library {r['library_ms']:.4f} ms; at "
+            f"{b_ms / r['ms']:.4f} of its bound, {r['ms'] / r['library_ms']:.3f}x the library's time")
+        rows[label] = r
+        del q, k, v, krep, vrep, out, bare, plain, lse, plain_lse
+    return rows
 
 
 SCAN_CHUNK = 32  # the scan kernels' chunk (kC in csrc/wkv6.cu and csrc/ssd.cu)
@@ -829,6 +873,84 @@ def check_scans():
     return results
 
 
+TRAIN_SCAN_ROWS = 2  # a training micro-batch of the recurrent runs (4 rows in 2 micro-batches)
+
+
+def check_train_scans():
+    """B6 and B7 asked for their chunk-entry states at the training forward's
+    shape: a micro-batch of ``TRAIN_SCAN_ROWS`` x ``TRAIN_SEQ`` tokens,
+    rwkv6-7b's 64 heads of 64 and zamba2-1.2b's 64 heads of P = N = 64,
+    from a zero state as the models' layers start, the decays as
+    ``check_scans`` draws them. y and the final state equal the launch
+    without the states bit for bit; the states (B, H, 128, 64, 64) within
+    ``SCAN_RTOL`` of the plain version's (the sequential recurrence
+    sampled at every 32nd step), as y and the final state are. Timed with
+    the states at the wrapper's split (``split_count``: 2 at 2 x 64
+    sequences) and at a split of 1, without them, beside the plain version
+    and the bound (the states' bytes added); and the chunked VJP in plain
+    PyTorch that reads them (``ref.wkv6_vjp``, ``ref.ssd_vjp``), from
+    random cotangents. ``library_ms`` is null: no one PyTorch call
+    computes either scan."""
+    import torch
+
+    from repro_torch.kernels import mamba2_scan, rwkv6_scan
+    from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+
+    rng = np.random.default_rng(9)
+    t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+    normal = lambda *shape: t_(rng.standard_normal(shape))
+    b, t, h, hd = TRAIN_SCAN_ROWS, TRAIN_SEQ, 64, 64
+    c = -(-t // SCAN_CHUNK)
+    lw = t_(-np.minimum(np.exp(rng.normal(-1.0, 1.5, (b, t, h, hd))), 10.0))
+    dt = t_(np.log1p(np.exp(rng.normal(0.0, 1.5, (b, t, h)))))
+    specs = {
+        "wkv6": (wkv_ops, rwkv6_scan.wkv6_ref, rwkv6_scan.wkv6_vjp,
+                 [normal(b, t, h, hd), normal(b, t, h, hd), normal(b, t, h, hd), lw, normal(h, hd), None],
+                 wkv6_work(b, t, h, hd, False), "r, k, v, lw"),
+        "ssd": (ssd_ops, mamba2_scan.ssd_ref, mamba2_scan.ssd_vjp,
+                [normal(b, t, h, hd), dt, t_(-np.exp(rng.uniform(-2.0, 1.0, h))), normal(b, t, hd),
+                 normal(b, t, hd), normal(h), None],
+                ssd_work(b, t, h, hd, hd, False), "x"),
+    }
+    results = {}
+    for name, (ops, plain, vjp, args, (nbytes, nops), inputs) in specs.items():
+        split = ops.ref.split_count(t, b, h)
+        y, s, states = ops._launch(*args, None, split, return_states=True)
+        bare = ops._launch(*args, None, split)
+        y1, s1, states1 = ops._launch(*args, None, 1, return_states=True)
+        want = plain(*args, return_states=True)
+        torch.cuda.synchronize()
+        assert torch.equal(y, bare[0]) and torch.equal(s, bare[1]), f"{name}: y or the state moved with states"
+        assert states.shape == (b, h, c, hd, hd), states.shape
+        errs = {}
+        for label, got in (("split", (y, s, states)), ("split 1", (y1, s1, states1))):
+            for what, a, b_ in zip(("y", "final state", "chunk states"), got, want):
+                torch.testing.assert_close(a, b_, rtol=SCAN_RTOL, atol=SCAN_RTOL * float(b_.abs().max()),
+                                           msg=f"{name} {label} {what}")
+                errs[f"{label} {what}"] = float((a - b_).abs().max())
+        dy, ds = normal(*y.shape), normal(*s.shape)
+        state_bytes = 4.0 * b * h * c * hd * hd
+        b_ms, b_by = bound(nbytes + state_bytes, nops)
+        r = {"shapes": f"{inputs} ({b}, {t}, {h}, {hd}) f32, state zero, chunk states ({b}, {h}, {c}, {hd}, {hd})",
+             "max_abs_err": max(errs.values()), "errs": errs, "split": split,
+             "ms": time_ms(lambda: ops._launch(*args, None, split, return_states=True), reps=20),
+             "ms_without_states": time_ms(lambda: ops._launch(*args, None, split), reps=20),
+             "ms_split_1": time_ms(lambda: ops._launch(*args, None, 1, return_states=True), reps=20),
+             "plain_ms": time_ms(lambda: plain(*args, return_states=True), reps=3),
+             "vjp_ms": time_ms(lambda: vjp(*args, states, dy, ds), reps=5),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": nbytes + state_bytes, "ops": nops}
+        log(f"{name} [training forward, with chunk states] {r['shapes']}: max_abs_err vs plain {errs} (rtol "
+            f"{SCAN_RTOL}, atol {SCAN_RTOL} x max|plain|), y and final state bit-equal without states; kernel "
+            f"{r['ms']:.4f} ms at split {split}, without states {r['ms_without_states']:.4f} ms, with states at "
+            f"split 1 {r['ms_split_1']:.4f} ms, plain {r['plain_ms']:.1f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{r['bytes'] / 1e6:.1f} MB, {nops / 1e9:.2f} GFLOP; at {b_ms / r['ms']:.4f} of it), library none; "
+            f"its chunked VJP (plain PyTorch) {r['vjp_ms']:.3f} ms")
+        results[name] = r
+        del y, s, states, bare, y1, s1, states1, want
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the serving engine
 
@@ -949,9 +1071,10 @@ def flash_site_counts(sites: dict):
 
         def counted(*a, _site=site, _orig=orig, **k):
             n0 = fa.LAUNCHES["flash_attention"]
-            out = _orig(*a, **k)
-            counts[_site] += fa.LAUNCHES["flash_attention"] - n0
-            return out
+            try:
+                return _orig(*a, **k)
+            finally:  # a remat recompute that stops early leaves by an exception
+                counts[_site] += fa.LAUNCHES["flash_attention"] - n0
 
         saved.append((mod, attr, orig))
         setattr(mod, attr, counted)
@@ -1464,7 +1587,9 @@ def train_batch(cfg, rows: int, seq: int, seed: int, device: str) -> dict:
     """``rows`` sequences of ``seq`` tokens drawn with numpy from ``seed``,
     Zipf-like over the vocabulary (p ~ 1 / (rank + 10)), the labels the
     next token (the last position ignored): a fixed batch a model can
-    learn from in a few steps."""
+    learn from in a few steps. An audio model's batch also holds ``rows``
+    clips of its ``n_audio_frames`` frames (the front end's stub), normal
+    draws from the same generator."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -1472,47 +1597,65 @@ def train_batch(cfg, rows: int, seq: int, seed: int, device: str) -> dict:
     tokens = rng.choice(cfg.vocab_size, size=(rows, seq + 1), p=p / p.sum()).astype(np.int32)
     labels = tokens[:, 1:].copy()
     labels[:, -1] = -1
-    return {"tokens": torch.from_numpy(tokens[:, :-1].copy()).to(device),
-            "labels": torch.from_numpy(labels).to(device)}
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1].copy()).to(device),
+             "labels": torch.from_numpy(labels).to(device)}
+    if cfg.family == "audio":
+        frames = rng.standard_normal((rows, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+        batch["frames"] = torch.from_numpy(frames).to(device)
+    return batch
 
 
 def train_models():
     """Reduced configs the training path takes on the card: attention
-    head_dim 64 (the kernel's), f32 compute as ``.reduced()`` sets it (B5
-    on TF32 tensor cores, three products a product)."""
+    head_dim 64 (the kernel's), the scans' reduced 16, f32 compute as
+    ``.reduced()`` sets it (B5 on TF32 tensor cores, three products a
+    product; B6 and B7 f32); zamba2 with 5 layers (two groups of 2 and a
+    tail layer, so both nestings of its remat run), whisper over 100 frames
+    (a ragged key tile of 36)."""
     from repro_torch.configs import get_config
 
+    def reduced(arch, **kw):
+        return dataclasses.replace(get_config(arch).reduced(), **kw)
+
     return [
-        (dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3, n_kv_heads=1),
-         "smollm (head_dim 64, 3/1 heads)"),
-        (dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(), d_model=192, n_heads=3,
-                             n_kv_heads=1),
+        (reduced("smollm-360m", d_model=192, n_heads=3, n_kv_heads=1), "smollm (head_dim 64, 3/1 heads)"),
+        (reduced("granite-moe-3b-a800m", d_model=192, n_heads=3, n_kv_heads=1),
          "granite-moe (head_dim 64, 3/1 heads, 8 experts top-2)"),
+        (reduced("rwkv6-7b"), "rwkv6 (4 wkv heads of 16)"),
+        (reduced("zamba2-1.2b", d_model=128, n_heads=2, n_kv_heads=2, n_layers=5),
+         "zamba2 (5 layers, 16 SSD heads of 16, N 16; shared block 2/2 of 64)"),
+        (reduced("whisper-base", d_model=128, n_heads=2, n_kv_heads=2, n_audio_frames=100),
+         "whisper (2/2 heads of 64, 100 frames)"),
     ]
 
 
 # the reduced loss and gradients on the card against the CPU: both f32,
 # B5's products on the card are three TF32 products (21-22 bits, 2e-5 on
 # its outputs against plain) and every sum runs in another order, which
-# two layers carry into each gradient leaf at some 1e-5 of its scale
+# two layers carry into each gradient leaf at some 1e-5 of its scale; the
+# scans' closed forms on the card against their sequential plain versions
+# within 1e-4 of each value, the VJP the same code on both
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 
 
 def train_reduced_card_vs_cpu():
     """One loss and gradient of each reduced training model on the card
-    (B5 in the attention Function's forward) and on the CPU (the plain
-    online softmax), from the same seed-0 weights and batch: the loss and
-    its metrics within ``TRAIN_LOSS_RTOL``, each gradient leaf within
-    ``TRAIN_GRAD_TOL`` of its largest magnitude; B5 launched twice a layer
-    on the card (the forward and its remat recompute)."""
+    (B5, B6, B7 in the Functions' forwards) and on the CPU (the plain
+    versions), from the same seed-0 weights and batch: the loss and its
+    metrics within ``TRAIN_LOSS_RTOL``, each gradient leaf within
+    ``TRAIN_GRAD_TOL`` of its largest magnitude; the kernels launched on
+    the card as ``train_kernel_launches`` gives (with remat: B5 twice a
+    layer, B6 twice a layer, B7 three times a grouped zamba2 layer), none
+    on the CPU."""
     import torch
 
-    from repro_torch.models.api import get_model, trainable
+    from repro_torch.models.api import get_model, train_kernel_launches, trainable
 
     out = {}
     for small, label in train_models():
         api = get_model(small)
+        want = {k: v for k, v in train_kernel_launches(small, 1).items() if k != "paged_attention"}
         res = {}
         for where in ("cuda", "cpu"):
             model = api.init(seed=0, device=where)
@@ -1522,8 +1665,8 @@ def train_reduced_card_vs_cpu():
             zero_launch_counts()
             loss, metrics = api.loss(model, train_batch(small, 4, 64, seed=1, device=where))
             grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True, materialize_grads=True)
-            launched = launch_counts()["flash_attention"]
-            assert launched == (2 * small.n_layers if where == "cuda" else 0), (label, where, launched)
+            launched = {k: launch_counts()[k] for k in want}
+            assert launched == (want if where == "cuda" else dict.fromkeys(want, 0)), (label, where, launched)
             res[where] = (loss.detach().cpu(), {k: v.detach().cpu() for k, v in metrics.items()},
                           {n: g.cpu() for n, g in zip(named, grads)})
         (lg, mg, gg), (lc, mc, gc) = res["cuda"], res["cpu"]
@@ -1533,26 +1676,34 @@ def train_reduced_card_vs_cpu():
         worst = max(float((gg[n] - gc[n]).abs().max()) / max(float(gc[n].abs().max()), 1e-30) for n in gc)
         assert worst <= TRAIN_GRAD_TOL and all(bool(torch.isfinite(g).all()) for g in gg.values()), (label, worst)
         log(f"training [{label}] on the card vs the CPU: loss {float(lg):.6f} vs {float(lc):.6f}, worst gradient "
-            f"leaf {worst:.3e} of its scale (tolerance {TRAIN_GRAD_TOL}), {len(gc)} leaves, B5 2 a layer")
-        out[label] = {"loss_card": float(lg), "loss_cpu": float(lc), "worst_grad_rel": worst}
+            f"leaf {worst:.3e} of its scale (tolerance {TRAIN_GRAD_TOL}), {len(gc)} leaves, launches {want}")
+        out[label] = {"loss_card": float(lg), "loss_cpu": float(lc), "worst_grad_rel": worst, "launches": want}
     return out
 
 
+# profiler ranges a profiled step wraps around the functions that make up
+# its device time: (module, function) -> label. ``matmul_f32``'s range
+# covers only its operands' upcast, in every model module that calls it.
+TRAIN_RANGES = {("repro_torch.models.common", "matmul_f32"): "train.upcast",
+                ("repro_torch.models.common", "_attention_bwd"): "train.attention_bwd",
+                ("repro_torch.models.common", "_ce_chunk"): "train.fused_ce",
+                ("repro_torch.kernels.rwkv6_scan.ref", "wkv6_vjp"): "train.scan_vjp",
+                ("repro_torch.kernels.mamba2_scan.ref", "ssd_vjp"): "train.scan_vjp"}
+
+
 @contextlib.contextmanager
-def annotated(names: dict):
-    """Profiler ranges around functions of ``repro_torch.models.common``
-    for one profiled step, the functions themselves unchanged: each name of
-    ``names`` -> the range's label. ``matmul_f32``'s range covers only its
-    operands' upcast."""
+def annotated(ranges: dict):
+    """Profiler ranges around functions of the port for one profiled step,
+    the functions themselves unchanged: ``ranges`` (module, name) -> the
+    range's label. ``matmul_f32``'s range covers only its operands' upcast,
+    and it is wrapped in every loaded module that holds it by name."""
+    import importlib
+
     import torch
     from torch.profiler import record_function
 
-    from repro_torch.models import common
-
-    saved = {n: getattr(common, n) for n in names}
-
     def upcast_matmul(a, b):
-        with record_function(names["matmul_f32"]):
+        with record_function(ranges[("repro_torch.models.common", "matmul_f32")]):
             a, b = a.float(), b.float()
         return torch.matmul(a, b)
 
@@ -1562,13 +1713,22 @@ def annotated(names: dict):
                 return fn(*a, **k)
         return inner
 
+    saved = []
+    for (mod_name, attr), label in ranges.items():
+        mod = importlib.import_module(mod_name)
+        orig = getattr(mod, attr)
+        holders = [mod]
+        if attr == "matmul_f32":
+            holders += [m for n, m in list(sys.modules.items())
+                        if n.startswith("repro_torch.") and m is not mod and getattr(m, attr, None) is orig]
+        for m in holders:
+            saved.append((m, attr, orig))
+            setattr(m, attr, upcast_matmul if attr == "matmul_f32" else ranged(orig, label))
     try:
-        for n, label in names.items():
-            setattr(common, n, upcast_matmul if n == "matmul_f32" else ranged(saved[n], label))
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(common, n, fn)
+        for m, attr, orig in saved:
+            setattr(m, attr, orig)
 
 
 def range_device_ms(prof, label: str, ops=None, backward: bool = False) -> float:
@@ -1607,45 +1767,64 @@ def range_device_ms(prof, label: str, ops=None, backward: bool = False) -> float
     return total / 1e3
 
 
-def train_full_width(card: str):
-    """smollm-360m at full width (32 layers, d 960, 15/5 heads of 64, tied
-    49,152 vocabulary) taking ``TRAIN_STEPS`` AdamW steps (clip_norm 1.0) on
-    one fixed batch of ``TRAIN_ROWS`` x ``TRAIN_SEQ`` tokens in
-    ``TRAIN_ACCUM`` micro-batches, remat on. Every step: B5 launched
-    2 x 32 a micro-batch (forward and remat recompute) and no other
-    kernel of the port; no host read inside it (CUDA sync checking on);
-    the metrics read at its end. The loss must fall from step 1 to the
-    last, the gradient norm stay finite. Then one more step under the
-    profiler for where its device time goes."""
+# the scan kernels' and B5's kernels by name in a profile
+KERNEL_KEYS = {"flash_attention": "fa_tc_kernel", "wkv6": "wkv6_", "ssd": "ssd_"}
+
+
+def train_full_width(card: str, arch: str):
+    """One model of ``TRAIN_RUNS`` at full width (depth cut where the run
+    says), random seed-0 weights, taking its steps of AdamW (clip_norm 1.0)
+    through ``make_train_step`` on one fixed batch of rows x ``TRAIN_SEQ``
+    tokens in ``TRAIN_ACCUM`` micro-batches, remat on. Every step launches
+    the model kernels exactly as ``train_kernel_launches`` gives (B5 with
+    its stats, B6 and B7 with their chunk-entry states) and no other
+    kernel of the port; no host read inside it (CUDA sync checking on); the
+    metrics read at its end. The loss must fall from step 1 to the last,
+    the gradient norm stay finite. Then one more step under the profiler
+    for where its device time goes: the kernels' forwards, the scans'
+    chunked VJP, the attention backward, the ``matmul_f32`` upcasts and the
+    fused CE, by the ranges of ``TRAIN_RANGES``. whisper-base's B5
+    launches are also counted by site (encoder, decoder self-attention,
+    cross-attention)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.models.api import get_model, make_train_step, trainable
+    from repro_torch.models.api import get_model, make_train_step, train_kernel_launches, trainable
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    cfg = dataclasses.replace(get_config("smollm-360m"), grad_accum=TRAIN_ACCUM)
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size, cfg.tie_embeddings,
-            cfg.remat, cfg.remat_policy) == (32, 960, 15, 5, 49152, True, True, "nothing"), cfg
+    rows, steps, layers = TRAIN_RUNS[arch]
+    full = get_config(arch)
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.d_ff, full.vocab_size) == \
+        TRAIN_WIDTHS[arch], full
+    cfg = dataclasses.replace(full, grad_accum=TRAIN_ACCUM, n_layers=layers or full.n_layers)
+    assert cfg.remat and cfg.remat_policy == "nothing", cfg
+    cuts = [f"{rows} sequences a step (train_4k's 256)"] + (
+        [f"{layers} of {full.n_layers} layers (the 7.6 B params and AdamW state need ~122 GB)"] if layers else [])
     api = get_model(cfg)
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold on the card
     model = api.init(seed=0, device="cuda")
-    batch = train_batch(cfg, TRAIN_ROWS, TRAIN_SEQ, seed=0, device="cuda")
+    batch = train_batch(cfg, rows, TRAIN_SEQ, seed=0, device="cuda")
     named = trainable(model)
     n_params = sum(p.numel() for p in named.values())
     state = adamw_init({n: p.detach() for n, p in named.items()})
     step = make_train_step(api, AdamWConfig(lr=TRAIN_LR, clip_norm=1.0))
-    log(f"training smollm-360m: {n_params / 1e6:.1f} M params, {len(named)} leaves, batch {TRAIN_ROWS} x "
-        f"{TRAIN_SEQ} in {TRAIN_ACCUM} micro-batches, set-up {time.perf_counter() - t0:.1f} s")
+    want = {k: v for k, v in train_kernel_launches(cfg, TRAIN_ACCUM).items() if v}
+    sites = {"encoder": ("repro_torch.models.whisper", "_encode"),
+             "decoder": ("repro_torch.models.whisper", "_dec_block"),
+             "cross": ("repro_torch.models.whisper", "_cross_attend")} if cfg.family == "audio" else {}
+    log(f"training {arch}: {n_params / 1e6:.1f} M params, {len(named)} leaves, batch {rows} x {TRAIN_SEQ} in "
+        f"{TRAIN_ACCUM} micro-batches, cuts: {'; '.join(cuts)}; kernels a step {want}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hist, step_ms, b5 = [], [], []
-    for i in range(TRAIN_STEPS):
+    hist, step_ms, launched, by_site = [], [], [], []
+    for i in range(steps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         zero_launch_counts()
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, flash_site_counts(sites) as site_counts:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
@@ -1660,23 +1839,22 @@ def train_full_width(card: str):
         torch.cuda.synchronize()  # the step's end: its metrics are read here
         hist.append({k: float(v) for k, v in m.items()})
         step_ms.append(s.elapsed_time(e))
-        b5.append(counts["flash_attention"])
-        log(f"training step {i + 1}: loss {hist[-1]['loss']:.5f} (z {hist[-1]['zloss']:.5f}, accuracy "
+        launched.append({k: v for k, v in counts.items() if v})
+        by_site.append(dict(site_counts))
+        log(f"training {arch} step {i + 1}: loss {hist[-1]['loss']:.5f} (z {hist[-1]['zloss']:.5f}, accuracy "
             f"{hist[-1]['accuracy']:.5f}), grad_norm {hist[-1]['grad_norm']:.4f}, {step_ms[-1]:.1f} ms "
-            f"(device timeline), B5 launches {b5[-1]}, sync warnings {len(syncs)} {syncs[:2]}")
+            f"(device timeline), launches {launched[-1]}{f' by site {by_site[-1]}' if sites else ''}, "
+            f"sync warnings {len(syncs)} {syncs[:2]}")
         assert not syncs, syncs
-        assert counts["flash_attention"] == 2 * TRAIN_ACCUM * cfg.n_layers, counts
-        assert sum(counts.values()) == counts["flash_attention"], counts
+        assert launched[-1] == want, (launched[-1], want)
         assert np.isfinite(hist[-1]["loss"]) and np.isfinite(hist[-1]["grad_norm"]), hist[-1]
     assert hist[-1]["loss"] < hist[0]["loss"], [h["loss"] for h in hist]
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_ROWS * TRAIN_SEQ
+    tokens = rows * TRAIN_SEQ
     steady = float(np.median(step_ms[1:]))
     # one more step under the profiler
-    labels = {"matmul_f32": "train.upcast", "_attention_bwd": "train.attention_bwd",
-              "_ce_chunk": "train.fused_ce"}
     torch.cuda.synchronize()
-    with annotated(labels), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with annotated(TRAIN_RANGES), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model, state, m = step(model, state, batch)
         torch.cuda.synchronize()
     dev_us = lambda ev: getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
@@ -1684,33 +1862,31 @@ def train_full_width(card: str):
             and not ev.key.startswith("train.")]
     busy = sum(dev_us(ev) for ev in avgs) / 1e3
     top = sorted(avgs, key=dev_us, reverse=True)[:8]
-    b5_ms = sum(dev_us(ev) for ev in avgs if "fa_tc_kernel" in ev.key) / 1e3
-    bwd_ms = range_device_ms(prof, labels["_attention_bwd"])
-    bwd_products_ms = range_device_ms(prof, labels["_attention_bwd"], ("aten::mm", "aten::bmm"))
-    upcast_ms = range_device_ms(prof, labels["matmul_f32"])
+    device_ms = {k: sum(dev_us(ev) for ev in avgs if key in ev.key) / 1e3
+                 for k, key in KERNEL_KEYS.items() if k in want}
+    labels = set(TRAIN_RANGES.values())
+    device_ms.update({lab.split(".")[1]: range_device_ms(prof, lab) for lab in labels if lab != "train.fused_ce"})
+    if "flash_attention" in want:
+        device_ms["attention_bwd_products"] = range_device_ms(prof, "train.attention_bwd", ("aten::mm", "aten::bmm"))
     # the fused CE: its chunks' forward and remat recompute, and the
     # backward nodes of the forward's ops
-    ce_ms = range_device_ms(prof, labels["_ce_chunk"], backward=True)
-    shares = {"flash_attention (B5)": b5_ms / busy, "attention backward": bwd_ms / busy,
-              "attention backward products": bwd_products_ms / busy, "fused CE": ce_ms / busy,
-              "matmul_f32 upcasts": upcast_ms / busy}
+    device_ms["fused_ce"] = range_device_ms(prof, "train.fused_ce", backward=True)
+    shares = {k: v / busy for k, v in device_ms.items()}
     r = {"losses": [h_["loss"] for h_ in hist], "grad_norms": [h_["grad_norm"] for h_ in hist],
          "step_ms": step_ms, "steady_step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
          "peak_bytes": peak, "held_before_bytes": held, "busy_ms": busy, "idle_share": 1 - busy / steady,
-         "b5_launches_per_step": b5, "device_ms": {"b5": b5_ms, "attention_bwd": bwd_ms,
-                                                    "attention_bwd_products": bwd_products_ms,
-                                                    "fused_ce": ce_ms, "upcasts": upcast_ms},
-         "shares": shares, "params_m": n_params / 1e6}
-    log(f"training smollm-360m [{card}]: losses {r['losses']}; grad_norms {r['grad_norms']}")
-    log(f"training smollm-360m [{card}]: step {steady:.1f} ms (median of steps 2-{TRAIN_STEPS}, device "
-        f"timeline; step 1 {step_ms[0]:.1f} ms), {r['tokens_per_s']:.0f} tokens/s, peak device memory "
-        f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB earlier "
-        f"phases hold), device busy {busy:.1f} ms a profiled step (idle share {r['idle_share']:.4f})")
-    log(f"training smollm-360m [{card}]: device-busy shares " + "; ".join(
-        f"{k} {v:.4f}" for k, v in shares.items()) + f" (ms: {r['device_ms']})")
-    log(f"training smollm-360m [{card}]: top kernels of the profiled step: " + "; ".join(
+         "launches_per_step": launched, "device_ms": device_ms, "shares": shares, "params_m": n_params / 1e6,
+         "cuts": cuts, "rows": rows, "steps": steps, **({"flash_by_site": by_site} if sites else {})}
+    log(f"training {arch} [{card}]: losses {r['losses']}; grad_norms {r['grad_norms']}")
+    log(f"training {arch} [{card}]: step {steady:.1f} ms (median of steps 2-{steps}, device timeline; step 1 "
+        f"{step_ms[0]:.1f} ms), {r['tokens_per_s']:.0f} tokens/s, peak device memory {peak / 2**30:.2f} GiB "
+        f"({(peak - held) / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB earlier phases hold), device busy "
+        f"{busy:.1f} ms a profiled step (idle share {r['idle_share']:.4f})")
+    log(f"training {arch} [{card}]: device-busy shares " + "; ".join(
+        f"{k} {v:.4f}" for k, v in shares.items()) + f" (ms: {device_ms})")
+    log(f"training {arch} [{card}]: top kernels of the profiled step: " + "; ".join(
         f"{ev.key[:60]} {dev_us(ev) / 1e3:.1f} ms" for ev in top))
-    del model, state, batch
+    del model, state, batch, named, prof
     gc.collect()
     torch.cuda.empty_cache()
     return r
@@ -2143,6 +2319,7 @@ def main():
     attention_scaling()
     train_attention = check_train_attention()
     kernels.update(check_scans())
+    train_scans = check_train_scans()
     t2 = time.perf_counter()
     log(f"phase 2 {t2 - t_start:.1f} s")
     # phase 3: the main path (whole-slot, decode graphs), smollm-360m; 3b:
@@ -2210,15 +2387,18 @@ def main():
     sharded = serve_sharded(card, mp)
     log(f"phase 7 sharded {time.perf_counter() - t7:.1f} s")
 
-    # phase 8: training: reduced smollm and granite-moe losses and gradients
-    # on the card against the CPU, then full-width smollm-360m taking AdamW
-    # steps (its launch counts zeroed before each step, read after)
+    # phase 8: training: reduced losses and gradients of every family on
+    # the card against the CPU, then smollm-360m, zamba2-1.2b, whisper-base
+    # and rwkv6-7b (4 layers) at full width taking AdamW steps (their
+    # launch counts zeroed before each step, read after)
     t8 = time.perf_counter()
     train_reduced = train_reduced_card_vs_cpu()
-    t8f = time.perf_counter()
-    log(f"phase 8 reduced training card vs CPU {t8f - t8:.1f} s")
-    train = train_full_width(card)
-    log(f"phase 8 training smollm-360m {time.perf_counter() - t8f:.1f} s")
+    log(f"phase 8 reduced training card vs CPU {time.perf_counter() - t8:.1f} s")
+    train = {}
+    for arch in TRAIN_RUNS:
+        t8f = time.perf_counter()
+        train[arch] = train_full_width(card, arch)
+        log(f"phase 8 training {arch} {time.perf_counter() - t8f:.1f} s")
 
     # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
@@ -2243,12 +2423,29 @@ def main():
             "launches": paths[arch]["launches"][name]} for arch in MODELS_BESIDE}}
     kernels["flash_attention"]["whisper-base"].update(
         whisper_flash_sites(attention, paths["whisper-base"], keep))
-    # B5 on phase 8's training path: launches a step (2 x 32 a micro-batch),
-    # and phase 2's numbers at the training shape, with and without lse
+    # the kernels on phase 8's training paths: phase 2's numbers at each
+    # training shape (B5 with and without its lse, B6 and B7 with and
+    # without their chunk states), with the launches of the full-width
+    # run that makes them (summed over its steps; whisper-base's B5 by site)
+    keep_train = lambda r: {k: v for k, v in r.items() if k not in ("bytes", "errs")}
+    launches_of = lambda arch, name: [c.get(name, 0) for c in train[arch]["launches_per_step"]]
+    smol = launches_of("smollm-360m", "flash_attention")
     kernels["flash_attention"]["training"] = {
-        **{k: v for k, v in train_attention.items() if k != "bytes"},
-        "launches": sum(train["b5_launches_per_step"]), "launches_per_step": train["b5_launches_per_step"],
-        "launches_per_micro_batch": train["b5_launches_per_step"][0] // TRAIN_ACCUM}
+        **keep_train(train_attention["smollm-360m self"]), "launches": sum(smol), "launches_per_step": smol,
+        "launches_per_micro_batch": smol[0] // TRAIN_ACCUM}
+    whisper_sites = {site: sum(c[site] for c in train["whisper-base"]["flash_by_site"])
+                     for site in ("encoder", "decoder", "cross")}
+    site_launches = {"whisper-base encoder": whisper_sites["encoder"],
+                     "whisper-base self": whisper_sites["decoder"] - whisper_sites["cross"],
+                     "whisper-base cross": whisper_sites["cross"],
+                     "zamba2-1.2b shared": sum(launches_of("zamba2-1.2b", "flash_attention"))}
+    assert sum(site_launches[k] for k in site_launches if k.startswith("whisper")) == \
+        sum(launches_of("whisper-base", "flash_attention")), site_launches
+    kernels["flash_attention"]["training_sites"] = {
+        label: {**keep_train(train_attention[label]), "launches": n} for label, n in site_launches.items()}
+    for name, arch in (("wkv6", "rwkv6-7b"), ("ssd", "zamba2-1.2b")):
+        kernels[name]["training"] = {**keep_train(train_scans[name]), "launches": sum(launches_of(arch, name)),
+                                     "launches_per_step": launches_of(arch, name)}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kernels[name]
@@ -2261,14 +2458,14 @@ def main():
             **({"fleet_launches": fleet["launches"][name]} if carrier.get(name) == "smollm-360m" else {}),
             **({"sharded_launches": {n: v["launches"] for n, v in sharded.items()}}
                if name == "tiered_segmented" else {}),
-            **{k: r[k] for k in (*MODELS_BESIDE, "training", "shapes") if k in r},
+            **{k: r[k] for k in (*MODELS_BESIDE, "training", "training_sites", "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })
     log("decode step profiles: " + "; ".join(f"{arch} {p['profile']}" for arch, p in paths.items()))
     log("moe checks: " + json.dumps(moe_res))
     log("M-RoPE checks: " + json.dumps(vlm_res))
     log("sharded engine: " + json.dumps(sharded))
-    log("training: " + json.dumps({"reduced_card_vs_cpu": train_reduced, "smollm-360m": train}))
+    log("training: " + json.dumps({"reduced_card_vs_cpu": train_reduced, **train}))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -72,6 +72,17 @@
 // y_p = S_p . C over the row's lanes with a butterfly of shuffles, plus
 // D x_p. No shared memory and no chunk machinery.
 //
+// Chunk-entry states (training): given a pointer (null in serving), each
+// block also writes the state entering each of its chunks, (B, H, C, P,
+// N), which the backward in plain PyTorch reads (mamba2_scan/ref.py
+// ssd_vjp). Pass 1 copies its local state L (kept as L^T in shared memory
+// for the carry) at each chunk's start; a block that a state enters (every
+// block but the first of a zero state) adds, in pass 2, the fold's
+// correction exp(cwb before the chunk) S_in. So the states are the true
+// ones at every cluster split, and y and the final state stay bit-equal to
+// a launch without the pointer. The decode path writes S0 (or zeros) as
+// its one chunk's state.
+//
 // Every sum runs in a fixed order (no float atomics): two runs give the
 // same bits. x, dt, B and C are read in model layout through their strides
 // (unit stride along P and N); y and the state are contiguous. The entry
@@ -174,7 +185,8 @@ ssd_split_kernel(const float* __restrict__ x, long long x_sb, long long x_st, lo
                  const float* __restrict__ bm, long long b_sb, long long b_st,
                  const float* __restrict__ cm, long long c_sb, long long c_st,
                  const float* __restrict__ a_log_decay, const float* __restrict__ dskip,
-                 const float* s0, float* __restrict__ y, float* s_out, int T, int H) {
+                 const float* s0, float* __restrict__ y, float* s_out,
+                 float* __restrict__ chunk_states, int T, int H) {
   using LT = Layout<P, N>;
   constexpr int XL = LT::XL, NL = LT::NL, ML = LT::ML, SL = LT::SL;
   extern __shared__ float4 smem4[];
@@ -216,6 +228,9 @@ ssd_split_kernel(const float* __restrict__ x, long long x_sb, long long x_st, lo
   const float* cb = cm + b * c_sb;
   float* yb = y + (static_cast<long long>(b) * T * H + h) * P;  // + (t H) P + p
   const long long y_st = static_cast<long long>(H) * P;
+  // this sequence's chunk-entry states, (C, P, N), or null
+  float* csb = chunk_states != nullptr ? chunk_states + static_cast<long long>(bh) * n_chunks * P * N
+                                       : nullptr;
 
   // pass 1: local outputs and state, from zero
   float run = 0.0f;  // cwb before the chunk
@@ -231,6 +246,10 @@ ssd_split_kernel(const float* __restrict__ x, long long x_sb, long long x_st, lo
     xr.template store<XL>(xs, tid);
     br.template store<NL>(bs, tid);
     cr.template store<NL>(cs, tid);
+    if (csb != nullptr) {  // L at the chunk's start (L^T is stable until this chunk's last barrier)
+      float* dst = csb + static_cast<long long>(c) * P * N;
+      for (int j = tid; j < P * N; j += kThreads) dst[j] = lt[(j % N) * SL + j / N];
+    }
     const float cw = warp_scan(dtl * a, lane);  // every warp, the same bits
     const float cw_end = __shfl_sync(kAll, cw, kC - 1);
     if (tid < kC) {
@@ -385,8 +404,13 @@ ssd_split_kernel(const float* __restrict__ x, long long x_sb, long long x_st, lo
     cr.template store<NL>(cs, tid);
     const float cw = warp_scan(dtl * a, lane);
     if (tid < kC) ecw[lane] = expf(run + cw);
+    const float to_chunk = expf(run);  // the decay from S_in to the chunk's start
     run += __shfl_sync(kAll, cw, kC - 1);
     __syncthreads();
+    if (csb != nullptr) {  // the chunk's state: the local one pass 1 wrote, plus decay x S_in
+      float* dst = csb + static_cast<long long>(c) * P * N;
+      for (int j = tid; j < P * N; j += kThreads) dst[j] = fmaf(to_chunk, sint[(j % N) * SL + j / N], dst[j]);
+    }
     float carry[LT::RT][4];
     float4 yv[LT::RT];  // pass 1's outputs, read before the products
 #pragma unroll
@@ -426,7 +450,8 @@ ssd_decode_kernel(const float* __restrict__ x, long long x_sb, long long x_sh,
                   const float* __restrict__ bm, long long b_sb,
                   const float* __restrict__ cm, long long c_sb,
                   const float* __restrict__ a_log_decay, const float* __restrict__ dskip,
-                  const float* s0, float* __restrict__ y, float* s_out, int H) {
+                  const float* s0, float* __restrict__ y, float* s_out,
+                  float* __restrict__ chunk_states, int H) {
   constexpr int NG = N / 4;                 // lanes a row, float4 each
   constexpr int RPP = kThreads / NG;        // rows a pass of the block
   constexpr int RI = (P + RPP - 1) / RPP;   // rows a thread
@@ -464,6 +489,8 @@ ssd_decode_kernel(const float* __restrict__ x, long long x_sb, long long x_sh,
 #pragma unroll
     for (int off = 1; off < NG; off <<= 1) part += __shfl_xor_sync(kAll, part, off);
     if (p < P) {
+      if (chunk_states != nullptr)  // one chunk: the state entering it
+        *reinterpret_cast<float4*>(chunk_states + base + p * N + 4 * g) = s[i];
       *reinterpret_cast<float4*>(s_out + base + p * N + 4 * g) = v;
       if (g == 0) y[static_cast<long long>(bh) * P + p] = fmaf(dsk, xp, part);
     }
@@ -473,11 +500,12 @@ ssd_decode_kernel(const float* __restrict__ x, long long x_sb, long long x_sh,
 template <int P, int N>
 int launch(const float* x, const long long* xs, const float* dt, const long long* ds,
            const float* bm, const long long* bs, const float* cm, const long long* cs,
-           const float* a, const float* d, const float* s0, float* y, float* s_out, int b, int t,
-           int h, int n_split, cudaStream_t stream) {
+           const float* a, const float* d, const float* s0, float* y, float* s_out,
+           float* chunk_states, int b, int t, int h, int n_split, cudaStream_t stream) {
   if (t == 1 && n_split == 1) {
     ssd_decode_kernel<P, N><<<b * h, kThreads, 0, stream>>>(x, xs[0], xs[2], dt, ds[0], ds[2], bm,
-                                                            bs[0], cm, cs[0], a, d, s0, y, s_out, h);
+                                                            bs[0], cm, cs[0], a, d, s0, y, s_out,
+                                                            chunk_states, h);
     return static_cast<int>(cudaGetLastError());
   }
   auto kern = ssd_split_kernel<P, N>;
@@ -498,7 +526,7 @@ int launch(const float* x, const long long* xs, const float* dt, const long long
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, x, xs[0], xs[1], xs[2], dt, ds[0], ds[1], ds[2], bm, bs[0],
-                           bs[1], cm, cs[0], cs[1], a, d, s0, y, s_out, t, h);
+                           bs[1], cm, cs[0], cs[1], a, d, s0, y, s_out, chunk_states, t, h);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -536,21 +564,23 @@ const char* repro_error_string(int code) {
 // with strides {batch, step, head}; B and C (B, T, N) with strides {batch,
 // step}; unit stride along P and N; A and D (H,) f32 contiguous; s0 (B, H,
 // P, N) f32 contiguous and 16-byte aligned, or null for a zero state; y (B,
-// T, H, P) and s_out (B, H, P, N) f32 contiguous. s_out may be s0. P and N
-// each 16, 32 or 64; n_split, the blocks of a cluster each sequence is
-// split over, 1 to 8 (T = 1 with n_split = 1 takes the decode path).
+// T, H, P) and s_out (B, H, P, N) f32 contiguous. s_out may be s0.
+// chunk_states, null or (B, H, C, P, N) f32 contiguous with C = ceil(T /
+// 32): the state entering each chunk. P and N each 16, 32 or 64; n_split,
+// the blocks of a cluster each sequence is split over, 1 to 8 (T = 1 with
+// n_split = 1 takes the decode path).
 // Returns a CUDA error code (cudaErrorInvalidValue for a size not built or
 // a split outside 1..8).
 int ssd_forward(const float* x, const long long* x_strides, const float* dt,
                 const long long* dt_strides, const float* bm, const long long* b_strides,
                 const float* cm, const long long* c_strides, const float* a, const float* d,
-                const float* s0, float* y, float* s_out, int b, int t, int h, int p, int n,
-                int n_split, void* stream) {
+                const float* s0, float* y, float* s_out, float* chunk_states, int b, int t, int h,
+                int p, int n, int n_split, void* stream) {
   if (n_split < 1 || n_split > kMaxSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SSD_ARGS x, x_strides, dt, dt_strides, bm, b_strides, cm, c_strides, a, d, s0, y, s_out, \
-                 b, t, h, n_split, st
+                 chunk_states, b, t, h, n_split, st
 #define SSD_N(P)                                          \
   if (n == 16) return launch<P, 16>(SSD_ARGS);            \
   if (n == 32) return launch<P, 32>(SSD_ARGS);            \

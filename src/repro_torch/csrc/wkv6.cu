@@ -74,6 +74,18 @@
 // rows reduce with shuffles and the warps' partials in one small
 // shared-memory step.
 //
+// Chunk-entry states (training): given a pointer (null in serving), each
+// block also writes the state entering each of its chunks, (B, H, C, hd,
+// hd), which the backward in plain PyTorch reads (rwkv6_scan/ref.py
+// wkv6_vjp). Pass 1 stores the block's local state at each chunk's start
+// beside the carry's copy in shared memory; a block that a state enters
+// (every block but the first of a zero state) adds, in pass 2, the fold's
+// correction diag(exp(cwb before the chunk)) S_in, whose decay it has just
+// recomputed there. So the states are the true ones at every cluster
+// split, and y and the final state stay bit-equal to a launch without the
+// pointer: nothing they read changes. The decode path writes S0 (or
+// zeros) as its one chunk's state.
+//
 // Every sum runs in a fixed order (no float atomics): two runs give the
 // same bits. r, k, v and lw are read in model layout (B, T, H, hd) through
 // their strides (unit stride along hd); y and the state are contiguous. The
@@ -232,7 +244,7 @@ wkv6_split_kernel(const float* __restrict__ r, long long r_sb, long long r_st, l
                   const float* __restrict__ v, long long v_sb, long long v_st, long long v_sh,
                   const float* __restrict__ lw, long long w_sb, long long w_st, long long w_sh,
                   const float* __restrict__ u, const float* s0, float* __restrict__ y,
-                  float* s_out, int T, int H) {
+                  float* s_out, float* __restrict__ chunk_states, int T, int H) {
   using LT = Layout<HD>;
   constexpr int CPW = LT::CPW, EQ = LT::EQ, LD = LT::LD, TL = LT::TL, AL = LT::AL, SL = LT::SL;
   constexpr int YT = LT::YT, SK = LT::SK, YT2 = LT::YT2;
@@ -267,6 +279,9 @@ wkv6_split_kernel(const float* __restrict__ r, long long r_sb, long long r_st, l
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
   const float* wb = lw + b * w_sb + h * w_sh;
+  // this sequence's chunk-entry states, (C, HD, HD), or null
+  float* csb = chunk_states != nullptr ? chunk_states + static_cast<long long>(bh) * n_chunks * HD * HD
+                                       : nullptr;
   const long long y_st = static_cast<long long>(H) * HD;
   float* yb = y + (static_cast<long long>(b) * T * H + h) * HD;  // + t y_st + e
   // 16- or 8-byte loads of a lane's channels where every row allows them
@@ -342,11 +357,14 @@ wkv6_split_kernel(const float* __restrict__ r, long long r_sb, long long r_st, l
       pds[warp * kC + lane] = pd;
       pss[warp * kC + lane] = ps;
     }
-    if (st_owner) {  // L at the chunk's start, for the carry
+    if (st_owner) {  // L at the chunk's start, for the carry (and the chunk's state)
 #pragma unroll
-      for (int i = 0; i < SK; ++i)
-        *reinterpret_cast<float4*>(lt + (sg * SK + i) * SL + 4 * sq) =
-            make_float4(st[i][0], st[i][1], st[i][2], st[i][3]);
+      for (int i = 0; i < SK; ++i) {
+        const float4 l4 = make_float4(st[i][0], st[i][1], st[i][2], st[i][3]);
+        *reinterpret_cast<float4*>(lt + (sg * SK + i) * SL + 4 * sq) = l4;
+        if (csb != nullptr)
+          *reinterpret_cast<float4*>(csb + (static_cast<long long>(c) * HD + sg * SK + i) * HD + 4 * sq) = l4;
+      }
     }
     __syncthreads();  // (b)
 
@@ -521,9 +539,22 @@ wkv6_split_kernel(const float* __restrict__ r, long long r_sb, long long r_st, l
       const float prev = __shfl_up_sync(kAll, cw, 1);
       const float ce = lane > 0 ? prev : 0.0f;
       rtt[(e0 + j) * TL + lane] = rr[j] * ex2(run[j] + ce);
+      if (lane == 0) tails[e0 + j] = ex2(run[j]);  // the decay from S_in to the chunk's start
       run[j] += __shfl_sync(kAll, cw, kC - 1);
     }
     __syncthreads();
+    if (csb != nullptr) {  // the chunk's state: the local one pass 1 wrote, plus diag(decay) S_in
+      float* cs = csb + static_cast<long long>(c) * HD * HD;
+      for (int j = tid; j < HD * EQ; j += kThreads) {
+        const int kr = j / EQ, e = 4 * (j % EQ);
+        const float dk = tails[kr];
+        const float4 sv = ld4(sin + kr * SL + e);
+        float4* dst = reinterpret_cast<float4*>(cs + kr * HD + e);
+        const float4 lv = *dst;
+        *dst = make_float4(fmaf(dk, sv.x, lv.x), fmaf(dk, sv.y, lv.y), fmaf(dk, sv.z, lv.z),
+                           fmaf(dk, sv.w, lv.w));
+      }
+    }
     if (tid < LT::Y2_THREADS) {
       const int ty = g2 * YT2;
       float a2[YT2][4];
@@ -553,7 +584,7 @@ wkv6_decode_kernel(const float* __restrict__ r, long long r_sb, long long r_sh,
                    const float* __restrict__ v, long long v_sb, long long v_sh,
                    const float* __restrict__ lw, long long w_sb, long long w_sh,
                    const float* __restrict__ u, const float* s0, float* __restrict__ y,
-                   float* s_out, int H) {
+                   float* s_out, float* __restrict__ chunk_states, int H) {
   constexpr int NG = HD / 4;                // lanes a row, float4 each
   constexpr int RPP = kThreads / NG;        // rows a pass of the block
   constexpr int RI = (HD + RPP - 1) / RPP;  // rows a thread
@@ -588,10 +619,13 @@ wkv6_decode_kernel(const float* __restrict__ r, long long r_sb, long long r_sh,
     part.z = fmaf(rv[i], fmaf(ukr, vq.z, so.z), part.z);
     part.w = fmaf(rv[i], fmaf(ukr, vq.w, so.w), part.w);
     const float w = expf(wv[i]);
-    if (row < HD)
+    if (row < HD) {
       *reinterpret_cast<float4*>(s_out + base + row * HD + 4 * g) =
           make_float4(fmaf(w, so.x, kv[i] * vq.x), fmaf(w, so.y, kv[i] * vq.y),
                       fmaf(w, so.z, kv[i] * vq.z), fmaf(w, so.w, kv[i] * vq.w));
+      if (chunk_states != nullptr)  // one chunk: the state entering it
+        *reinterpret_cast<float4*>(chunk_states + base + row * HD + 4 * g) = so;
+    }
   }
 #pragma unroll
   for (int off = NG; off < 32; off <<= 1) {
@@ -614,12 +648,12 @@ wkv6_decode_kernel(const float* __restrict__ r, long long r_sb, long long r_sh,
 template <int HD>
 int launch(const float* r, const long long* rs, const float* k, const long long* ks,
            const float* v, const long long* vs, const float* lw, const long long* ws,
-           const float* u, const float* s0, float* y, float* s_out, int b, int t, int h,
-           int n_split, cudaStream_t stream) {
+           const float* u, const float* s0, float* y, float* s_out, float* chunk_states, int b,
+           int t, int h, int n_split, cudaStream_t stream) {
   if (t == 1 && n_split == 1) {
     wkv6_decode_kernel<HD><<<b * h, kThreads, 0, stream>>>(r, rs[0], rs[2], k, ks[0], ks[2], v,
                                                            vs[0], vs[2], lw, ws[0], ws[2], u, s0,
-                                                           y, s_out, h);
+                                                           y, s_out, chunk_states, h);
     return static_cast<int>(cudaGetLastError());
   }
   auto kern = wkv6_split_kernel<HD>;
@@ -640,7 +674,8 @@ int launch(const float* r, const long long* rs, const float* k, const long long*
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, r, rs[0], rs[1], rs[2], k, ks[0], ks[1], ks[2], v, vs[0],
-                           vs[1], vs[2], lw, ws[0], ws[1], ws[2], u, s0, y, s_out, t, h);
+                           vs[1], vs[2], lw, ws[0], ws[1], ws[2], u, s0, y, s_out, chunk_states, t,
+                           h);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -677,19 +712,22 @@ const char* repro_error_string(int code) {
 // r, k, v, lw (B, T, H, hd) f32, each with element strides {batch, token,
 // head} and unit stride along hd; u (H, hd) f32 contiguous; s0 (B, H, hd,
 // hd) f32 contiguous and 16-byte aligned, or null for a zero state; y (B, T,
-// H, hd) and s_out (B, H, hd, hd) f32 contiguous. s_out may be s0. hd 16,
-// 32 or 64; n_split, the blocks of a cluster each sequence is split over, 1
-// to 8 (T = 1 with n_split = 1 takes the decode path). Returns a CUDA error
-// code (cudaErrorInvalidValue for an hd not built or a split outside 1..8).
+// H, hd) and s_out (B, H, hd, hd) f32 contiguous. s_out may be s0.
+// chunk_states, null or (B, H, C, hd, hd) f32 contiguous with C = ceil(T /
+// 32): the state entering each chunk. hd 16, 32 or 64; n_split, the blocks
+// of a cluster each sequence is split over, 1 to 8 (T = 1 with n_split = 1
+// takes the decode path). Returns a CUDA error code (cudaErrorInvalidValue
+// for an hd not built or a split outside 1..8).
 int wkv6_forward(const float* r, const long long* r_strides, const float* k,
                  const long long* k_strides, const float* v, const long long* v_strides,
                  const float* lw, const long long* lw_strides, const float* u, const float* s0,
-                 float* y, float* s_out, int b, int t, int h, int hd, int n_split, void* stream) {
+                 float* y, float* s_out, float* chunk_states, int b, int t, int h, int hd,
+                 int n_split, void* stream) {
   if (n_split < 1 || n_split > kMaxSplit) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define WKV_ARGS r, r_strides, k, k_strides, v, v_strides, lw, lw_strides, u, s0, y, s_out, b, t, \
-                 h, n_split, st
+#define WKV_ARGS r, r_strides, k, k_strides, v, v_strides, lw, lw_strides, u, s0, y, s_out, \
+                 chunk_states, b, t, h, n_split, st
   if (hd == 16) return launch<16>(WKV_ARGS);
   if (hd == 32) return launch<32>(WKV_ARGS);
   if (hd == 64) return launch<64>(WKV_ARGS);

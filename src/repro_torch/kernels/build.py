@@ -160,3 +160,23 @@ def chunk_span(chunks: int, n_split: int, j: int):
     block takes floor(C / n) or one more, consecutive, and a block takes
     none when n > C."""
     return j * chunks // n_split, (j + 1) * chunks // n_split
+
+
+def to_chunks(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, T, ...) -> (B, C, chunk, ...), C = ceil(T / chunk), the last chunk
+    padded with zeros: a padded step of a scan (zero inputs, zero log
+    decay) leaves its state as it was, and its output is cut off."""
+    b, t = x.shape[:2]
+    pad = -t % chunk
+    if pad:
+        x = torch.cat([x, x.new_zeros((b, pad) + tuple(x.shape[2:]))], dim=1)
+    return x.reshape(b, (t + pad) // chunk, chunk, *x.shape[2:])
+
+
+def chunk_groups(chunks: int, per_chunk: int, budget: int = 1 << 26):
+    """Slices of a sequence's ``chunks`` chunks, each as many whole chunks
+    as keep ``per_chunk`` elements a chunk under ``budget``: the batched
+    VJPs take one group at a time, so their largest tensor stays ~256 MB
+    of f32 whatever the sequence's length."""
+    g = max(1, budget // max(per_chunk, 1))
+    return [slice(c, min(c + g, chunks)) for c in range(0, chunks, g)]

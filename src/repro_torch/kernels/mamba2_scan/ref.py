@@ -9,7 +9,7 @@ import torch
 from repro_torch.kernels import build
 
 
-def ssd_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None):
+def ssd_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, *, return_states: bool = False):
     """x: (b, T, H, P); dt: (b, T, H); A, D: (H,); B, C: (b, T, N);
     state: (b, H, P, N) or None (zeros).
 
@@ -17,18 +17,27 @@ def ssd_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None):
 
         S_t = exp(dt_t A) S_{t-1} + dt_t x_t B_t^T
         y_t = S_t C_t + D x_t
+
+    With ``return_states`` also the state entering each chunk of ``CHUNK``
+    steps, (b, H, C, P, N) f32 with C = ceil(T / CHUNK): the kernel's
+    chunk-entry states, which ``ssd_vjp`` reads.
     """
     b, t, h, p = x.shape
     n = B.shape[-1]
     x, dt, A, B, C, D = (a.float() for a in (x, dt, A, B, C, D))
     s = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) if state is None \
         else state.float()
-    ys = []
+    ys, states = [], []
     for i in range(t):
+        if i % CHUNK == 0:
+            states.append(s)
         da = torch.exp(dt[:, i] * A)  # (b, H), in (0, 1]
         s = s * da[..., None, None] + (dt[:, i, :, None] * x[:, i])[..., None] * B[:, i, None, None, :]
         ys.append(torch.einsum("bhpn,bn->bhp", s, C[:, i]))
-    return torch.stack(ys, dim=1) + x * D[None, None, :, None], s
+    y = torch.stack(ys, dim=1) + x * D[None, None, :, None]
+    if return_states:
+        return y, s, torch.stack(states, dim=2)
+    return y, s
 
 
 CHUNK = 32  # steps per chunk in the kernel (kC in csrc/ssd.cu)
@@ -109,3 +118,108 @@ def ssd_split_ref(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, n_spl
         if cwb is not None:
             y[:, t0:t1] += torch.exp(cwb)[..., None] * torch.einsum("btn,bhpn->bthp", C[:, t0:t1], s_blk)
     return y, s_in
+
+
+
+def _chunk_vjp(x, dt, A, B, C, D, s, dy, ds_out):
+    """The VJP of one chunk of the closed form, by hand, batched over a
+    group of G chunks: x, dy (b, G, n, H, P); dt (b, G, n, H); A and D
+    (H,); B and C (b, G, n, N); s and ds_out (b, G, H, P, N), the state
+    entering each chunk and the cotangent of the state leaving it -> (dx,
+    ddt, dA, dB, dC, dD).
+
+    Forward, per chunk (cw the inclusive cumulative sum of dt A; every
+    exponent <= 0):
+
+        M[t,s] = (C_t . B_s) exp(cw_t - cw_s) dt_s   (s <= t: y_t reads S_t)
+        y_t    = sum_s M[t,s] x_s + exp(cw_t) S C_t + D x_t
+        S'     = exp(cw_end) S + sum_s exp(cw_end - cw_s) dt_s x_s B_s^T
+
+    The gradient of each step's log decay dt_q A is summed directly over
+    the terms whose exponent holds it (pairs with s < q <= t, outputs at
+    and after q, the state's decay, state updates before q), never as a
+    difference of cumulative sums, which cancels to some 3e-4 of dA's
+    scale when the chunk's decays are strong."""
+    n = x.shape[2]
+    cw = torch.cumsum(dt * A, dim=2)  # (b, G, n, H)
+    tri = torch.tril(torch.ones(n, n, dtype=torch.bool, device=x.device))
+    seg = torch.exp(torch.where(tri[:, :, None], cw[:, :, :, None] - cw[:, :, None], -torch.inf))
+    gram = torch.einsum("bgtn,bgsn->bgts", C, B)
+    gs = gram[..., None] * seg  # (b, G, t, s, H)
+    m = gs * dt[:, :, None]
+    end = cw[:, :, -1:]  # (b, G, 1, H)
+    ecw, eend = torch.exp(cw), torch.exp(end - cw)
+    w = eend * dt
+    dm = torch.einsum("bgthp,bgshp->bgtsh", dy, x) * tri[:, :, None]
+    sc_dy = torch.einsum("bgthp,bghpn->bgthn", dy, s)  # dy_t S, (b, G, t, H, N)
+    xb_ds = torch.einsum("bgshp,bghpn->bgshn", x, ds_out)  # x_s dS', (b, G, s, H, N)
+    dx = torch.einsum("bgtsh,bgthp->bgshp", m, dy) + D[:, None] * dy
+    dx = dx + w[..., None] * torch.einsum("bghpn,bgsn->bgshp", ds_out, B)
+    dgram = (dm * seg * dt[:, :, None]).sum(-1)  # (b, G, t, s)
+    dC = torch.einsum("bgts,bgsn->bgtn", dgram, B) + torch.einsum("bgth,bgthn->bgtn", ecw, sc_dy)
+    dB = torch.einsum("bgts,bgtn->bgsn", dgram, C) + torch.einsum("bgsh,bgshn->bgsn", w, xb_ds)
+    dD = (dy * x).sum((0, 1, 2, 4))
+    g_upd = (xb_ds * B[:, :, :, None]).sum(-1)  # <dS', x_s B_s^T>, (b, G, s, H)
+    ddt = (dm * gs).sum(2) + eend * g_upd
+    # d(dt_q A): pairs (t, s) with s < q <= t; outputs t >= q through
+    # exp(cw_t); the state's decay; state updates s < q through exp(cw_end - cw_s)
+    wt = (dm * m).permute(0, 1, 4, 2, 3)  # (b, G, H, t, s)
+    dl = (wt.reshape(*wt.shape[:3], n * n) @ _straddle(n, x.device)).permute(0, 1, 3, 2)
+    v = ecw * (sc_dy * C[:, :, :, None]).sum(-1)
+    dl = dl + torch.flip(torch.cumsum(torch.flip(v, (2,)), 2), (2,))
+    dl = dl + (torch.exp(end[:, :, 0]) * (ds_out * s).sum((-1, -2)))[:, :, None]
+    u = w * g_upd
+    dl = dl + torch.cumsum(u, 2) - u
+    return dx, ddt + dl * A, (dl * dt).sum((0, 1, 2)), dB, dC, dD
+
+
+def _straddle(n: int, device) -> torch.Tensor:
+    """(n * n, n) f32 mask over a chunk's (t, s) pairs: entry ((t, s), q) is
+    1 where exp(cw_t - cw_s) holds step q's log decay, s < q <= t."""
+    i = torch.arange(n, device=device)
+    m = (i[None, :, None] < i[None, None, :]) & (i[None, None, :] <= i[:, None, None])
+    return m.reshape(n * n, n).float()
+
+
+def ssd_vjp(x, dt, A, B, C, D, state0, chunk_states, dy, ds_final):
+    """The VJP of ``ssd_ref`` (y with its D x skip, final_state) from the
+    states entering its chunks (``chunk_states``, (b, H, C, P, N), as the
+    kernel writes them): the cotangents dy (b, T, H, P) and ds_final (b, H,
+    P, N) or None -> (dx, ddt, dA, dB, dC, dD, dstate0), f32.
+
+    The reverse scan over the C chunks is the only sequential part, one
+    fused multiply-add on the (b, H, P, N) state a chunk:
+
+        dS_c = exp(cw_end,c) dS_{c+1} + sum_t exp(cw_t) dy_t C_t^T
+
+    (cw inclusive: y_t reads the state after step t). Every chunk then
+    takes its local VJP at once (``_chunk_vjp``), with the state entering
+    it a constant, in groups under ``build.chunk_groups``' budget.
+    """
+    del state0  # it enters through chunk_states[:, :, 0]
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    x, dt, A, B, C, D, dy = (a.float() for a in (x, dt, A, B, C, D, dy))
+    xc, dtc, bc, cc, dyc = (build.to_chunks(a, CHUNK) for a in (x, dt, B, C, dy))
+    c = xc.shape[1]
+    s_in = chunk_states.float().transpose(1, 2)  # (b, C, H, P, N)
+    cw = torch.cumsum(dtc * A, dim=2)
+    q = torch.einsum("bcthp,bctn->bchpn", dyc * torch.exp(cw)[..., None], cc)
+    decay = torch.exp(cw[:, :, -1])[..., None, None]  # (b, C, H, 1, 1)
+    ds_out = torch.empty_like(s_in)
+    cur = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) if ds_final is None \
+        else ds_final.float()
+    for i in reversed(range(c)):
+        ds_out[:, i] = cur
+        cur = decay[:, i] * cur + q[:, i]
+    grads = [torch.empty_like(a) for a in (xc, dtc, bc, cc)]
+    dA, dD = torch.zeros_like(A), torch.zeros_like(D)
+    for g in build.chunk_groups(c, b * h * max(p * n, CHUNK * CHUNK)):
+        gx, gdt, gA, gB, gC, gD = _chunk_vjp(xc[:, g], dtc[:, g], A, bc[:, g], cc[:, g], D, s_in[:, g],
+                                             dyc[:, g], ds_out[:, g])
+        for total, pt in zip(grads, (gx, gdt, gB, gC)):
+            total[:, g] = pt
+        dA += gA
+        dD += gD
+    dx, ddt, dB, dC = (a.reshape(b, c * CHUNK, *a.shape[3:])[:, :t] for a in grads)
+    return dx, ddt, dA, dB, dC, dD, cur

@@ -3,9 +3,10 @@
 Every family of the reference is ported for serving: dense
 (``transformer``), moe (``moe``), ssm (``rwkv6``), hybrid (``zamba2``),
 vlm (``vlm``: embeds and M-RoPE positions in) and audio (``whisper``:
-tokens and audio frames in). The loss, its gradients and the train step
-(``make_train_step``, AdamW) cover the families whose trunk is attention
-and MLP: dense, moe and vlm.
+tokens and audio frames in), and so are the loss, its gradients and the
+train step (``make_train_step``, AdamW) of every family: attention through
+``common.AttentionFn`` and the scans through ``WKV6Fn`` and ``SSDFn``,
+each a kernel forward on the card and a backward in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -48,11 +49,9 @@ class ModelAPI:
         """Trunk + fused sequence-chunked head and CE (+ the moe aux loss):
         (loss, metrics), every value an f32 tensor, differentiable w.r.t.
         the parameters that require grad. The full (B, S, Vp) logits are
-        never materialized (``common.fused_ce_loss``)."""
-        if self.family not in ("dense", "moe", "vlm"):
-            raise NotImplementedError(
-                f"the {self.family} family's loss and gradients (a differentiable scan or a backward "
-                "kernel for the recurrent families, whisper's casts and encoder) are ROADMAP A13")
+        never materialized (``common.fused_ce_loss``). The batch keys are
+        the reference's: ``tokens`` (and ``frames`` for audio, ``embeds``
+        and ``mrope_positions`` for vlm) and ``labels``."""
         cfg = self.cfg
         ce = functools.partial(common.fused_ce_loss, labels=batch["labels"], vocab_size=cfg.vocab_size)
         if self.family == "dense":
@@ -62,7 +61,11 @@ class ModelAPI:
             loss, metrics = ce(h, w)
             metrics["aux_loss"] = aux
             return loss + aux, metrics
-        return ce(*vlm.features(params, cfg, batch["embeds"], batch["mrope_positions"], remat=remat))
+        if self.family == "vlm":
+            return ce(*vlm.features(params, cfg, batch["embeds"], batch["mrope_positions"], remat=remat))
+        if self.family == "audio":
+            return ce(*whisper.features(params, cfg, batch["tokens"], batch["frames"], remat=remat))
+        return ce(*_PORTED[self.family].features(params, cfg, batch["tokens"], remat=remat))
 
     def prefill(self, params, batch: dict, *, max_len: int):
         """The reference's batch keys: ``embeds`` and ``mrope_positions`` for
@@ -105,6 +108,34 @@ def kernel_launches(cfg: ModelConfig, prefills: int, decodes: int) -> dict:
     apps = zamba2.n_attn_apps(cfg)
     return {"flash_attention": apps * prefills, "paged_attention": apps * decodes, "wkv6": 0,
             "ssd": n * (prefills + decodes)}
+
+
+def train_kernel_launches(cfg: ModelConfig, micro_batches: int, remat: Optional[bool] = None) -> dict:
+    """The model kernels' launches on the card over one train step of
+    ``micro_batches`` micro-batches (the loss and its gradients). Each
+    forward of an attention layer launches flash (B5) once, of an rwkv6
+    layer the WKV6 scan (B6), of a Mamba2 layer the SSD scan (B7); the
+    backwards are plain PyTorch and launch none. With remat (default
+    ``cfg.remat``) a checkpointed layer's forward runs again in the
+    backward: once more a dense, moe, vlm or rwkv6 layer and a whisper
+    decoder layer (self- and cross-attention; its encoder is not
+    checkpointed); zamba2 nests a checkpoint per Mamba2 layer inside one a
+    group, so a grouped Mamba2 layer runs three times, a tail layer twice
+    and each application of the shared block twice."""
+    runs = 2 if (cfg.remat if remat is None else remat) else 1
+    n = {"flash_attention": 0, "paged_attention": 0, "wkv6": 0, "ssd": 0}
+    if cfg.family in ("dense", "moe", "vlm"):
+        n["flash_attention"] = runs * cfg.n_layers
+    elif cfg.family == "audio":
+        n["flash_attention"] = cfg.n_encoder_layers + 2 * runs * cfg.n_layers
+    elif cfg.family == "ssm":
+        n["wkv6"] = runs * cfg.n_layers
+    else:
+        apps = zamba2.n_attn_apps(cfg)
+        grouped = apps * cfg.shared_attn_every
+        n["flash_attention"] = runs * apps
+        n["ssd"] = (2 * runs - 1) * grouped + runs * (cfg.n_layers - grouped)
+    return {k: v * micro_batches for k, v in n.items()}
 
 
 def trainable(params: torch.nn.Module) -> dict:

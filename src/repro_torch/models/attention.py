@@ -64,7 +64,7 @@ def attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
     and an input that requires grad) goes through ``common.attention_train``
     instead, whose forward is the same kernel (or the same reference) and
     whose backward is the reference's."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if common.needs_grad(q, k, v):
         return common.attention_train(q, k, v, causal=causal, block_k=block_k)
     if q.is_cuda:
         return flash_attention(q, k, v, causal=causal, lk_valid=k.shape[2], q_offset=0)

@@ -36,6 +36,14 @@ def dt(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
 
 
+def needs_grad(*tensors) -> bool:
+    """True in a training forward: grad mode on and an input that requires
+    grad. The models then take the ops' ``autograd.Function``s
+    (``AttentionFn``, ``WKV6Fn``, ``SSDFn``), whose forwards are the
+    kernels on the card."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in f32, whatever the inputs' type."""
     return torch.matmul(a.float(), b.float())

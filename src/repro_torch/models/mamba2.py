@@ -1,4 +1,4 @@
-"""Mamba2 (SSD) block, the state-space core of the zamba2 hybrid, forward only.
+"""Mamba2 (SSD) block, the state-space core of the zamba2 hybrid.
 
 Mirrors repro/models/mamba2.py. Per head (P = head dim, N = state dim):
 
@@ -9,6 +9,10 @@ with a causal depthwise conv in front of (x, B, C) and a gated RMSNorm
 after. The scan is ``kernels.mamba2_scan``'s ``ssd_chunked``: its plain
 version on the CPU, the hand-written kernel on the card. Decode state is
 O(1): the conv tail (B, K-1, C) and the SSM state (B, H, P, N), both f32.
+A training forward (``common.needs_grad``) takes ``ssd_train``: the same
+kernel writing its chunk-entry states, and the chunked VJP in plain
+PyTorch for the backward; it starts from zeros and takes no cache state,
+since autograd keeps what the scan reads and a cache is written in place.
 
 ``apply`` casts the block's float leaves to ``cfg.compute_dtype`` as the
 reference's ``constrain_tree`` does, ``A_log``, ``D``, ``dt_bias`` and the
@@ -22,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.mamba2_scan import ssd_chunked
+from repro_torch.kernels.mamba2_scan import ssd_chunked, ssd_train
 from repro_torch.models import common
 from repro_torch.models.common import ParamTree, matmul_f32
 
@@ -82,7 +86,9 @@ def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None,
     tensors are returned; without one the block starts from zeros. With a
     (B,) bool ``active`` beside the state, only its active rows are
     committed (the scan writes a new tensor first), so an inactive row
-    keeps its conv tail and SSM state bit for bit."""
+    keeps its conv tail and SSM state bit for bit. A training forward
+    (the block's leaves requiring grad under grad mode) runs ``ssd_train``
+    and refuses a given state."""
     p = {n: w.to(common.dt(cfg.compute_dtype)) if w.is_floating_point() else w
          for n, w in p.items()}
     b, t, _ = x.shape
@@ -100,9 +106,15 @@ def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None,
     xs, B, C = torch.split(conv_out, [d_in, ns, ns], dim=-1)
     xs = xs.reshape(b, t, nh, hd)
     dt = torch.logaddexp(dt_raw + p["dt_bias"], torch.zeros((), device=x.device))  # softplus
-    A = -torch.exp(p["A_log"])
-    y, ssm_state = ssd_chunked(xs, dt, A.float(), B, C, p["D"].float(), state["ssm"],
-                               inplace=inplace)
+    A = -torch.exp(p["A_log"]).float()
+    D = p["D"].float()
+    if common.needs_grad(xs, dt, A, B, C, D):
+        if given:
+            raise ValueError("a training forward takes no cache state: the scan's inputs are kept "
+                             "for the backward, and a cache is written in place")
+        y, ssm_state = ssd_train(xs, dt, A, B, C, D)
+    else:
+        y, ssm_state = ssd_chunked(xs, dt, A, B, C, D, state["ssm"], inplace=inplace)
     y = y.reshape(b, t, d_in)
     # gated RMSNorm (mamba2 style): norm(y * silu(z))
     y = y * F.silu(z)

@@ -1,4 +1,4 @@
-"""RWKV6 "Finch" (attention-free, data-dependent decay), forward only.
+"""RWKV6 "Finch" (attention-free, data-dependent decay).
 
 Mirrors repro/models/rwkv6.py. Time-mix: token shift with LoRA-modulated
 per-channel interpolation, then the WKV6 recurrence per head of
@@ -6,7 +6,9 @@ per-channel interpolation, then the WKV6 recurrence per head of
 with a receptance gate. The recurrence is ``kernels.rwkv6_scan``'s
 ``wkv6_chunked`` on the log-decay ``lw = -exp(w0 + xw w1 w2)``: its plain
 version on the CPU, the hand-written kernel on the card, once per layer
-per prefill and per decode step.
+per prefill and per decode step. A training forward (``features``) takes
+``wkv6_train`` instead: the same kernel writing its chunk-entry states,
+and the chunked VJP in plain PyTorch for the backward.
 
 Parameters are ``common.ParamTree`` nodes under the reference's names (its
 stacked ``layers`` leaves split onto one node per layer, as
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rwkv6_scan import wkv6_chunked
+from repro_torch.kernels.rwkv6_scan import wkv6_chunked, wkv6_train
 from repro_torch.models import common
 from repro_torch.models.common import ParamTree, frozen, layer_norm, matmul_f32
 
@@ -110,7 +112,9 @@ def _token_shift(x, prev):
 def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bool = True):
     """Returns (out (B, T, D), new shift (B, D), new wkv state). A given
     ``wkv_state`` (decode's, the cache's own tensor) is updated in place
-    unless ``inplace`` is False, when the new state is a new tensor."""
+    unless ``inplace`` is False, when the new state is a new tensor. A
+    training forward (``common.needs_grad``) takes ``wkv6_train``, which
+    never writes a given state."""
     b, t, d = x.shape
     hd = cfg.ssm_head_dim
     h = d // hd
@@ -129,9 +133,12 @@ def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bo
     k = proj(xk, att["wk"]).reshape(b, t, h, hd)
     v = proj(xv, att["wv"]).reshape(b, t, h, hd)
     g = F.silu(proj(xg, att["wg"]))
-    lw = -torch.exp(att["w0"] + matmul_f32(matmul_f32(xw, att["w1"]), att["w2"]))
-    y, wkv_state = wkv6_chunked(r, k, v, lw.reshape(b, t, h, hd), att["u"].float(), wkv_state,
-                                inplace=inplace and wkv_state is not None)
+    lw = -torch.exp(att["w0"] + matmul_f32(matmul_f32(xw, att["w1"]), att["w2"])).reshape(b, t, h, hd)
+    u = att["u"].float()
+    if common.needs_grad(r, k, v, lw, u, wkv_state):
+        y, wkv_state = wkv6_train(r, k, v, lw, u, wkv_state)
+    else:
+        y, wkv_state = wkv6_chunked(r, k, v, lw, u, wkv_state, inplace=inplace and wkv_state is not None)
     # per-head group norm, then gate and output projection
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
@@ -184,6 +191,29 @@ def _layers(params: RWKV6, cfg: ModelConfig, h):
 
 # ---------------------------------------------------------------------------
 # public API
+
+
+def features(params: RWKV6, cfg: ModelConfig, tokens, *, remat: Optional[bool] = None):
+    """Trunk -> (post-final-norm h (B, T, D), ``lm_head`` as stored), the
+    reference's ``features``: every layer from zero shifts and a zero wkv
+    state, its float leaves cast to the compute dtype where it runs (casts
+    that carry the gradient), under ``cfg.remat_policy`` per layer when
+    ``remat`` (default ``cfg.remat``). Runs with autograd; the scan is
+    ``wkv6_train`` (B6 on the card, twice a layer with remat: the forward
+    and its recompute). ``forward`` is the serving form."""
+    h = _embed(params, cfg, tokens)
+    b, _, d = h.shape
+    cdt = common.dt(cfg.compute_dtype)
+
+    def block(h, blk):
+        z = torch.zeros((b, d), dtype=torch.float32, device=h.device)
+        return _block(blk.tree(cdt), cfg, h, z, z, None, inplace=False)[0]
+
+    block = common.maybe_remat(block, cfg.remat if remat is None else remat, cfg.remat_policy)
+    for blk in params.layers:
+        h = block(h, blk)
+    h = layer_norm(h, params.final_norm.w, params.final_norm.b, cfg.norm_eps)
+    return h, params.lm_head
 
 
 @torch.no_grad()

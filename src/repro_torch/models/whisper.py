@@ -1,5 +1,5 @@
-"""Whisper-base backbone: encoder-decoder transformer, forward only
-(mirrors repro/models/whisper.py).
+"""Whisper-base backbone: encoder-decoder transformer (mirrors
+repro/models/whisper.py).
 
 The conv1d mel front end is a stub, as in the reference: the encoder takes
 precomputed frame embeddings (B, n_audio_frames, D). Sinusoidal positions,
@@ -22,6 +22,16 @@ Attention follows the tensors' device (``attention.attend`` /
 cross-attention run the flash kernel non-causal over every key, decoder
 self-attention the flash kernel in prefill and the paged kernel in decode;
 on the CPU the eager references run.
+
+``features`` is the training trunk (the reference's): the encoder's body
+(``_encode``, which the serving ``encode`` wraps under ``torch.no_grad``)
+and the decoder layers, each cast as in ``forward`` by casts that carry
+the gradient, each decoder layer a checkpoint with remat (the reference
+remats its decoder and not its encoder). Its attention is
+``common.AttentionFn``: B5 with its softmax stats on the card, non-causal
+over the frames in the encoder and the cross-attention, and the
+reference's backward in plain PyTorch. The head is the tied embedding, so
+its gradient sums the embedding's and the head's.
 """
 from __future__ import annotations
 
@@ -108,6 +118,11 @@ def _embed_tokens(params: Whisper, cfg: ModelConfig, tokens):
 @torch.no_grad()
 def encode(params: Whisper, cfg: ModelConfig, frames) -> torch.Tensor:
     """frames: (B, T_enc, D) precomputed embeddings (the front end's stub)."""
+    return _encode(params, cfg, frames)
+
+
+def _encode(params: Whisper, cfg: ModelConfig, frames) -> torch.Tensor:
+    """The encoder, with autograd where a caller has it on (``features``)."""
     cdt = common.dt(cfg.compute_dtype)
     h = frames.to(cdt) + common.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device).to(cdt)
     for blk in params.enc_layers:
@@ -145,22 +160,44 @@ def _dec_in(params: Whisper, cfg: ModelConfig, tokens):
     return h + common.sinusoidal_positions(tokens.shape[1], cfg.d_model, h.device).to(cdt)
 
 
+def _dec_block(blk, cfg: ModelConfig, h, enc_out):
+    """One decoder layer over the whole sequence, cast to the compute dtype
+    (the reference's ``forward`` block): causal self-attention, the
+    cross-attention over ``enc_out``, the MLP."""
+    layer = blk.tree(common.dt(cfg.compute_dtype))
+    x = _ln(h, layer["ln1"], cfg.norm_eps)
+    q, k, v = attention._project_qkv(layer["self_attn"], cfg, x)
+    o = attention.attend(q, k, v, causal=True, block_k=BLOCK_K)
+    h = h + attention._out_proj(layer["self_attn"], h.dtype, o)
+    ck, cv = _cross_kv(layer, cfg, enc_out)
+    h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), ck, cv)
+    return h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"])
+
+
 @torch.no_grad()
 def forward(params: Whisper, cfg: ModelConfig, tokens, frames):
     """Teacher-forced decoder over encode(frames) -> logits (B, S, Vp) f32."""
     enc_out = encode(params, cfg, frames)
-    cdt = common.dt(cfg.compute_dtype)
     h = _dec_in(params, cfg, tokens)
     for blk in params.dec_layers:
-        layer = blk.tree(cdt)
-        x = _ln(h, layer["ln1"], cfg.norm_eps)
-        q, k, v = attention._project_qkv(layer["self_attn"], cfg, x)
-        o = attention.attend(q, k, v, causal=True, block_k=BLOCK_K)
-        h = h + attention._out_proj(layer["self_attn"], h.dtype, o)
-        ck, cv = _cross_kv(layer, cfg, enc_out)
-        h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), ck, cv)
-        h = h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"])
+        h = _dec_block(blk, cfg, h, enc_out)
     return _logits_out(params, cfg, h)
+
+
+def features(params: Whisper, cfg: ModelConfig, tokens, frames, *, remat: Optional[bool] = None):
+    """Trunk -> (post-norm h (B, S, D), the tied head ``embed``^T (D, Vp) as
+    stored), the reference's ``features``; runs with autograd. With
+    ``remat`` (default ``cfg.remat``) each decoder layer is a checkpoint
+    under ``cfg.remat_policy``; the encoder is not, as in the reference."""
+    enc_out = _encode(params, cfg, frames)
+    h = _dec_in(params, cfg, tokens)
+    def block(h, enc_out, blk):
+        return _dec_block(blk, cfg, h, enc_out)
+
+    block = common.maybe_remat(block, cfg.remat if remat is None else remat, cfg.remat_policy)
+    for blk in params.dec_layers:
+        h = block(h, enc_out, blk)
+    return _ln(h, params.dec_norm.tree(), cfg.norm_eps), params.embed.T
 
 
 # ---------------------------------------------------------------------------

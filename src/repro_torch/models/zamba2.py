@@ -1,5 +1,5 @@
 """Zamba2 hybrid: a Mamba2 backbone and one SHARED attention block applied
-after every ``shared_attn_every`` Mamba2 layers, forward only.
+after every ``shared_attn_every`` Mamba2 layers.
 
 Mirrors repro/models/zamba2.py. The shared block is one parameter set
 reused at every application depth; its input is concat(hidden, original
@@ -17,6 +17,14 @@ device as in ``models/attention.py``: on the card the flash kernel runs
 the f32 prefill and the paged kernel the decode (an f32 query over the
 bf16 cache viewed as pages), once per application; on the CPU the eager
 reference attention. ``decode_step`` updates the cache tensors in place.
+
+``features`` is the training trunk (the reference's): the shared block
+cast as in ``forward``, remat nested as the reference nests it, each group
+of Mamba2 layers and its shared block one checkpoint around a checkpoint
+per layer. In the backward a group's recompute runs each of its layers'
+forwards again, and each layer's own checkpoint a third time: with remat,
+B7 runs three times a grouped layer and twice a tail layer, B5 twice an
+application (``api.train_kernel_launches``).
 """
 from __future__ import annotations
 
@@ -159,6 +167,40 @@ def forward(params: Zamba2, cfg: ModelConfig, tokens):
     for blk in tail:
         h = h + mamba2.apply(blk.tree(cdt), cfg, h)[0]
     return _logits(params, cfg, h)
+
+
+def features(params: Zamba2, cfg: ModelConfig, tokens, *, remat: Optional[bool] = None):
+    """Trunk -> (post-final-norm h (B, T, D), ``lm_head`` as stored), the
+    reference's ``features``; runs with autograd (``forward`` is the
+    serving form). Every float leaf, the shared block's included, is cast
+    to the compute dtype where it runs (``shared_block_train``), by casts
+    that carry the gradient. With ``remat`` (default ``cfg.remat``) each
+    Mamba2 layer is a checkpoint under ``cfg.remat_policy``, and so is each
+    group of ``shared_attn_every`` of them with its shared block."""
+    h = _embed(params, cfg, tokens)
+    b, t, _ = h.shape
+    positions = common.causal_positions(b, t, h.device)
+    cdt = common.dt(cfg.compute_dtype)
+    use_remat = cfg.remat if remat is None else remat
+
+    def mamba_layer(h, blk):
+        return h + mamba2.apply(blk.tree(cdt), cfg, h)[0]
+
+    mamba_layer = common.maybe_remat(mamba_layer, use_remat, cfg.remat_policy)
+
+    def group(h, emb0, blks):
+        for blk in blks:
+            h = mamba_layer(h, blk)
+        return shared_block(params.shared.tree(cdt), cfg, h, emb0, positions)[0]
+
+    group = common.maybe_remat(group, use_remat, cfg.remat_policy)
+    groups, tail = _split_groups(cfg, list(params.layers))
+    emb0 = h
+    for blks in groups:
+        h = group(h, emb0, blks)
+    for blk in tail:
+        h = mamba_layer(h, blk)
+    return rms_norm(h, params.final_norm, cfg.norm_eps), params.lm_head
 
 
 @torch.no_grad()

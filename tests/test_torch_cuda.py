@@ -1359,3 +1359,177 @@ def test_attention_fn_on_the_card_against_autograd_through_eager(attn, dtype, hq
         assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
         scale = float(b.float().abs().max())
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol * scale, msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# training the recurrent families and whisper: the scans' chunk-entry
+# states, WKV6Fn and SSDFn, and B5's stats at whisper's non-causal shapes
+
+
+# (T, cluster split): one token takes the decode path, which does not split
+STATE_CASES = [(1, 1)] + [(t, n) for t in (20, 300) for n in (1, 2, 3, 8)]
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("t,n_split", STATE_CASES)
+def test_wkv6_chunk_states_against_plain(scans, t, n_split, state):
+    """B6 asked for its chunk-entry states (B, H, C, hd, hd): y and the final
+    state bit-equal to the launch without them, the states within the scans'
+    tolerance of the plain version's, at every cluster split (a split block
+    adds the fold's correction to the states it wrote), a ragged last chunk,
+    one token (the decode path), zero and given states."""
+    wkv, _ = scans
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    args = _wkv6_args(120 + t + n_split, 2, t, 3, 64, True, state)
+    before = wkv.LAUNCHES["wkv6"]
+    y, s, states = ops._launch(*args, None, n_split, return_states=True)
+    bare = ops._launch(*args, None, n_split)
+    plain = wkv.wkv6_ref(*args, return_states=True)
+    torch.cuda.synchronize()
+    assert wkv.LAUNCHES["wkv6"] - before == 2
+    assert torch.equal(y, bare[0]) and torch.equal(s, bare[1])
+    assert states.shape == (2, 3, -(-t // 32), 64, 64)
+    _scan_close((y, s, states), plain)
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("t,n_split", STATE_CASES)
+def test_ssd_chunk_states_against_plain(scans, t, n_split, state):
+    """B7 asked for its chunk-entry states (b, H, C, P, N), as B6 above."""
+    _, ssd = scans
+    from repro_torch.kernels.mamba2_scan import ops
+
+    args = _ssd_args(130 + t + n_split, 2, t, 3, 64, 64, True, state)
+    before = ssd.LAUNCHES["ssd"]
+    y, s, states = ops._launch(*args, None, n_split, return_states=True)
+    bare = ops._launch(*args, None, n_split)
+    plain = ssd.ssd_ref(*args, return_states=True)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES["ssd"] - before == 2
+    assert torch.equal(y, bare[0]) and torch.equal(s, bare[1])
+    assert states.shape == (2, 3, -(-t // 32), 64, 64)
+    _scan_close((y, s, states), plain)
+
+
+def _grads_card_and_cpu(fn, inputs, seed):
+    """fn's outputs and the gradients of a fixed random projection of them,
+    on the card and on the CPU from the same inputs."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ins = [None if x is None else x.to(dev).clone().requires_grad_(True) for x in inputs]
+        res = fn(*ins)
+        g = torch.Generator().manual_seed(seed)
+        cot = [torch.randn(r.shape, generator=g).to(dev) for r in res]
+        given = [x for x in ins if x is not None]
+        out[dev] = ([r.detach().cpu() for r in res],
+                    [d.cpu() for d in torch.autograd.grad(res, given, cot)])
+    return out["cuda"], out["cpu"]
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("t", [45, 300])
+def test_scan_functions_on_the_card_against_the_cpu(scans, t, state):
+    """WKV6Fn and SSDFn on the card (B6 / B7 with their states, the chunked
+    VJP in plain PyTorch on the card) against the same Functions on the CPU
+    (the sequential plain forward): outputs within the scans' tolerance,
+    each gradient within 1e-4 of its scale; one kernel launch a forward, none
+    in the backward."""
+    wkv, ssd = scans
+    cases = [(wkv.wkv6_train, _wkv6_args(140 + t, 2, t, 3, 64, True, state), "wkv6"),
+             (ssd.ssd_train, _ssd_args(150 + t, 2, t, 3, 64, 64, True, state), "ssd")]
+    for fn, args, name in cases:
+        counts = wkv.LAUNCHES if name == "wkv6" else ssd.LAUNCHES
+        before = counts[name]
+        (out, grads), (out_cpu, grads_cpu) = _grads_card_and_cpu(fn, [a.cpu() if a is not None else None
+                                                                       for a in args], 160 + t)
+        torch.cuda.synchronize()
+        assert counts[name] - before == 1, name
+        _scan_close(out, out_cpu)
+        for i, (a, b) in enumerate(zip(grads, grads_cpu)):
+            assert bool(torch.isfinite(a).all()), (name, i)
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()), msg=f"{name} grad {i}")
+
+
+def test_scan_wrappers_refuse_grad_but_their_functions_take_it(scans):
+    """Outside the Functions the wrappers still refuse an input that requires
+    grad under grad mode, with or without chunk states; the Functions take
+    the same inputs."""
+    wkv, ssd = scans
+    args = _wkv6_args(170, 1, 40, 2, 16, False, False)[:5]
+    args[0].requires_grad_(True)
+    for kw in ({}, {"return_states": True}):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            wkv.wkv6_chunked(*args, **kw)
+    assert wkv.wkv6_train(*args)[0].requires_grad
+    sargs = _ssd_args(171, 1, 40, 2, 16, 16, False, False)[:6]
+    sargs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ssd.ssd_chunked(*sargs, return_states=True)
+    assert ssd.ssd_train(*sargs)[0].requires_grad
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lq,lk", [(1500, 1500), (300, 1500), (4096, 1500), (100, 1500)])
+def test_flash_lse_non_causal_at_whisper_shapes(attn, dtype, lq, lk):
+    """B5's stats at whisper's training sites, 8/8 heads of 64, non-causal
+    over 1500 frames (23 key tiles of 64 and a ragged one of 28): the
+    encoder (Lq = Lk) and the cross-attention (Lq != Lk): the output the
+    launch without stats bit for bit and within its tolerance of the plain
+    version, the lse within 1e-4 of the plain version's."""
+    fa, _ = attn
+    q = _randn((2, 8, lq, 64), 20 + lq, dtype)
+    k, v = _randn((2, 8, lk, 64), 21, dtype), _randn((2, 8, lk, 64), 22, dtype)
+    kw = dict(causal=False, lk_valid=lk, q_offset=0)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    bare = fa.flash_attention(q, k, v, **kw)
+    plain, plain_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    _close(out, plain)
+    torch.testing.assert_close(lse, plain_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b", "whisper-base"])
+def test_reduced_training_on_the_card_against_the_cpu(card, arch):
+    """One loss and every gradient of a reduced model at the kernels' head
+    dims (attention head_dim 64; the scans' reduced 16) on the card against
+    the CPU, from the same seed-0 weights and batch (whisper over 100
+    frames: a ragged key tile): the loss within 1e-5, each leaf within 1e-4
+    of its scale; B5, B6 and B7 launched as ``train_kernel_launches`` says."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.api import get_model, train_kernel_launches, trainable
+
+    cfg = get_config(arch).reduced()
+    if arch == "zamba2-1.2b":
+        cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2, n_layers=5)
+    if arch == "whisper-base":
+        cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2, n_audio_frames=100)
+    api = get_model(cfg)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 70)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 70)).astype(np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = api.init(0, device=dev)
+        named = trainable(model)
+        for p in named.values():
+            p.requires_grad_(True)
+        before = launch_counts()
+        loss, _ = api.loss(model, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True, materialize_grads=True)
+        after = launch_counts()
+        res[dev] = (float(loss.detach()), {n: g.cpu() for n, g in zip(named, grads)},
+                    {k: after[k] - before[k] for k in ("flash_attention", "wkv6", "ssd")})
+    (lg, gg, ng), (lc, gc, nc) = res["cuda"], res["cpu"]
+    want = train_kernel_launches(cfg, 1)
+    assert ng == {k: want[k] for k in ng} and not any(nc.values()), (ng, want)
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    for n in gc:
+        scale = float(gc[n].abs().max())
+        torch.testing.assert_close(gg[n], gc[n], rtol=0, atol=1e-4 * scale + 1e-12, msg=n)

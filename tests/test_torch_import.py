@@ -200,11 +200,11 @@ def test_engine_without_device_wants_the_card():
 
 
 def test_unported_family_names_its_roadmap_item():
-    """No family is left to port for serving (ROADMAP A8 is done): every
+    """No family is left to port (ROADMAP A8 and A13 are done): every
     config of the port builds through ``get_model``, at full size and
-    reduced. What the model API still refuses names its ROADMAP item: the
-    loss of the ssm, hybrid and audio families (A13) and sharded train-step
-    specs (A11), and nothing else."""
+    reduced, and every family has its loss. What the model API still
+    refuses names its ROADMAP item: sharded train-step specs (A11), and
+    nothing else."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.models import api
 
@@ -216,9 +216,8 @@ def test_unported_family_names_its_roadmap_item():
     source = (ROOT / "src" / "repro_torch" / "models" / "api.py").read_text()
     raised = [n for n in ast.walk(ast.parse(source))
               if isinstance(n, ast.Raise) and "NotImplementedError" in ast.unparse(n)]
-    assert len(raised) == 2 and "A8" not in source
-    assert sorted("A13" in ast.unparse(n) for n in raised) == [False, True]
-    assert sorted("A11" in ast.unparse(n) for n in raised) == [False, True]
+    assert len(raised) == 1 and "A8" not in source and "A13" not in source
+    assert "A11" in ast.unparse(raised[0])
 
 
 def test_casts_carry_the_gradient_only_in_a_training_forward():

@@ -14,9 +14,11 @@
    against no remat.
 3. The model: ``features`` through the head equals ``forward``; then
    ``ModelAPI.loss``, its metrics and every gradient leaf against the
-   reference's for tiny smollm-360m, qwen2.5-3b, granite-moe-3b and
-   qwen2-vl-7b (f32 compute), and moe routing under grad bit-equal to
-   routing without.
+   reference's for tiny smollm-360m, qwen2.5-3b, granite-moe-3b,
+   qwen2-vl-7b, rwkv6-7b (its scan through ``WKV6Fn``), zamba2-1.2b
+   (``SSDFn``, the cast shared block, remat nested) and whisper-base (the
+   encoder, non-causal attention over 16 frames, the tied head), f32
+   compute, and moe routing under grad bit-equal to routing without.
 
 Gradient leaves are held to 2e-5 of the leaf's largest magnitude (plus
 1e-4 relative): both sides compute in f32 and sum in other orders (XLA's
@@ -37,14 +39,15 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import common as jax_common  # noqa: E402
 from repro.models.api import get_model as jax_model  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import common, moe, transformer  # noqa: E402
+from repro_torch.models import common, moe, rwkv6, transformer, whisper, zamba2  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.parity import assert_close, params_from_jax, tree_from_state  # noqa: E402
 
 VALUE_TOL = 1e-5
 GRAD_RTOL = 1e-4
 LEAF_SCALE_TOL = 2e-5
-ARCHS = ["smollm-360m", "qwen2.5-3b", "granite-moe-3b-a800m", "qwen2-vl-7b"]
+ARCHS = ["smollm-360m", "qwen2.5-3b", "granite-moe-3b-a800m", "qwen2-vl-7b", "rwkv6-7b", "zamba2-1.2b",
+         "whisper-base"]
 
 
 def _t(a, grad=False):
@@ -190,6 +193,8 @@ def _batch(cfg, seed=0, b=2, s=16):
         batch["mrope_positions"][1:, :, 4:] += 3  # an image grid: channels apart
     else:
         batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((b, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
     batch["labels"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     batch["labels"][1, :3] = -1
     return batch
@@ -245,19 +250,23 @@ def test_loss_metrics_and_every_grad_leaf_match_reference(loss_pair):
     assert nonzero >= len(got) - 1  # vlm: the unused embedding's gradient is 0 on both sides
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-3b", "qwen2-vl-7b", "rwkv6-7b", "zamba2-1.2b",
+                                  "whisper-base"])
 def test_features_through_the_head_is_forward(arch):
     """forward() equals features() through the head (the reference's
     ``test_features_matches_forward_logits``): serving and loss agree."""
     tapi = get_model(get_config(arch).reduced())
     model, cfg = tapi.init(1, device="cpu"), tapi.cfg
     tb = _torch_batch(_batch(cfg, seed=3))
+    mod = {"ssm": rwkv6, "hybrid": zamba2, "audio": whisper}.get(cfg.family, transformer)
     if cfg.family == "vlm":
         args = dict(embeds=tb["embeds"], mrope_positions=tb["mrope_positions"])
+    elif cfg.family == "audio":
+        args = dict(tokens=tb["tokens"], frames=tb["frames"])
     else:
         args = dict(tokens=tb["tokens"])
-    logits = transformer.forward(model, cfg, **args)
-    h, w = transformer.features(model, cfg, **args)
+    logits = mod.forward(model, cfg, **args)
+    h, w = mod.features(model, cfg, **args)
     assert_close(common.matmul_f32(h, w.to(h.dtype)), logits, atol=1e-5, rtol=1e-5, what="logits")
 
 
@@ -317,9 +326,3 @@ def test_remat_policies_give_the_gradients_of_no_remat(remat, policy, every):
     for a, b in zip(base, other):
         assert_close(a, b, atol=1e-7, rtol=1e-6, what=f"remat={remat} {policy} every {every}")
 
-
-def test_unported_families_name_their_roadmap_item():
-    for arch in ("rwkv6-7b", "zamba2-1.2b", "whisper-base"):
-        api = get_model(get_config(arch).reduced())
-        with pytest.raises(NotImplementedError, match="A13"):
-            api.loss(None, {})

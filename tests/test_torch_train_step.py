@@ -8,8 +8,10 @@
 2. Int8 compression: codes and scales bit-exact against the reference's,
    the round trip within 1/127, and error feedback converging (the
    reference's ``tests/test_runtime.py:110-141``).
-3. ``make_train_step``: two steps of tiny smollm-360m with
-   ``grad_accum=2`` against the reference's jitted step: metrics to 1e-5,
+3. ``make_train_step``: two steps of tiny smollm-360m, rwkv6-7b,
+   zamba2-1.2b and whisper-base (its batch with audio frames, split on
+   axis 0 with the tokens) with ``grad_accum=2`` against the reference's
+   jitted step: metrics to 1e-5,
    parameters to ``PARAM_ATOL`` = lr / 100 (plus 2e-4 relative). Both
    sides are f32 and sum in other orders, so gradients differ by ~1e-7
    absolute; AdamW then divides each by its own RMS plus eps = 1e-8, and
@@ -18,7 +20,19 @@
    it moves the update by some 1e-3 of lr: 3e-5 is the largest seen. It
    stands in for the reference's slow
    ``test_grad_accum_matches_single_batch``: ``grad_accum=2`` equals one
-   batch of the same rows to the same tolerance.
+   batch of the same rows to the same tolerance. The recurrent families
+   (rwkv6, zamba2) carry each step's f32 rounding through the scan into
+   every later gradient, and AdamW's first update moves every element by
+   about lr whatever its gradient's size, so the second step's gradients
+   meet parameters that already differ by those roundings: their second
+   step is held to 1e-4 relative on the metrics and lr / 10 on the
+   parameters (``RECURRENT_TOL``). rwkv6's squared-ReLU channel mix adds
+   gradients that vanish at the kink, whose sign a rounding decides. The
+   misses are the ordering's, not the chunked VJP's: autograd through the
+   port's sequential plain scans misses the reference as much (grad_norm
+   4.3e-5 relative against the VJP's 3.7e-5 on rwkv6; a zamba2 parameter
+   1.35e-4 against 1.03e-4; one rwkv6 element of 16,384 in a leaf 5.2e-4,
+   the largest seen).
 4. The kernels' plain versions stay differentiable on the CPU (the card's
    wrappers raise under grad instead: ``tests/test_torch_cuda.py``).
 """
@@ -50,6 +64,7 @@ from repro_torch.parity import assert_close, params_from_jax, tree_from_state  #
 
 LR = 1e-2
 PARAM_ATOL = LR / 100
+RECURRENT_TOL = {"metrics": 1e-4, "params": LR / 10}  # rwkv6, zamba2: see 3. above
 
 
 def _flat(tree, prefix=""):
@@ -164,15 +179,18 @@ def test_error_feedback_accumulates():
 
 def _batch(cfg, b=4, s=8, seed=0):
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((b, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return batch
 
 
-@pytest.fixture(scope="module")
-def smollm_steps():
+@pytest.fixture(scope="module", params=["smollm-360m", "rwkv6-7b", "zamba2-1.2b", "whisper-base"])
+def arch_steps(request):
     """The reference's two jitted steps (grad_accum 2) from seed-1 weights,
     and the port's model, optimizer state and step from the same weights."""
-    jcfg = dataclasses.replace(jax_config("smollm-360m").reduced(), grad_accum=2)
+    jcfg = dataclasses.replace(jax_config(request.param).reduced(), grad_accum=2)
     japi = jax_model(jcfg)
     jparams = japi.init(jax.random.PRNGKey(1))
     opt = JaxAdamWConfig(lr=LR, clip_norm=0.5)
@@ -183,44 +201,47 @@ def smollm_steps():
     for b in batches:
         jp, jstate, m = step(jp, jstate, {k: jnp.asarray(v) for k, v in b.items()})
         jmetrics.append(jax.tree.map(np.asarray, m))
-    return {"init": jax.tree.map(np.asarray, jparams), "batches": batches, "final": jax.tree.map(np.asarray, jp),
-            "metrics": jmetrics, "opt": AdamWConfig(lr=LR, clip_norm=0.5)}
+    return {"arch": request.param, "init": jax.tree.map(np.asarray, jparams), "batches": batches,
+            "final": jax.tree.map(np.asarray, jp), "metrics": jmetrics, "opt": AdamWConfig(lr=LR, clip_norm=0.5)}
 
 
-def _port(init, grad_accum):
-    api = get_model(dataclasses.replace(get_config("smollm-360m").reduced(), grad_accum=grad_accum))
+def _port(arch, init, grad_accum):
+    api = get_model(dataclasses.replace(get_config(arch).reduced(), grad_accum=grad_accum))
     model = api.init(0, device="cpu")
     model.load_state_dict(params_from_jax(init), strict=True)
     return api, model
 
 
-def test_two_steps_with_grad_accum_match_reference(smollm_steps):
-    ref = smollm_steps
-    api, model = _port(ref["init"], 2)
+def test_two_steps_with_grad_accum_match_reference(arch_steps):
+    ref = arch_steps
+    api, model = _port(ref["arch"], ref["init"], 2)
+    recurrent = api.cfg.family in ("ssm", "hybrid")
     step = make_train_step(api, ref["opt"])
     state = adamw_init({n: p.detach() for n, p in trainable(model).items()})
     for i, b in enumerate(ref["batches"]):
         model, state, m = step(model, state, {k: torch.from_numpy(v) for k, v in b.items()})
         assert sorted(m) == sorted(ref["metrics"][i]), (sorted(m), sorted(ref["metrics"][i]))
+        tol = RECURRENT_TOL["metrics"] if recurrent and i > 0 else 1e-5
         for k, want in ref["metrics"][i].items():
             assert m[k].dtype == torch.float32 and m[k].ndim == 0, k
-            assert_close(m[k], want, atol=1e-5, rtol=1e-5, what=f"step {i} {k}")
+            assert_close(m[k], want, atol=tol, rtol=tol, what=f"step {i} {k}")
     assert int(state["step"]) == 2
     assert not any(p.requires_grad for p in model.parameters())  # serving sees none
     got = dict(_flat(tree_from_state(model.state_dict())))
     moved = 0.0
+    atol = RECURRENT_TOL["params"] if recurrent else PARAM_ATOL
     for name, want in _flat(ref["final"]):
-        assert_close(got[name], want, atol=PARAM_ATOL, rtol=2e-4, what=name)
+        assert_close(got[name], want, atol=atol, rtol=2e-4, what=name)
         moved = max(moved, float(np.abs(want - dict(_flat(ref["init"]))[name]).max()))
     assert moved > 100 * PARAM_ATOL  # the steps moved the parameters by far more than the tolerance
 
 
-def test_grad_accum_matches_single_batch(smollm_steps):
+def test_grad_accum_matches_single_batch(arch_steps):
     """grad_accum=2 gives the update of one batch of the same rows."""
-    ref = smollm_steps
+    ref = arch_steps
     out = {}
     for ga in (1, 2):
-        api, model = _port(ref["init"], ga)
+        api, model = _port(ref["arch"], ref["init"], ga)
         state = adamw_init({n: p.detach() for n, p in trainable(model).items()})
         model, _, m = make_train_step(api, ref["opt"])(
             model, state, {k: torch.from_numpy(v) for k, v in ref["batches"][0].items()})
