@@ -115,7 +115,7 @@ Phases (any failure raises, so the script exits non-zero):
    reduced head_dim-64 smollm on the card and on the CPU, with equal chaos
    logs, outcome ledgers and fleet books;
 6. one JSON line with every kernel's numbers, then the result line,
-   printed last, after phases 7 and 8;
+   printed last, after phases 7, 8 and 9;
 7. the sharded engine on one card: phase 3's smollm-360m params and
    requests with the tiered store split into 1, 2 and 4 page-interleaved
    shards (``model_shards``): bit-identical tokens, equal merged drained
@@ -136,7 +136,18 @@ Phases (any failure raises, so the script exits non-zero):
    scans' chunked VJP); no host read inside a step; the loss falls; step
    time, tokens/s, peak memory and the device-busy shares of one profiled
    step. Phase 2 holds these kernels at these shapes to their plain
-   versions and times them.
+   versions and times them;
+9. the trainer (``runtime.Trainer``, ``checkpoint``, ``data``, the
+   launcher), in a child process that runs deterministic algorithms
+   (``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in its environment only): full-width
+   smollm-360m on SyntheticCorpus sequences of 1,024 tokens, 8 a step
+   through ShardedLoader; a trainer that checkpoints every 2 steps crashes
+   after step 3, a fresh one restores step 2 and runs to step 4, and every
+   parameter and AdamW leaf equals a clean run's bit for bit; B5 launched
+   ``train_kernel_launches`` times every step; then
+   ``repro_torch.launch.train`` starts fresh and resumes from its own
+   checkpoint. Step times, the checkpoint's snapshot, write and restore
+   times and its bytes.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -151,6 +162,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1893,6 +1905,264 @@ def train_full_width(card: str, arch: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the trainer on the card: a crash, a restore and a resume, bit for bit
+
+
+# full-width smollm-360m through ``runtime.Trainer``: SyntheticCorpus
+# sequences of TRAINER_SEQ tokens through ShardedLoader, TRAINER_BATCH of
+# them a step in one micro-batch, AdamW (lr TRAIN_LR, clip_norm 1.0),
+# random seed-0 weights. The phase runs in a child process whose
+# environment alone sets CUBLAS_WORKSPACE_CONFIG (cuBLAS's deterministic
+# workspace) and which turns on deterministic algorithms before any CUDA
+# work: phases 1-8 keep cuBLAS's default workspace and their times.
+TRAINER_ARCH, TRAINER_SEQ, TRAINER_BATCH = "smollm-360m", 1024, 8
+TRAINER_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+TRAINER_CHILD = "--trainer-child"  # the child's one argument
+TRAINER_RESULT = "trainer phase result: "  # the child's last line, read by the parent
+
+
+def trainer_phase() -> dict:
+    """Phase 9 in a child process (``trainer_child``): its lines go to this
+    log, its result comes back as one JSON line, and a failure in it (a
+    non-zero exit) raises here."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = None
+    with subprocess.Popen([sys.executable, str(Path(__file__).resolve()), TRAINER_CHILD], cwd=ROOT,
+                          env=dict(os.environ, **TRAINER_ENV), stdout=subprocess.PIPE, text=True) as proc:
+        try:
+            for line in proc.stdout:
+                if line.startswith(TRAINER_RESULT):
+                    result = json.loads(line[len(TRAINER_RESULT):])
+                else:
+                    log(f"  [phase 9] {line.rstrip()}")
+            rc = proc.wait(timeout=60)
+        except BaseException:
+            proc.kill()
+            raise
+    if rc != 0 or result is None:
+        raise RuntimeError(f"phase 9: the trainer's child process exited {rc} (result line: {result is not None})")
+    return result
+
+
+def trainer_child():
+    """The child of phase 9: deterministic algorithms on before any CUDA
+    work, then ``trainer_crash_resume``; its result is printed last."""
+    import torch
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != TRAINER_ENV["CUBLAS_WORKSPACE_CONFIG"]:
+        raise SystemExit("the trainer child needs CUBLAS_WORKSPACE_CONFIG=:4096:8 in its environment")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    result = trainer_crash_resume(card)
+    print(TRAINER_RESULT + json.dumps(result), flush=True)
+
+
+@contextlib.contextmanager
+def timed_checkpoints(times: dict):
+    """Host seconds of every checkpoint snapshot (the device-to-host copy
+    the train loop waits for), write (a background one included) and
+    restore, appended to ``times``; the manager itself unchanged."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    saved = {name: getattr(CheckpointManager, name) for name in ("_snapshot", "_write", "restore")}
+
+    def timed(name, fn):
+        def inner(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times[name.lstrip("_")].append(time.perf_counter() - t0)
+        return inner
+
+    for name, fn in saved.items():
+        setattr(CheckpointManager, name, timed(name, fn))
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(CheckpointManager, name, fn)
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def trainer_crash_resume(card: str) -> dict:
+    """The reference's ``test_crash_resume_bitwise`` at full width on the
+    card: trainer A (checkpoints every 2 steps) crashes after step 3;
+    trainer B, fresh over the same directory, restores step 2 and runs to
+    step 4; trainer C runs 4 steps clean. Every parameter and AdamW leaf of
+    B and C must be ``torch.equal``, and B's losses C's. Every step
+    launches B5 exactly ``train_kernel_launches(cfg, 1)`` times (the counts
+    zeroed before each run and read after each step). Then the launcher
+    (``repro_torch.launch.train.main``) starts fresh for 2 steps and
+    resumes for a third, and its last ``meta.json`` is read back. Each
+    run's checkpoint directory is deleted once checked."""
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticCorpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.api import get_model, train_kernel_launches, trainable
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import leaf_order
+    from repro_torch.runtime.trainer import SimulatedFailure, Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAINER_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size) == \
+        TRAIN_WIDTHS[TRAINER_ARCH] and cfg.grad_accum == 1 and cfg.remat, cfg
+    assert torch.are_deterministic_algorithms_enabled()
+    api = get_model(cfg)
+    want = {k: v for k, v in train_kernel_launches(cfg, 1).items() if v}
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=TRAINER_SEQ)
+    opt = AdamWConfig(lr=TRAIN_LR, clip_norm=1.0)
+    times = {"snapshot": [], "write": [], "restore": []}
+    step_ms, launched, draws = {}, [], []
+
+    def trainer(ckpt_dir: Path, label: str):
+        tr = Trainer(api, opt, TrainerConfig(ckpt_dir=str(ckpt_dir), ckpt_every=2), device="cuda")
+        step_fn, step_ms[label] = tr.train_step, []
+
+        def device_timed(*args):  # the step's device timeline, read after the run
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = step_fn(*args)
+            e.record()
+            step_ms[label].append((s, e))
+            return out
+
+        tr.train_step = device_timed
+        return tr
+
+    def run(tr, n_steps: int, **kw):
+        loader = ShardedLoader(corpus, global_batch=TRAINER_BATCH, start_step=tr.step)
+        zero_launch_counts()
+
+        def counted(step, metrics):
+            launched.append({k: v for k, v in launch_counts().items() if v})
+            zero_launch_counts()
+
+        try:
+            return tr.run(loader, n_steps, on_step=counted, **kw)
+        finally:
+            loader.close()
+
+    def drawn(tr, restore: bool = False):
+        t0 = time.perf_counter()
+        ok = tr.try_restore() if restore else tr.init_state(0)
+        draws.append(time.perf_counter() - t0)
+        return ok
+
+    with tempfile.TemporaryDirectory(prefix="repro_trainer_") as tmp, timed_checkpoints(times):
+        tmp = Path(tmp)
+        a = trainer(tmp / "crash", "A")
+        drawn(a)
+        named = trainable(a.params)
+        n_params = sum(p.numel() for p in named.values())
+        n_leaves = 3 * len(leaf_order(named)) + 1  # the checkpoint's: parameters, m, v (a stack one leaf), step
+        assert n_leaves == 34, n_leaves
+        ckpt_bytes = 3 * 4 * n_params + 4  # f32 params, m and v, the int32 step (before the .npy headers)
+        free = shutil.disk_usage(tmp).free
+        log(f"trainer {TRAINER_ARCH}: {n_params / 1e6:.1f} M params in {len(named)} tensors, {n_leaves} "
+            f"checkpoint leaves; checkpoints of {ckpt_bytes / 1e9:.3f} GB, 2 at once in a run's directory; "
+            f"{free / 1e9:.1f} GB free in {tmp}")
+        if free < 2 * ckpt_bytes + 2**30:
+            raise RuntimeError(f"phase 9 needs {2 * ckpt_bytes + 2**30} bytes free for two checkpoints and a "
+                               f"margin in {tmp}; {free} bytes are free")
+        try:
+            run(a, 4, fail_at=3)
+            raise AssertionError("trainer A did not crash")
+        except SimulatedFailure as e:
+            log(f"trainer A: {e}")
+        a.ckpt.wait()
+        assert a.step == 3 and a.ckpt.latest_step() == 2, (a.step, a.ckpt.latest_step())
+        losses = {"A": [m["loss"] for m in a.metrics_log]}
+        host_s = {"A": [m["dt"] for m in a.metrics_log]}
+        del a, named
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = trainer(tmp / "crash", "B")
+        assert drawn(b, restore=True) and b.step == 2, b.step
+        run(b, 4 - b.step)
+        assert b.step == 4 and b.ckpt.latest_step() == 4
+        ckpt_dir_bytes = _dir_bytes(tmp / "crash" / "step_00000004")
+        n_files = len(list((tmp / "crash" / "step_00000004").iterdir()))
+        shutil.rmtree(tmp / "crash")
+        c = trainer(tmp / "clean", "C")
+        drawn(c)
+        run(c, 4)
+        shutil.rmtree(tmp / "clean")
+        losses.update(B=[m["loss"] for m in b.metrics_log], C=[m["loss"] for m in c.metrics_log])
+        leaves = {f"params.{n}": (t, c.params.state_dict()[n]) for n, t in b.params.state_dict().items()}
+        for k in ("m", "v"):
+            leaves.update({f"{k}.{n}": (t, c.opt_state[k][n]) for n, t in b.opt_state[k].items()})
+        leaves["step"] = (b.opt_state["step"], c.opt_state["step"])
+        unequal = [n for n, (x, y) in leaves.items() if not torch.equal(x, y)]
+        log(f"trainer B (resumed at step 2) against C (clean) at step 4: {len(leaves) - len(unequal)} of "
+            f"{len(leaves)} leaves equal; losses A {losses['A']}, B {losses['B']}, C {losses['C']}")
+        assert not unequal, unequal[:8]
+        assert int(b.opt_state["step"]) == 4 and losses["B"] == losses["C"][2:] and losses["A"] == losses["C"][:3]
+        assert all(x.device.type == "cuda" for x, _ in leaves.values())
+        host_s.update(B=[m["dt"] for m in b.metrics_log], C=[m["dt"] for m in c.metrics_log])
+        del b, c, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the launcher: fresh for 2 steps, then resumed for a third
+        runs = []
+        for steps in (2, 3):
+            zero_launch_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = launch_train.main(["--arch", TRAINER_ARCH, "--steps", str(steps), "--global-batch",
+                                        str(TRAINER_BATCH), "--seq-len", str(TRAINER_SEQ), "--ckpt-every", "100",
+                                        "--log-every", "1", "--ckpt-dir", str(tmp / "launch")])
+            runs.append({"steps": steps, "rc": rc, "s": time.perf_counter() - t0,
+                         "launches": {k: v for k, v in launch_counts().items() if v}, "out": out.getvalue()})
+            for line in out.getvalue().splitlines():
+                log(f"launcher: {line}")
+        assert "[train] fresh start: smollm-360m" in runs[0]["out"] and "[train] done: step 2" in runs[0]["out"]
+        assert "[train] resumed from step 2" in runs[1]["out"] and "[train] done: step 3" in runs[1]["out"]
+        assert [r["rc"] for r in runs] == [0, 0]
+        assert [r["launches"] for r in runs] == [{k: 2 * v for k, v in want.items()}, want], runs
+        meta = json.loads((tmp / "launch" / "step_00000003" / "meta.json").read_text())
+        assert (meta["step"], meta["n_leaves"], meta["extras"]) == (3, n_leaves, {"step": 3}), meta
+        assert meta["dtypes"] == ["float32"] * 22 + ["int32"] + ["float32"] * 11, meta["dtypes"]
+        assert sorted(os.listdir(tmp / "launch")) == ["step_00000002", "step_00000003"]
+        shutil.rmtree(tmp / "launch")
+
+    torch.cuda.synchronize()
+    device_ms = {label: [s.elapsed_time(e) for s, e in ev] for label, ev in step_ms.items()}
+    assert all(n == want for n in launched), launched
+    r = {"card": card, "arch": TRAINER_ARCH, "tokens_a_step": [TRAINER_BATCH, TRAINER_SEQ],
+         "params_m": n_params / 1e6, "ckpt_bytes": ckpt_dir_bytes, "ckpt_files": n_files,
+         "step_device_ms": device_ms, "step_host_s": host_s, "snapshot_s": times["snapshot"],
+         "write_s": times["write"], "restore_s": times["restore"], "weight_draw_s": draws,
+         "launches_per_step": launched[0], "trainer_steps": len(launched),
+         "launches": sum(n.get("flash_attention", 0) for n in launched) + sum(
+             r_["launches"].get("flash_attention", 0) for r_ in runs),
+         "launcher_s": [r_["s"] for r_ in runs], "losses": losses, "ckpt_leaves": n_leaves,
+         "phase_s": time.perf_counter() - t_phase}
+    log(f"trainer [{card}]: step device ms {device_ms}; host s (the Trainer's clock) {host_s}")
+    log(f"trainer [{card}]: checkpoint {ckpt_dir_bytes} bytes in {n_files} files; snapshot s {times['snapshot']}; "
+        f"write s {times['write']}; restore s {times['restore']}; weight draws s {draws}")
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the fleet over the port's engines
 
 
@@ -2286,6 +2556,8 @@ def main():
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke: the port's package is not at {SRC / 'repro_torch'}")
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:] == [TRAINER_CHILD]:
+        return trainer_child()
     t_start = time.perf_counter()
 
     # phase 1: device and build
@@ -2400,6 +2672,12 @@ def main():
         train[arch] = train_full_width(card, arch)
         log(f"phase 8 training {arch} {time.perf_counter() - t8f:.1f} s")
 
+    # phase 9: the trainer on the card (a child process with deterministic
+    # algorithms): a crash, a restore and a bitwise resume, then the launcher
+    t9 = time.perf_counter()
+    trainer = trainer_phase()
+    log(f"phase 9 trainer {time.perf_counter() - t9:.1f} s")
+
     # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
@@ -2443,6 +2721,9 @@ def main():
         sum(launches_of("whisper-base", "flash_attention")), site_launches
     kernels["flash_attention"]["training_sites"] = {
         label: {**keep_train(train_attention[label]), "launches": n} for label, n in site_launches.items()}
+    # B5's launches on phase 9's path: every Trainer and launcher step
+    kernels["flash_attention"]["trainer"] = {k: trainer[k] for k in ("launches", "launches_per_step",
+                                                                     "trainer_steps")}
     for name, arch in (("wkv6", "rwkv6-7b"), ("ssd", "zamba2-1.2b")):
         kernels[name]["training"] = {**keep_train(train_scans[name]), "launches": sum(launches_of(arch, name)),
                                      "launches_per_step": launches_of(arch, name)}
@@ -2458,7 +2739,7 @@ def main():
             **({"fleet_launches": fleet["launches"][name]} if carrier.get(name) == "smollm-360m" else {}),
             **({"sharded_launches": {n: v["launches"] for n, v in sharded.items()}}
                if name == "tiered_segmented" else {}),
-            **{k: r[k] for k in (*MODELS_BESIDE, "training", "training_sites", "shapes") if k in r},
+            **{k: r[k] for k in (*MODELS_BESIDE, "training", "training_sites", "trainer", "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })
     log("decode step profiles: " + "; ".join(f"{arch} {p['profile']}" for arch, p in paths.items()))
@@ -2466,6 +2747,7 @@ def main():
     log("M-RoPE checks: " + json.dumps(vlm_res))
     log("sharded engine: " + json.dumps(sharded))
     log("training: " + json.dumps({"reduced_card_vs_cpu": train_reduced, **train}))
+    log("trainer: " + json.dumps(trainer))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

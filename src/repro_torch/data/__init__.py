@@ -1,1 +1,2 @@
-"""Request streams for the serving engine (``requests.py``, copied from ``repro.data``)."""
+from repro_torch.data.synthetic import SyntheticCorpus, token_batches  # noqa: F401
+from repro_torch.data.loader import ShardedLoader  # noqa: F401

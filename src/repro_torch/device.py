@@ -43,8 +43,9 @@ def to_device(array, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 def stage_into(dst: torch.Tensor, array) -> torch.Tensor:
     """Copy a host array into the existing tensor ``dst`` (same shape), in
     place and non-blocking from pinned memory on CUDA: how a captured
-    graph's static inputs get a step's values without moving."""
-    t = torch.as_tensor(np.ascontiguousarray(array)).to(dst.dtype)
+    graph's static inputs get a step's values without moving. (The reshape
+    keeps a 0-d array 0-d: ``ascontiguousarray`` gives it one axis.)"""
+    t = torch.as_tensor(np.ascontiguousarray(array)).to(dst.dtype).reshape(np.shape(array))
     if dst.device.type == "cpu":
         return dst.copy_(t)
     return dst.copy_(t.pin_memory(), non_blocking=True)

@@ -20,9 +20,10 @@ Attach as a ``FleetRouter.on_step`` hook: it re-evaluates after every
 completion batch with the fleet's virtual clock, entirely deterministic.
 
 Params for new hosts default to the fleet's shared (cached) weights; a
-production fleet hands ``params_source`` a closure that restores the
-serving checkpoint onto the joining host (``restored_params_source``, which
-raises in the port until checkpoint restore lands, ROADMAP A9).
+production fleet hands ``params_source`` a closure over
+``runtime/elastic.elastic_restore`` (see ``restored_params_source``) so a
+joining host restores the serving checkpoint onto its own device topology —
+the same resize/recovery path the trainer uses.
 """
 from __future__ import annotations
 
@@ -45,9 +46,14 @@ class ScaleEvent:
 def restored_params_source(manager, template, mesh=None, specs=None, step=None):
     """Params source for scaled-up replicas via the trainer's elastic-restore
     path: a joining host restores the latest serving checkpoint onto its own
-    (possibly different) mesh — reshard-on-restore, not weight transfer.
-    The port has no checkpoint restore yet (ROADMAP A9)."""
-    raise NotImplementedError("restoring a serving checkpoint (restored_params_source) is ROADMAP A9")
+    (possibly different) mesh — reshard-on-restore, not weight transfer."""
+    from repro_torch.runtime.elastic import elastic_restore
+
+    def source():
+        state, _extras = elastic_restore(manager, template, mesh, specs=specs, step=step)
+        return state
+
+    return source
 
 
 class ElasticFleet:

@@ -43,7 +43,8 @@ def adamw_init(params: Tree) -> dict:
     }
 
 
-_LAYER = re.compile(r"^(layers|enc_layers|dec_layers)\.(\d+)\.")
+# a layer of a stack: ``layers.<i>.rest`` (whisper: ``enc_layers``, ``dec_layers``)
+LAYER_STACK = re.compile(r"^(layers|enc_layers|dec_layers)\.(\d+)\.")
 
 
 def leaf_order(names) -> list:
@@ -53,7 +54,7 @@ def leaf_order(names) -> list:
     layers in order."""
     leaves: Dict[tuple, list] = {}
     for name in names:
-        m = _LAYER.match(name)
+        m = LAYER_STACK.match(name)
         if m:
             path = (m.group(1), *name[m.end():].split("."))
             leaves.setdefault(path, []).append((int(m.group(2)), name))

@@ -1533,3 +1533,152 @@ def test_reduced_training_on_the_card_against_the_cpu(card, arch):
     for n in gc:
         scale = float(gc[n].abs().max())
         torch.testing.assert_close(gg[n], gc[n], rtol=0, atol=1e-4 * scale + 1e-12, msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the trainer side: checkpoints, a bitwise crash-resume and the Trainer on the card
+
+
+def test_checkpoint_of_card_state_round_trips(card, tmp_path):
+    """A trainer's state on the card (reduced smollm at head_dim 64, random
+    moments, step 7) saved in the background and restored into another
+    model's state: every leaf bit-equal and on the card, written in place."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.api import get_model, trainable
+    from repro_torch.optim import adamw_init
+
+    api = get_model(_card_cfg("smollm-360m"))
+    model = api.init(0, device="cuda")
+    state = adamw_init(trainable(model))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for k in ("m", "v"):
+        for t in state[k].values():
+            t.normal_(generator=g)
+    state["step"].fill_(7)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(7, (model, state), {"step": 7})
+    mgr.wait()
+    other = api.init(1, device="cuda")
+    template = (other, adamw_init(trainable(other)))
+    params = list(other.parameters())
+    (got, got_state), extras = mgr.restore(template)
+    assert extras == {"step": 7} and got is other and all(a is b for a, b in zip(params, other.parameters()))
+    want = model.state_dict()
+    for name, t in got.state_dict().items():
+        assert t.device.type == "cuda" and torch.equal(t, want[name]), name
+    for k in ("m", "v"):
+        for name, t in got_state[k].items():
+            assert t.device.type == "cuda" and torch.equal(t, state[k][name]), (k, name)
+    assert got_state["step"].device.type == "cuda" and int(got_state["step"]) == 7
+
+
+# the reference's test_crash_resume_bitwise on the card, in a child process
+# that runs deterministic algorithms (cuBLAS's deterministic workspace must
+# be in its environment before CUDA starts)
+CRASH_RESUME = """
+import dataclasses, sys, tempfile, torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticCorpus, token_batches
+from repro_torch.kernels import launch_counts
+from repro_torch.models.api import get_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.trainer import SimulatedFailure, Trainer, TrainerConfig
+
+cfg = dataclasses.replace(get_config("smollm-360m").reduced(), d_model=192, n_heads=3, n_kv_heads=1)
+corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=64)
+mk = lambda d: Trainer(get_model(cfg), AdamWConfig(lr=1e-3), TrainerConfig(ckpt_dir=d, ckpt_every=3), device="cuda")
+with tempfile.TemporaryDirectory() as tmp:
+    a = mk(tmp + "/a")
+    a.init_state()
+    try:
+        a.run(token_batches(corpus, 8), 9, fail_at=5)
+        sys.exit("no crash")
+    except SimulatedFailure:
+        a.ckpt.wait()
+    b = mk(tmp + "/a")
+    assert b.try_restore() and b.step == 3, b.step
+    b.run(token_batches(corpus, 8, start_step=b.step), 9 - b.step)
+    c = mk(tmp + "/b")
+    c.init_state()
+    before = launch_counts()["flash_attention"]
+    c.run(token_batches(corpus, 8), 9)
+    flash = launch_counts()["flash_attention"] - before
+leaves = [(f"params.{n}", t, c.params.state_dict()[n]) for n, t in b.params.state_dict().items()]
+for k in ("m", "v"):
+    leaves += [(f"{k}.{n}", t, c.opt_state[k][n]) for n, t in b.opt_state[k].items()]
+leaves.append(("step", b.opt_state["step"], c.opt_state["step"]))
+unequal = [n for n, x, y in leaves if x.device.type != "cuda" or not torch.equal(x, y)]
+assert not unequal and int(c.opt_state["step"]) == 9, unequal
+assert [m["loss"] for m in b.metrics_log] == [m["loss"] for m in c.metrics_log[3:]]
+print("bitwise", len(leaves), "flash", flash)
+"""
+
+
+def test_crash_resume_on_the_card_is_bitwise(card):
+    """Reduced smollm at head_dim 64 (B5 in every forward): a crash after
+    step 5, a restore of step 3 and a resume to step 9 give every
+    parameter and AdamW leaf of a clean run, ``torch.equal``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", CRASH_RESUME], env=env, cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    words = out.stdout.split()
+    assert words[:2] == ["bitwise", "61"] and int(words[3]) == 9 * 2 * 2, out.stdout  # B5: 2 layers, remat
+
+
+def test_trainer_on_the_card_follows_the_cpu(card, tmp_path):
+    """The Trainer on the card against the Trainer on the CPU, 3 steps of
+    reduced smollm at head_dim 64 from the same seed-0 weights and batches.
+    Step 1 holds the card's loss and gradients to the CPU's as phase 8 of
+    ``chip_smoke.py`` does (B5's three TF32 products and other summation
+    orders): loss and accuracy within 1e-5 relative (``TRAIN_LOSS_RTOL``),
+    the gradient norm and AdamW's first moment (a scaled gradient) within
+    1e-4 of their scale (``TRAIN_GRAD_TOL``), the second moment (a square)
+    within 2e-4. The losses of steps 2 and 3 within 1e-4 relative: after
+    the first update the parameters differ by up to 2 lr on the elements
+    whose gradient lies within that noise of zero (AdamW's step is
+    sign-like), which moves the loss by their gradients times 2 lr, some
+    1e-6 of it. B5 launched ``train_kernel_launches`` times a step on the
+    card, never on the CPU."""
+    from repro_torch.data import SyntheticCorpus, token_batches
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.api import get_model, train_kernel_launches
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = _card_cfg("smollm-360m")
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=64)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(get_model(cfg), AdamWConfig(lr=1e-3), TrainerConfig(ckpt_dir=str(tmp_path / dev)), device=dev)
+        tr.init_state(0)
+        moments, launched = {}, []
+        last = [launch_counts()["flash_attention"]]
+
+        def on_step(step, m, tr=tr, moments=moments, launched=launched, last=last):
+            now = launch_counts()["flash_attention"]
+            launched.append(now - last[0])
+            last[0] = now
+            if step == 1:
+                moments.update({k: {n: t.cpu() for n, t in tr.opt_state[k].items()} for k in ("m", "v")})
+
+        log = tr.run(token_batches(corpus, 8), 3, on_step=on_step)
+        runs[dev] = (log, moments, launched)
+    (lg, mg, ng), (lc, mc, nc) = runs["cuda"], runs["cpu"]
+    assert ng == [train_kernel_launches(cfg, 1)["flash_attention"]] * 3 and nc == [0, 0, 0], (ng, nc)
+    for k in ("loss", "accuracy"):
+        assert abs(lg[0][k] - lc[0][k]) <= 1e-5 * max(abs(lc[0][k]), 1.0), (k, lg[0][k], lc[0][k])
+    assert abs(lg[0]["grad_norm"] - lc[0]["grad_norm"]) <= 1e-4 * lc[0]["grad_norm"]
+    for k, tol in (("m", 1e-4), ("v", 2e-4)):
+        for n, t in mc[k].items():
+            scale = float(t.abs().max())
+            torch.testing.assert_close(mg[k][n], t, rtol=0, atol=tol * scale + 1e-30, msg=f"{k} {n}")
+    for i in (1, 2):
+        assert abs(lg[i]["loss"] - lc[i]["loss"]) <= 1e-4 * abs(lc[i]["loss"]), (i, lg[i]["loss"], lc[i]["loss"])

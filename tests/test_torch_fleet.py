@@ -31,12 +31,14 @@ from repro.data.requests import interleave as jax_interleave  # noqa: E402
 from repro.obs import FlightRecorder as JaxRecorder  # noqa: E402
 
 import repro_torch.fleet as port_fleet  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.workloads import get_profile  # noqa: E402
 from repro_torch.data.requests import RequestGenerator, interleave  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.obs import FlightRecorder  # noqa: E402
 from repro_torch.parity import params_from_jax  # noqa: E402
+from repro_torch.runtime.serving import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.runtime.sharded import ShardedServingEngine  # noqa: E402
 
 ARCH = "smollm-360m"
@@ -194,7 +196,26 @@ def test_elastic_scale_events(pair):
     assert [(e["action"], e["rid"]) for e in p][:2] == [("crash", 1), ("up", 3)]
 
 
-def test_build_fleet_wants_the_card_and_names_what_is_missing():
+def _serve(api, params, n_requests=4):
+    """Web1 requests (short) through a reduced engine on the CPU: the next
+    tokens of every step, and the engine's books."""
+    eng = ServingEngine(api, params, EngineConfig(max_batch=4, max_len=64, n_pages=256), seed=0, device="cpu")
+    prof = dataclasses.replace(get_profile("Web1"), prompt_mean=16, decode_mean=6)
+    gen = RequestGenerator(prof, vocab_size=api.cfg.vocab_size, seed=0)
+    for _ in range(n_requests):
+        eng.submit(next(gen))
+    tokens = []
+    while (eng.queue or any(s.active for s in eng.slots)) and eng.engine_steps < 200:
+        eng.step()
+        tokens.append(eng.next_tokens.clone())
+    return torch.stack(tokens), eng.stats()
+
+
+def test_build_fleet_wants_the_card_and_names_what_is_missing(tmp_path):
+    """No device means the card; the sharded fleet builds on the CPU; and a
+    scaled-up host's params restored from a serving checkpoint
+    (``restored_params_source`` over a fresh model of other weights) serve
+    the same tokens and books as the in-memory params."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: device=None resolves to it")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -202,6 +223,12 @@ def test_build_fleet_wants_the_card_and_names_what_is_missing():
     sharded = port_fleet.build_fleet(2, device="cpu", device_tiering=True, model_shards=2)
     assert all(isinstance(r.engine, ShardedServingEngine) and r.engine.tiered.n_shards == 2
                for r in sharded.replicas)
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_fleet.restored_params_source(None, None)
     port_fleet._MODEL_CACHE.pop((ARCH, "cpu"), None)
+    api = get_model(get_config(ARCH).reduced())
+    params = api.init(0, device="cpu")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, params)
+    restored = port_fleet.restored_params_source(mgr, api.init(1, device="cpu"))()
+    want, got = _serve(api, params), _serve(api, restored)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    assert want[1]["requests_finished"] == 4

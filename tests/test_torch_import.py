@@ -31,6 +31,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch.models.vlm, repro_torch.models.whisper\n"
         "import repro_torch.fleet, repro_torch.core.tiering\n"
         "import repro_torch.optim, repro_torch.optim.compression\n"
+        "import repro_torch.checkpoint.manager, repro_torch.runtime.trainer, repro_torch.runtime.elastic\n"
+        "import repro_torch.data.loader, repro_torch.launch.train\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -43,7 +45,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "repro_torch.fleet.router" in mods and "repro_torch.core.hw" in mods
     for mod in ("kernels.rwkv6_scan.ref", "kernels.mamba2_scan.ref", "models.rwkv6",
                 "models.mamba2", "models.zamba2", "models.moe", "runtime.sharded", "models.vlm",
-                "models.whisper", "optim.adamw", "optim.schedule", "optim.compression"):
+                "models.whisper", "optim.adamw", "optim.schedule", "optim.compression",
+                "checkpoint.manager", "runtime.trainer", "runtime.elastic", "data.loader",
+                "data.synthetic", "launch.train"):
         assert f"repro_torch.{mod}" in mods, mod
     assert [m for m in mods if _is_reference(m)] == []
 
@@ -76,10 +80,12 @@ COPIED = [
     "core/placement.py", "core/profiler.py", "core/memtrace.py", "core/prefetch.py",
     "data/requests.py", "obs/__init__.py", "obs/metrics.py", "obs/spans.py", "obs/export.py",
     "core/tiering.py", "fleet/scheduler.py", "fleet/replica.py", "fleet/admission.py",
-    "fleet/aggregator.py", "fleet/autotier.py", "fleet/faults.py",
+    "fleet/aggregator.py", "fleet/autotier.py", "fleet/faults.py", "fleet/elastic.py",
+    "data/__init__.py", "data/synthetic.py", "data/loader.py", "checkpoint/__init__.py",
+    "runtime/__init__.py",
 ]
 
-# The port's fleet modules that are not plain copies: each change to the
+# The port's modules that are not plain copies: each change to the
 # reference's code, as (reference snippet, port snippet). Docstrings and
 # comments may differ; the code must be the reference's with exactly these
 # replacements (and the package renamed in imports).
@@ -89,17 +95,16 @@ CHANGED = {
         ("from repro.core.hw import TPU_TIERED", "from repro.core.hw import SERVING_TIERED"),
         ("TPU_TIERED[1].latency_rel", "SERVING_TIERED[1].latency_rel"),
     ],
-    "fleet/elastic.py": [
-        # checkpoint restore is not ported (ROADMAP A9): raise, import nothing
-        ("""    from repro.runtime.elastic import elastic_restore
-
-    def source():
-        state, _extras = elastic_restore(manager, template, mesh, specs=specs, step=step)
-        return state
-
-    return source
-""", """    raise NotImplementedError("restoring a serving checkpoint (restored_params_source) is ROADMAP A9")
+    "launch/train.py": [
+        # the device to train on (default None: the card), handed to the Trainer
+        ("""    ap.add_argument("--seed", type=int, default=0)
+""", """    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
 """),
+        ("""        TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
+    )""", """        TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
+        device=args.device,
+    )"""),
     ],
     "fleet/__init__.py": [
         # no JAX: the device every replica runs on
@@ -218,6 +223,18 @@ def test_unported_family_names_its_roadmap_item():
               if isinstance(n, ast.Raise) and "NotImplementedError" in ast.unparse(n)]
     assert len(raised) == 1 and "A8" not in source and "A13" not in source
     assert "A11" in ast.unparse(raised[0])
+
+
+def test_what_the_port_still_refuses_names_a11():
+    """Every ``NotImplementedError`` the port raises names ROADMAP A11
+    (tensor sharding across cards): the trainer side (A9) is ported."""
+    raised = []
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
+                raised.append((path.name, ast.unparse(node)))
+    assert {name for name, _ in raised} == {"api.py", "manager.py", "elastic.py"}, raised
+    assert all("A11" in text and "A9" not in text for _, text in raised), raised
 
 
 def test_casts_carry_the_gradient_only_in_a_training_forward():
