@@ -115,7 +115,7 @@ Phases (any failure raises, so the script exits non-zero):
    reduced head_dim-64 smollm on the card and on the CPU, with equal chaos
    logs, outcome ledgers and fleet books;
 6. one JSON line with every kernel's numbers, then the result line,
-   printed last, after phases 7, 8 and 9;
+   printed last, after phases 7 to 10;
 7. the sharded engine on one card: phase 3's smollm-360m params and
    requests with the tiered store split into 1, 2 and 4 page-interleaved
    shards (``model_shards``): bit-identical tokens, equal merged drained
@@ -148,6 +148,17 @@ Phases (any failure raises, so the script exits non-zero):
    ``repro_torch.launch.train`` starts fresh and resumes from its own
    checkpoint. Step times, the checkpoint's snapshot, write and restore
    times and its bytes.
+10. the launch layer (``repro_torch.launch``): the serving launcher
+   (``launch.serve.main``) at full width, smollm-360m on 16 Web1-profile
+   requests, every request finished and both tiers read; the op-level
+   cost walk (``launch.op_analysis``) of full-width smollm-360m's train step
+   (phase 9's 8 x 1,024 tokens) and of a whole-batch decode step (8 slots
+   over a 1,024 cache) on the meta device against the same steps on the
+   card: the walk's peak live bytes within 0.67-1.5 of the measured rise in
+   ``max_memory_allocated``, the measured device time at or above the
+   walk's roofline bound, and the kernels the walk recorded equal to the
+   launches, kernel by kernel; then the dry run (``launch.dryrun``) of
+   smollm-360m's three cells on meta, rendered by ``launch.report``.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -174,11 +185,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
-TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
-TF32_PRODUCTS = 3  # TF32 products the f32 flash kernel takes for one f32-exact product
 CSRC = "src/repro_torch/csrc"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -264,10 +270,15 @@ def time_ms(fn, reps: int = 60) -> float:
     return timing.time_ms(fn, reps)
 
 
-def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
-    """(least time in ms, what bounds it) at the card's published peaks;
-    ``ops_per_s`` is the peak for the operations' input type."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
+def bound(work):
+    """(least time in ms, what bounds it) of a kernel call's ``(bytes,
+    operations, peak)`` (``repro_torch/kernels/work.py``) at the card's
+    published peaks (``repro_torch/core/hw.py``): ``peak`` is the peak of
+    the unit the operations run on."""
+    from repro_torch.core import hw
+
+    bytes_moved, ops, ops_per_s = work
+    t_bytes, t_ops = bytes_moved / hw.HBM_BW, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -312,22 +323,19 @@ def kernel_inputs(near_dtype, seed: int = 0):
     }
 
 
-def tiered_bytes(x, near_itemsize: int, n_seg: int) -> float:
-    """Bytes one tiered lookup must move: ids (and segment ids), the tier and
-    slot entries of each distinct page, each distinct selected row once (a
-    far row with its scale), the (N, D) f32 rows and the hit table written."""
-    tier, ids, d = x["np"]["tier"], x["np"]["ids"], x["np"]["d"]
-    pages = np.unique(ids)
-    n_near = int((tier[pages] == 0).sum())
-    n_far = pages.size - n_near
-    reads = ids.size * 4 * 2 + pages.size * 8 + n_near * d * near_itemsize + n_far * (d + 4)
-    writes = ids.size * d * 4 + n_seg * 2 * 4
-    return float(reads + writes), float(ids.size - int((tier[ids] == 0).sum())) * d
+def tiered_work(x, n_seg: int):
+    """B1's or B2's work (``kernels/work.py``) on the f32 store of
+    ``kernel_inputs``: what its page ids and tier map need."""
+    from repro_torch.kernels import work
+
+    ids, tier = x["np"]["ids"], x["np"]["tier"]
+    return work.tiered_lookup(ids.size, x["np"]["d"], 4, n_seg, ids=ids, tier=tier)
 
 
 def check_kernels():
     import torch
 
+    from repro_torch.kernels import work
     from repro_torch.kernels.tiered_gather import ops, ref
 
     results = {}
@@ -345,8 +353,9 @@ def check_kernels():
         log(f"B1 tiered_segmented near={near_dtype}: rows and (9, 2) counters bit-exact "
             f"(max_abs_err {err}), hits {hits_k.sum(0).tolist()}")
         if near_dtype == torch.float32:
-            nbytes, nops = tiered_bytes(x, 4, x["n_segments"])
-            b_ms, b_by = bound(nbytes, nops)
+            w = tiered_work(x, x["n_segments"])
+            nbytes = w[0]
+            b_ms, b_by = bound(w)
             results["tiered_segmented"] = {
                 "max_abs_err": err,
                 "ms": time_ms(lambda: ops.tiered_lookup_segments(*args)),
@@ -364,8 +373,9 @@ def check_kernels():
     assert int(near_k) == int(near_p) and int(far_k) == int(far_p), "tiered_gather counters differ"
     err = float((rows_k - rows_p).abs().max())
     log(f"B2 tiered_gather: rows and counters bit-exact (near {int(near_k)}, far {int(far_k)})")
-    nbytes, nops = tiered_bytes(x, 4, 1)
-    b_ms, b_by = bound(nbytes, nops)
+    w = tiered_work(x, 1)
+    nbytes = w[0]
+    b_ms, b_by = bound(w)
     results["tiered_gather"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.tiered_lookup_counted(*args)),
@@ -384,9 +394,9 @@ def check_kernels():
         assert torch.equal(out_k, out_p), f"gather_rows differs ({label})"
         log(f"B3 gather_rows {label}: bit-exact")
     err = float((ops.gather_rows(flat, ids) - ref.gather_rows_ref(flat, ids)).abs().max())
-    uniq = int(np.unique(x["np"]["ids"]).size)
-    nbytes = float(ids.numel() * 4 + uniq * flat.shape[1] * 4 + ids.numel() * flat.shape[1] * 4)
-    b_ms, b_by = bound(nbytes, 0.0)
+    w = work.gather_rows(ids.numel(), flat.shape[1], 4, False, ids=x["np"]["ids"])
+    nbytes = w[0]
+    b_ms, b_by = bound(w)
     results["gather_rows"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.gather_rows(flat, ids)),
@@ -437,7 +447,7 @@ def log_row(name: str, label: str, r: dict):
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
         f"{r['bytes'] / 1e6:.2f} MB), library {r['library_ms']:.4f} ms")
     if "bound_cuda_cores_ms" in r:
-        log(f"{name} [{label}]: bound on TF32 tensor cores ({TF32_PRODUCTS} products) "
+        log(f"{name} [{label}]: bound on TF32 tensor cores (three products) "
             f"{r['bound_ms']:.4f} ms, on the CUDA cores (f32) {r['bound_cuda_cores_ms']:.4f} ms "
             f"(share {r['bound_cuda_cores_ms'] / r['ms']:.4f}); vs its TF32 algorithm "
             f"{r['err_vs_tf32_algorithm']:.3e}")
@@ -452,7 +462,9 @@ def check_flash(q, k, v, causal: bool, shapes: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.core import hw
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import work
     from repro_torch.models import common
 
     f32 = q.dtype == torch.float32
@@ -466,19 +478,19 @@ def check_flash(q, k, v, causal: bool, shapes: str) -> dict:
     close = (lambda a, b: bool(torch.allclose(a, b, rtol=2e-5, atol=2e-5))) if f32 else within_one_bf16_step
     assert close(out, plain), f"flash_attention differs from plain ({shapes})"
     torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
-    nbytes = float(2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size())  # q, o, k, v
-    pairs = lq * (lq + 1) / 2 if causal else lq * lk  # causal: Lq = Lk, q row 0 at position 0
-    nops = 4.0 * b * hq * d * pairs  # QK^T and PV
-    b_ms, b_by = bound(nbytes, nops, FP32_OPS_PER_S if f32 else BF16_OPS_PER_S)
+    # q, o, k, v; QK^T and PV over the causal pairs (Lq = Lk, q row 0 at
+    # position 0) or all of them; f32 as three TF32 products a product
+    w = work.flash_attention(b, hq, k.shape[1], lq, lk, d, q.element_size(), causal)
+    nbytes = w[0]
+    b_ms, b_by = bound(w)
     extra = {}
     if f32:
-        # f32-exact products on the tensor cores take TF32_PRODUCTS TF32
-        # products each: the least time for this work on them; the CUDA
-        # cores' f32 bound stays beside it
+        # the least time for this work on the TF32 tensor cores above; the
+        # CUDA cores' f32 bound stays beside it
         tf32 = fa.flash_attention_tf32_ref(q, k, v, **kw)
         assert close(out, tf32), f"flash_attention differs from its TF32 algorithm ({shapes})"
-        extra = {"bound_cuda_cores_ms": b_ms, "err_vs_tf32_algorithm": float((out - tf32).abs().max())}
-        b_ms, b_by = bound(nbytes, TF32_PRODUCTS * nops, TF32_OPS_PER_S)
+        extra = {"bound_cuda_cores_ms": bound((w[0], w[1], hw.PEAK_FLOPS_FP32))[0],
+                 "err_vs_tf32_algorithm": float((out - tf32).abs().max())}
     return {**extra, "shapes": shapes,
             "max_abs_err": float((out.float() - plain.float()).abs().max()),
             "err_vs_eager": float((out.float() - eager.float()).abs().max()),
@@ -498,6 +510,7 @@ def paged_over_pages(q, ck, cv) -> dict:
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
 
     b, _, n, _ = ck.shape
     out = fa.flash_attention(q, ck.float(), cv.float(), causal=False, lk_valid=n, q_offset=0)[:, :, 0]
@@ -509,11 +522,12 @@ def paged_over_pages(q, ck, cv) -> dict:
     po = paged()
     torch.cuda.synchronize()
     assert torch.allclose(po, out, rtol=2e-5, atol=2e-5), "paged over the cross cache differs"
-    nbytes = float(2 * ck.numel() * 2 + 2 * qd.numel() * 4 + table.numel() * 4 + 4 * b)
+    w = work.paged_attention(b, q.shape[1], ck.shape[1], q.shape[3], 4, 2, n // CROSS_PAGE, CROSS_PAGE,
+                             lengths=[n] * b)
     r = {"upcast_ms": time_ms(lambda: (ck.float(), cv.float())),
          "paged_over_pages_ms": time_ms(paged),
          "paged_vs_flash_err": float((po - out).abs().max()),
-         "paged_bound_ms": bound(nbytes, 4.0 * q.shape[1] * q.shape[3] * b * n, FP32_OPS_PER_S)[0]}
+         "paged_bound_ms": bound(w)[0]}
     log(f"whisper-base cross decode: the upcast of one layer's cross K/V {r['upcast_ms']:.4f} ms; the paged "
         f"kernel over the bf16 cache as {n // CROSS_PAGE} pages of {CROSS_PAGE} {r['paged_over_pages_ms']:.4f} ms "
         f"(bound {r['paged_bound_ms']:.4f} ms), vs flash {r['paged_vs_flash_err']:.3e}")
@@ -538,6 +552,7 @@ def check_attention():
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import work
     from repro_torch.models import common
 
     bf = torch.bfloat16
@@ -573,7 +588,6 @@ def check_attention():
         qname, qsz = ("f32", 4) if qdt == torch.float32 else ("bf16", 2)
         close = (lambda a, b: bool(torch.allclose(a, b, rtol=2e-5, atol=2e-5))) if qdt == torch.float32 \
             else within_one_bf16_step
-        peak = FP32_OPS_PER_S if qdt == torch.float32 else BF16_OPS_PER_S
         # B4: one decode step of 8 slots over the engine's per-slot cache,
         # viewed as pages without a copy
         kc, vc = rand(8, hkv, DECODE_S, d, dtype=bf), rand(8, hkv, DECODE_S, d, dtype=bf)
@@ -587,9 +601,9 @@ def check_attention():
         torch.cuda.synchronize()
         assert close(out, plain), f"paged_attention differs from plain ({arch})"
         torch.testing.assert_close(out.float(), eager.float(), rtol=2e-2, atol=2e-2)
-        seen = sum(min(x, DECODE_S) for x in DECODE_LENGTHS)
-        nbytes = float(2 * seen * hkv * d * 2 + 2 * qd.numel() * qsz + table.numel() * 4 + 8 * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * hq * d * seen, peak)
+        w = work.paged_attention(8, hq, hkv, d, qsz, 2, DECODE_S // DECODE_PAGE, DECODE_PAGE, DECODE_LENGTHS)
+        nbytes = w[0]
+        b_ms, b_by = bound(w)
         blocks = hkv * 8 * pa.split_count(DECODE_S, hkv, 8)
         log(f"paged_attention [{arch}]: {blocks} blocks of {pa.split_count(DECODE_S, hkv, 8)} a cluster "
             f"({hkv} KV heads x 8 slots x the split), one launch")
@@ -705,6 +719,7 @@ def check_train_attention():
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import work
 
     rows = {}
     for i, (arch, site, b, hq, hkv, lq, lk, causal) in enumerate(TRAIN_ATTN_SITES):
@@ -726,9 +741,9 @@ def check_train_attention():
         assert torch.equal(out, bare), f"B5's output changed when asked for its stats ({label})"
         assert within_one_bf16_step(out, plain), f"flash_attention with lse differs from plain ({label})"
         assert lse.shape == (b, hq, lq) and lse.dtype == torch.float32 and lse_err <= LSE_TOL, (label, lse_err)
-        nbytes = float(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4)  # q, o, k, v, lse
-        nops = 4.0 * b * hq * d * (lq * (lq + 1) / 2 if causal else lq * lk)
-        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        w = work.flash_attention(b, hq, hkv, lq, lk, d, 2, causal, return_lse=True)  # q, o, k, v, lse
+        nbytes, nops = w[0], w[1]
+        b_ms, b_by = bound(w)
         r = {"shapes": f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) bf16, "
                        f"{'causal' if causal else 'non-causal'}, lse f32 ({b}, {hq}, {lq})",
              "max_abs_err": float((out.float() - plain.float()).abs().max()), "lse_max_abs_err": lse_err,
@@ -749,50 +764,7 @@ def check_train_attention():
     return rows
 
 
-SCAN_CHUNK = 32  # the scan kernels' chunk (kC in csrc/wkv6.cu and csrc/ssd.cu)
 SCAN_RTOL = 1e-4  # see check_scans
-
-
-def _chunks(t: int):
-    return [min(SCAN_CHUNK, t - c) for c in range(0, t, SCAN_CHUNK)]
-
-
-def wkv6_work(b: int, t: int, h: int, hd: int, with_state: bool):
-    """(bytes, f32 operations) of one WKV6 call: r, k, v, lw read and y
-    written once, u, the state written (and read when given); the
-    operations those of the kernel's chunked form on these shapes, an exp
-    counted as one: per chunk of n tokens the cumulative sums, the n(n-1)/2
-    off-diagonal A terms of hd (sub, exp, mul, fma) and the n diagonal
-    ones, the decayed r and k, y = A v + r~ S and the state update."""
-    nbytes = 4.0 * (5 * b * t * h * hd + h * hd + (2 if with_state else 1) * b * h * hd * hd)
-    ops = 0.0
-    for n in _chunks(t):
-        ops += (n + 1) * hd + n * (n - 1) / 2 * hd * 5 + n * hd * 3 + n * hd * 5
-        ops += n * (n + 1) / 2 * hd * 2 + n * hd * hd * 2 + hd * hd * (1 + 2 * n)
-    return nbytes, ops * b * h
-
-
-def ssd_work(b: int, t: int, h: int, p: int, n_state: int, with_state: bool):
-    """(bytes, f32 operations) of one SSD call: x read and y written once,
-    dt, B, C, A, D read, the state written (and read when given); the
-    operations the function needs in the chunked form, an exp counted as
-    one. Per chunk of n tokens: the Gram matrix C B^T over its n(n+1)/2
-    causal pairs once, shared by the heads; per head the decays (dt A, its
-    cumulative sum and their exps), the n(n+1)/2 segment weights G and their
-    product with the Gram matrix, ((C B^T) o G) x, C S_in^T scaled and plus
-    D x, x o w once, and the state update exp(.) S_in + (x o w)^T B. (The
-    kernel, as the TPU kernel, forms the Gram matrix in every head and
-    multiplies x by w again inside its N loop; that redundant work is not
-    counted.)"""
-    nbytes = 4.0 * (2 * b * t * h * p + b * t * h + 2 * b * t * n_state + 2 * h
-                    + (2 if with_state else 1) * b * h * p * n_state)
-    ops = 0.0
-    for n in _chunks(t):
-        tri = n * (n + 1) / 2
-        per_head = (6 * n + 4 * tri + 2 * tri * p + 2 * n * p * n_state + 4 * n * p
-                    + n * p + p * n_state * (2 * n + 1))
-        ops += 2 * n_state * tri + h * per_head
-    return nbytes, ops * b
 
 
 def check_scans():
@@ -812,7 +784,7 @@ def check_scans():
     null: no one PyTorch call computes either scan."""
     import torch
 
-    from repro_torch.kernels import mamba2_scan, rwkv6_scan
+    from repro_torch.kernels import mamba2_scan, rwkv6_scan, work
 
     rng = np.random.default_rng(4)
     t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
@@ -832,14 +804,14 @@ def check_scans():
 
     specs = {
         "wkv6": (rwkv6_scan.wkv6_chunked, rwkv6_scan.wkv6_ref, wkv6_case,
-                 lambda b, t, st: wkv6_work(b, t, h, hd, st), "r, k, v, lw"),
+                 lambda b, t, st: work.wkv6(b, t, h, hd, st), "r, k, v, lw"),
         "ssd": (mamba2_scan.ssd_chunked, mamba2_scan.ssd_ref, ssd_case,
-                lambda b, t, st: ssd_work(b, t, h, hd, hd, st), "x"),
+                lambda b, t, st: work.ssd(b, t, h, hd, hd, st), "x"),
     }
     shapes = {"prefill": (1, PREFILL_LEN, False), "prefill_state": (1, PREFILL_LEN, True),
               "decode": (8, 1, True)}
     results = {}
-    for name, (op, plain, make, work, inputs) in specs.items():
+    for name, (op, plain, make, count, inputs) in specs.items():
         cases = {label: make(*shape) for label, shape in shapes.items()}
         errs = {}
         for label, args in cases.items():
@@ -868,8 +840,9 @@ def check_scans():
             args = cases[label]
             b, t = args[0].shape[:2]
             given = args[-1] is not None
-            nbytes, nops = work(b, t, given)
-            b_ms, b_by = bound(nbytes, nops)
+            w = count(b, t, given)
+            nbytes, nops = w[0], w[1]
+            b_ms, b_by = bound(w)
             res[label] = {
                 "shapes": f"{inputs} ({b}, {t}, {h}, {hd}) f32, state {'given' if given else 'zero'}",
                 "max_abs_err": max(errs.values()),
@@ -905,7 +878,7 @@ def check_train_scans():
     computes either scan."""
     import torch
 
-    from repro_torch.kernels import mamba2_scan, rwkv6_scan
+    from repro_torch.kernels import mamba2_scan, rwkv6_scan, work
     from repro_torch.kernels.mamba2_scan import ops as ssd_ops
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 
@@ -913,20 +886,20 @@ def check_train_scans():
     t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
     normal = lambda *shape: t_(rng.standard_normal(shape))
     b, t, h, hd = TRAIN_SCAN_ROWS, TRAIN_SEQ, 64, 64
-    c = -(-t // SCAN_CHUNK)
+    c = -(-t // work.CHUNK)
     lw = t_(-np.minimum(np.exp(rng.normal(-1.0, 1.5, (b, t, h, hd))), 10.0))
     dt = t_(np.log1p(np.exp(rng.normal(0.0, 1.5, (b, t, h)))))
     specs = {
         "wkv6": (wkv_ops, rwkv6_scan.wkv6_ref, rwkv6_scan.wkv6_vjp,
                  [normal(b, t, h, hd), normal(b, t, h, hd), normal(b, t, h, hd), lw, normal(h, hd), None],
-                 wkv6_work(b, t, h, hd, False), "r, k, v, lw"),
+                 work.wkv6(b, t, h, hd, False, return_states=True), "r, k, v, lw"),
         "ssd": (ssd_ops, mamba2_scan.ssd_ref, mamba2_scan.ssd_vjp,
                 [normal(b, t, h, hd), dt, t_(-np.exp(rng.uniform(-2.0, 1.0, h))), normal(b, t, hd),
                  normal(b, t, hd), normal(h), None],
-                ssd_work(b, t, h, hd, hd, False), "x"),
+                work.ssd(b, t, h, hd, hd, False, return_states=True), "x"),
     }
     results = {}
-    for name, (ops, plain, vjp, args, (nbytes, nops), inputs) in specs.items():
+    for name, (ops, plain, vjp, args, w, inputs) in specs.items():
         split = ops.ref.split_count(t, b, h)
         y, s, states = ops._launch(*args, None, split, return_states=True)
         bare = ops._launch(*args, None, split)
@@ -942,8 +915,8 @@ def check_train_scans():
                                            msg=f"{name} {label} {what}")
                 errs[f"{label} {what}"] = float((a - b_).abs().max())
         dy, ds = normal(*y.shape), normal(*s.shape)
-        state_bytes = 4.0 * b * h * c * hd * hd
-        b_ms, b_by = bound(nbytes + state_bytes, nops)
+        b_ms, b_by = bound(w)  # the chunk states' bytes included
+        nops = w[1]
         r = {"shapes": f"{inputs} ({b}, {t}, {h}, {hd}) f32, state zero, chunk states ({b}, {h}, {c}, {hd}, {hd})",
              "max_abs_err": max(errs.values()), "errs": errs, "split": split,
              "ms": time_ms(lambda: ops._launch(*args, None, split, return_states=True), reps=20),
@@ -951,7 +924,7 @@ def check_train_scans():
              "ms_split_1": time_ms(lambda: ops._launch(*args, None, 1, return_states=True), reps=20),
              "plain_ms": time_ms(lambda: plain(*args, return_states=True), reps=3),
              "vjp_ms": time_ms(lambda: vjp(*args, states, dy, ds), reps=5),
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": nbytes + state_bytes, "ops": nops}
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "bytes": w[0], "ops": nops}
         log(f"{name} [training forward, with chunk states] {r['shapes']}: max_abs_err vs plain {errs} (rtol "
             f"{SCAN_RTOL}, atol {SCAN_RTOL} x max|plain|), y and final state bit-equal without states; kernel "
             f"{r['ms']:.4f} ms at split {split}, without states {r['ms_without_states']:.4f} ms, with states at "
@@ -2163,6 +2136,176 @@ def trainer_crash_resume(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the launch layer on the card (repro_torch.launch)
+
+# the serving launcher: full-width smollm-360m on 16 Web1-profile requests,
+# its near tier 0.5% of the pages so that the far tier serves reads too
+LAUNCHER_ARGS = ["--arch", "smollm-360m", "--workload", "Web1", "--requests", "16", "--near-frac", "0.005",
+                 "--device", "cuda"]
+# the walk's peak live bytes over the step's measured rise in
+# torch.cuda.max_memory_allocated (the caching allocator rounds each block
+# up; the walk counts storages as they are)
+PEAK_RATIO = (0.67, 1.5)
+WALK_DECODE_LENGTH = 1000  # the decode step's cache is filled to this length on the card
+
+
+def launcher_phase() -> dict:
+    """10a: ``launch.serve.main`` at full width, as a user runs it. Its report
+    is parsed: every request finished, both tiers served reads (the near-hit
+    rate strictly between 0 and 1), the page-table line printed; the
+    tiered lookup (B1), flash (B5) and paged (B4) kernels launched."""
+    import io
+    import re
+
+    from repro_torch.launch import serve as launch_serve
+
+    zero_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(LAUNCHER_ARGS)
+    out = buf.getvalue()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    for line in out.splitlines():
+        log(f"  [launcher] {line}")
+    head = re.search(r": (\d+) requests, (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s\)", out)
+    near = float(re.search(r"near_hit_rate\s+([\d.]+)", out).group(1))
+    r = {"args": LAUNCHER_ARGS, "requests_finished": int(head.group(1)), "tokens": int(head.group(2)),
+         "seconds": float(head.group(3)), "tokens_per_s": float(head.group(4)), "near_hit_rate": near,
+         "launches": launched}
+    log(f"launcher: {r}")
+    assert rc == 0 and r["requests_finished"] == 16 and "page table:" in out, r
+    assert 0.0 < near < 1.0, f"the launcher's reads did not reach both tiers: near_hit_rate {near}"
+    assert all(launched.get(k, 0) > 0 for k in ("tiered_segmented", "flash_attention", "paged_attention")), launched
+    return r
+
+
+def walk_step(api, kind: str, device: str):
+    """(step, args) of phase 10b's ``kind`` of step of ``api``'s model on
+    ``device`` (meta or the card): "train", one train step at phase 9's 8 x
+    1,024 tokens, or "decode", one whole-batch decode step of 8 slots over
+    a 1,024 cache. On the card the parameters are seed-0 draws, the tokens
+    seed-3 draws and the cache filled to ``WALK_DECODE_LENGTH``."""
+    import torch
+
+    from repro_torch.models.api import make_serve_step, make_train_step, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    meta = device == "meta"
+    params = api.abstract_params() if meta else api.init(0, device=device)
+    g = torch.Generator().manual_seed(3)
+    toks = lambda *shape: (torch.empty(shape, dtype=torch.int32, device="meta") if meta else
+                           torch.randint(0, api.cfg.vocab_size, shape, generator=g, dtype=torch.int32).to(device))
+    if kind == "train":
+        state = adamw_init({n: p.detach() for n, p in trainable(params).items()})
+        batch = {"tokens": toks(TRAINER_BATCH, TRAINER_SEQ), "labels": toks(TRAINER_BATCH, TRAINER_SEQ)}
+        return make_train_step(api, AdamWConfig(lr=TRAIN_LR, clip_norm=1.0)), (params, state, batch)
+    cache = api.abstract_cache(8, 1024) if meta else api.init_cache(8, 1024, device=device)
+    if not meta:
+        cache["lengths"].fill_(WALK_DECODE_LENGTH)
+    return make_serve_step(api, vocab=api.cfg.vocab_size), (params, cache, toks(8, 1))
+
+
+def walk_vs_card(card: str) -> dict:
+    """10b: the cost walk against the card, for full-width smollm-360m's
+    train step (phase 9's 8 x 1,024 tokens, AdamW) and a whole-batch decode
+    step (8 slots over a 1,024 cache). Each step is walked on meta
+    (``launch.op_analysis.walk``; the decode walked once before, for its
+    held casts, as the card's step runs after one warm-up step), then run
+    on the card from seed-0 weights, once to warm up and once measured
+    with CUDA events. Held: the walk's peak live bytes within
+    ``PEAK_RATIO`` of the step's rise in ``max_memory_allocated`` over what
+    the card held before its weights were made; the measured device time at
+    or above the walk's bound, max(compute_s, memory_s) at the card's
+    peaks; the kernels the walk recorded equal to the wrappers'
+    ``LAUNCHES`` rise in the measured step, kernel by kernel."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis, roofline as rl
+    from repro_torch.models.api import get_model
+
+    cfg = get_config("smollm-360m")
+    api = get_model(cfg)
+    out = {}
+    for kind, tokens in (("train", TRAINER_BATCH * TRAINER_SEQ), ("decode", 8)):
+        grad = torch.enable_grad() if kind == "train" else torch.no_grad()
+        step, args = walk_step(api, kind, "meta")
+        t0 = time.perf_counter()
+        with grad:
+            if kind == "decode":
+                op_analysis.walk(step, *args)
+            _, cost = op_analysis.walk(step, *args)
+        walk_s = time.perf_counter() - t0
+        terms = rl.roofline(cost=cost, n_params=float(cfg.n_params()), n_tokens=float(tokens),
+                            kind="train" if kind == "train" else "serve")
+        bound_ms = max(terms.compute_s, terms.memory_s) * 1e3
+        del step, args
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        step, args = walk_step(api, kind, "cuda")
+        with grad:
+            step(*args)  # warm-up: cuBLAS, and the decode's held casts
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            result = step(*args)
+            e.record()
+            torch.cuda.synchronize()
+        launched = {k: v for k, v in launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = s.elapsed_time(e)
+        r = {"walk_peak_bytes": cost.peak_bytes, "card_peak_bytes": peak, "peak_ratio": cost.peak_bytes / peak,
+             "ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms, "compute_ms": terms.compute_s * 1e3,
+             "memory_ms": terms.memory_s * 1e3, "compute_at_bf16_ms": terms.detail["compute_at_bf16_s"] * 1e3,
+             "flops": cost.flops, "bytes": cost.bytes, "flops_by_dtype": dict(cost.flops_by_dtype),
+             "walk_kernels": dict(cost.kernel_calls), "launches": launched, "walk_s": walk_s,
+             "roofline_fraction": rl.roofline_fraction(terms), "ops": cost.ops}
+        log(f"walk vs card, smollm-360m {kind} [{card}]: walk peak {cost.peak_bytes / 2**30:.3f} GiB, card "
+            f"{peak / 2**30:.3f} GiB (ratio {r['peak_ratio']:.4f}, held to {PEAK_RATIO}); measured {ms:.3f} ms, "
+            f"walk bound {bound_ms:.3f} ms (compute {r['compute_ms']:.3f}, memory {r['memory_ms']:.3f}, all "
+            f"flops at bf16 {r['compute_at_bf16_ms']:.3f}; {r['bound_share']:.4f} of the measured time); kernels "
+            f"walked {r['walk_kernels']}, launched {launched}; {cost.ops} aten ops walked in {walk_s:.1f} s")
+        assert PEAK_RATIO[0] <= r["peak_ratio"] <= PEAK_RATIO[1], r
+        assert ms >= bound_ms, f"the walk's bound {bound_ms} ms exceeds the measured {ms} ms: it overcounts"
+        assert launched == dict(cost.kernel_calls), (launched, dict(cost.kernel_calls))
+        out[kind] = r
+        del step, args, result
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase() -> dict:
+    """10c: ``launch.dryrun.main`` walks smollm-360m's three cells into a
+    temporary directory and ``launch.report.main`` renders them."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import dryrun, report
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--arch", "smollm-360m", "--out", tmp])
+        walk_s = time.perf_counter() - t0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            report.main(["--dir", tmp])
+        cells = report.load(os.path.join(tmp, dryrun.MESHES["single"]))
+    for line in buf.getvalue().splitlines():
+        log(f"  [report] {line}")
+    assert rc == 0 and len(cells) == 3 and all(c["ok"] for c in cells), [c.get("error") for c in cells]
+    return {"walk_s": walk_s, "cells": {c["shape"]: {"peak_bytes": c["memory"]["peak_bytes"],
+                                                      "fits": c["memory"]["fits"],
+                                                      "bound": c["roofline"]["bound"],
+                                                      "roofline_fraction": c["roofline"]["roofline_fraction"]}
+                                        for c in cells}}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the fleet over the port's engines
 
 
@@ -2678,6 +2821,18 @@ def main():
     trainer = trainer_phase()
     log(f"phase 9 trainer {time.perf_counter() - t9:.1f} s")
 
+    # phase 10: the launch layer: the serving launcher at full width, the
+    # cost walk against the card, the dry run and its report
+    t10 = time.perf_counter()
+    launch_layer = {"launcher": launcher_phase()}
+    t10b = time.perf_counter()
+    log(f"phase 10a launcher {t10b - t10:.1f} s")
+    launch_layer["walk_vs_card"] = walk_vs_card(card)
+    t10c = time.perf_counter()
+    log(f"phase 10b walk vs card {t10c - t10b:.1f} s")
+    launch_layer["dryrun"] = dryrun_phase()
+    log(f"phase 10c dry run {time.perf_counter() - t10c:.1f} s")
+
     # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
@@ -2748,6 +2903,7 @@ def main():
     log("sharded engine: " + json.dumps(sharded))
     log("training: " + json.dumps({"reduced_card_vs_cpu": train_reduced, **train}))
     log("trainer: " + json.dumps(trainer))
+    log("launch layer: " + json.dumps(launch_layer))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,12 @@
 """Hardware model: the card the port runs on + memory-tier specs.
 
 The card's figures are its published peaks, for an NVIDIA H100 80GB HBM3,
-700 W (the SXM part): 3.35 TB/s of HBM3, and a PCIe Gen5 x16 host link at
-64 GB/s each way. Tier specs mirror the paper's Table 4 (near =
+700 W (the SXM part): 3.35 TB/s of HBM3 and 80 GiB of it, dense products
+at 989 TFLOP/s in bf16 and 495 TFLOP/s in TF32 on the tensor cores and
+67 TFLOP/s in f32 on the CUDA cores, NVLink 4 at 450 GB/s each way, and a
+PCIe Gen5 x16 host link at 64 GB/s each way. The roofline
+(``launch/roofline.py``) and the kernels' bounds (``kernels/work.py``)
+price work at these peaks. Tier specs mirror the paper's Table 4 (near =
 HB-DIMM-like: 2x BW, 2x cost; far = CXL-like: DDR BW, higher latency) as
 the reference has them, so the planner reproduces Table 5 with the paper's
 own constants; the serving tiers (device HBM vs host DRAM over the host
@@ -13,7 +17,15 @@ from __future__ import annotations
 import dataclasses
 
 # --- NVIDIA H100 80GB HBM3, 700 W (published peaks) -------------------------
-HBM_BW = 3.35e12  # B/s
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 on the tensor cores (H100 SXM, 700 W)
+PEAK_FLOPS_TF32 = 495e12  # FLOP/s, dense TF32 on the tensor cores (H100 SXM, 700 W)
+PEAK_FLOPS_FP32 = 67e12  # FLOP/s, f32 on the CUDA cores (H100 SXM, 700 W)
+HBM_BW = 3.35e12  # B/s, HBM3 (H100 SXM, 700 W)
+HBM_BYTES = 80 * 2**30  # the card's 80 GiB of HBM3 (H100 SXM, 700 W)
+# NVLink 4, one direction, all 18 links of one card together (H100 SXM,
+# 700 W): the counterpart of the reference's ICI link figure, used only by
+# the roofline's collective term, which is 0 on one card
+NVLINK_BW = 450e9  # B/s
 # host link (far tier for serving state): PCIe Gen5 x16, one direction
 HOST_LINK_BW = 64e9  # B/s
 

@@ -8,8 +8,9 @@ use (never at import), one nvcc process per source, all started together.
 Nothing here falls back: a missing nvcc or a failed compile raises.
 
 The routing helpers at the end are shared by every wrapper in ``ops.py``:
-CPU tensors take the plain version, CUDA tensors the kernel; so is the
-rule by which the cluster kernels split a sequence (``split_count``).
+CPU tensors take the plain version, CUDA tensors the kernel, and meta
+tensors inside a cost walk the shape-only route (``shape_only``); so is
+the rule by which the cluster kernels split a sequence (``split_count``).
 """
 from __future__ import annotations
 
@@ -94,6 +95,35 @@ def check(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# the cost walks in progress (``launch/op_analysis.py``), innermost last:
+# inside one, a wrapper given meta tensors returns empty outputs of its
+# kernel's shapes and records the kernel's work (``kernels/work.py``) in
+# the walk instead of launching; outside one, meta raises as any device
+# without a kernel
+WALKS: list = []
+
+
+def shape_only(*tensors) -> bool:
+    """True when a cost walk is in progress and every given tensor lies on
+    the meta device: the wrapper then takes its shape-only route, which
+    builds nothing, launches nothing and moves no ``LAUNCHES`` count."""
+    present = [t for t in tensors if t is not None]
+    return bool(WALKS) and bool(present) and all(t.is_meta for t in present)
+
+
+def record(name: str, work):
+    """Record one kernel call's ``(bytes, operations, peak)`` in the
+    innermost cost walk."""
+    WALKS[-1].kernel(name, work)
+
+
+def kernel_route(t: torch.Tensor) -> bool:
+    """True where the models call the kernels' wrappers rather than their
+    eager CPU paths: for a tensor on the card, and for a meta tensor inside
+    a cost walk, which prices the card's path."""
+    return t.is_cuda or (t.is_meta and bool(WALKS))
 
 
 def on_cuda(what: str, *tensors) -> bool:

@@ -20,7 +20,9 @@ zero-filled and masked. With ``return_lse`` the kernel also writes each
 row's softmax stats (lse, f32), which the training forward's attention
 Function (``models.common.AttentionFn``) saves for its backward; a call
 without it stores nothing more. ``LAUNCHES`` counts kernel launches, and
-only kernel launches. Under grad mode an input that requires grad raises
+only kernel launches. Meta tensors inside a cost walk take the shape-only
+route (``build.shape_only``): empty outputs, the work recorded, no
+launch. Under grad mode an input that requires grad raises
 (``build.on_cuda``): the kernel records no autograd history. ``ref.flash_attention_tiled_ref`` and
 ``ref.flash_attention_tf32_ref`` are the bf16 and f32 kernels' algorithms
 (tiles of 64 keys; p in three bf16 parts, or three TF32 products) in
@@ -34,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.build import need
 from repro_torch.kernels.flash_attention import ref
 
@@ -76,6 +78,12 @@ def flash_attention(q, k, v, *, causal: bool = True, lk_valid: Optional[int] = N
     need(d in HEAD_DIMS, f"head_dim {d} is not built: the kernel takes {HEAD_DIMS}")
     lk_valid = lk if lk_valid is None else int(lk_valid)
     q_offset = lk_valid - lq if q_offset is None else int(q_offset)
+    if build.shape_only(q, k, v):
+        build.record("flash_attention", work.flash_attention(
+            b, hq, hkv, lq, lk, d, q.element_size(), causal, q_offset, lk_valid, return_lse))
+        out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device) if return_lse else None
+        return (out, lse) if return_lse else out
     if not build.on_cuda("flash_attention", q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, lk_valid=lk_valid, q_offset=q_offset,
                                        return_lse=return_lse)

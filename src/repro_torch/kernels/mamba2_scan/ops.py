@@ -20,7 +20,8 @@ masks its ragged last chunk, so unlike the TPU op nothing is transposed
 and T is not padded. A prompt is split over the blocks of a cluster, as
 many as ``ref.split_count`` gives from the shapes; a decode step (T = 1)
 streams the state through registers. ``LAUNCHES`` counts kernel
-launches, and only kernel launches. ``ref.ssd_split_ref`` is the
+launches, and only kernel launches. Meta tensors inside a cost walk take
+the shape-only route (``build.shape_only``). ``ref.ssd_split_ref`` is the
 prefill kernel's algorithm in plain PyTorch, for tests.
 
 ``SSDFn`` (``ssd_train``) is the op a training forward takes: its forward
@@ -37,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.build import need
 from repro_torch.kernels.mamba2_scan import ref
 
@@ -78,6 +79,11 @@ def ssd_chunked(x, dt, A, B, C, D, state: Optional[torch.Tensor] = None, *, inpl
     need(p in SIZES and n in SIZES, f"P = {p}, N = {n} is not built: the kernel takes {SIZES} each")
     need(t >= 1, "the sequence is empty")
     need(not inplace or state is not None, "inplace needs a state to write into")
+    if build.shape_only(x, dt, A, B, C, D, state):
+        build.record("ssd", work.ssd(b, t, h, p, n, state is not None, return_states))
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)
+        states = (new(b, h, -(-t // ref.CHUNK), p, n),) if return_states else ()
+        return (new(b, t, h, p), state if inplace else new(b, h, p, n), *states)
     if not build.on_cuda("ssd", x, dt, A, B, C, D, state):
         y, s, *states = ref.ssd_ref(x, dt, A, B, C, D, state, return_states=return_states)
         if inplace:

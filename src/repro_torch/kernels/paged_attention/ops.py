@@ -19,7 +19,9 @@ count the wrapper computes and passes, and merges their partials in split
 order. The grid comes from shapes alone, so nothing is read back; it reads
 the pools through their strides and needs unit stride along head_dim and
 16-byte aligned rows. Unlike the TPU op nothing is padded. ``LAUNCHES``
-counts kernel launches, and only kernel launches.
+counts kernel launches, and only kernel launches. Meta tensors inside a
+cost walk take the shape-only route (``build.shape_only``), which counts
+every sequence as long as its pages.
 ``ref.paged_attention_split_ref`` is the kernel's algorithm in plain
 PyTorch, for tests.
 """
@@ -30,7 +32,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.build import need
 from repro_torch.kernels.paged_attention import ref
 
@@ -104,6 +106,10 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
     need(lengths.shape == (b,) and lengths.dtype == torch.int32,
          f"lengths must be ({b},) int32, got {tuple(lengths.shape)} {lengths.dtype}")
     need(n_phys > 0 and ps > 0, "the page pool is empty")
+    if build.shape_only(q, k_pages, v_pages, page_table, lengths):
+        build.record("paged_attention", work.paged_attention(
+            b, hq, hkv, d, q.element_size(), k_pages.element_size(), page_table.shape[1], ps))
+        return torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if not build.on_cuda("paged_attention", q, k_pages, v_pages, page_table, lengths):
         return ref.paged_attention_ref(q, k_pages, v_pages, page_table, lengths)
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):

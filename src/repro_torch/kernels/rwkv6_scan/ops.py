@@ -20,8 +20,10 @@ chunk, so unlike the TPU op nothing is transposed to (B, H, T, hd) and T
 is not padded to a chunk multiple. A prompt is split over the blocks of a
 cluster, as many as ``ref.split_count`` gives from the shapes; a decode
 step (T = 1) streams the state through registers. ``LAUNCHES`` counts
-kernel launches, and only kernel launches. ``ref.wkv6_split_ref`` is the
-prefill kernel's algorithm in plain PyTorch, for tests.
+kernel launches, and only kernel launches. Meta tensors inside a cost
+walk take the shape-only route (``build.shape_only``).
+``ref.wkv6_split_ref`` is the prefill kernel's algorithm in plain
+PyTorch, for tests.
 
 ``WKV6Fn`` (``wkv6_train``) is the op a training forward takes: its
 forward is ``wkv6_chunked(..., return_states=True)`` with grad mode off
@@ -38,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.build import need
 from repro_torch.kernels.rwkv6_scan import ref
 
@@ -77,6 +79,11 @@ def wkv6_chunked(r, k, v, lw, u, state: Optional[torch.Tensor] = None, *, inplac
     need(hd in HEAD_DIMS, f"head_dim {hd} is not built: the kernel takes {HEAD_DIMS}")
     need(t >= 1, "the sequence is empty")
     need(not inplace or state is not None, "inplace needs a state to write into")
+    if build.shape_only(r, k, v, lw, u, state):
+        build.record("wkv6", work.wkv6(b, t, h, hd, state is not None, return_states))
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=r.device)
+        states = (new(b, h, -(-t // ref.CHUNK), hd, hd),) if return_states else ()
+        return (new(b, t, h, hd), state if inplace else new(b, h, hd, hd), *states)
     if not build.on_cuda("wkv6", r, k, v, lw, u, state):
         y, s, *states = ref.wkv6_ref(r, k, v, lw, u, state, return_states=return_states)
         if inplace:

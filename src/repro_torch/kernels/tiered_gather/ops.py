@@ -16,6 +16,8 @@ plain PyTorch versions in ``ref.py``; CUDA tensors launch the hand-written
 kernels of ``csrc/tiered_gather.cu`` (built at first use), and any input the
 kernel does not take raises. There is no fallback from one to the other.
 ``LAUNCHES`` counts kernel launches by name, and only kernel launches.
+Meta tensors inside a cost walk take the shape-only route
+(``build.shape_only``): empty outputs, the work recorded, no launch.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.build import need
 from repro_torch.kernels.tiered_gather import ref
 
@@ -92,6 +94,10 @@ def gather_rows(src, ids, scales: Optional[torch.Tensor] = None):
     if scales is not None:
         need(scales.numel() == src.shape[0] and scales.dtype == torch.float32,
               f"scales must hold {src.shape[0]} f32 scales")
+    if build.shape_only(src, ids, scales):
+        build.record("gather_rows", work.gather_rows(ids.shape[0], src.shape[1], src.element_size(),
+                                                     scales is not None))
+        return torch.empty((ids.shape[0], src.shape[1]), dtype=torch.float32, device=src.device)
     if not build.on_cuda("tiered gather", src, ids, scales):
         return ref.gather_rows_ref(src, ids, scales)
     n, d = ids.shape[0], src.shape[1]
@@ -121,6 +127,11 @@ def tiered_lookup_counted(hot, cold_q, cold_scales, tier, slot, ids):
     scalars on the inputs' device, counted inside the kernel.
     """
     _check_tiered(hot, cold_q, cold_scales, tier, slot, ids)
+    if build.shape_only(hot, cold_q, cold_scales, tier, slot, ids):
+        build.record("tiered_gather", work.tiered_lookup(ids.shape[0], hot.shape[1], hot.element_size(), 1))
+        count = lambda: torch.empty((), dtype=torch.int32, device=hot.device)
+        return (torch.empty((ids.shape[0], hot.shape[1]), dtype=torch.float32, device=hot.device),
+                count(), count())
     if not build.on_cuda("tiered gather", hot, cold_q, cold_scales, tier, slot, ids):
         return ref.tiered_lookup_counted_ref(hot, cold_q, cold_scales, tier, slot, ids)
     if ids.shape[0] == 0:
@@ -142,6 +153,11 @@ def tiered_lookup_segments(hot, cold_q, cold_scales, tier, slot, ids, seg_of,
     """
     n_segments = int(n_segments)
     _check_tiered(hot, cold_q, cold_scales, tier, slot, ids, seg_of)
+    if build.shape_only(hot, cold_q, cold_scales, tier, slot, ids, seg_of):
+        build.record("tiered_segmented", work.tiered_lookup(ids.shape[0], hot.shape[1], hot.element_size(),
+                                                            n_segments))
+        return (torch.empty((ids.shape[0], hot.shape[1]), dtype=torch.float32, device=hot.device),
+                torch.empty((n_segments, 2), dtype=torch.int32, device=hot.device))
     if not build.on_cuda("tiered gather", hot, cold_q, cold_scales, tier, slot, ids, seg_of):
         return ref.tiered_lookup_segments_ref(
             hot, cold_q, cold_scales, tier, slot, ids, seg_of, n_segments

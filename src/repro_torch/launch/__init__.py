@@ -1,6 +1,12 @@
-"""Launch layer: drivers (mirrors repro/launch).
+"""Launch layer: drivers, the one-card dry run, roofline and report
+(mirrors repro/launch).
 
-The port has the training driver, run as ``python -m repro_torch.launch.train``.
-Mesh construction, the multi-pod dry-run, the roofline and the serving
-driver are not ported yet (ROADMAP A10).
+``train`` and ``serve`` are the training and serving drivers
+(``python -m repro_torch.launch.train`` / ``.serve``; the card by default,
+``--device cpu`` for the plain versions). ``dryrun`` walks every (arch x
+shape) cell once on the meta device under the op-level cost walk
+(``op_analysis``, the counterpart of the reference's ``hlo_analysis``),
+prices it at the H100's figures (``roofline``) and writes one JSON a cell,
+which ``report`` renders; none of them needs a card. Mesh construction and
+meshes of several cards are ROADMAP A11.
 """

@@ -7,6 +7,11 @@ tokens and audio frames in), and so are the loss, its gradients and the
 train step (``make_train_step``, AdamW) of every family: attention through
 ``common.AttentionFn`` and the scans through ``WKV6Fn`` and ``SSDFn``,
 each a kernel forward on the card and a backward in plain PyTorch.
+
+The shape-only entry points (``abstract_params``, ``abstract_cache``,
+``input_specs``) build meta tensors, with nothing drawn or allocated, for
+the cost walk of ``launch/dryrun.py``. The reference's sharding specs
+(``param_specs``, ``cache_specs``, ``batch_specs``) wait for ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common, moe, rwkv6, transformer, vlm, whisper, zamba2
 from repro_torch.optim import AdamWConfig, adamw_update
@@ -35,15 +40,52 @@ class ModelAPI:
 
     def init(self, seed: int = 0, device=None) -> torch.nn.Module:
         """Random-init params from ``torch.Generator().manual_seed(seed)``,
-        drawn on the CPU and placed on ``device`` (None -> the CUDA card)."""
+        drawn on the CPU and placed on ``device`` (None -> the CUDA card).
+        On ``meta`` nothing is drawn: the initializers get no generator and
+        every leaf is made on meta, with the tree, names, shapes and dtypes
+        of a drawn init."""
         dev = resolve_device(device)
+        if dev.type == "meta":
+            with torch.device(dev):
+                return _PORTED[self.family].init(self.cfg, None, device=dev)
         gen = torch.Generator().manual_seed(int(seed))
         return _PORTED[self.family].init(self.cfg, gen, device=dev)
+
+    def abstract_params(self) -> torch.nn.Module:
+        """``init``'s parameter module on the meta device, nothing drawn."""
+        return self.init(device="meta")
 
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         return _PORTED[self.family].init_cache(
             self.cfg, batch, max_len, device=resolve_device(device)
         )
+
+    def abstract_cache(self, batch: int, max_len: int) -> dict:
+        """``init_cache``'s tree on the meta device, nothing allocated."""
+        return self.init_cache(batch, max_len, device="meta")
+
+    def input_specs(self, shape_name: str) -> dict:
+        """Meta tensors for the step of a ``SHAPES`` cell (global shapes,
+        nothing allocated), under the reference's keys and dtypes: int32
+        tokens, labels and M-RoPE positions, bf16 embeds and frames. A
+        train or prefill cell gets the family's inputs (and a train cell
+        its labels); a decode cell one new token a row against a cache of
+        ``seq_len`` positions (``abstract_cache``)."""
+        cfg, sh = self.cfg, SHAPES[shape_name]
+        b, s = sh.global_batch, sh.seq_len
+        tok = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
+        emb = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="meta")
+        if sh.kind in ("train", "prefill"):
+            if self.family == "vlm":
+                batch = {"embeds": emb(b, s, cfg.d_model), "mrope_positions": tok(3, b, s)}
+            elif self.family == "audio":
+                batch = {"tokens": tok(b, s), "frames": emb(b, cfg.n_audio_frames, cfg.d_model)}
+            else:
+                batch = {"tokens": tok(b, s)}
+            if sh.kind == "train":
+                batch["labels"] = tok(b, s)
+            return batch
+        return {"tokens": tok(b, 1), "cache": self.abstract_cache(b, s)}
 
     def loss(self, params, batch: dict, *, remat: Optional[bool] = None):
         """Trunk + fused sequence-chunked head and CE (+ the moe aux loss):
@@ -86,6 +128,21 @@ class ModelAPI:
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(cfg)
+
+
+def card_widths(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` at widths the card's kernels take: attention head_dim 64 (the
+    flash and paged kernels take 64 or 128), d_model widened to 64 per head
+    and vlm's M-RoPE sections with it. A reduced config (head_dim 16) needs
+    this on the card; the scans' head sizes of 16 are built as they are, so
+    an ssm config and a config already at 64 or 128 come back unchanged."""
+    hd = cfg.head_dim
+    if cfg.family == "ssm" or hd in (64, 128):
+        return cfg
+    if 64 % hd:
+        raise ValueError(f"head_dim {hd} does not widen to 64")
+    return dataclasses.replace(cfg, d_model=64 * cfg.n_heads,
+                               mrope_sections=tuple(s * (64 // hd) for s in cfg.mrope_sections))
 
 
 def kernel_launches(cfg: ModelConfig, prefills: int, decodes: int) -> dict:
@@ -212,6 +269,16 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optio
         return params, opt_state, {**metrics, **om}
 
     return train_step
+
+
+def make_prefill_step(api: ModelAPI, max_len: int):
+    """(params, batch) -> (next_token_logits (B, Vp), cache)."""
+
+    def prefill_step(params, batch):
+        logits, cache = api.prefill(params, batch, max_len=max_len)
+        return logits[:, -1, :], cache
+
+    return prefill_step
 
 
 def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None, page_size: int = 16):

@@ -11,8 +11,9 @@ Attention itself follows the tensors' device. On the CPU it is the eager
 the reference op for op. On the card prefill runs the hand-written flash
 kernel and decode the paged kernel over the cache itself, viewed as pages
 (``kernels/flash_attention``, ``kernels/paged_attention``); a CUDA tensor
-the kernel refuses raises. A training forward takes ``common.AttentionFn``
-(``attend``).
+the kernel refuses raises. Meta tensors inside a cost walk take the card's
+route (``build.kernel_route``), so the walk prices the card's path. A
+training forward takes ``common.AttentionFn`` (``attend``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import cache_as_pages, paged_attention
 from repro_torch.models import common
@@ -66,7 +68,7 @@ def attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
     whose backward is the reference's."""
     if common.needs_grad(q, k, v):
         return common.attention_train(q, k, v, causal=causal, block_k=block_k)
-    if q.is_cuda:
+    if build.kernel_route(q):
         return flash_attention(q, k, v, causal=causal, lk_valid=k.shape[2], q_offset=0)
     return common.attention_chunked(q, k, v, causal=causal, block_k=block_k)
 
@@ -156,7 +158,7 @@ def attend_decode(q, k_cache, v_cache, kv_len, page_size: int) -> torch.Tensor:
     (B, Hkv, S, hd), ``kv_len`` (B,) valid positions -> (B, Hq, 1, hd) in
     q's dtype. The paged kernel over the cache viewed as pages of
     ``page_size`` on the card, the eager reference on the CPU."""
-    if q.is_cuda:
+    if build.kernel_route(q):
         k_pages, v_pages, table = cache_as_pages(k_cache, v_cache, page_size)
         return paged_attention(q[:, :, 0, :], k_pages, v_pages, table, kv_len)[:, :, None, :]
     return common.attention_decode(q, k_cache.to(q.dtype), v_cache.to(q.dtype), kv_len)

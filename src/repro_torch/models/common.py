@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -1e30
@@ -118,7 +119,8 @@ class ParamTree(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# initializers (drawn on the CPU from an explicit generator)
+# initializers (drawn on the CPU from an explicit generator; with none, as
+# ``ModelAPI.init`` passes for the meta device, nothing is drawn)
 
 
 def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -132,11 +134,15 @@ def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
 def dense_init(shape, generator: torch.Generator, in_axis: int = 0, scale: float = 1.0,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init."""
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     std = scale / math.sqrt(shape[in_axis])
     return (_truncated_normal(shape, generator) * std).to(dtype)
 
 
 def embed_init(shape, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    if generator is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=generator, dtype=torch.float32) * 0.02).to(dtype)
 
 
@@ -327,15 +333,15 @@ class AttentionFn(torch.autograd.Function):
 
     The forward follows the tensors' device: on the card it is the flash
     kernel (B5), asked for its softmax stats (its key tiles are its own,
-    64 rows); on the CPU the online-softmax forward of
-    ``attention_chunked``. Its forward runs with grad mode off, so the
+    64 rows), and so on meta inside a cost walk (``build.kernel_route``);
+    on the CPU the online-softmax forward of ``attention_chunked``. Its forward runs with grad mode off, so the
     kernel's wrapper takes it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int, block_k: int, bidirectional: bool):
         b, hq, lq, _ = q.shape
         hkv = k.shape[1]
-        if q.is_cuda:
+        if build.kernel_route(q):
             out, lse = flash_attention(q, k, v, causal=causal and not bidirectional,
                                        lk_valid=k.shape[2], q_offset=q_offset, return_lse=True)
             lse = lse.reshape(b, hkv, hq // hkv, lq)

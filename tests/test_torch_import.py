@@ -33,6 +33,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch.optim, repro_torch.optim.compression\n"
         "import repro_torch.checkpoint.manager, repro_torch.runtime.trainer, repro_torch.runtime.elastic\n"
         "import repro_torch.data.loader, repro_torch.launch.train\n"
+        "import repro_torch.launch.serve, repro_torch.launch.report, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.op_analysis, repro_torch.launch.dryrun, repro_torch.kernels.work\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -47,17 +49,24 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "models.mamba2", "models.zamba2", "models.moe", "runtime.sharded", "models.vlm",
                 "models.whisper", "optim.adamw", "optim.schedule", "optim.compression",
                 "checkpoint.manager", "runtime.trainer", "runtime.elastic", "data.loader",
-                "data.synthetic", "launch.train"):
+                "data.synthetic", "launch.train", "launch.serve", "launch.report", "launch.roofline",
+                "launch.op_analysis", "launch.dryrun", "kernels.work"):
         assert f"repro_torch.{mod}" in mods, mod
     assert [m for m in mods if _is_reference(m)] == []
 
 
 def test_no_reference_import_in_source():
-    """An AST scan of chip_smoke.py and every module of the port, lazy
-    imports inside functions included."""
-    paths = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
-    scanned = {p.relative_to(ROOT / "src").as_posix() for p in paths[1:]}
+    """An AST scan of chip_smoke.py, the torch examples and every module of
+    the port, lazy imports inside functions included."""
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    port = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    paths = [ROOT / "chip_smoke.py", *examples, *port]
+    scanned = {p.relative_to(ROOT / "src").as_posix() for p in port}
     assert {f"repro_torch/optim/{m}.py" for m in ("__init__", "adamw", "schedule", "compression")} <= scanned
+    assert {f"repro_torch/launch/{m}.py" for m in ("serve", "report", "roofline", "op_analysis", "dryrun")} \
+        <= scanned and "repro_torch/kernels/work.py" in scanned
+    assert [p.name for p in examples] == [f"torch_{m}.py" for m in ("profile_and_plan", "quickstart", "serve_fleet",
+                                                                    "serve_tiered", "train_e2e")]
     found = []
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -94,6 +103,35 @@ CHANGED = {
         # the serving tiers' relative constants under a name without the TPU
         ("from repro.core.hw import TPU_TIERED", "from repro.core.hw import SERVING_TIERED"),
         ("TPU_TIERED[1].latency_rel", "SERVING_TIERED[1].latency_rel"),
+    ],
+    "launch/report.py": [
+        # the port's mesh directory and its heading
+        ("GIB = 2**30\n", 'GIB = 2**30\nMESHES = {"h100x1": "1 × NVIDIA H100 80GB HBM3, 700 W"}\n'),
+        ('ap.add_argument("--dir", default="experiments/dryrun")',
+         'ap.add_argument("--dir", default="experiments/dryrun_torch")'),
+        ('for mesh in ("pod1", "pod2"):', "for mesh in MESHES:"),
+        ("""({'16x16=256 chips' if mesh == 'pod1' else '2x16x16=512 chips'})""", "({MESHES[mesh]})"),
+    ],
+    "launch/serve.py": [
+        # the device to serve on (default None: the card), with device tiering on
+        ("import jax\n\n", ""),
+        ("from repro.data.requests import RequestGenerator\n",
+         "from repro.data.requests import RequestGenerator\nfrom repro.device import resolve_device\n"),
+        ("""    ap.add_argument("--seed", type=int, default=0)
+""", """    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+"""),
+        ("    params = api.init(jax.random.PRNGKey(0))",
+         "    dev = resolve_device(args.device)\n    params = api.init(0, device=dev)"),
+        ("""            predictor=args.predictor,
+        ),
+        seed=args.seed,
+    )""", """            predictor=args.predictor,
+            device_tiering=True,
+        ),
+        seed=args.seed,
+        device=dev,
+    )"""),
     ],
     "launch/train.py": [
         # the device to train on (default None: the card), handed to the Trainer
