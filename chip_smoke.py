@@ -158,7 +158,16 @@ Phases (any failure raises, so the script exits non-zero):
    ``max_memory_allocated``, the measured device time at or above the
    walk's roofline bound, and the kernels the walk recorded equal to the
    launches, kernel by kernel; then the dry run (``launch.dryrun``) of
-   smollm-360m's three cells on meta, rendered by ``launch.report``.
+   smollm-360m's three cells on meta, rendered by ``launch.report``;
+11. the sharded engine over a mesh of cards (``launch.mesh``), here of
+   this one card (a 1-rank NCCL group): phase 7's smollm-360m params and
+   16 requests through ``ShardedServingEngine(mesh=...)``, its parameters
+   placed by ``shard_model_params`` and every step run under the mesh,
+   eagerly: tokens, live counters, books and role hits bit-equal to phase
+   7's 1-shard engine; B1, B4 and B5 launched as on the main path.
+   ``mesh_phase()`` serves full-width qwen1.5-110b (4 of its 80 layers)
+   over meshes of 1, 2 and 4 cards; it needs a machine with 4 cards and
+   runs alone (``README.md``, "Running the port on the GPU").
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -2666,11 +2675,318 @@ def serve_sharded(card: str, mp: dict) -> dict:
             k = max(m1[plane].shape[0], mn[plane].shape[0])
             pad = lambda a: np.pad(a, ((0, k - a.shape[0]), (0, 0)))
             assert np.array_equal(pad(m1[plane]), pad(mn[plane])), (n, plane)
+    mp["sharded_one"] = one
     log(f"sharded [{card}]: model_shards {list(SHARDS)} give bit-identical tokens "
         f"({one['toks'].shape[0]} steps x {one['toks'].shape[1]} slots), equal live counters, books and "
         f"merged drained planes (near {one['merged']['near']}, far {one['merged']['far']})")
     return {str(n): {k: v for k, v in r.items() if k not in ("toks", "merged", "live", "role", "books")}
             for n, r in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sharded engine over a mesh of cards (launch.mesh): one card
+# here; full-width qwen1.5-110b over 1, 2 and 4 cards in mesh_phase
+
+
+MESH_ARCH = "qwen1.5-110b"
+MESH_LAYERS = 4  # of its 80: 7.9 B parameters, 31.7 GB in f32, so the 1-card mesh fits one card
+MESH_CARDS = (1, 2, 4)
+MESH_REQUESTS = 6
+
+
+def mesh_engine(api, params, mesh, n: int):
+    """A ``ShardedServingEngine`` over ``mesh`` (its parameters placed by
+    ``shard_model_params``), with ``make_engine``'s cold near tier."""
+    from repro_torch.runtime.serving import EngineConfig
+    from repro_torch.runtime.sharded import ShardedServingEngine
+
+    eng = ShardedServingEngine(api, params, EngineConfig(**ECFG, model_shards=n), seed=0, mesh=mesh)
+    cap = eng.placement.near_capacity
+    eng.apply_placement(np.arange(eng.ecfg.n_pages - cap, eng.ecfg.n_pages))
+    return eng
+
+
+def mesh_books(eng) -> dict:
+    """The engine's stats without the books a split store counts per shard."""
+    st = eng.stats()
+    return {**st, "device_tiering": {k: v for k, v in st["device_tiering"].items() if k not in SHARD_BUDGET_KEYS}}
+
+
+def serve_mesh_one(card: str, mp: dict) -> dict:
+    """Phase 7's smollm-360m params and 16 Web1 requests through the sharded
+    engine over a mesh of this one card (a 1-rank NCCL group): its
+    parameters placed by ``shard_model_params``, every step under the mesh,
+    its dispatches eager (a mesh engine captures no graph). Asserts: the
+    tokens, live counters, books and role hits of phase 7's 1-shard
+    engine, bit for bit; B1 once a step, B5 once a layer a prefill and B4
+    once a layer a decode; no host read in a step that neither drains nor
+    admits."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import kernel_launches
+
+    api, params, cfg, reqs, one = mp["api"], mp["params"], mp["cfg"], mp["reqs"], mp["sharded_one"]
+    with tempfile.TemporaryDirectory() as tmp:
+        meshlib.init_process_group(rank=0, world_size=1, store=f"{tmp}/store", backend="nccl")
+        try:
+            mesh = meshlib.make_serving_mesh(1)
+            t0 = time.perf_counter()
+            eng = mesh_engine(api, params, mesh, 1)
+            built = time.perf_counter() - t0
+            zero_launch_counts()
+            run = drive(eng, [dataclasses.replace(r) for r in reqs], quiet_check=True, step_events=True)
+            launches = path_launches(eng, launch_counts())
+            books, live, role = mesh_books(eng), eng.live_counters(), eng.role_hits.copy()
+            decodes = eng.model_dispatches - eng.prefill_dispatches
+            steps, prefills = eng.engine_steps, eng.prefill_dispatches
+            assert not eng._graphs and eng.tiered.n_shards == 1
+            del eng
+        finally:
+            torch.distributed.destroy_process_group()
+    want = kernel_launches(cfg, prefills, decodes)
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert launches["tiered_segmented"] == steps == one["steps"], (launches, steps)
+    q = run["quiet"]
+    assert q["steps"] > 0 and q["reads"] == 0, q
+    same = {"tokens": torch.equal(run["toks"], one["toks"]), "live": live == one["live"],
+            "books": books == one["books"], "role": bool(np.array_equal(role, one["role"]))}
+    res = {"steps": steps, "wall_s": run["wall"], "build_s": built, "tokens": books["tokens_decoded"],
+           "tokens_per_s": books["tokens_decoded"] / run["wall"], "step_p50_ms": pct(run["step_ms"], 50),
+           "step_p99_ms": pct(run["step_ms"], 99), "launches": {k: launches[k] for k in (*want, "tiered_segmented")},
+           "quiet_steps": q["steps"], "sync_warnings": len(q["syncs"]), "same_as_phase_7": same}
+    log(f"mesh [{card}] 1 card: smollm-360m over a 1-card mesh, {steps} steps, {res['tokens']} tokens, "
+        f"{run['wall']:.3f} s wall ({res['tokens_per_s']:.1f} tokens/s; phase 7's graphs {one['wall']:.3f} s), "
+        f"step p50 {res['step_p50_ms']:.2f} ms; launches {res['launches']}; {q['steps']} quiet steps, "
+        f"0 host reads, {len(q['syncs'])} sync warnings; equal to phase 7's 1-shard engine: {same}")
+    assert all(same.values()), same
+    return res
+
+
+def _margins(api, log_: list):
+    """Wrap ``api``'s prefill and decode so each records its last
+    position's top-2 logit margin (on the device, read after the run)."""
+    import torch
+
+    from repro_torch.launch.mesh import whole
+
+    for name in ("prefill", "decode"):
+        orig = getattr(api, name)
+
+        def wrapped(*a, _orig=orig, _name=name, **k):
+            logits, cache = _orig(*a, **k)
+            top = torch.topk(whole(logits)[:, -1, : api.cfg.vocab_size].float(), 2, dim=-1).values
+            log_.append((_name, top[:, 0] - top[:, 1]))
+            return logits, cache
+
+        setattr(api, name, wrapped)
+
+
+def _serve_on_mesh(api, cfg, params, reqs, mesh, n: int) -> dict:
+    """``mesh_phase``'s run on one rank of an ``n``-card mesh: the engine
+    over ``reqs`` (each dispatch's top-2 logit margins recorded), then one
+    prefill's logits and 3 whole-batch decode steps timed, 3 profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import kernel_launches
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = mesh_engine(api, params, mesh, n)
+    placed = time.perf_counter() - t0
+    local_bytes = sum(meshlib.local(p).numel() * p.element_size() for p in eng.params.parameters())
+    margins = []
+    _margins(api, margins)
+    step = eng.step
+
+    def marked():
+        margins.append(("step", None))
+        return step()
+
+    eng.step = marked
+    zero_launch_counts()
+    try:
+        run = drive(eng, [dataclasses.replace(r) for r in reqs], step_events=True)
+    finally:
+        for name in ("prefill", "decode"):
+            delattr(api, name)
+    launches = launch_counts()
+    per_step = []
+    for kind, m in margins:
+        if kind == "step":
+            per_step.append([])
+        else:
+            per_step[-1].append((kind, m.cpu().numpy()))
+    peak = torch.cuda.max_memory_allocated()
+    books = mesh_books(eng)
+    decodes = eng.model_dispatches - eng.prefill_dispatches
+    want = kernel_launches(cfg, eng.prefill_dispatches, decodes)
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    # one prefill's logits at the last prompt position, gathered whole
+    with torch.no_grad(), meshlib.activate(mesh):
+        logits, _ = api.prefill(eng.params, eng._prefill_batch(reqs[0].tokens), max_len=ECFG["max_len"])
+        first = meshlib.whole(logits)[0, -1].float().cpu()
+
+    def run_decodes(k):
+        with meshlib.activate(mesh):
+            for _ in range(k):
+                eng._decode_fn(eng._bufs)
+        torch.cuda.synchronize()
+
+    run_decodes(1)
+    t1 = time.perf_counter()
+    run_decodes(3)
+    host_ms = (time.perf_counter() - t1) * 1e3 / 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_decodes(3)
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    avgs = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in avgs) / 1e3 / 3
+    comm = sum(dev_us(e) for e in avgs if "nccl" in e.key.lower()) / 1e3 / 3
+    return {  # numpy, not tensors: they cross to the parent by pickle
+        "tokens": run["toks"].numpy(), "books": books, "margins": per_step, "first_logits": first.numpy(),
+        "launches": {k: launches[k] for k in (*want, "tiered_segmented")},
+        "steps": eng.engine_steps, "prefills": eng.prefill_dispatches, "decodes": decodes,
+        "wall_s": run["wall"], "tokens_per_s": books["tokens_decoded"] / run["wall"],
+        "step_p50_ms": pct(run["step_ms"], 50), "step_p99_ms": pct(run["step_ms"], 99),
+        "decode_host_ms": host_ms, "decode_busy_ms": busy, "decode_comm_ms": comm,
+        "peak_gib": peak / 2**30, "param_gib": local_bytes / 2**30, "place_s": placed,
+    }
+
+
+def _mesh_rank(rank: int, world: int, store: str, out):
+    """One NCCL rank of ``mesh_phase``: full-width qwen1.5-110b cut to
+    ``MESH_LAYERS`` layers, drawn on the host once, served over meshes of
+    1, 2 and 4 cards in turn (a rank outside a mesh waits at the barrier).
+    Rank 0 first runs one prefill of the model in f32 on its card, the
+    reference the meshes' bf16 logits are held to."""
+    import traceback
+
+    try:
+        import torch
+
+        sys.path.insert(0, str(SRC))
+        torch.set_num_threads(8)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs import get_config
+        from repro_torch.launch import mesh as meshlib
+        from repro_torch.models.api import get_model
+
+        meshlib.init_process_group(rank=rank, world_size=world, store=store, backend="nccl")
+        # serving turns sp_activations off, as the reference's dry run does
+        # for every non-train cell (it is a training memory feature)
+        cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS, sp_activations=False)
+        api = get_model(cfg)
+        t0 = time.perf_counter()
+        params = api.init(seed=0, device="cpu")
+        res = {"draw_s": time.perf_counter() - t0, "params": sum(p.numel() for p in params.parameters())}
+        reqs = web1_requests(cfg, MESH_REQUESTS, seed=0)
+        if rank == 0:
+            f32 = get_model(dataclasses.replace(cfg, compute_dtype="float32"))
+            on_card = params.to("cuda")
+            with torch.no_grad():
+                logits, _ = f32.prefill(on_card, {"tokens": torch.as_tensor(reqs[0].tokens, device="cuda")[None]},
+                                        max_len=ECFG["max_len"])
+            res["f32_logits"] = logits[0, -1].float().cpu().numpy()
+            params = on_card.to("cpu")  # the module moved in place; back to the host
+            del logits, on_card
+            gc.collect()
+            torch.cuda.empty_cache()
+        for n in MESH_CARDS:
+            if n > world:
+                continue
+            mesh = meshlib.make_serving_mesh(n)
+            if meshlib.in_mesh(mesh):
+                res[n] = _serve_on_mesh(api, cfg, params, reqs, mesh, n)
+                gc.collect()
+                torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        out.put((rank, res))
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent raises it
+        out.put((rank, {"error": traceback.format_exc()}))
+
+
+def mesh_phase(card: str, world: int = 4) -> dict:
+    """Full-width qwen1.5-110b (d 8,192, 64/8 heads of 128, d_ff 49,152,
+    vocab 152,064, QKV bias) cut to ``MESH_LAYERS`` of its 80 layers,
+    served over meshes of 1, 2 and 4 cards (one NCCL rank a card, meeting
+    at a file store) with the same Web1 requests: its parameters placed by
+    ``shard_model_params``, B5 and B4 on each card's own heads, B1 on each
+    card's own store shard. Asserts: every rank of a mesh gives the same
+    tokens and books; the books equal across meshes; the first prefill's
+    logits no farther from the model's f32 forward than 4 times the 1-card
+    mesh's are; the model kernels once a layer a dispatch on every rank.
+    Reports whether those logits are within one bf16 step of the 1-card
+    mesh's, the tokens' first divergence with its top-2 logit margins,
+    per-card peak memory and parameter bytes, decode step time, device busy
+    and the collectives' share of it (their kernels' time includes the
+    wait for the slower rank), and tokens/s."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        out = ctx.Queue()
+        procs = [ctx.Process(target=_mesh_rank, args=(r, world, f"{tmp}/store", out)) for r in range(world)]
+        for p in procs:
+            p.start()
+        got = dict(out.get(timeout=1500) for _ in range(world))
+        for p in procs:
+            p.join(timeout=60)
+    errors = [r["error"] for r in got.values() if "error" in r]
+    assert not errors, errors[0]
+    cards = [n for n in MESH_CARDS if n <= world]
+    base = got[0][cards[0]]
+    ref = got[0]["f32_logits"]
+    scale = float(np.abs(ref).max())
+    off = lambda logits: float(np.abs(logits - ref).max())
+    summary = {"draw_s": got[0]["draw_s"], "params": got[0]["params"], "f32_logits_scale": scale}
+    for n in cards:
+        runs = [got[r][n] for r in range(n)]
+        for r in runs[1:]:
+            assert np.array_equal(r["tokens"], runs[0]["tokens"]) and r["books"] == runs[0]["books"], n
+        r0 = runs[0]
+        assert r0["books"] == base["books"], n
+        assert r0["books"]["requests_finished"] == MESH_REQUESTS, r0["books"]["requests_finished"]
+        close = within_one_bf16_step(torch.from_numpy(r0["first_logits"]), torch.from_numpy(base["first_logits"]))
+        err = float(np.abs(r0["first_logits"] - base["first_logits"]).max())
+        diverge = None
+        if not np.array_equal(r0["tokens"], base["tokens"]):
+            step, slot = (int(i) for i in np.argwhere(r0["tokens"] != base["tokens"])[0])
+            diverge = {"step": step, "slot": slot}
+        summary[n] = {**{k: r0[k] for k in ("steps", "prefills", "decodes", "wall_s", "tokens_per_s", "step_p50_ms",
+                                            "step_p99_ms", "decode_host_ms", "decode_busy_ms", "decode_comm_ms",
+                                            "place_s")},
+                      "tokens_equal": diverge is None, "first_divergence": diverge,
+                      "first_logits_max_abs_diff": err, "first_logits_within_one_bf16_step": close,
+                      "first_logits_off_f32": off(r0["first_logits"]),
+                      "peak_gib_per_card": [r["peak_gib"] for r in runs],
+                      "param_gib_per_card": [r["param_gib"] for r in runs],
+                      "launches_per_rank": [r["launches"] for r in runs],
+                      "comm_share": r0["decode_comm_ms"] / max(r0["decode_busy_ms"], 1e-9)}
+        if diverge is not None:
+            # the top-2 logit margins of the divergent step's dispatches (a
+            # decode's at the slot, an admit's prefill), there and on 1 card
+            summary[n]["first_divergence"]["margins"] = {
+                label: [float(m[diverge["slot"]] if kind == "decode" else m[0]) for kind, m in r["margins"][diverge["step"]]]
+                for label, r in (("1", base), (str(n), r0))}
+        log(f"mesh [{card}] {n} card(s): " + json.dumps(summary[n]))
+        # bf16 compute: the partial sums of the row-split products are added
+        # in another order, which moves a rare bf16 rounding of the residual;
+        # so the mesh's logits are held to the f32 forward, no farther from it
+        # than 4 times the 1-card mesh's distance (a pairing or placement
+        # fault moves them by the logits' whole scale)
+        assert off(r0["first_logits"]) <= 4 * off(base["first_logits"]), (n, off(r0["first_logits"]),
+                                                                           off(base["first_logits"]))
+    return summary
 
 
 def whisper_flash_sites(attention: dict, wp: dict, keep: tuple) -> dict:
@@ -2833,12 +3149,19 @@ def main():
     launch_layer["dryrun"] = dryrun_phase()
     log(f"phase 10c dry run {time.perf_counter() - t10c:.1f} s")
 
+    # phase 11: the sharded engine over a mesh of this one card, against
+    # phase 7's 1-shard engine
+    t11 = time.perf_counter()
+    mesh_one = serve_mesh_one(card, mp)
+    log(f"phase 11 mesh {time.perf_counter() - t11:.1f} s")
+
     # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
     # chunked_launches: the same kernels' launches on that model's chunked path;
     # fleet_launches: on the fleet's path, summed over its hosts;
-    # sharded_launches: B1's on phase 7's path at each shard count
+    # sharded_launches: B1's on phase 7's path at each shard count;
+    # mesh_launches: B1's, B4's and B5's on phase 11's path (a 1-card mesh)
     carrier = {"tiered_segmented": "smollm-360m", "paged_attention": "smollm-360m",
                "flash_attention": "smollm-360m", "wkv6": "rwkv6-7b", "ssd": "zamba2-1.2b"}
     launches = {"tiered_segmented": mp["launches"]["tiered_segmented"],
@@ -2894,6 +3217,7 @@ def main():
             **({"fleet_launches": fleet["launches"][name]} if carrier.get(name) == "smollm-360m" else {}),
             **({"sharded_launches": {n: v["launches"] for n, v in sharded.items()}}
                if name == "tiered_segmented" else {}),
+            **({"mesh_launches": {"1": mesh_one["launches"][name]}} if name in mesh_one["launches"] else {}),
             **{k: r[k] for k in (*MODELS_BESIDE, "training", "training_sites", "trainer", "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })
@@ -2901,6 +3225,7 @@ def main():
     log("moe checks: " + json.dumps(moe_res))
     log("M-RoPE checks: " + json.dumps(vlm_res))
     log("sharded engine: " + json.dumps(sharded))
+    log("mesh engine (1 card): " + json.dumps(mesh_one))
     log("training: " + json.dumps({"reduced_card_vs_cpu": train_reduced, **train}))
     log("trainer: " + json.dumps(trainer))
     log("launch layer: " + json.dumps(launch_layer))

@@ -184,7 +184,7 @@ class CheckpointManager:
         ``shardings`` (restoring onto a mesh) is not ported.
         """
         if shardings is not None:
-            raise NotImplementedError("restoring onto shardings (a mesh) is ROADMAP A11")
+            raise NotImplementedError("restoring onto shardings (a mesh) is ROADMAP A11.3")
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:

@@ -2,6 +2,8 @@
 
 Every entry point takes ``device=None``. ``None`` means the CUDA card; a
 process that sees no card raises instead of quietly running on the CPU.
+In a rank of a process group over several cards (``launch.mesh``) the
+card is the rank's own.
 Tests pass ``device="cpu"`` explicitly, and there every kernel wrapper
 takes its plain PyTorch version because its tensors lie on the CPU.
 
@@ -22,13 +24,19 @@ HOST_READS = {"copies": 0}
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> the CUDA card; raise when the asked-for card is absent."""
+    """``None`` -> the CUDA card (in a rank of a process group, the rank's
+    own: ``launch.mesh.rank_card``); raise when the asked-for card is
+    absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device and none is visible; pass "
             "device='cpu' explicitly to run the plain PyTorch versions"
         )
+    if device is None and torch.distributed.is_available() and torch.distributed.is_initialized():
+        from repro_torch.launch.mesh import rank_card
+
+        dev = torch.device("cuda", rank_card())
     return dev
 
 

@@ -48,7 +48,7 @@ from repro_torch.models.api import get_model, make_prefill_step, make_serve_step
 from repro_torch.optim import AdamWConfig, adamw_init
 
 HBM_BUDGET = hw.HBM_BYTES
-MESHES = {"single": "h100x1"}  # ROADMAP A11 adds meshes of several cards
+MESHES = {"single": "h100x1"}  # ROADMAP A11.4 adds the production meshes (pod1, pod2)
 
 
 @dataclasses.dataclass

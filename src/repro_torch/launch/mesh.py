@@ -1,0 +1,425 @@
+"""Mesh construction and sharding-constraint helpers (mirrors repro/launch/mesh.py).
+
+The reference's JAX ``Mesh`` is a ``torch.distributed.device_mesh.DeviceMesh``
+here: one process a rank, one card a rank (the CPU under ``gloo``). A
+``PartitionSpec`` is a tuple of axis names, one a tensor dimension, and it
+becomes DTensor placements on a mesh: a dimension named by a mesh axis is
+``Shard(d)`` over it, every other mesh axis ``Replicate()``. The
+constructors are FUNCTIONS (importing this module touches no process
+group). Models call ``shard(x, ...)``, which is the identity unless a mesh
+is active and ``x`` is a DTensor, so the same model code runs on one
+device in tests and over a mesh of cards in the sharded engine.
+
+Axis convention (the reference's):
+  single-pod : (data=16, model=16)            axes ("data", "model")
+  multi-pod  : (pod=2, data=16, model=16)     axes ("pod", "data", "model")
+``pod`` is the outer data-parallel axis; ``BATCH`` shards over ("pod",
+"data", "pool") where they exist.
+
+Where plain tensors meet DTensors (the boundary the models keep): a
+parameter tree placed by :func:`shard_model_params` holds DTensors; a step
+turns its plain inputs into replicated DTensors where they first meet a
+parameter (:func:`like`, :func:`take_rows`); products whose contraction was
+split come back as partial sums, which :func:`reduced` adds across the mesh
+at once, in f32 (``models.common.matmul_f32``); attention runs on each
+rank's own heads as plain tensors (``models.attention``), as the kernels
+take them; logits are gathered whole (:func:`whole`) before the argmax.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import dataclasses
+import os
+import threading
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+AxisName = Union[str, tuple, None]
+
+# canonical logical axes used throughout the model code
+BATCH = ("pod", "data", "pool")  # batch / data-parallel (pool is inner DP)
+MODEL = "model"  # tensor-parallel
+POOL = "pool"  # weight-pooling cluster (shared-L2 analogue): the ZeRO shard axis
+
+
+# ---------------------------------------------------------------------------
+# the process group
+
+
+def init_process_group(*, rank: Optional[int] = None, world_size: Optional[int] = None,
+                       store: Optional[str] = None, backend: Optional[str] = None) -> int:
+    """Start this process's rank of the process group the meshes span.
+
+    The reference has no such call: JAX is single-controller, one process
+    driving every device of its mesh. PyTorch runs one process a card, and
+    each must join the group before a mesh can be built; this is that
+    difference in the runtime, not a feature.
+
+    With ``store`` (a file path) the ranks meet at a ``file://`` store,
+    given ``rank`` and ``world_size``: no TCP port, so parallel test
+    workers cannot collide. Without it, torchrun's environment (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK`` and its store). ``backend``: ``nccl``
+    when a card is visible, ``gloo`` otherwise. Under ``nccl`` the rank's
+    card (``LOCAL_RANK``, or the rank modulo the visible cards) becomes
+    its current device. Returns the rank.
+    """
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if store is not None:
+        if rank is None or world_size is None:
+            raise ValueError("a file store needs rank and world_size")
+        init = f"file://{os.path.abspath(store)}"
+    else:
+        init = "env://"
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
+    if backend == "nccl":
+        torch.cuda.set_device(rank_card(rank))
+    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world_size)
+    return rank
+
+
+def rank_card(rank: Optional[int] = None) -> int:
+    """The index of this rank's card: ``LOCAL_RANK`` where torchrun set it,
+    else the rank modulo the visible cards (one host)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    if rank is None:
+        rank = dist.get_rank()
+    return rank % max(1, torch.cuda.device_count())
+
+
+def _world() -> int:
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: start one with launch.mesh.init_process_group")
+    return dist.get_world_size()
+
+
+def _device_type() -> str:
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+# ---------------------------------------------------------------------------
+# meshes
+
+
+def production_mesh_shape(*, multi_pod: bool = False, pool: int = 0) -> Tuple[tuple, tuple]:
+    """(shape, axis names) of the production mesh: 256 chips a pod as
+    (data=16, model=16); 2 pods = 512. ``pool=k`` factors the data axis
+    into (data=16/k, pool=k): a k-device weight-pooling cluster (the
+    paper's k-core shared-L2 cluster). Batch shards over (pod, data, pool)
+    either way, so the total data parallelism is unchanged."""
+    if pool:
+        assert 16 % pool == 0, pool
+        shape = (2, 16 // pool, pool, 16) if multi_pod else (16 // pool, pool, 16)
+        axes = ("pod", "data", "pool", "model") if multi_pod else ("data", "pool", "model")
+    else:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
+
+
+def make_production_mesh(*, multi_pod: bool = False, pool: int = 0) -> DeviceMesh:
+    """The production mesh over a process group of as many ranks as its
+    shape holds (:func:`production_mesh_shape`)."""
+    shape, axes = production_mesh_shape(multi_pod=multi_pod, pool=pool)
+    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(model: int = 1) -> DeviceMesh:
+    """An (n // model, model) ``("data", "model")`` mesh over every rank of
+    the process group. ``model`` must divide the rank count: an
+    (n // model, model) mesh would silently drop the remainder."""
+    n = _world()
+    if model < 1 or n % model != 0:
+        dropped = n % model if model >= 1 else n
+        raise ValueError(
+            f"model={model} does not divide the {n} available devices; "
+            f"an (n // model, model) mesh would silently drop {dropped} "
+            "device(s). Pick a model-axis size that divides the device count."
+        )
+    return DeviceMesh(_device_type(), np.arange(n).reshape(n // model, model).tolist(),
+                      mesh_dim_names=("data", "model"))
+
+
+def make_serving_mesh(model: int = 1) -> DeviceMesh:
+    """1-D ``("model",)`` mesh over the first ``model`` ranks, one card a
+    rank (the CPU under ``gloo``). Unlike :func:`make_host_mesh` the model
+    axis need not divide the rank count: a 2-shard replica on 4 ranks uses
+    ranks 0 and 1. Every rank of the group calls it (making a sub-mesh is a
+    collective); a rank past ``model`` gets a mesh it is not in
+    (:func:`in_mesh`)."""
+    n = _world()
+    if model < 1 or model > n:
+        raise ValueError(f"model={model} shards need {model} devices; host has {n}")
+    return DeviceMesh(_device_type(), list(range(model)), mesh_dim_names=("model",))
+
+
+def in_mesh(mesh: DeviceMesh) -> bool:
+    return mesh.get_coordinate() is not None
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device on ``mesh``: its card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _axis_size(mesh: DeviceMesh, axis: str) -> int:
+    return int(mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+def local_size(n: int, mesh: Optional[DeviceMesh], axis: str = MODEL) -> int:
+    """How many of ``n`` (heads) one rank holds when a dimension of size
+    ``n`` is sharded over ``axis``: n / size when it divides, else all of
+    them (the divisibility drop)."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return n
+    size = _axis_size(mesh, axis)
+    return n // size if n % size == 0 else n
+
+
+def shard_model_params(params: torch.nn.Module, mesh: DeviceMesh, axis: str = MODEL) -> torch.nn.Module:
+    """A copy of the parameter module placed on ``mesh``: each leaf's LAST
+    axis sharded over ``axis`` when divisible, replicated otherwise (the
+    ``with_sharding_constraint``-style tensor-parallel layout, applied at
+    placement time). Each rank copies only its own columns to its device,
+    so a card holds ``shape[-1] / N`` columns of every divisible leaf; the
+    input module, on any device, is left as it was. On a 1-device mesh
+    this is a pure copy: every leaf comes back bit-identical."""
+    if not in_mesh(mesh):
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {mesh}")
+    size = _axis_size(mesh, axis)
+    mdim = mesh.mesh_dim_names.index(axis)
+    coord = mesh.get_coordinate()[mdim]
+    dev = mesh_device(mesh)
+    memo = {}
+    for p in params.parameters():
+        if id(p) in memo:
+            continue
+        placements = [Replicate()] * mesh.ndim
+        local = p.detach()
+        if p.ndim >= 1 and size > 1 and p.shape[-1] % size == 0:
+            placements[mdim] = Shard(p.ndim - 1)
+            local = local.chunk(size, dim=-1)[coord]
+        local = local.to(dev, copy=True).contiguous()
+        d = DTensor.from_local(local, mesh, placements, run_check=False, shape=p.shape,
+                               stride=torch.empty(p.shape, device="meta").stride())
+        memo[id(p)] = torch.nn.Parameter(d, requires_grad=False)
+    for m in params.modules():
+        held = m.__dict__.get("_casts")
+        if held is not None:
+            memo[id(held)] = {}  # held casts belong to the source's leaves
+    return copy.deepcopy(params, memo)
+
+
+# ---------------------------------------------------------------------------
+# active-mesh context (thread-local; no global process-group state)
+
+_local = threading.local()
+
+
+def active_mesh() -> Optional[DeviceMesh]:
+    return getattr(_local, "mesh", None)
+
+
+@contextlib.contextmanager
+def activate(mesh: Optional[DeviceMesh]):
+    prev = active_mesh()
+    _local.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _local.mesh = prev
+
+
+def _filter_spec(axes: Sequence[AxisName], names) -> tuple:
+    out = []
+    for a in axes:
+        if a is None:
+            out.append(None)
+        elif isinstance(a, tuple):
+            kept = tuple(n for n in a if n in names)
+            out.append(kept if kept else None)
+        else:
+            out.append(a if a in names else None)
+    return tuple(out)
+
+
+def spec(*axes: AxisName, mesh: Optional[DeviceMesh] = None) -> tuple:
+    """The partition spec (a tuple, one entry a dimension) with the axes
+    not present in the mesh dropped."""
+    mesh = mesh or active_mesh()
+    if mesh is None:
+        return tuple(axes)
+    return _filter_spec(axes, set(mesh.mesh_dim_names))
+
+
+def placements(mesh: DeviceMesh, axes: Sequence[AxisName], shape=None) -> list:
+    """DTensor placements for a tensor of ``shape`` under the spec ``axes``:
+    each mesh axis named at dimension d shards it, every other mesh axis
+    replicates. With ``shape``, an axis whose size does not divide its
+    dimension is dropped (the divisibility drop)."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * mesh.ndim
+    for i, a in enumerate(axes):
+        if a is None or (shape is not None and i >= len(shape)):
+            continue
+        kept = [n for n in (a if isinstance(a, tuple) else (a,)) if n in names]
+        total = int(np.prod([_axis_size(mesh, n) for n in kept])) if kept else 0
+        if not kept or (shape is not None and (total == 0 or shape[i] % total != 0)):
+            continue
+        for n in kept:
+            out[names.index(n)] = Shard(i)
+    return out
+
+
+def shard(x: torch.Tensor, *axes: AxisName) -> torch.Tensor:
+    """Redistribute the DTensor ``x`` to the placement ``axes`` name if a
+    mesh is active; the identity with no active mesh and on a plain tensor.
+
+    Divisibility-aware: any requested axis whose size does not divide the
+    corresponding dimension is dropped (e.g. 2 KV heads on a 4-way model
+    axis stay replicated rather than erroring)."""
+    if active_mesh() is None or not isinstance(x, DTensor):
+        return x
+    want = placements(x.device_mesh, axes, x.shape)
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a partition spec: the reference's ``NamedSharding``."""
+
+    mesh: DeviceMesh
+    spec: tuple
+
+    def placements(self, shape) -> list:
+        return placements(self.mesh, self.spec, shape)
+
+
+def named(mesh: DeviceMesh, *axes: AxisName) -> NamedSharding:
+    return NamedSharding(mesh, _filter_spec(axes, set(mesh.mesh_dim_names)))
+
+
+def tree_shardings(mesh: DeviceMesh, specs):
+    """Map a nest of dicts of partition specs (tuples) to NamedShardings on
+    ``mesh``."""
+    if isinstance(specs, dict):
+        return {k: tree_shardings(mesh, v) for k, v in specs.items()}
+    return named(mesh, *specs)
+
+
+# ---------------------------------------------------------------------------
+# the plain-to-DTensor boundary
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor; a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """A plain ``t`` as a tensor replicated on ``ref``'s mesh when ``ref`` is
+    a DTensor (every rank holds the same ``t``); otherwise ``t``."""
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        return DTensor.from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def common(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` on one footing: a plain one beside a DTensor becomes
+    replicated on its mesh."""
+    return like(a, b), like(b, a)
+
+
+def reduced(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor of partial sums (a product whose contraction was split
+    across the mesh) added across it, in its own dtype, to a replicated
+    whole; anything else as it is."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in x.placements])
+    return x
+
+
+def replicated_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor sharded along ``dim`` gathered along it (a D-sharded
+    residual before a norm over D); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim = dim % x.ndim
+    want = [Replicate() if p.is_shard(dim) else p for p in x.placements]
+    return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def split_last(x: torch.Tensor, sizes: tuple) -> torch.Tensor:
+    """``x.reshape(*x.shape[:-1], *sizes)``. A DTensor sharded along its last
+    dimension keeps the shard on the first new dimension when the mesh
+    divides it, and is gathered along it first when it does not (a
+    column shard that would cut a head in two)."""
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        for i, p in enumerate(x.placements):
+            if p.is_shard(last) and sizes[0] % x.device_mesh.size(i) != 0:
+                x = replicated_dim(x, last)
+                break
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+def take_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``w[ids]``: the rows of a table. A DTensor table is looked up by
+    ``F.embedding`` on each rank's shard, the rows of a vocabulary-sharded
+    table added across the mesh (each row lives on one rank, so the sum is
+    exact)."""
+    if isinstance(w, DTensor):
+        return reduced(F.embedding(like(ids.long(), w), w))
+    return w[ids.long()]
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank, as a plain tensor (the
+    vocabulary-sharded logits before the argmax); a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def gathered(x: torch.Tensor, mesh: DeviceMesh, dim: int) -> torch.Tensor:
+    """Every rank's local ``x`` concatenated along ``dim`` in rank order
+    (an all-gather over the 1-D ``mesh``), as a plain tensor."""
+    return DTensor.from_local(x, mesh, [Shard(dim)], run_check=False).full_tensor()
+
+
+def wrap_like(x: torch.Tensor, ref: torch.Tensor, shape) -> torch.Tensor:
+    """A rank's local ``x`` as a DTensor of global ``shape`` with ``ref``'s
+    mesh and placements; ``x`` as it is when ``ref`` is plain."""
+    if not isinstance(ref, DTensor):
+        return x
+    return DTensor.from_local(x, ref.device_mesh, ref.placements, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def all_reduce_host(values, mesh: DeviceMesh, op: str = "sum", dtype=np.int64) -> np.ndarray:
+    """One all-reduce of a host vector over the 1-D ``mesh``: the sum (or
+    max) of every rank's ``values``, read back to the host."""
+    from repro_torch.device import to_device, to_host
+
+    tdt = torch.int64 if np.dtype(dtype) == np.int64 else torch.float64
+    t = to_device(np.asarray(values, dtype).reshape(-1), tdt, mesh_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                    group=mesh.get_group())
+    return to_host(t).astype(dtype)

@@ -29,7 +29,7 @@ on meta (shapes only, nothing allocated), and is priced:
   finalizer on the storage), so saved activations count while autograd
   holds them;
 * collectives: ``_c10d_functional`` ops counted by kind under the
-  reference's names, for ROADMAP A11. One card has none.
+  reference's names, for ROADMAP A11.4. One card has none.
 
 ``walk(fn, *args)`` returns ``(fn's result, Cost)``.
 """

@@ -14,7 +14,7 @@ import json
 import os
 
 GIB = 2**30
-# the mesh directories dryrun writes, and their headings; ROADMAP A11 adds more
+# the mesh directories dryrun writes, and their headings; ROADMAP A11.4 adds more
 MESHES = {"h100x1": "1 × NVIDIA H100 80GB HBM3, 700 W"}
 
 

@@ -11,7 +11,10 @@ each a kernel forward on the card and a backward in plain PyTorch.
 The shape-only entry points (``abstract_params``, ``abstract_cache``,
 ``input_specs``) build meta tensors, with nothing drawn or allocated, for
 the cost walk of ``launch/dryrun.py``. The reference's sharding specs
-(``param_specs``, ``cache_specs``, ``batch_specs``) wait for ROADMAP A11.
+(``param_specs``, ``cache_specs``, ``batch_specs``) are its trees of
+partition specs (``launch.mesh``), pure data; the sharded engine's mesh
+places parameters by ``launch.mesh.shard_model_params`` and the models
+constrain at the reference's sites (``models.transformer``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.mesh import BATCH
 from repro_torch.models import common, moe, rwkv6, transformer, vlm, whisper, zamba2
 from repro_torch.optim import AdamWConfig, adamw_update
 
@@ -55,10 +60,20 @@ class ModelAPI:
         """``init``'s parameter module on the meta device, nothing drawn."""
         return self.init(device="meta")
 
-    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
-        return _PORTED[self.family].init_cache(
-            self.cfg, batch, max_len, device=resolve_device(device)
-        )
+    def param_specs(self) -> dict:
+        return _PORTED[self.family].param_specs(self.cfg)
+
+    def cache_specs(self) -> dict:
+        return _PORTED[self.family].cache_specs(self.cfg)
+
+    def init_cache(self, batch: int, max_len: int, device=None, mesh=None) -> dict:
+        """The family's cache; over a ``mesh``, this rank's: its share of the
+        KV heads where the model axis divides them, all of them where it
+        does not (``launch.mesh.local_size``)."""
+        cfg = self.cfg
+        if mesh is not None:
+            cfg = dataclasses.replace(cfg, n_kv_heads=meshlib.local_size(cfg.n_kv_heads, mesh))
+        return _PORTED[self.family].init_cache(cfg, batch, max_len, device=resolve_device(device))
 
     def abstract_cache(self, batch: int, max_len: int) -> dict:
         """``init_cache``'s tree on the meta device, nothing allocated."""
@@ -86,6 +101,24 @@ class ModelAPI:
                 batch["labels"] = tok(b, s)
             return batch
         return {"tokens": tok(b, 1), "cache": self.abstract_cache(b, s)}
+
+    def batch_specs(self, shape_name: str) -> dict:
+        """Partition specs matching ``input_specs(shape_name)``."""
+        sh = SHAPES[shape_name]
+        specs = {}
+        if sh.kind in ("train", "prefill"):
+            if self.family == "vlm":
+                specs["embeds"] = (BATCH, None, None)
+                specs["mrope_positions"] = (None, BATCH, None)
+            elif self.family == "audio":
+                specs["tokens"] = (BATCH, None)
+                specs["frames"] = (BATCH, None, None)
+            else:
+                specs["tokens"] = (BATCH, None)
+            if sh.kind == "train":
+                specs["labels"] = (BATCH, None)
+            return specs
+        return {"tokens": (BATCH, None), "cache": self.cache_specs()}
 
     def loss(self, params, batch: dict, *, remat: Optional[bool] = None):
         """Trunk + fused sequence-chunked head and CE (+ the moe aux loss):
@@ -234,7 +267,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optio
     """
     if compute_specs is not None or storage_specs is not None:
         raise NotImplementedError("sharded parameters and gradients (compute_specs, storage_specs) "
-                                  "are ROADMAP A11")
+                                  "are ROADMAP A11.3")
     ga = grad_accum if grad_accum is not None else api.cfg.grad_accum
 
     def grads_of(params, named: dict, batch: dict):
@@ -294,6 +327,7 @@ def make_serve_step(api: ModelAPI, *, vocab: Optional[int] = None, page_size: in
 
     def serve_step(params, cache, tokens, active=None):
         logits, cache = api.decode(params, cache, tokens, page_size=page_size, active=active)
+        logits = meshlib.whole(logits)  # vocabulary-sharded across a mesh
         v = logits.shape[-1] if vocab is None else vocab
         nxt = torch.argmax(logits[:, -1, :v], dim=-1).to(torch.int32)[:, None]
         return nxt, cache

@@ -14,6 +14,18 @@ kernel and decode the paged kernel over the cache itself, viewed as pages
 the kernel refuses raises. Meta tensors inside a cost walk take the card's
 route (``build.kernel_route``), so the walk prices the card's path. A
 training forward takes ``common.AttentionFn`` (``attend``).
+
+Across a mesh (``launch.mesh``) q, k and v leave ``_project_qkv`` under
+the reference's constraints: heads over ``MODEL`` where the mesh divides
+their count, replicated where it does not (qwen2.5-3b's 2 KV heads on 4
+cards). From there to the output projection each rank works on plain
+tensors, its own query heads and the KV heads they read
+(``_local_heads``): the rotary embedding, the cache write, and the
+kernels, whose GQA group is the call's ``hq // hkv``. Passing all KV heads
+beside a rank's share of the query heads would pair them wrongly without
+an error, so each rank passes exactly the KV heads its queries read. The
+cache holds the rank's K/V as the constraint leaves them (its share of
+the KV heads, or all of them when they are replicated).
 """
 from __future__ import annotations
 
@@ -26,7 +38,32 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import cache_as_pages, paged_attention
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.mesh import BATCH, MODEL, shard
 from repro_torch.models import common
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    if cfg.sp_activations:
+        # sequence-parallel attention (see _project_qkv): weights replicated
+        # over MODEL; the seq dim carries the parallelism end to end
+        p = {"wq": (None, None), "wk": (None, None), "wv": (None, None), "wo": (None, None)}
+        if cfg.qkv_bias:
+            p.update({"bq": (None,), "bk": (None,), "bv": (None,)})
+        return p
+    p = {"wq": (None, MODEL), "wk": (None, MODEL), "wv": (None, MODEL), "wo": (MODEL, None)}
+    if cfg.qkv_bias:
+        p.update({"bq": (MODEL,), "bk": (MODEL,), "bv": (MODEL,)})
+    return p
+
+
+def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    """Sharding for the stacked cache: heads over MODEL when divisible, else seq."""
+    if cfg.n_kv_heads % model_axis == 0:
+        kv = (None, BATCH, MODEL, None, None)
+    else:
+        kv = (None, BATCH, None, MODEL, None)
+    return {"k": kv, "v": kv, "lengths": (BATCH,)}
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -37,10 +74,63 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     v = common.matmul_f32(x, p["wv"]).to(x.dtype)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"].to(q.dtype), k + p["bk"].to(k.dtype), v + p["bv"].to(v.dtype)
-    q = q.reshape(b, l, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, l, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, l, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = meshlib.split_last(q, (cfg.n_heads, hd)).transpose(1, 2)
+    k = meshlib.split_last(k, (cfg.n_kv_heads, hd)).transpose(1, 2)
+    v = meshlib.split_last(v, (cfg.n_kv_heads, hd)).transpose(1, 2)
+    if cfg.sp_activations:
+        # context/sequence parallelism: q stays seq-sharded (each shard owns
+        # its causal rows), k/v are gathered
+        q = shard(q, BATCH, None, MODEL, None)
+        k = shard(k, BATCH, None, None, None)
+        v = shard(v, BATCH, None, None, None)
+    else:
+        q = shard(q, BATCH, MODEL, None, None)
+        k = shard(k, BATCH, MODEL, None, None)
+        v = shard(v, BATCH, MODEL, None, None)
     return q, k, v
+
+
+def _first(x, dim: int) -> int:
+    """The global index of a DTensor's first local entry along ``dim``
+    (evenly sharded, as the constraints leave it)."""
+    start = 0
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            start = start * x.device_mesh.size(i) + x.device_mesh.get_local_rank(i)
+    return start * meshlib.local(x).shape[dim]
+
+
+def _heads(t: torch.Tensor, kv: slice, dim: int = 1) -> torch.Tensor:
+    """The KV heads ``kv`` of ``t`` along ``dim``: ``t`` itself for all of them."""
+    return t if kv == slice(None) else t.narrow(dim, kv.start, kv.stop - kv.start)
+
+
+def _local_heads(q, k, v):
+    """(q, k, v, kv, wrap) on this rank: its query heads and its K/V as plain
+    tensors, ``kv`` the slice of its K/V heads that its query heads read,
+    and ``wrap``, which makes the attention output over its query heads a
+    DTensor with q's placement again. Plain tensors come back as they are,
+    with every KV head and the identity."""
+    if not meshlib.is_dtensor(q):
+        return q, k, v, slice(None), lambda o: o
+    for x in (q, k):
+        if any(p.is_shard() and not p.is_shard(1) for p in x.placements):
+            raise ValueError("attention across cards takes head-sharded activations; "
+                             "sp_activations (a training layout) shards the sequence")
+    hq, hkv = q.shape[1], k.shape[1]
+    ql, kl, vl = meshlib.local(q), meshlib.local(k), meshlib.local(v)
+    group = hq // hkv
+    q0, n_q, k0 = _first(q, 1), ql.shape[1], _first(k, 1)
+    if n_q % group and group % n_q:
+        raise ValueError(f"{n_q} local query heads do not group evenly over KV heads of {group}")
+    first, n_kv = q0 // group, max(1, n_q // group)
+    if first < k0 or first + n_kv > k0 + kl.shape[1]:
+        raise ValueError(f"query heads {q0}..{q0 + n_q} read KV heads this rank does not hold")
+    kv = slice(first - k0, first - k0 + n_kv)
+    if (kv.start, kv.stop) == (0, kl.shape[1]):
+        kv = slice(None)  # every local KV head
+    shape = lambda o: (o.shape[0], hq) + tuple(o.shape[2:])
+    return ql, kl, vl, kv, lambda o: meshlib.wrap_like(o, q, shape(o))
 
 
 def _rope(cfg: ModelConfig, q, k, positions, mrope_positions=None):
@@ -76,23 +166,24 @@ def attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
 def apply_train(p: dict, cfg: ModelConfig, x, positions, mrope_positions=None, *,
                 causal: bool = True, block_k: int = 1024) -> torch.Tensor:
     """Full-sequence attention (forward without cache return)."""
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v, kv, wrap = _local_heads(*_project_qkv(p, cfg, x))
     q, k = _rope(cfg, q, k, positions, mrope_positions)
-    o = attend(q, k, v, causal=causal, block_k=block_k)
-    return _out_proj(p, x.dtype, o)
+    o = attend(q, _heads(k, kv), _heads(v, kv), causal=causal, block_k=block_k)
+    return _out_proj(p, x.dtype, wrap(o))
 
 
 def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, mrope_positions=None,
                   block_k: int = 1024):
-    """As apply_train but also returns the (padded-to-max_len) KV for caching."""
-    q, k, v = _project_qkv(p, cfg, x)
+    """As apply_train but also returns the (padded-to-max_len) KV for caching
+    (across a mesh this rank's K/V, as plain tensors)."""
+    q, k, v, kv, wrap = _local_heads(*_project_qkv(p, cfg, x))
     q, k = _rope(cfg, q, k, positions, mrope_positions)
-    o = attend(q, k, v, causal=True, block_k=block_k)
+    o = attend(q, _heads(k, kv), _heads(v, kv), causal=True, block_k=block_k)
     l = x.shape[1]
     if max_len > l:
         k = F.pad(k, (0, 0, 0, max_len - l))
         v = F.pad(v, (0, 0, 0, max_len - l))
-    return _out_proj(p, x.dtype, o), (k, v)
+    return _out_proj(p, x.dtype, wrap(o)), (k, v)
 
 
 def _write_at(cache: torch.Tensor, lengths: torch.Tensor, new: torch.Tensor,
@@ -121,13 +212,13 @@ def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_s
     must be a multiple of it); the CPU path ignores it. Returns the
     attention output (B, 1, D).
     """
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v, kv, wrap = _local_heads(*_project_qkv(p, cfg, x))
     positions = lengths[:, None].to(torch.int32)  # (B, 1)
     q, k = _rope(cfg, q, k, positions, mrope_positions)
     _write_at(k_cache, lengths, k[:, :, 0, :], active)
     _write_at(v_cache, lengths, v[:, :, 0, :], active)
-    o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size)
-    return _out_proj(p, x.dtype, o)
+    o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size, kv)
+    return _out_proj(p, x.dtype, wrap(o))
 
 
 def _read_at(cache: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -153,15 +244,17 @@ def apply_decode_every_row(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengt
     return out
 
 
-def attend_decode(q, k_cache, v_cache, kv_len, page_size: int) -> torch.Tensor:
+def attend_decode(q, k_cache, v_cache, kv_len, page_size: int, kv: slice = slice(None)) -> torch.Tensor:
     """One query position over a per-slot cache: q (B, Hq, 1, hd), caches
     (B, Hkv, S, hd), ``kv_len`` (B,) valid positions -> (B, Hq, 1, hd) in
-    q's dtype. The paged kernel over the cache viewed as pages of
-    ``page_size`` on the card, the eager reference on the CPU."""
+    q's dtype, q's heads reading the cache's KV heads ``kv``. The paged
+    kernel over the cache viewed as pages of ``page_size`` on the card (the
+    pools' heads ``kv``, a strided view), the eager reference on the CPU."""
     if build.kernel_route(q):
         k_pages, v_pages, table = cache_as_pages(k_cache, v_cache, page_size)
-        return paged_attention(q[:, :, 0, :], k_pages, v_pages, table, kv_len)[:, :, None, :]
-    return common.attention_decode(q, k_cache.to(q.dtype), v_cache.to(q.dtype), kv_len)
+        return paged_attention(q[:, :, 0, :], _heads(k_pages, kv, 0), _heads(v_pages, kv, 0), table,
+                               kv_len)[:, :, None, :]
+    return common.attention_decode(q, _heads(k_cache, kv).to(q.dtype), _heads(v_cache, kv).to(q.dtype), kv_len)
 
 
 def init_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,

@@ -14,6 +14,17 @@
   accumulated and returned in f32 is the f32 product of the upcast inputs,
   since bf16 products are exact in f32. Float32 matmuls must run in full
   f32: leave ``torch.backends.cuda.matmul.allow_tf32`` False (the default).
+
+Across a mesh of cards (``launch.mesh``; the sharded engine's parameters
+placed by ``shard_model_params``) the parameters are DTensors, and so is
+the residual stream that meets them. Three primitives keep that boundary:
+``matmul_f32`` lifts a plain operand beside a DTensor to a replicated one
+and adds a split contraction's partial sums across the mesh at once, in
+f32, so every later op sees whole values; ``rms_norm`` gathers a residual
+sharded along the normalized dimension first; and the held casts
+(``cast``) are keyed on the local shard's storage (a DTensor's own
+``data_ptr()`` is 0) and, given a partition spec under an active mesh,
+hold the weight placed at it, the reference's ``constrain_tree``.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch import mesh as meshlib
 
 NEG_INF = -1e30
 
@@ -46,8 +58,11 @@ def needs_grad(*tensors) -> bool:
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in f32, whatever the inputs' type."""
-    return torch.matmul(a.float(), b.float())
+    """``a @ b`` in f32, whatever the inputs' type. Across a mesh a plain
+    operand meets a DTensor one replicated, and partial sums are added
+    across the mesh in f32 (module docstring)."""
+    a, b = meshlib.common(a, b)
+    return meshlib.reduced(torch.matmul(a.float(), b.float()))
 
 
 def matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,7 +81,7 @@ def frozen(t: torch.Tensor, device=None) -> nn.Parameter:
     return nn.Parameter(t.to(device), requires_grad=False)
 
 
-def cast(owner: nn.Module, name: str, dtype) -> torch.Tensor:
+def cast(owner: nn.Module, name: str, dtype, spec=None) -> torch.Tensor:
     """Parameter ``name`` of ``owner`` as ``dtype``, cast once and held.
 
     Casting a fixed tensor is deterministic, so the held cast is bit-equal
@@ -76,6 +91,11 @@ def cast(owner: nn.Module, name: str, dtype) -> torch.Tensor:
     device casts anew. A non-float leaf, or ``dtype`` None or the leaf's
     own type, returns the parameter itself.
 
+    ``spec``, a partition spec (``launch.mesh``), places a DTensor leaf at
+    it under an active mesh, after the cast (the reference's
+    ``constrain_tree``), and the placed leaf is held too; with no active
+    mesh, or on a plain leaf, ``spec`` changes nothing.
+
     A leaf that requires grad, under grad mode (a training forward), is
     cast fresh on every call and nothing is held: the cast is then a node
     of the graph, which carries the gradient back to the f32 leaf. Serving
@@ -83,16 +103,24 @@ def cast(owner: nn.Module, name: str, dtype) -> torch.Tensor:
     its held casts.
     """
     p = getattr(owner, name)
-    if dtype is None or not p.is_floating_point() or p.dtype == dtype:
+    place = spec is not None and meshlib.is_dtensor(p) and meshlib.active_mesh() is not None
+    recast = dtype is not None and p.is_floating_point() and p.dtype != dtype
+    if not (recast or place):
         return p
     if p.requires_grad and torch.is_grad_enabled():
-        return p.to(dtype)
+        t = p.to(dtype) if recast else p
+        return meshlib.shard(t, *spec) if place else t
     held = owner.__dict__.setdefault("_casts", {})
-    key = (name, dtype)
-    stamp = (id(p), p.data_ptr(), p.device, p._version)
+    key = (name, dtype if recast else None) + ((tuple(spec),) if place else ())
+    stamp = (id(p), meshlib.local(p).data_ptr(), p.device, p._version)
     entry = held.get(key)
     if entry is None or entry[0] != stamp:
-        entry = held[key] = (stamp, p.detach().to(dtype))
+        t = p.detach()
+        if recast:
+            t = t.to(dtype)
+        if place:
+            t = meshlib.shard(t, *spec)
+        entry = held[key] = (stamp, t)
     return entry[1]
 
 
@@ -109,12 +137,15 @@ class ParamTree(nn.Module):
             else:
                 self.register_parameter(name, frozen(c))
 
-    def tree(self, dtype=None) -> dict:
+    def tree(self, dtype=None, specs: dict = None) -> dict:
         """This node as nested dicts of tensors, float leaves cast to
-        ``dtype`` (as the reference's ``cast_tree``/``constrain_tree``),
-        each cast once and held (:func:`cast`)."""
-        out = {n: cast(self, n, dtype) for n, _ in self.named_parameters(recurse=False)}
-        out.update({n: m.tree(dtype) for n, m in self.named_children()})
+        ``dtype`` and, under an active mesh, placed at ``specs`` (a nest of
+        partition specs under the same names), as the reference's
+        ``cast_tree``/``constrain_tree``; each cast once and held
+        (:func:`cast`)."""
+        sub = (lambda n: specs.get(n)) if specs is not None else (lambda n: None)
+        out = {n: cast(self, n, dtype, sub(n)) for n, _ in self.named_parameters(recurse=False)}
+        out.update({n: m.tree(dtype, sub(n)) for n, m in self.named_children()})
         return out
 
 
@@ -151,6 +182,9 @@ def embed_init(shape, generator: torch.Generator, dtype=torch.float32) -> torch.
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dimension; a DTensor sharded along it is
+    gathered first, so the mean is one rank's, never a partial one."""
+    x = meshlib.replicated_dim(x, -1)
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)

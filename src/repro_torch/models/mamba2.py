@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2_scan import ssd_chunked, ssd_train
+from repro_torch.launch.mesh import MODEL
 from repro_torch.models import common
 from repro_torch.models.common import ParamTree, matmul_f32
 
@@ -54,6 +55,13 @@ def init_block(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
         w_out=common.dense_init((d_in, d), g, scale=1.0 / (2 * max(cfg.n_layers, 1)) ** 0.5,
                                 dtype=dtype),
     )
+
+
+def block_specs(cfg: ModelConfig) -> dict:
+    """Compute-time (TP) specs for one Mamba2 block."""
+    return {"ln": (None,), "w_in": (None, MODEL), "conv_w": (None, MODEL), "conv_b": (MODEL,),
+            "A_log": (MODEL,), "D": (MODEL,), "dt_bias": (MODEL,), "norm_w": (MODEL,),
+            "w_out": (MODEL, None)}
 
 
 def _causal_conv(x, w, b, tail):

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import MODEL
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.common import ParamTree
 
@@ -79,6 +80,33 @@ def _init_layer(cfg: ModelConfig, g: torch.Generator, dtype) -> ParamTree:
 def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> transformer.Transformer:
     """Random init drawn on the CPU from ``generator``, placed on ``device``."""
     return transformer.Transformer(cfg, generator, device, init_layer=_init_layer)
+
+
+def layer_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    """Compute-time (TP) specs for one layer: expert-parallel over ``MODEL``
+    when the experts divide the axis, else the expert hidden dim sharded."""
+    if cfg.n_experts % model_axis == 0:
+        experts = {"w_gate": (MODEL, None, None), "w_up": (MODEL, None, None), "w_down": (MODEL, None, None)}
+    else:
+        experts = {"w_gate": (None, None, MODEL), "w_up": (None, None, MODEL), "w_down": (None, MODEL, None)}
+    lyr = {"ln1": (None,), "ln2": (None,), "attn": attention.param_specs(cfg), "router": (None, None),
+           "experts": experts}
+    if cfg.n_shared_experts:
+        lyr["shared"] = {"w_gate": (None, MODEL), "w_up": (None, MODEL), "w_down": (MODEL, None),
+                         "gate": (None, None)}
+    return lyr
+
+
+def param_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    specs = {"embed": (MODEL, None), "layers": transformer.stacked(layer_specs(cfg, model_axis)),
+             "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, MODEL)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    return attention.cache_specs(cfg, model_axis)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan import wkv6_chunked, wkv6_train
+from repro_torch.launch.mesh import BATCH, MODEL
 from repro_torch.models import common
 from repro_torch.models.common import ParamTree, frozen, layer_norm, matmul_f32
 
@@ -98,6 +99,35 @@ class RWKV6(nn.Module):
 def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> RWKV6:
     """Random init drawn on the CPU from ``generator``, placed on ``device``."""
     return RWKV6(cfg, generator, device)
+
+
+def layer_specs(cfg: ModelConfig) -> dict:
+    """Compute-time (TP) specs for one layer."""
+    rep1 = (None,)
+    return {
+        "ln1": {"w": rep1, "b": rep1},
+        "ln2": {"w": rep1, "b": rep1},
+        "att": {
+            "maa_x": rep1, "maa": (None, None), "maa_w1": (None, None), "maa_w2": (None, None, None),
+            "w0": rep1, "w1": (None, None), "w2": (None, None), "u": (MODEL, None),
+            "wr": (None, MODEL), "wk": (None, MODEL), "wv": (None, MODEL), "wg": (None, MODEL),
+            "wo": (MODEL, None), "ln_x": {"w": rep1, "b": rep1},
+        },
+        "ffn": {"maa_k": rep1, "maa_r": rep1, "wk": (None, MODEL), "wv": (MODEL, None), "wr": (None, None)},
+    }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    from repro_torch.models.transformer import stacked
+
+    rep1 = (None,)
+    return {"embed": (MODEL, None), "ln0": {"w": rep1, "b": rep1}, "layers": stacked(layer_specs(cfg)),
+            "final_norm": {"w": rep1, "b": rep1}, "lm_head": (None, MODEL)}
+
+
+def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    return {"wkv": (None, BATCH, MODEL, None, None), "att_shift": (None, BATCH, None),
+            "cm_shift": (None, BATCH, None), "lengths": (BATCH,)}
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,14 @@ writes the new K/V into the cache tensors in place.
 autograd, each layer (or each ``remat_every`` layers) under
 ``common.maybe_remat``, attention through ``common.AttentionFn``; the
 serving functions run under ``torch.no_grad()``.
+
+Across a mesh (``launch.mesh``; the sharded engine) the reference's
+sharding constraints bind at its sites and nowhere else: each layer's
+weights placed at ``layer_specs`` where they run (its ``constrain_tree``;
+the placed casts are held), q/k/v over ``MODEL`` (``attention``), the
+residual (``_res``, ``_sp_gather``), the embedding gathered at use, the
+head, and the logits over ``MODEL``. Each is the identity without an
+active mesh, so a path without one runs exactly as before.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.mesh import BATCH, MODEL, shard
 from repro_torch.models import attention, common
 from repro_torch.models.common import ParamTree, frozen
 
@@ -85,23 +95,68 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transform
     return Transformer(cfg, generator, device)
 
 
+def layer_specs(cfg: ModelConfig) -> dict:
+    """Compute-time (TP) specs for ONE layer (no stacked L axis)."""
+    return {
+        "ln1": (None,),
+        "ln2": (None,),
+        "attn": attention.param_specs(cfg),
+        "mlp": {"w_gate": (None, MODEL), "w_up": (None, MODEL), "w_down": (MODEL, None)},
+    }
+
+
+def stacked(specs: dict) -> dict:
+    """A layer's specs with a leading ``None`` on every leaf: the reference's
+    layers are stacked on a leading L axis."""
+    return {k: stacked(v) if isinstance(v, dict) else (None,) + tuple(v) for k, v in specs.items()}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Compute-time (TP) partition specs, matching the reference's ``init``
+    tree (layer leaves with a leading ``None`` for the stacked L axis)."""
+    specs = {"embed": (MODEL, None), "layers": stacked(layer_specs(cfg)), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, MODEL)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    return attention.cache_specs(cfg, model_axis)
+
+
 # ---------------------------------------------------------------------------
 # blocks
 
 
+def _res(cfg: ModelConfig, h):
+    # residual-stream constraint; sp_activations shards the seq dim over the
+    # TP axis (Megatron sequence parallelism), a training memory feature
+    return shard(h, BATCH, MODEL if cfg.sp_activations else None, None)
+
+
+def _sp_gather(cfg: ModelConfig, x):
+    # the Megatron-SP boundary: gather the seq-sharded residual before the
+    # TP-sharded products
+    if cfg.sp_activations:
+        return shard(x, BATCH, None, None)
+    return x
+
+
 def _embed_in(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None):
     """The residual stream's input in the compute dtype: the embedding rows
-    of ``tokens``, or given ``embeds`` (B, L, D) as they are."""
+    of ``tokens`` (the table gathered at use, its rows over ``MODEL``), or
+    given ``embeds`` (B, L, D) as they are."""
     if embeds is None:
-        embeds = params.embed[tokens.long()]
-    return embeds.to(common.dt(cfg.compute_dtype))
+        w = common.cast(params, "embed", None, (MODEL, None))  # gather-at-use
+        embeds = meshlib.take_rows(w, tokens)
+    return _res(cfg, embeds.to(common.dt(cfg.compute_dtype)))
 
 
 def _head_w(params: Transformer, cfg: ModelConfig, dtype):
     """The output head as ``dtype``, cast once and held (``common.cast``)."""
     if cfg.tie_embeddings:
-        return common.cast(params, "embed", dtype).T
-    return common.cast(params, "lm_head", dtype)
+        return common.cast(params, "embed", dtype, (MODEL, None)).T
+    return common.cast(params, "lm_head", dtype, (None, MODEL))
 
 
 def _head_param(params: Transformer, cfg: ModelConfig):
@@ -111,12 +166,13 @@ def _head_param(params: Transformer, cfg: ModelConfig):
 
 
 def _logits_out(params: Transformer, cfg: ModelConfig, h):
-    h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
-    return common.matmul_f32(h, _head_w(params, cfg, h.dtype))
+    h = common.rms_norm(h, common.cast(params, "final_norm", None, (None,)), cfg.norm_eps)
+    logits = common.matmul_f32(h, _head_w(params, cfg, h.dtype))
+    return shard(logits, BATCH, None, MODEL)
 
 
 def _mlp(layer: dict, cfg: ModelConfig, h):
-    x = common.rms_norm(h, layer["ln2"], cfg.norm_eps)
+    x = _sp_gather(cfg, common.rms_norm(h, layer["ln2"], cfg.norm_eps))
     m = layer["mlp"]
     return h + common.swiglu(x, m["w_gate"], m["w_up"], m["w_down"])
 
@@ -131,12 +187,13 @@ def forward(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mro
     h = _embed_in(params, cfg, tokens, embeds)
     b, l, _ = h.shape
     positions = common.causal_positions(b, l, h.device)
+    specs = layer_specs(cfg)
     for blk in params.layers:
-        layer = blk.tree(cdt)
+        layer = blk.tree(cdt, specs)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_train(layer["attn"], cfg, x, positions, mrope_positions,
                                       block_k=block_k)
-        h = _mlp(layer, cfg, h)
+        h = _res(cfg, _mlp(layer, cfg, h))
     return _logits_out(params, cfg, h)
 
 
@@ -144,11 +201,11 @@ def _block_train(cfg: ModelConfig, h, blk: nn.Module, positions, mrope_positions
     """One layer of the training trunk (the reference's ``_block_train``):
     the layer's float leaves cast to the compute dtype where it runs (a
     cast that carries the gradient), then attention and the MLP."""
-    layer = blk.tree(common.dt(cfg.compute_dtype))
+    layer = blk.tree(common.dt(cfg.compute_dtype), layer_specs(cfg))
     x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
     h = h + attention.apply_train(layer["attn"], cfg, x, positions, mrope_positions,
                                   block_k=block_k)
-    return _mlp(layer, cfg, h)
+    return _res(cfg, _mlp(layer, cfg, h))
 
 
 def features(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mrope_positions=None,
@@ -198,12 +255,13 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mro
     b, l, _ = h.shape
     positions = common.causal_positions(b, l, h.device)
     ks, vs = [], []
+    specs = layer_specs(cfg)
     for blk in params.layers:
-        layer = blk.tree(cdt)
+        layer = blk.tree(cdt, specs)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         a, (k, v) = attention.apply_prefill(layer["attn"], cfg, x, positions, max_len,
                                             mrope_positions, block_k=block_k)
-        h = _mlp(layer, cfg, h + a)
+        h = _res(cfg, _mlp(layer, cfg, h + a))
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     cache = {
@@ -231,8 +289,9 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, tokens, mrop
     cdt = common.dt(cfg.compute_dtype)
     h = _embed_in(params, cfg, tokens)
     lengths = cache["lengths"]
+    specs = layer_specs(cfg)
     for i, blk in enumerate(params.layers):
-        layer = blk.tree(cdt)
+        layer = blk.tree(cdt, specs)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_decode(layer["attn"], cfg, x, cache["k"][i], cache["v"][i], lengths,
                                        page_size, active, mrope_positions)

@@ -39,3 +39,11 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens, **kw):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
     return transformer.init_cache(cfg, batch, max_len, dtype, device)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    return transformer.param_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    return transformer.cache_specs(cfg, model_axis)

@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import BATCH, MODEL
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.common import ParamTree, frozen
 
@@ -96,6 +97,32 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Whisper:
 
 # ---------------------------------------------------------------------------
 # blocks
+
+
+def _mlp_specs() -> dict:
+    return {"w_in": (None, MODEL), "b_in": (MODEL,), "w_out": (MODEL, None), "b_out": (None,)}
+
+
+def enc_layer_specs(cfg: ModelConfig) -> dict:
+    ln = {"w": (None,), "b": (None,)}
+    return {"ln1": ln, "attn": attention.param_specs(cfg), "ln2": ln, "mlp": _mlp_specs()}
+
+
+def dec_layer_specs(cfg: ModelConfig) -> dict:
+    ln = {"w": (None,), "b": (None,)}
+    return {"ln1": ln, "self_attn": attention.param_specs(cfg), "ln2": ln,
+            "cross_attn": attention.param_specs(cfg), "ln3": ln, "mlp": _mlp_specs()}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    ln = {"w": (None,), "b": (None,)}
+    return {"embed": (MODEL, None), "enc_layers": transformer.stacked(enc_layer_specs(cfg)),
+            "dec_layers": transformer.stacked(dec_layer_specs(cfg)), "enc_norm": ln, "dec_norm": ln}
+
+
+def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    kv = (None, BATCH, MODEL, None, None) if cfg.n_kv_heads % model_axis == 0 else (None, BATCH, None, MODEL, None)
+    return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv, "lengths": (BATCH,)}
 
 
 def _ln(x, p: dict, eps: float):

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import BATCH, MODEL
 from repro_torch.models import attention, common, mamba2
 from repro_torch.models.common import ParamTree, frozen, matmul_f32, matmul_promoted, rms_norm
 
@@ -85,6 +86,30 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> Zamba2:
 
 # ---------------------------------------------------------------------------
 # shared attention block
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    from repro_torch.models.transformer import stacked
+
+    return {
+        "embed": (MODEL, None),
+        "layers": stacked(mamba2.block_specs(cfg)),
+        "shared": {"ln1": (None,), "wq": (None, MODEL), "wk": (None, MODEL), "wv": (None, MODEL),
+                   "wo": (MODEL, None), "ln2": (None,), "w_gate": (None, MODEL), "w_up": (None, MODEL),
+                   "w_down": (MODEL, None)},
+        "final_norm": (None,),
+        "lm_head": (None, MODEL),
+    }
+
+
+def shared_specs(cfg: ModelConfig) -> dict:
+    return param_specs(cfg)["shared"]
+
+
+def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    kv = (None, BATCH, MODEL, None, None) if cfg.n_kv_heads % model_axis == 0 else (None, BATCH, None, MODEL, None)
+    return {"k": kv, "v": kv, "conv": (None, BATCH, None, None), "ssm": (None, BATCH, MODEL, None, None),
+            "lengths": (BATCH,)}
 
 
 def _shared_qkv(sh: dict, cfg: ModelConfig, u, positions):

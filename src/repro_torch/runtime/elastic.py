@@ -10,7 +10,7 @@ topology changes.
 
 Restoring onto a mesh of cards (the reference's ``mesh`` and ``specs``,
 and its ``shardings_for``, which builds shardings on a JAX mesh) is
-tensor sharding, ROADMAP A11: ``shardings_for`` is left out, and a mesh or
+tensor sharding, ROADMAP A11.3: ``shardings_for`` is left out, and a mesh or
 specs raises.
 """
 from __future__ import annotations
@@ -33,5 +33,5 @@ def elastic_restore(
     build the replacement host's template, call this, continue.
     """
     if mesh is not None or specs is not None:
-        raise NotImplementedError("restoring onto a mesh of cards (mesh, specs) is ROADMAP A11")
+        raise NotImplementedError("restoring onto a mesh of cards (mesh, specs) is ROADMAP A11.3")
     return manager.restore(template, step=step)

@@ -52,7 +52,8 @@ the engine captures it at construction as a CUDA graph (``runtime/graphs``:
 the counterpart of the reference's jitted decode and chunk step) and every
 step replays it: the decode once, the chunk step once a column, as far as
 the last column any row is active in (the columns after it are no-ops
-under the gate). Nothing chooses eager on the card, and a failed capture
+under the gate). Only a mesh engine runs eagerly on the card (by its
+class, ``_captures``), and a failed capture
 raises. The tier plane (lookups, writes, drains, migrations, whose id
 counts change every step) stays outside the graphs. The kernel wrappers'
 ``LAUNCHES`` count a capture once; the engine counts its replays
@@ -71,7 +72,12 @@ chunked one); the graphs' buffers never move.
 With ``model_shards > 1`` the engine is a ``runtime.sharded.ShardedServingEngine``,
 whose tiered store is split into that many page-interleaved shards on the
 engine's device (``ServingEngine(...)`` constructs one); ``model_shards``
-must divide ``n_pages``.
+must divide ``n_pages``. Given a mesh of cards, a ``ShardedServingEngine``
+spans them: the seams it uses here are the cache (``_new_cache``: each
+rank's share of the KV heads), the payload rows (``_payload_dim``,
+``_payload_rows``: whole rows, gathered across the ranks), the argmax
+over logits gathered whole (``launch.mesh.whole``) and the choice of
+dispatch (``_captures``: a mesh engine runs its dispatches eagerly).
 """
 from __future__ import annotations
 
@@ -91,6 +97,7 @@ from repro_torch.core.profiler import AccessProfiler
 from repro_torch.data.requests import ChunkState, Request, RequestGenerator
 from repro_torch.device import resolve_device, stage_into, to_device, to_host
 from repro_torch.env import env_flag
+from repro_torch.launch.mesh import whole
 from repro_torch.models.api import ModelAPI, make_serve_step
 from repro_torch.obs import Counter, MetricsRegistry, default_recorder
 from repro_torch.kernels import launch_counts
@@ -271,7 +278,7 @@ class ServingEngine:
         # device-resident decode feedback, where the step's argmax lands and
         # feeds the next step without a host round-trip
         self._bufs = {
-            "cache": api.init_cache(e.max_batch, e.max_len, device=self.device),
+            "cache": self._new_cache(),
             "next": torch.zeros((e.max_batch,), dtype=torch.int32, device=self.device),
         }
         self.queue: Deque[Request] = deque()
@@ -349,7 +356,7 @@ class ServingEngine:
             self._bufs["col"] = torch.zeros((1,), dtype=torch.int64, device=self.device)
         # on the card every dispatch is a captured graph, replayed
         self._graphs: Dict[str, StepGraph] = {}
-        if self.device.type == "cuda":
+        if self._captures():
             with torch.cuda.device(self.device):
                 g = self._graphs["decode"] = StepGraph(self._decode_fn, self._bufs)
                 if self.chunking:
@@ -365,6 +372,13 @@ class ServingEngine:
             # initial fill: position the starting near set without charging
             # it to the migration books (nothing has been written yet)
             self.tiered.migrate(self.placement.near_blocks(), account=False)
+
+    def _new_cache(self) -> dict:
+        return self.api.init_cache(self.ecfg.max_batch, self.ecfg.max_len, device=self.device)
+
+    def _captures(self) -> bool:
+        """Whether the dispatches are captured as CUDA graphs: on the card."""
+        return self.device.type == "cuda"
 
     def _make_tiered_store(self):
         e = self.ecfg
@@ -451,13 +465,18 @@ class ServingEngine:
             # front: (n, L, H, Dh) per store
             kk = k[:, bi, :, pos, :]
             vv = cache["v"][:, bi, :, pos, :]
-            kv = torch.cat([kk, vv], dim=1)  # (n, 2L, H, Dh)
+            kv = self._whole_heads(torch.cat([kk, vv], dim=1))  # (n, 2L, H, Dh)
             return kv.reshape(len(positions), -1).float()
         pids = np.asarray(page_ids, np.int64)
         return to_device(
             counter_rows(self._seed, pids, self._page_wver[pids], self.tiered.row_dim),
             torch.float32, self.device,
         )
+
+    def _whole_heads(self, kv: torch.Tensor) -> torch.Tensor:
+        """(n, 2L, H, Dh) payload vectors with every KV head: the cache holds
+        them all on one device."""
+        return kv
 
     def _tiered_write(self, cache, batch_idxs, positions, page_ids):
         if self.tiered is None or not len(page_ids):
@@ -544,7 +563,7 @@ class ServingEngine:
                     min((i + 1) * ps, len(tokens)) - 1 for i in range(len(pages))
                 ]
                 self._tiered_write(self.cache, [slot_idx] * len(pages), positions, pages)
-            nxt = int(to_host(torch.argmax(logits1[0, -1, : self.cfg.vocab_size])))
+            nxt = int(to_host(torch.argmax(whole(logits1)[0, -1, : self.cfg.vocab_size])))
             self.next_tokens[slot_idx] = nxt
             self._record_ttft(req)
             if self.recorder is not None:
@@ -653,9 +672,9 @@ class ServingEngine:
         b["col"].add_(1)
 
     def _dispatch(self, name: str):
-        """Run dispatch ``name``: its captured graph on the card, the function
-        itself on the CPU."""
-        if self.device.type == "cuda":
+        """Run dispatch ``name``: its captured graph where the engine captured
+        one (``_captures``), else the function itself."""
+        if self._graphs:
             self._graphs[name].replay()
         else:
             getattr(self, f"_{name}_fn")(self._bufs)

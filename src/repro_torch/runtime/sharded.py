@@ -27,12 +27,25 @@ Per-shard near capacity is ``min(pages_owned, global_near_capacity)``.
 global near set restricted to shard ``s`` fits either bound and
 ``sanitize_near_ids``'s capacity cut never fires on a shard.
 
-What differs from the reference, on purpose: the reference places the
-parameters over a mesh of N devices and runs each step under it. The port
-runs on one card, so every shard's store lives on the engine's device and
-the parameters stay whole: an N-shard engine computes exactly the 1-shard
-model math, and its tokens equal the unsharded engine's. Splitting the
-parameters across cards is ROADMAP A11.
+Two layouts, chosen by argument. Without a mesh every shard's store lives
+on the engine's one device and the parameters stay whole (ROADMAP A7): an
+N-shard engine computes exactly the 1-shard model math, and its tokens
+equal the unsharded engine's. Given a mesh of N cards
+(``launch.mesh.make_serving_mesh``), the engine is the reference's: ONE
+logical replica spanning the cards. Its parameters are placed by
+``shard_model_params`` (each leaf's last axis over ``model`` where it
+divides) and every step runs under the mesh, so the models' constraints
+bind; each card computes on its own shard, and B4/B5 run on its own
+heads. Shard ``s`` of the store lives on card ``s`` (``MeshTieredKV``):
+only rank ``s`` writes its pages and launches B1 over them, so a step
+launches B1 once per non-empty shard summed over the ranks, and
+``tiered_verify``'s B3 runs on each rank's own slice. A drain merges the
+ranks' planes and books by one integer all-reduce, a pure sum, so every
+rank holds the same books, bit for bit. The host logic (admission,
+chunking, placement, prefetch) runs identically on every rank, and the
+argmax reads logits gathered whole, so every rank emits the same tokens.
+A mesh engine dispatches eagerly (``_captures``): its steps issue
+collectives, which its decode graphs do not capture.
 """
 from __future__ import annotations
 
@@ -42,8 +55,14 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, to_device
+from repro_torch.launch import mesh as meshlib
 from repro_torch.runtime.serving import EngineConfig, ServingEngine
 from repro_torch.runtime.tiered_kv import N_ROLES, TieredKVCache, sanitize_near_ids
+
+# a shard's host books, one row of MeshTieredKV's table; the last two are
+# the deltas of the drain that refreshed it
+BOOKS = ("near_hits", "far_hits", "lookups", "writes", "moved_rows", "moved_bytes", "dispatches",
+         "host_syncs", "drains", "near_count", "drained_near", "drained_far")
 
 
 def _padded_sum(arrays: List[np.ndarray]) -> np.ndarray:
@@ -252,7 +271,7 @@ class ShardedTieredKV:
         """Per-shard drained (near, far) deltas since the last take: the feed
         of the engine's shard-labeled counters."""
         out = self._shard_drained
-        self._shard_drained = [{"near": 0, "far": 0} for _ in self.shards]
+        self._shard_drained = [{"near": 0, "far": 0} for _ in range(self.n_shards)]
         return out
 
     # ------------------------------------------------------------------
@@ -306,23 +325,192 @@ class ShardedTieredKV:
         }
 
 
+def _plane_rows(n_segments: int, idx) -> int:
+    """The counter-plane rows ``TieredKVCache.lookup_segments`` grows to for
+    one call's routing vector (padded with zeros to the real segments)."""
+    vec = np.zeros(max(0, int(n_segments) - 1), np.int64)
+    if idx is not None:
+        vec[: len(idx)] = np.asarray(idx, np.int64)
+    return int(vec.max(initial=-1)) + 1
+
+
+class MeshTieredKV(ShardedTieredKV):
+    """The page-interleaved store over a 1-D mesh: this rank holds shard
+    ``mesh rank`` only, on its own device, behind the same interface.
+
+    Every rank receives the same calls (the host logic runs identically on
+    each). A rank writes, migrates and looks up only the pages it owns, so
+    B1 launches once per non-empty shard summed over the ranks; the rows a
+    lookup returns are its own pages' (the others' zero). Its counter plane
+    grows with every call, whichever pages it owns, so the planes have one
+    shape on every rank. The collectives are the drains, the migrations and
+    the per-call lookups: each merges by one all-reduce of a vector that
+    carries the call's result and every rank's row of host books
+    (``BOOKS``; a rank fills its own), so after any of them each rank holds
+    every shard's books, and the summed books and per-shard lists are the
+    unsharded facade's."""
+
+    def __init__(self, n_pages: int, row_dim: int, near_capacity: int, mesh, *,
+                 near_dtype=torch.float32, identity_scales: bool = False, counter_slots: int = 0,
+                 device=None):
+        n = int(mesh.size())
+        if n_pages % n != 0:
+            raise ValueError(f"n_shards={n} must divide n_pages={n_pages}: the "
+                             "page-interleaved partition owns pages by pid % n_shards")
+        self.mesh = mesh
+        self.rank = int(mesh.get_local_rank())
+        self.device = resolve_device(device)
+        self.n_pages = n_pages
+        self.row_dim = row_dim
+        self.near_capacity = near_capacity  # the GLOBAL planner capacity
+        self.n_shards = n
+        self.identity_scales = identity_scales
+        n_local = n_pages // n
+        self.local = TieredKVCache(n_local, row_dim, min(n_local, near_capacity), near_dtype=near_dtype,
+                                   identity_scales=identity_scales, counter_slots=counter_slots,
+                                   device=self.device)
+        self.shards = [self.local]
+        self._table = np.zeros((n, len(BOOKS)), np.int64)
+        self._shard_drained = [{"near": 0, "far": 0} for _ in range(n)]
+
+    # ------------------------------------------------------------------
+    def _exchange(self, extra, drained=(0, 0)) -> np.ndarray:
+        """One all-reduce (a sum) of ``extra`` and the table of books with
+        this rank's row filled in; refreshes the table, returns the summed
+        ``extra``."""
+        sh = self.local
+        table = np.zeros_like(self._table)
+        table[self.rank] = [sh.near_hits, sh.far_hits, sh.lookups, sh.writes, sh.moved_rows,
+                            sh.moved_bytes, sh.dispatches, sh.host_syncs, sh.drains, sh.near_count,
+                            *drained]
+        extra = np.asarray(extra, np.int64).reshape(-1)
+        out = meshlib.all_reduce_host(np.concatenate([table.reshape(-1), extra]), self.mesh)
+        self._table = out[: table.size].reshape(table.shape)
+        return out[table.size:]
+
+    def _sum(self, attr: str) -> int:
+        return int(self._table[:, BOOKS.index(attr)].sum())
+
+    def _column(self, attr: str) -> list:
+        return [int(x) for x in self._table[:, BOOKS.index(attr)]]
+
+    def _split(self, ids: np.ndarray):
+        owned = np.flatnonzero(ids % self.n_shards == self.rank)
+        if owned.size:
+            yield self.rank, self.local, owned, ids[owned] // self.n_shards
+
+    def lookup_segments(self, page_ids, seg_of, n_segments: int,
+                        slot_idx=None, tenant_idx=None, role_idx=None):
+        """This rank's share of the step's gather: one launch if it owns any
+        of the pages, none otherwise; the rows of its own pages."""
+        if np.asarray(page_ids).size:
+            self.local.ensure_counter_plane(_plane_rows(n_segments, slot_idx),
+                                            _plane_rows(n_segments, tenant_idx))
+        return super().lookup_segments(page_ids, seg_of, n_segments, slot_idx=slot_idx,
+                                       tenant_idx=tenant_idx, role_idx=role_idx)
+
+    def lookup(self, page_ids):
+        rows, near, far = super().lookup(page_ids)
+        near, far = (int(x) for x in self._exchange([near, far]))
+        return rows, near, far
+
+    def max_abs_error(self, page_ids) -> float:
+        local = super().max_abs_error(page_ids)
+        return float(meshlib.all_reduce_host([local], self.mesh, op="max", dtype=np.float64)[0])
+
+    def drain_counters(self, discard: bool = False) -> dict:
+        """This rank's plane drained, then every rank's merged by one
+        all-reduce: the summed planes, the same on every rank."""
+        d = self.local.drain_counters(discard=discard)
+        slot, tenant = np.asarray(d["slot"], np.int64), np.asarray(d["tenant"], np.int64)
+        role = np.asarray(d["role"], np.int64)
+        drained = (0, 0) if discard else (d["near"], d["far"])
+        flat = self._exchange(np.concatenate([[d["near"], d["far"]], slot.reshape(-1),
+                                              tenant.reshape(-1), role.reshape(-1)]), drained)
+        a, b = 2 + slot.size, 2 + slot.size + tenant.size
+        if not discard:
+            for s, (n, f) in enumerate(zip(self._column("drained_near"), self._column("drained_far"))):
+                self._shard_drained[s]["near"] += n
+                self._shard_drained[s]["far"] += f
+        return {"near": int(flat[0]), "far": int(flat[1]), "slot": flat[2:a].reshape(slot.shape),
+                "tenant": flat[a:b].reshape(tenant.shape), "role": flat[b:].reshape(role.shape)}
+
+    def migrate(self, near_ids, account: bool = True) -> dict:
+        ids = sanitize_near_ids(near_ids, self.n_pages, self.near_capacity)
+        res = self.local.migrate(ids[ids % self.n_shards == self.rank] // self.n_shards, account=account)
+        keys = ("promoted", "demoted", "moved_rows", "moved_bytes")
+        return dict(zip(keys, (int(x) for x in self._exchange([res[k] for k in keys]))))
+
+    def stats(self) -> dict:
+        return {**super().stats(), "shard_near_capacity": [self.local.near_capacity] * self.n_shards,
+                "shard_dispatches": self._column("dispatches"),
+                "shard_near_hits": self._column("near_hits"),
+                "shard_far_hits": self._column("far_hits")}
+
+
 class ShardedServingEngine(ServingEngine):
     """A ``ServingEngine`` whose tiered KV store is split into
-    ``ecfg.model_shards`` page-interleaved shards (``ShardedTieredKV``),
-    all on the engine's device. One logical replica, one routing target:
-    its profile export, tenant books and metrics are the merged (summed)
-    view of its shards. ``ServingEngine(..., ecfg)`` with
-    ``model_shards > 1`` constructs one of these."""
+    ``ecfg.model_shards`` page-interleaved shards. One logical replica, one
+    routing target: its profile export, tenant books and metrics are the
+    merged (summed) view of its shards. ``ServingEngine(..., ecfg)`` with
+    ``model_shards > 1`` constructs one of these, on one device.
 
-    def __init__(self, api, params, ecfg: EngineConfig, seed: int = 0, recorder=None,
+    Given ``mesh``, a 1-D ``("model",)`` mesh of ``model_shards`` ranks
+    (``launch.mesh.make_serving_mesh``), the replica spans it, as the
+    reference's does: the parameters are placed by ``shard_model_params``,
+    every step runs under the mesh, shard ``s`` of the store lives on rank
+    ``s`` (``MeshTieredKV``), the cache holds each rank's share of the KV
+    heads, and the engine runs on the rank's device (``device`` None: the
+    mesh's). Every rank of the mesh builds the engine and drives it with
+    the same calls. Serving takes the dense family without
+    ``sp_activations`` (the reference's serving cells turn it off)."""
+
+    def __init__(self, api, params, ecfg: EngineConfig, seed: int = 0, recorder=None, mesh=None,
                  device=None):
         n = max(1, int(ecfg.model_shards))
         if ecfg.n_pages % n != 0:
             raise ValueError(f"model_shards={n} must divide n_pages={ecfg.n_pages}")
+        self.mesh = mesh
+        if mesh is not None:
+            if int(mesh.size()) != n:
+                raise ValueError(f"mesh model axis {mesh.size()} != model_shards={n}")
+            if not meshlib.in_mesh(mesh):
+                raise ValueError("this rank is not in the engine's mesh")
+            if api.family != "dense":
+                raise NotImplementedError(f"the {api.family} family across cards is ROADMAP A11.2")
+            if api.cfg.sp_activations:
+                raise ValueError("sp_activations shards the sequence, a training layout: "
+                                 "serving across cards turns it off")
+            device = meshlib.mesh_device(mesh) if device is None else device
+            params = meshlib.shard_model_params(params, mesh)
         super().__init__(api, params, ecfg, seed=seed, recorder=recorder, device=device)
+
+    def _new_cache(self) -> dict:
+        return self.api.init_cache(self.ecfg.max_batch, self.ecfg.max_len, device=self.device,
+                                   mesh=self.mesh)
+
+    def _captures(self) -> bool:
+        return super()._captures() and self.mesh is None
+
+    def _payload_dim(self) -> int:
+        if self.mesh is None or self._dense_kv(self.cache) is None:
+            return super()._payload_dim()
+        c = self.cfg
+        return 2 * c.n_layers * c.n_kv_heads * c.head_dim
+
+    def _whole_heads(self, kv: torch.Tensor) -> torch.Tensor:
+        """Payload vectors with every KV head: a rank holding its share of
+        them gathers the others' (the rows are the reference's whole rows)."""
+        if self.mesh is None or kv.shape[2] == self.cfg.n_kv_heads:
+            return kv
+        return meshlib.gathered(kv, self.mesh, 2)
 
     def _make_tiered_store(self):
         e = self.ecfg
+        if self.mesh is not None:
+            return MeshTieredKV(e.n_pages, self._payload_dim(), self.placement.near_capacity, self.mesh,
+                                identity_scales=e.tiered_identity_scales, counter_slots=e.max_batch,
+                                device=self.device)
         return ShardedTieredKV(
             e.n_pages,
             self._payload_dim(),
@@ -332,6 +520,12 @@ class ShardedServingEngine(ServingEngine):
             counter_slots=e.max_batch,
             device=self.device,
         )
+
+    def step(self) -> int:
+        # the whole step (admit, dispatch, segmented gather, boundary drain)
+        # runs under the mesh, so the models' constraints bind against it
+        with meshlib.activate(self.mesh):
+            return super().step()
 
     def drain_tier_counters(self):
         d = super().drain_tier_counters()
@@ -344,3 +538,11 @@ class ShardedServingEngine(ServingEngine):
                 if delta["far"]:
                     self.metrics.counter("shard_far_hits", shard=str(s)).inc(delta["far"])
         return d
+
+    def stats(self) -> dict:
+        st = super().stats()
+        if self.mesh is not None and st["device_tiering"] is not None:
+            # each rank probes its own slice: the replica's error is the largest
+            st["device_tiering"]["max_read_error"] = float(meshlib.all_reduce_host(
+                [self.tiered_max_err], self.mesh, op="max", dtype=np.float64)[0])
+        return st

@@ -1,0 +1,288 @@
+"""Rank-side bodies of the port's mesh tests (no JAX here: a rank imports
+only the port). ``spawn`` starts ``world`` processes that meet at a
+``file://`` store (``gloo`` on the CPU, ``nccl`` over cards), runs
+``fn(rank, world, *args)`` in each and returns their results by rank; a
+rank that raises fails the call with its traceback."""
+from __future__ import annotations
+
+import dataclasses
+import multiprocessing as mp
+import queue
+import traceback
+
+import numpy as np
+import torch
+
+ENGINE = dict(max_batch=4, max_len=64, n_pages=256, near_frac=0.02, placement_window=4,
+              device_tiering=True, tiered_identity_scales=True, tiered_verify=True)
+N_REQUESTS = 6
+PROMPT = np.arange(1, 20, dtype=np.int32) * 7 % 500  # the logits probe's prompt
+
+
+def _child(fn, rank, world, store, backend, out, args):
+    try:
+        torch.set_num_threads(1)
+        from repro_torch.launch import mesh as meshlib
+
+        meshlib.init_process_group(rank=rank, world_size=world, store=store, backend=backend)
+        try:
+            out.put((rank, fn(rank, world, *args)))
+        finally:
+            torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent raises it
+        out.put((rank, {"error": traceback.format_exc()}))
+
+
+def spawn(fn, world: int, store: str, *args, backend: str = "gloo", timeout: float = 300.0) -> list:
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_child, args=(fn, r, world, store, backend, out, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, res = out.get(timeout=timeout)
+            results[rank] = res
+    except queue.Empty:
+        pass
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    errors = [r["error"] for r in results.values() if isinstance(r, dict) and "error" in r]
+    assert not errors, errors[0]
+    assert sorted(results) == list(range(world)), f"ranks {sorted(results)} of {world} answered"
+    return [results[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# the mesh layer
+
+
+def mesh_checks(rank: int, world: int) -> dict:
+    """The reference's ``tests/test_sharding.py`` semantics, rank side."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import common
+    from repro_torch.models.api import get_model
+
+    res = {}
+    for model in (0, 3, 2 * world):
+        try:
+            meshlib.make_host_mesh(model=model)
+            res[f"host_{model}"] = "built"
+        except ValueError as e:
+            res[f"host_{model}"] = str(e)
+    for model in (0, world + 1):
+        try:
+            meshlib.make_serving_mesh(model=model)
+            res[f"serving_{model}"] = "built"
+        except ValueError as e:
+            res[f"serving_{model}"] = str(e)
+    host = meshlib.make_host_mesh(model=1)
+    res["host_shape"] = tuple(host.shape)
+    with meshlib.activate(host):
+        res["spec"] = meshlib.spec(("pod", "data"), "model", None)
+        res["named"] = meshlib.named(host, "model", ("pod", "data")).spec
+        res["tree"] = meshlib.tree_shardings(host, {"a": ("model", None), "b": {"c": (None,)}})["b"]["c"].spec
+    meshes = {n: meshlib.make_serving_mesh(n) for n in (1, 2, world)}
+    full = meshes[world]
+    res["serving_shape"] = {n: tuple(m.shape) for n, m in meshes.items()}
+    # shard(): the identity with no active mesh and on a plain tensor; the
+    # divisibility drop under one
+    x = DTensor.from_local(torch.arange(15.0).reshape(3, 5), full, [Replicate()], run_check=False)
+    res["noop_without_mesh"] = meshlib.shard(x, None, "model") is x
+    with meshlib.activate(full):
+        plain = torch.ones(3, 8)
+        res["noop_on_plain"] = meshlib.shard(plain, "data", "model") is plain
+        res["drop"] = [repr(p) for p in meshlib.shard(x, "model", "model").placements]  # 3, 5 % 4
+        y = DTensor.from_local(torch.arange(24.0).reshape(3, 8), full, [Replicate()], run_check=False)
+        ys = meshlib.shard(y, ("pod", "data"), "model")
+        res["kept"] = ([repr(p) for p in ys.placements], tuple(ys.to_local().shape),
+                       torch.equal(ys.full_tensor(), y.full_tensor()))
+        # rms_norm of a residual sharded along D equals the plain one's
+        h = torch.randn(2, 3, 16, generator=torch.Generator().manual_seed(0))
+        w = torch.linspace(0.5, 1.5, 16)
+        hs = DTensor.from_local(h.chunk(world, -1)[rank].clone(), full, [Shard(2)], run_check=False)
+        res["rms_sharded"] = float((meshlib.whole(common.rms_norm(hs, meshlib.like(w, hs)))
+                                    - common.rms_norm(h, w)).abs().max())
+        # matmul_f32: a plain activation against a column-sharded weight,
+        # then against a row-sharded one (partial sums added across ranks)
+        g = torch.Generator().manual_seed(1)  # the same on every rank
+        a, b = torch.randn(2, 16, generator=g), torch.randn(16, 8, generator=g)
+        bc = DTensor.from_local(b.chunk(world, -1)[rank].clone(), full, [Shard(1)], run_check=False)
+        br = DTensor.from_local(b.chunk(world, 0)[rank].clone(), full, [Shard(0)], run_check=False)
+        ac = DTensor.from_local(a.chunk(world, -1)[rank].clone(), full, [Shard(1)], run_check=False)
+        res["matmul_col"] = float((meshlib.whole(common.matmul_f32(a, bc)) - a @ b).abs().max())
+        prod = common.matmul_f32(ac, br)
+        res["matmul_row"] = ([repr(p) for p in prod.placements],
+                             float((meshlib.whole(prod) - a @ b).abs().max()))
+    # attention on local heads: qwen2.5-3b's 16 query heads over 2 KV heads
+    # on 4 ranks (4 query heads a rank, the KV heads replicated): each rank
+    # must read only the KV head its queries group over
+    res["gqa"] = _gqa_over_ranks(full, world)
+    # shard_model_params: local shapes on every rank of every mesh, and the
+    # 1-device placement bit-identical
+    tree = common.ParamTree(w=torch.arange(12.0).reshape(3, 4), b=torch.arange(5.0), odd=torch.ones(3),
+                            sub=common.ParamTree(m=torch.randn(6, 8, generator=torch.Generator().manual_seed(2))))
+    api = get_model(dataclasses.replace(get_config("qwen2.5-3b").reduced(), sp_activations=False))
+    model = api.init(0, device="cpu")
+    res["placed"] = {}
+    for n, m in meshes.items():
+        if not meshlib.in_mesh(m):
+            continue
+        for label, src in (("tree", tree), ("model", model)):
+            placed = meshlib.shard_model_params(src, m)
+            res["placed"][(n, label)] = {
+                name: (tuple(p.to_local().shape), [repr(q) for q in p.placements], p.device.type,
+                       torch.equal(p.full_tensor(), dict(src.named_parameters())[name]))
+                for name, p in placed.named_parameters()}
+            if n == 1:
+                res["identical"] = all(torch.equal(p.to_local(), dict(src.named_parameters())[name])
+                                       for name, p in placed.named_parameters())
+        # the held casts of a placed layer: placed at its compute specs, keyed
+        # on the local storage
+        with meshlib.activate(m):
+            from repro_torch.models import transformer
+
+            placed = meshlib.shard_model_params(model, m)
+            layer = placed.layers[0].tree(torch.bfloat16, transformer.layer_specs(api.cfg))
+            again = placed.layers[0].tree(torch.bfloat16, transformer.layer_specs(api.cfg))
+            res.setdefault("casts", {})[n] = (
+                {k: [repr(q) for q in v.placements] for k, v in layer["attn"].items()},
+                all(again["attn"][k] is v for k, v in layer["attn"].items()),
+                layer["mlp"]["w_down"].dtype == torch.bfloat16)
+    return res
+
+
+def _gqa_over_ranks(mesh, world: int) -> dict:
+    """One attention layer of 16 query heads over 2 KV heads (head_dim 4),
+    prefill and a decode, placed over ``mesh`` against the same layer on
+    one device: the largest difference of the outputs and the caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import attention, transformer
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), n_heads=16, n_kv_heads=2, d_model=64,
+                              sp_activations=False)
+    g = torch.Generator().manual_seed(3)
+    layer = transformer.init_attn(cfg, g, torch.float32)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.1)  # nonzero biases too
+    x = torch.randn(2, 6, 64, generator=g)
+    pos = torch.arange(6)[None].expand(2, 6)
+    lengths = torch.tensor([6, 3], dtype=torch.int32)
+    x1 = torch.randn(2, 1, 64, generator=g)
+    want, (k, v) = attention.apply_prefill(layer.tree(), cfg, x, pos, 8)
+    kc, vc = k.clone(), v.clone()
+    want_dec = attention.apply_decode(layer.tree(), cfg, x1, kc, vc, lengths)
+    placed = meshlib.shard_model_params(layer, mesh)
+    with meshlib.activate(mesh):
+        p = placed.tree(None, attention.param_specs(cfg))
+        got, (kl, vl) = attention.apply_prefill(p, cfg, meshlib.like(x, p["wq"]), pos, 8)
+        kcl, vcl = kl.clone(), vl.clone()
+        got_dec = attention.apply_decode(p, cfg, meshlib.like(x1, p["wq"]), kcl, vcl, lengths)
+    return {"prefill": float((meshlib.whole(got) - want).abs().max()),
+            "decode": float((meshlib.whole(got_dec) - want_dec).abs().max()),
+            "cache": float((kcl - kc).abs().max()), "kv_heads": kl.shape[1]}
+
+
+# ---------------------------------------------------------------------------
+# the mesh engine
+
+
+def _requests(cfg):
+    from repro_torch.configs.workloads import get_profile
+    from repro_torch.data.requests import RequestGenerator
+
+    prof = dataclasses.replace(get_profile("Web1"), prompt_mean=24, decode_mean=8, prefix_share=0.5,
+                               n_prefixes=2)
+    gen = RequestGenerator(prof, vocab_size=cfg.vocab_size, seed=0)
+    return [next(gen) for _ in range(N_REQUESTS)]
+
+
+def _watch(eng, steps: list):
+    """Per step: the non-empty shards of its lookup, and this rank's launches."""
+    store = eng.tiered
+    orig = store.lookup_segments
+
+    def lookup(ids, *a, **k):
+        before = store.local.dispatches
+        out = orig(ids, *a, **k)
+        ids = np.asarray(ids, np.int64)
+        steps.append((int(np.unique(ids % store.n_shards).size), store.local.dispatches - before))
+        return out
+
+    store.lookup_segments = lookup
+    merged = {"near": 0, "far": 0, "slot": 0, "tenant": 0, "role": 0}
+    drain = store.drain_counters
+
+    def counted(discard=False):
+        d = drain(discard=discard)
+        for k in merged:
+            merged[k] = merged[k] + np.asarray(d[k], np.int64) if k in ("slot", "tenant", "role") \
+                else merged[k] + d[k]
+        return d
+
+    store.drain_counters = counted
+    return merged
+
+
+def engine_run(rank: int, world: int, params: dict, card: bool = False) -> dict:
+    """Each arch's mesh engine over all ``world`` ranks, then over ranks 0
+    and 1: tokens a step, books, merged drained planes, B1 a step, the
+    local shapes of the placed leaves, and one prefill's logits under the
+    mesh. ``params``: arch -> the reference's parameters as a state dict,
+    or None for the port's seed-0 init. ``card``: the config at the card's
+    attention widths (``card_widths``), each rank on its card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import card_widths, get_model
+    from repro_torch.runtime.serving import EngineConfig
+    from repro_torch.runtime.sharded import ShardedServingEngine
+
+    meshes = {n: meshlib.make_serving_mesh(n) for n in (world, 2)}
+    out = {}
+    for arch, state in params.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), sp_activations=False)
+        if card:
+            cfg = card_widths(cfg)
+        api = get_model(cfg)
+        model = api.init(0, device="cpu")
+        if state is not None:
+            model.load_state_dict(state, strict=True)
+        for n, mesh in meshes.items():
+            if not meshlib.in_mesh(mesh):
+                continue
+            eng = ShardedServingEngine(api, model, EngineConfig(**ENGINE, model_shards=n), seed=0, mesh=mesh)
+            steps = []
+            merged = _watch(eng, steps)
+            for r in _requests(cfg):
+                eng.submit(r)
+            tokens = []
+            before = launch_counts()
+            while (eng.queue or any(s.active for s in eng.slots)) and eng.engine_steps < 400:
+                eng.step()
+                tokens.append(eng.next_tokens.cpu().numpy().copy())
+            after = launch_counts()
+            st = eng.stats()
+            with torch.no_grad(), meshlib.activate(mesh):
+                logits, _ = api.prefill(eng.params, {"tokens": torch.as_tensor(PROMPT)[None]}, max_len=64)
+            out[(arch, n)] = {
+                "tokens": np.array(tokens), "stats": st, "live": eng.live_counters(),
+                "role": eng.role_hits.copy(), "merged": merged, "steps": steps,
+                "logits": meshlib.whole(logits).cpu().numpy(),
+                "launches": {k: after[k] - before[k] for k in after},
+                "dispatches": (eng.prefill_dispatches, eng.batch_decodes),
+                "shapes": {k: tuple(p.to_local().shape) for k, p in eng.params.named_parameters()},
+                "cache": tuple(eng.cache["k"].shape),
+                "shard_rows": (eng.metrics.total("shard_near_hits"), eng.metrics.total("shard_far_hits")),
+            }
+    return out

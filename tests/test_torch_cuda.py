@@ -1682,3 +1682,62 @@ def test_trainer_on_the_card_follows_the_cpu(card, tmp_path):
             torch.testing.assert_close(mg[k][n], t, rtol=0, atol=tol * scale + 1e-30, msg=f"{k} {n}")
     for i in (1, 2):
         assert abs(lg[i]["loss"] - lc[i]["loss"]) <= 1e-4 * abs(lc[i]["loss"]), (i, lg[i]["loss"], lc[i]["loss"])
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine across cards: NCCL ranks, one card each (2 cards; the
+# 4-rank cases need 4), against the same mesh engine on gloo ranks on the CPU
+
+
+MESH_ARCHS = ("qwen2.5-3b", "qwen1.5-110b")
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards < 2:
+        pytest.skip("needs 2 CUDA devices: the mesh spans cards")
+    import _torch_mesh_ranks as ranks
+
+    world = 4 if n_cards >= 4 else 2
+    tmp = tmp_path_factory.mktemp("mesh")
+    archs = dict.fromkeys(MESH_ARCHS)
+    card = ranks.spawn(ranks.engine_run, world, str(tmp / "card"), archs, True, backend="nccl")
+    cpu = ranks.spawn(ranks.engine_run, world, str(tmp / "cpu"), archs, True, backend="gloo")
+    return world, card, cpu
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_engine_on_cards_against_the_cpu(mesh_runs, arch, n):
+    """Reduced qwen2.5-3b (4/2 heads: over 4 cards each card's query heads
+    read one of the 2 replicated KV heads) and qwen1.5-110b (4/4, QKV
+    bias) at head_dim 64, over n cards: B5 and B4 run on each card's local
+    heads, B1 and the verify probe's B3 on each card's own store shard, and the tokens, books and
+    merged planes are the CPU mesh's (the plain versions), on every rank;
+    the prefill logits within 1e-4 of their scale."""
+    world, card, cpu = mesh_runs
+    if n > world:
+        pytest.skip(f"needs {n} CUDA devices")
+    from repro_torch.configs import get_config
+
+    layers = get_config(arch).reduced().n_layers
+    for rank in range(n):
+        got, want = card[rank][(arch, n)], cpu[rank][(arch, n)]
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        assert got["stats"] == want["stats"] and got["live"] == want["live"]
+        for plane in ("near", "far", "slot", "tenant", "role"):
+            np.testing.assert_array_equal(got["merged"][plane], want["merged"][plane], err_msg=plane)
+        scale = float(np.abs(want["logits"]).max())
+        assert float(np.abs(got["logits"] - want["logits"]).max()) <= 1e-4 * scale
+        prefills, decodes = got["dispatches"]
+        launched = got["launches"]
+        assert launched["flash_attention"] == layers * prefills and launched["paged_attention"] == layers * decodes
+        assert launched["tiered_segmented"] == sum(b for _, b in got["steps"]) > 0
+        # the verify probe reads this rank's own slice: B3 once a B1 launch
+        assert launched["gather_rows"] == launched["tiered_segmented"]
+        assert sum(want["launches"].values()) == 0
+        print(f"mesh {arch} over {n} cards, rank {rank}: launches {launched}, "
+              f"{len(got['steps'])} steps, {prefills} prefills, {decodes} decodes")
+    assert sum(sum(b for _, b in card[r][(arch, n)]["steps"]) for r in range(n)) == \
+        card[0][(arch, n)]["stats"]["device_tiering"]["dispatches"]

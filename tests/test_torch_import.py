@@ -35,6 +35,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import repro_torch.data.loader, repro_torch.launch.train\n"
         "import repro_torch.launch.serve, repro_torch.launch.report, repro_torch.launch.roofline\n"
         "import repro_torch.launch.op_analysis, repro_torch.launch.dryrun, repro_torch.kernels.work\n"
+        "import repro_torch.launch.mesh\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -50,7 +51,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "models.whisper", "optim.adamw", "optim.schedule", "optim.compression",
                 "checkpoint.manager", "runtime.trainer", "runtime.elastic", "data.loader",
                 "data.synthetic", "launch.train", "launch.serve", "launch.report", "launch.roofline",
-                "launch.op_analysis", "launch.dryrun", "kernels.work"):
+                "launch.op_analysis", "launch.dryrun", "kernels.work", "launch.mesh"):
         assert f"repro_torch.{mod}" in mods, mod
     assert [m for m in mods if _is_reference(m)] == []
 
@@ -63,7 +64,8 @@ def test_no_reference_import_in_source():
     paths = [ROOT / "chip_smoke.py", *examples, *port]
     scanned = {p.relative_to(ROOT / "src").as_posix() for p in port}
     assert {f"repro_torch/optim/{m}.py" for m in ("__init__", "adamw", "schedule", "compression")} <= scanned
-    assert {f"repro_torch/launch/{m}.py" for m in ("serve", "report", "roofline", "op_analysis", "dryrun")} \
+    assert {f"repro_torch/launch/{m}.py" for m in ("serve", "report", "roofline", "op_analysis", "dryrun",
+                                                   "mesh")} \
         <= scanned and "repro_torch/kernels/work.py" in scanned
     assert [p.name for p in examples] == [f"torch_{m}.py" for m in ("profile_and_plan", "quickstart", "serve_fleet",
                                                                     "serve_tiered", "train_e2e")]
@@ -246,7 +248,7 @@ def test_unported_family_names_its_roadmap_item():
     """No family is left to port (ROADMAP A8 and A13 are done): every
     config of the port builds through ``get_model``, at full size and
     reduced, and every family has its loss. What the model API still
-    refuses names its ROADMAP item: sharded train-step specs (A11), and
+    refuses names its ROADMAP item: sharded train-step specs (A11.3), and
     nothing else."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.models import api
@@ -260,19 +262,24 @@ def test_unported_family_names_its_roadmap_item():
     raised = [n for n in ast.walk(ast.parse(source))
               if isinstance(n, ast.Raise) and "NotImplementedError" in ast.unparse(n)]
     assert len(raised) == 1 and "A8" not in source and "A13" not in source
-    assert "A11" in ast.unparse(raised[0])
+    assert "A11.3" in ast.unparse(raised[0])
 
 
 def test_what_the_port_still_refuses_names_a11():
-    """Every ``NotImplementedError`` the port raises names ROADMAP A11
-    (tensor sharding across cards): the trainer side (A9) is ported."""
+    """Every ``NotImplementedError`` the port raises names its item of ROADMAP
+    A11 (tensor sharding across cards): training across cards (A11.3) in
+    the train step, the checkpoint restore and the elastic restore, and the
+    families other than dense across cards (A11.2) in the sharded engine.
+    Serving the dense family across cards (A11.1) and the trainer side (A9)
+    are ported."""
     raised = []
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
                 raised.append((path.name, ast.unparse(node)))
-    assert {name for name, _ in raised} == {"api.py", "manager.py", "elastic.py"}, raised
-    assert all("A11" in text and "A9" not in text for _, text in raised), raised
+    assert {name for name, _ in raised} == {"api.py", "manager.py", "elastic.py", "sharded.py"}, raised
+    assert all(("A11.2" if name == "sharded.py" else "A11.3") in text and "A9" not in text
+               for name, text in raised), raised
 
 
 def test_casts_carry_the_gradient_only_in_a_training_forward():
