@@ -49,7 +49,8 @@ Phases (any failure raises, so the script exits non-zero):
      within their tolerances of the plain versions, all timed, the scans
      also at a split of 1 and their chunked VJP;
 3. the main path: a device-tiered ``ServingEngine`` over full-width
-   smollm-360m (32 layers, random weights from a seed) answering 16 Web1
+   smollm-360m (32 layers, random weights from a seed, drawn on the card:
+   ``draw_on_card``) answering 16 Web1
    requests, each decode dispatch one replay of the decode the engine
    captured as a CUDA graph -- every request finishes, one tiered-gather
    launch per step, one flash launch per layer per prefill and one paged
@@ -72,9 +73,9 @@ Phases (any failure raises, so the script exits non-zero):
    per layer per decode; then one decode of 8 slots through the sort
    dispatch held to the einsum dispatch's logits (``SORT_TOL``), and the
    experts' share of a decode step;
-   3f. the same over full-width qwen2-vl-7b (28 layers, d 3584, 28/4
-   heads of 128, qkv bias, M-RoPE sections (16, 24, 24), vocab 152064,
-   untied head) on 6 Web1 requests, prefilled from the embedding rows
+   3f. the same over full-width qwen2-vl-7b (28 layers, d 3584, 28/4 heads
+   of 128, qkv bias, M-RoPE sections (16, 24, 24), vocab 152064, untied
+   head) on 6 Web1 requests, prefilled from the embedding rows
    with the three M-RoPE channels at the text positions; then one prefill
    with 3-D positions (text, an image block at one t over a 16 x 16 grid,
    text) with finite logits, and one with three equal channels whose
@@ -164,10 +165,18 @@ Phases (any failure raises, so the script exits non-zero):
    16 requests through ``ShardedServingEngine(mesh=...)``, its parameters
    placed by ``shard_model_params`` and every step run under the mesh,
    eagerly: tokens, live counters, books and role hits bit-equal to phase
-   7's 1-shard engine; B1, B4 and B5 launched as on the main path.
+   7's 1-shard engine; B1, B4 and B5 launched as on the main path. Then
+   one model of each other family, phase 3's full-width params cut to 2
+   layers (zamba2-1.2b to 6, one application of its shared block):
+   granite-moe-3b-a800m, qwen2-vl-7b, rwkv6-7b, zamba2-1.2b and
+   whisper-base, 4 requests each, bit-equal to the same engine without a
+   mesh, with B4/B5, B6 or B7 and B1 launched as on the main path.
    ``mesh_phase()`` serves full-width qwen1.5-110b (4 of its 80 layers)
-   over meshes of 1, 2 and 4 cards; it needs a machine with 4 cards and
-   runs alone (``README.md``, "Running the port on the GPU").
+   over meshes of 1, 2 and 4 cards, its chunked path
+   (``prefill_chunk=64``) over 2, and full-width qwen2-moe-a2.7b (all 24
+   layers, more than one card holds) over 2 and 4; it needs a machine
+   with 4 cards and runs alone (``README.md``, "Running the port on the
+   GPU").
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -179,6 +188,7 @@ counts are Python increments, made once at capture and not at a replay.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -234,6 +244,12 @@ WHISPER_FLASH_SITES = {"encoder": ("repro_torch.models.whisper", "encode"),
 # 0f3184b (NVIDIA H100 80GB HBM3, 700 W)
 EAGER_BASELINE = ("eager attention at commit 0f3184b on NVIDIA H100 80GB HBM3, 700 W: "
                   "43.8 tokens/s, step p50 92.6 ms, p99 335.2 ms")
+
+
+def card_name() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def log(msg: str):
@@ -1083,13 +1099,30 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
+def draw_on_card(api, seed: int = 0):
+    """``api``'s random parameters drawn on the card: ``ModelAPI.init``'s
+    initializers and distributions from a generator of the card (its
+    Philox stream, the same on every card of one kind) instead of the
+    host's, whose serial stream draws ~70 M parameters a second (~100 s
+    for a 7 B model on an H100 machine's host). Other values than
+    ``api.init(seed)``'s: the card-vs-CPU checks draw theirs with it."""
+    import torch
+
+    from repro_torch.models.api import _PORTED
+
+    with torch.device("cuda"):
+        return _PORTED[api.family].init(api.cfg, torch.Generator("cuda").manual_seed(seed),
+                                        device=torch.device("cuda"))
+
+
 def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None, sites=None):
     """The main path on one model at full width: an engine answering
     ``n_requests`` Web1 requests, every kernel launch counted. ``widths``:
-    (layers, d_model, heads, KV heads, d_ff, vocab); ``ssm``: (ssm_head_dim,
-    ssm_state, shared_attn_every) of a recurrent family; ``sites``: the
-    functions holding the model's flash sites (``flash_site_counts``),
-    whose launches are then counted site by site."""
+    (layers, d_model, heads, KV heads, d_ff, vocab), the published config's;
+    ``ssm``: (ssm_head_dim, ssm_state,
+    shared_attn_every) of a recurrent family; ``sites``: the functions
+    holding the model's flash sites (``flash_site_counts``), whose launches
+    are then counted site by site."""
     import torch
 
     import repro_torch.runtime.tiered_kv as tiered_kv_mod
@@ -1102,7 +1135,7 @@ def serve(card: str, arch: str, n_requests: int, widths: tuple, ssm=None, sites=
     assert ssm is None or (cfg.ssm_head_dim, cfg.ssm_state, cfg.shared_attn_every) == ssm, cfg
     api = get_model(cfg)
     t0 = time.perf_counter()
-    params = api.init(seed=0, device="cuda")
+    params = draw_on_card(api)
     log(f"{arch} params: {sum(p.numel() for p in params.parameters()) / 1e6:.1f} M "
         f"({cfg.param_dtype} stored, {cfg.compute_dtype} compute), init {time.perf_counter() - t0:.1f} s")
     reqs = web1_requests(cfg, n_requests, seed=0)
@@ -1939,9 +1972,7 @@ def trainer_child():
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    result = trainer_crash_resume(card)
+    result = trainer_crash_resume(card_name())
     print(TRAINER_RESULT + json.dumps(result), flush=True)
 
 
@@ -2685,22 +2716,57 @@ def serve_sharded(card: str, mp: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 11: the sharded engine over a mesh of cards (launch.mesh): one card
-# here; full-width qwen1.5-110b over 1, 2 and 4 cards in mesh_phase
+# here, smollm-360m and one model of each other family; full-width
+# qwen1.5-110b over 1, 2 and 4 cards and qwen2-moe-a2.7b over 2 and 4 in
+# mesh_phase
 
 
 MESH_ARCH = "qwen1.5-110b"
 MESH_LAYERS = 4  # of its 80: 7.9 B parameters, 31.7 GB in f32, so the 1-card mesh fits one card
 MESH_CARDS = (1, 2, 4)
 MESH_REQUESTS = 6
+MESH_CHUNK_CARDS = 2  # the dense mesh's chunked path (prefill_chunk=CHUNK) over this many cards
+MOE_ARCH = "qwen2-moe-a2.7b"  # all 24 layers: 14.3 B parameters, 57.3 GB in f32, more than a card holds
+MOE_CARDS = (2, 4)
+# each mesh's first prefill logits against its model's 1-card bf16 run, as
+# a share of the f32 logits' scale: on H100s a mesh's other order of sums
+# moved them 0.0079 of it (qwen1.5-110b, 2 and 4 cards against the 1-card
+# mesh) and 0.0141 / 0.0136 (qwen2-moe-a2.7b, 2 / 4 cards against the
+# bf16-stored forward), a planted placement fault 0.380 (PERF.md §6)
+MESH_LOGIT_TOL = 0.025
+# phase 11's other families: phase 3's full-width params cut to their first
+# layers (zamba2 to 6: its shared block applies after every 6th layer, so 2
+# would leave it none; whisper's encoder to 2 as well)
+MESH_FAMILIES = {"granite-moe-3b-a800m": 2, "qwen2-vl-7b": 2, "rwkv6-7b": 2, "zamba2-1.2b": 6,
+                 "whisper-base": 2}
+MESH_FAMILY_REQUESTS = 4
 
 
-def mesh_engine(api, params, mesh, n: int):
+def cut_depth(params, cfg, layers: int):
+    """(config, params) of the model cut to its first ``layers`` layers (and
+    encoder layers), the params on the host: a shallow copy of the module
+    sharing the kept tensors, with no held casts."""
+    import torch
+
+    stacks = ("layers", "enc_layers", "dec_layers")
+    out = copy.copy(params)
+    out._modules = {name: torch.nn.ModuleList(list(m)[:layers]) if name in stacks else m
+                    for name, m in params._modules.items()}
+    for m in out.modules():
+        m.__dict__.pop("_casts", None)
+    cut = dataclasses.replace(cfg, n_layers=layers, **({"n_encoder_layers": layers} if cfg.n_encoder_layers else {}))
+    return cut, out.to("cpu")
+
+
+def mesh_engine(api, params, mesh, n: int, chunk: int = 0):
     """A ``ShardedServingEngine`` over ``mesh`` (its parameters placed by
-    ``shard_model_params``), with ``make_engine``'s cold near tier."""
+    ``shard_model_params``), with ``make_engine``'s cold near tier, and
+    ``prefill_chunk=chunk``."""
     from repro_torch.runtime.serving import EngineConfig
     from repro_torch.runtime.sharded import ShardedServingEngine
 
-    eng = ShardedServingEngine(api, params, EngineConfig(**ECFG, model_shards=n), seed=0, mesh=mesh)
+    eng = ShardedServingEngine(api, params, EngineConfig(**ECFG, model_shards=n, prefill_chunk=chunk), seed=0,
+                               mesh=mesh)
     cap = eng.placement.near_capacity
     eng.apply_placement(np.arange(eng.ecfg.n_pages - cap, eng.ecfg.n_pages))
     return eng
@@ -2712,57 +2778,113 @@ def mesh_books(eng) -> dict:
     return {**st, "device_tiering": {k: v for k, v in st["device_tiering"].items() if k not in SHARD_BUDGET_KEYS}}
 
 
-def serve_mesh_one(card: str, mp: dict) -> dict:
-    """Phase 7's smollm-360m params and 16 Web1 requests through the sharded
-    engine over a mesh of this one card (a 1-rank NCCL group): its
-    parameters placed by ``shard_model_params``, every step under the mesh,
-    its dispatches eager (a mesh engine captures no graph). Asserts: the
-    tokens, live counters, books and role hits of phase 7's 1-shard
-    engine, bit for bit; B1 once a step, B5 once a layer a prefill and B4
-    once a layer a decode; no host read in a step that neither drains nor
-    admits."""
+def serve_on_one_card_mesh(api, params, reqs, mesh) -> dict:
+    """``reqs`` through the sharded engine over ``mesh``, a mesh of this one
+    card: its parameters placed by ``shard_model_params``, every step under
+    the mesh, its dispatches eager (a mesh engine captures no graph). Its
+    run (``drive``, sync-checked), launches (every one eager), books, live
+    counters, role hits and dispatch counts."""
+    t0 = time.perf_counter()
+    eng = mesh_engine(api, params, mesh, 1)
+    built = time.perf_counter() - t0
+    zero_launch_counts()
+    run = drive(eng, [dataclasses.replace(r) for r in reqs], quiet_check=True, step_events=True)
+    assert not eng._graphs and eng.tiered.n_shards == 1
+    return {"run": run, "launches": path_launches(eng, launch_counts()), "books": mesh_books(eng),
+            "live": eng.live_counters(), "role": eng.role_hits.copy(), "steps": eng.engine_steps,
+            "prefills": eng.prefill_dispatches, "decodes": eng.model_dispatches - eng.prefill_dispatches,
+            "build_s": built}
+
+
+def mesh_one_summary(card: str, label: str, m: dict, base: dict, cfg) -> dict:
+    """Asserts a 1-card mesh run ``m`` (``serve_on_one_card_mesh``) bit-equal
+    to ``base`` (its tokens a step, live counters, books and role hits: the
+    same engine without a mesh), the model kernels once a layer a dispatch
+    (``kernel_launches``), B1 once a step, and no host read in a step that
+    neither drains nor admits; logs and returns the summary."""
+    import torch
+
+    from repro_torch.models.api import kernel_launches
+
+    run, launches, q = m["run"], m["launches"], m["run"]["quiet"]
+    want = kernel_launches(cfg, m["prefills"], m["decodes"])
+    assert {k: launches[k] for k in want} == want, (label, launches, want)
+    assert launches["tiered_segmented"] == m["steps"] == base["steps"], (label, launches, m["steps"])
+    assert q["steps"] > 0 and q["reads"] == 0, (label, q)
+    same = {"tokens": torch.equal(run["toks"], base["toks"]), "live": m["live"] == base["live"],
+            "books": m["books"] == base["books"], "role": bool(np.array_equal(m["role"], base["role"]))}
+    tokens = m["books"]["tokens_decoded"]
+    res = {"steps": m["steps"], "wall_s": run["wall"], "build_s": m["build_s"], "tokens": tokens,
+           "tokens_per_s": tokens / run["wall"], "step_p50_ms": pct(run["step_ms"], 50),
+           "step_p99_ms": pct(run["step_ms"], 99),
+           "launches": {k: launches[k] for k in (*(k for k in want if want[k]), "tiered_segmented")},
+           "quiet_steps": q["steps"], "sync_warnings": len(q["syncs"]), "same": same}
+    log(f"mesh [{card}] 1 card: {label}, {m['steps']} steps, {tokens} tokens, {run['wall']:.3f} s wall "
+        f"({res['tokens_per_s']:.1f} tokens/s; without a mesh {base['wall']:.3f} s), step p50 "
+        f"{res['step_p50_ms']:.2f} ms; launches {res['launches']}; {q['steps']} quiet steps, 0 host reads, "
+        f"{len(q['syncs'])} sync warnings; equal to the engine without a mesh: {same}")
+    assert all(same.values()), (label, same)
+    return res
+
+
+def serve_mesh_family(card: str, arch: str, cfg, params, mesh) -> dict:
+    """One family's model (phase 3's params at full width cut in depth,
+    ``MESH_FAMILIES``) and ``MESH_FAMILY_REQUESTS`` Web1 requests through the
+    engine without a mesh (the main path's, its decode a CUDA graph), then
+    through the sharded engine over the 1-card ``mesh``: bit-equal
+    (``mesh_one_summary``), B4/B5 (every attention), B6 or B7 on the
+    mesh's one rank."""
+    import torch
+
+    from repro_torch.models.api import get_model
+
+    api = get_model(cfg)
+    params.to("cuda")
+    reqs = web1_requests(cfg, MESH_FAMILY_REQUESTS, seed=0)
+    eng = make_engine(api, params, **ECFG)
+    run = drive(eng, [dataclasses.replace(r) for r in reqs])
+    base = {"toks": run["toks"], "wall": run["wall"], "steps": eng.engine_steps, "live": eng.live_counters(),
+            "books": mesh_books(eng), "role": eng.role_hits.copy()}
+    assert base["books"]["requests_finished"] == len(reqs), base["books"]["requests_finished"]
+    del eng
+    m = serve_on_one_card_mesh(api, params, reqs, mesh)
+    layers = f"{cfg.n_layers} layers" + (f" (and {cfg.n_encoder_layers} encoder layers)" if cfg.n_encoder_layers else "")
+    res = mesh_one_summary(card, f"{arch} ({cfg.family}, full width, {layers})", m, base, cfg)
+    del m
+    params.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_mesh_one(card: str, mp: dict, kept: dict) -> dict:
+    """Phase 11, over a mesh of this one card (a 1-rank NCCL group): phase
+    7's smollm-360m params and 16 Web1 requests, bit-equal to phase 7's
+    1-shard engine; then each model of ``kept`` (arch -> (config, params on
+    the host), one of each other family), bit-equal to the same engine
+    without a mesh (``serve_mesh_family``)."""
     import tempfile
 
     import torch
 
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.models.api import kernel_launches
 
     api, params, cfg, reqs, one = mp["api"], mp["params"], mp["cfg"], mp["reqs"], mp["sharded_one"]
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         meshlib.init_process_group(rank=0, world_size=1, store=f"{tmp}/store", backend="nccl")
         try:
             mesh = meshlib.make_serving_mesh(1)
-            t0 = time.perf_counter()
-            eng = mesh_engine(api, params, mesh, 1)
-            built = time.perf_counter() - t0
-            zero_launch_counts()
-            run = drive(eng, [dataclasses.replace(r) for r in reqs], quiet_check=True, step_events=True)
-            launches = path_launches(eng, launch_counts())
-            books, live, role = mesh_books(eng), eng.live_counters(), eng.role_hits.copy()
-            decodes = eng.model_dispatches - eng.prefill_dispatches
-            steps, prefills = eng.engine_steps, eng.prefill_dispatches
-            assert not eng._graphs and eng.tiered.n_shards == 1
-            del eng
+            m = serve_on_one_card_mesh(api, params, reqs, mesh)
+            out["smollm-360m"] = mesh_one_summary(card, "smollm-360m (phase 7's params)", m, one, cfg)
+            del m
+            for arch, (cut, cut_params) in kept.items():
+                t = time.perf_counter()
+                out[arch] = serve_mesh_family(card, arch, cut, cut_params, mesh)
+                out[arch]["phase_s"] = time.perf_counter() - t
         finally:
             torch.distributed.destroy_process_group()
-    want = kernel_launches(cfg, prefills, decodes)
-    assert {k: launches[k] for k in want} == want, (launches, want)
-    assert launches["tiered_segmented"] == steps == one["steps"], (launches, steps)
-    q = run["quiet"]
-    assert q["steps"] > 0 and q["reads"] == 0, q
-    same = {"tokens": torch.equal(run["toks"], one["toks"]), "live": live == one["live"],
-            "books": books == one["books"], "role": bool(np.array_equal(role, one["role"]))}
-    res = {"steps": steps, "wall_s": run["wall"], "build_s": built, "tokens": books["tokens_decoded"],
-           "tokens_per_s": books["tokens_decoded"] / run["wall"], "step_p50_ms": pct(run["step_ms"], 50),
-           "step_p99_ms": pct(run["step_ms"], 99), "launches": {k: launches[k] for k in (*want, "tiered_segmented")},
-           "quiet_steps": q["steps"], "sync_warnings": len(q["syncs"]), "same_as_phase_7": same}
-    log(f"mesh [{card}] 1 card: smollm-360m over a 1-card mesh, {steps} steps, {res['tokens']} tokens, "
-        f"{run['wall']:.3f} s wall ({res['tokens_per_s']:.1f} tokens/s; phase 7's graphs {one['wall']:.3f} s), "
-        f"step p50 {res['step_p50_ms']:.2f} ms; launches {res['launches']}; {q['steps']} quiet steps, "
-        f"0 host reads, {len(q['syncs'])} sync warnings; equal to phase 7's 1-shard engine: {same}")
-    assert all(same.values()), same
-    return res
+    return out
 
 
 def _margins(api, log_: list):
@@ -2784,10 +2906,11 @@ def _margins(api, log_: list):
         setattr(api, name, wrapped)
 
 
-def _serve_on_mesh(api, cfg, params, reqs, mesh, n: int) -> dict:
+def _serve_on_mesh(api, cfg, params, reqs, mesh, n: int, chunk: int = 0) -> dict:
     """``mesh_phase``'s run on one rank of an ``n``-card mesh: the engine
-    over ``reqs`` (each dispatch's top-2 logit margins recorded), then one
-    prefill's logits and 3 whole-batch decode steps timed, 3 profiled."""
+    (``prefill_chunk=chunk``) over ``reqs`` (each dispatch's top-2 logit
+    margins recorded), then one prefill's logits and 3 whole-batch decode
+    steps timed, 3 profiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2797,7 +2920,7 @@ def _serve_on_mesh(api, cfg, params, reqs, mesh, n: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = mesh_engine(api, params, mesh, n)
+    eng = mesh_engine(api, params, mesh, n, chunk)
     placed = time.perf_counter() - t0
     local_bytes = sum(meshlib.local(p).numel() * p.element_size() for p in eng.params.parameters())
     margins = []
@@ -2824,9 +2947,10 @@ def _serve_on_mesh(api, cfg, params, reqs, mesh, n: int) -> dict:
             per_step[-1].append((kind, m.cpu().numpy()))
     peak = torch.cuda.max_memory_allocated()
     books = mesh_books(eng)
-    decodes = eng.model_dispatches - eng.prefill_dispatches
+    decodes = eng.batch_decodes  # a decode step's, and on the chunked path a chunk column's
     want = kernel_launches(cfg, eng.prefill_dispatches, decodes)
     assert {k: launches[k] for k in want} == want, (launches, want)
+    assert eng.chunking == bool(chunk) and (eng.prefill_dispatches == 0) == bool(chunk), eng.prefill_dispatches
     # one prefill's logits at the last prompt position, gathered whole
     with torch.no_grad(), meshlib.activate(mesh):
         logits, _ = api.prefill(eng.params, eng._prefill_batch(reqs[0].tokens), max_len=ECFG["max_len"])
@@ -2852,6 +2976,7 @@ def _serve_on_mesh(api, cfg, params, reqs, mesh, n: int) -> dict:
         "tokens": run["toks"].numpy(), "books": books, "margins": per_step, "first_logits": first.numpy(),
         "launches": {k: launches[k] for k in (*want, "tiered_segmented")},
         "steps": eng.engine_steps, "prefills": eng.prefill_dispatches, "decodes": decodes,
+        "columns": eng.chunk_columns,
         "wall_s": run["wall"], "tokens_per_s": books["tokens_decoded"] / run["wall"],
         "step_p50_ms": pct(run["step_ms"], 50), "step_p99_ms": pct(run["step_ms"], 99),
         "decode_host_ms": host_ms, "decode_busy_ms": busy, "decode_comm_ms": comm,
@@ -2859,12 +2984,77 @@ def _serve_on_mesh(api, cfg, params, reqs, mesh, n: int) -> dict:
     }
 
 
+def _f32_logits(cfg, params, tokens) -> np.ndarray:
+    """The model's f32 forward on this rank's card: one prefill of
+    ``tokens``, the last position's logits (the params move to the card and
+    back to the host, in place)."""
+    import torch
+
+    from repro_torch.models.api import get_model
+
+    f32 = get_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    params.to("cuda")
+    with torch.no_grad():
+        logits, _ = f32.prefill(params, {"tokens": torch.as_tensor(tokens, device="cuda")[None]},
+                                max_len=ECFG["max_len"])
+    out = logits[0, -1].float().cpu().numpy()
+    del logits
+    params.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_logits(cfg, params, tokens, planted: bool = False) -> np.ndarray:
+    """The model on this one card with every leaf stored as its bf16 cast
+    (the values a mesh computes with; 28.6 GB for qwen2-moe-a2.7b, where
+    the f32 leaves and their casts would not fit): one prefill of
+    ``tokens``, the last position's logits. The same products as a 1-card
+    mesh, the reference a model too large for one card's f32 leaves holds
+    its meshes to. ``planted``: layer 0's expert down-projections with
+    their hidden rows rolled by half, what a rank of a 2-card mesh computes
+    if it paired its half of the expert hidden dim in ``w_gate``/``w_up``
+    with the other rank's half in ``w_down`` (a placement fault the
+    meshes' check must see)."""
+    import torch
+
+    from repro_torch.models.api import get_model
+
+    memo = {id(p): torch.nn.Parameter(p.detach().to("cuda", torch.bfloat16), requires_grad=False)
+            for p in params.parameters()}
+    for m in params.modules():
+        if "_casts" in m.__dict__:
+            memo[id(m.__dict__["_casts"])] = {}
+    bf = copy.deepcopy(params, memo)
+    if planted:
+        w = bf.layers[0].experts.w_down
+        w.data = w.data.roll(w.shape[1] // 2, dims=1)
+    with torch.no_grad():
+        logits, _ = get_model(cfg).prefill(bf, {"tokens": torch.as_tensor(tokens, device="cuda")[None]},
+                                           max_len=ECFG["max_len"])
+    out = logits[0, -1].float().cpu().numpy()
+    del logits, bf, memo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_models(world: int) -> list:
+    """``mesh_phase``'s runs: (arch, layers kept or None, card counts, card
+    counts of its chunked path), each count at most ``world``."""
+    fit = lambda cards: tuple(n for n in cards if n <= world)
+    return [(MESH_ARCH, MESH_LAYERS, fit(MESH_CARDS), fit((MESH_CHUNK_CARDS,))), (MOE_ARCH, None, fit(MOE_CARDS), ())]
+
+
 def _mesh_rank(rank: int, world: int, store: str, out):
-    """One NCCL rank of ``mesh_phase``: full-width qwen1.5-110b cut to
-    ``MESH_LAYERS`` layers, drawn on the host once, served over meshes of
-    1, 2 and 4 cards in turn (a rank outside a mesh waits at the barrier).
-    Rank 0 first runs one prefill of the model in f32 on its card, the
-    reference the meshes' bf16 logits are held to."""
+    """One NCCL rank of ``mesh_phase``: each model of ``_mesh_models`` drawn
+    on the rank's card once at full width (qwen1.5-110b cut to
+    ``MESH_LAYERS`` layers, qwen2-moe-a2.7b whole) and kept on the host,
+    served over its meshes in turn (a rank outside a mesh waits at the
+    barrier), whole-slot and then on the chunked path. Rank 0 first runs
+    one prefill of each model in f32 on its card, the reference the
+    meshes' bf16 logits are held to, and for a model with no 1-card mesh
+    the same prefill bf16-stored, with and without a planted fault."""
     import traceback
 
     try:
@@ -2878,59 +3068,138 @@ def _mesh_rank(rank: int, world: int, store: str, out):
         from repro_torch.models.api import get_model
 
         meshlib.init_process_group(rank=rank, world_size=world, store=store, backend="nccl")
-        # serving turns sp_activations off, as the reference's dry run does
-        # for every non-train cell (it is a training memory feature)
-        cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS, sp_activations=False)
-        api = get_model(cfg)
-        t0 = time.perf_counter()
-        params = api.init(seed=0, device="cpu")
-        res = {"draw_s": time.perf_counter() - t0, "params": sum(p.numel() for p in params.parameters())}
-        reqs = web1_requests(cfg, MESH_REQUESTS, seed=0)
-        if rank == 0:
-            f32 = get_model(dataclasses.replace(cfg, compute_dtype="float32"))
-            on_card = params.to("cuda")
-            with torch.no_grad():
-                logits, _ = f32.prefill(on_card, {"tokens": torch.as_tensor(reqs[0].tokens, device="cuda")[None]},
-                                        max_len=ECFG["max_len"])
-            res["f32_logits"] = logits[0, -1].float().cpu().numpy()
-            params = on_card.to("cpu")  # the module moved in place; back to the host
-            del logits, on_card
-            gc.collect()
+        runs = _mesh_models(world)
+        # making a sub-mesh is collective: every rank makes each once, in one order
+        meshes = {n: meshlib.make_serving_mesh(n) for n in sorted({n for r in runs for n in r[2] + r[3]})}
+        res = {}
+        for arch, layers, cards, chunked in runs:
+            # serving turns sp_activations off, as the reference's dry run does
+            # for every non-train cell (it is a training memory feature)
+            cfg = dataclasses.replace(get_config(arch), sp_activations=False,
+                                      **({"n_layers": layers} if layers else {}))
+            api = get_model(cfg)
+            t0 = time.perf_counter()
+            params = draw_on_card(api).to("cpu")  # the same values on every rank's card
             torch.cuda.empty_cache()
-        for n in MESH_CARDS:
-            if n > world:
-                continue
-            mesh = meshlib.make_serving_mesh(n)
-            if meshlib.in_mesh(mesh):
-                res[n] = _serve_on_mesh(api, cfg, params, reqs, mesh, n)
-                gc.collect()
-                torch.cuda.empty_cache()
-            torch.distributed.barrier()
+            r = res[arch] = {"draw_s": time.perf_counter() - t0, "params": sum(p.numel() for p in params.parameters())}
+            log(f"mesh rank {rank}: {arch} drawn in {r['draw_s']:.1f} s")
+            reqs = web1_requests(cfg, MESH_REQUESTS, seed=0)
+            if rank == 0:
+                r["f32_logits"] = _f32_logits(cfg, params, reqs[0].tokens)
+                if 1 not in cards:  # no 1-card mesh: its products in bf16 on one card instead
+                    r["bf16_logits"] = _bf16_logits(cfg, params, reqs[0].tokens)
+                    r["planted_logits"] = _bf16_logits(cfg, params, reqs[0].tokens, planted=True)
+            for key, n, chunk in [(n, n, 0) for n in cards] + [(f"{n} chunked", n, CHUNK) for n in chunked]:
+                if meshlib.in_mesh(meshes[n]):
+                    r[key] = _serve_on_mesh(api, cfg, params, reqs, meshes[n], n, chunk)
+                    log(f"mesh rank {rank}: {arch} over {key} card(s): {r[key]['steps']} steps, "
+                        f"{r[key]['wall_s']:.1f} s wall, peak {r[key]['peak_gib']:.2f} GiB")
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                torch.distributed.barrier()
+            del params
+            gc.collect()
         out.put((rank, res))
         torch.distributed.destroy_process_group()
     except BaseException:  # noqa: BLE001 - the parent raises it
         out.put((rank, {"error": traceback.format_exc()}))
 
 
+def _mesh_summary(card: str, arch: str, got: dict, cards: tuple, chunked: tuple) -> dict:
+    """``mesh_phase``'s checks and report of one model (``got``: rank -> its
+    runs). Asserts: every rank of a mesh gives the same tokens and books;
+    the books equal across meshes and every request finished; every
+    mesh's first prefill logits no farther from the f32 forward than 4
+    times the 1-card bf16 run's (the 1-card mesh, or for a model no card
+    holds in f32 with its casts, ``_bf16_logits``), and within
+    ``MESH_LOGIT_TOL`` of the f32 logits' scale of that 1-card run's, where
+    the planted fault's logits must land outside. The chunked runs: every
+    rank's tokens and books the same, every request finished, no prefill
+    dispatch."""
+    import torch
+
+    base = got[0][cards[0]]
+    ref = got[0]["f32_logits"]
+    one = got[0]["bf16_logits"] if "bf16_logits" in got[0] else base["first_logits"]
+    scale = float(np.abs(ref).max())
+    off = lambda logits: float(np.abs(logits - ref).max())
+    off_one = lambda logits: float(np.abs(logits - one).max())
+    summary = {"draw_s": got[0]["draw_s"], "params": got[0]["params"], "f32_logits_scale": scale,
+               "one_card_bf16_off_f32": off(one), "one_card_bound": MESH_LOGIT_TOL * scale}
+    if "planted_logits" in got[0]:
+        summary["planted_off_one_card"] = off_one(got[0]["planted_logits"])
+    if 1 not in cards:
+        log(f"mesh [{card}] {arch}: not on 1 card, which cannot hold its {got[0]['params'] * 4 / 1e9:.1f} GB of "
+            f"f32 parameters and their bf16 casts; its 1-card reference is a bf16-stored forward")
+    keep = ("steps", "prefills", "decodes", "columns", "wall_s", "tokens_per_s", "step_p50_ms", "step_p99_ms",
+            "decode_host_ms", "decode_busy_ms", "decode_comm_ms", "place_s")
+    for key, n in [(n, n) for n in cards] + [(f"{n} chunked", n) for n in chunked]:
+        runs = [got[r][key] for r in range(n)]
+        for r in runs[1:]:
+            assert np.array_equal(r["tokens"], runs[0]["tokens"]) and r["books"] == runs[0]["books"], (arch, key)
+        r0 = runs[0]
+        assert r0["books"]["requests_finished"] == MESH_REQUESTS, (arch, key, r0["books"]["requests_finished"])
+        row = {**{k: r0[k] for k in keep}, "peak_gib_per_card": [r["peak_gib"] for r in runs],
+               "param_gib_per_card": [r["param_gib"] for r in runs],
+               "launches_per_rank": [r["launches"] for r in runs],
+               "comm_share": r0["decode_comm_ms"] / max(r0["decode_busy_ms"], 1e-9)}
+        if key == n:
+            assert r0["books"] == base["books"], (arch, n)
+            close = within_one_bf16_step(torch.from_numpy(r0["first_logits"]),
+                                         torch.from_numpy(base["first_logits"]))
+            diverge = None
+            if not np.array_equal(r0["tokens"], base["tokens"]):
+                step, slot = (int(i) for i in np.argwhere(r0["tokens"] != base["tokens"])[0])
+                # the top-2 logit margins of the divergent step's dispatches (a
+                # decode's at the slot, an admit's prefill), there and on the fewest cards
+                diverge = {"step": step, "slot": slot, "margins": {
+                    label: [float(m[slot] if kind == "decode" else m[0]) for kind, m in r["margins"][step]]
+                    for label, r in ((str(cards[0]), base), (str(n), r0))}}
+            row.update({"tokens_equal": diverge is None, "first_divergence": diverge,
+                        "first_logits_max_abs_diff": float(np.abs(r0["first_logits"] - base["first_logits"]).max()),
+                        "first_logits_within_one_bf16_step": close, "first_logits_off_f32": off(r0["first_logits"]),
+                        "first_logits_off_one_card": off_one(r0["first_logits"]),
+                        "first_logits_within_one_bf16_step_of_one_card": within_one_bf16_step(
+                            torch.from_numpy(r0["first_logits"]), torch.from_numpy(one))})
+        else:
+            assert r0["prefills"] == 0 and r0["columns"] > 0, (arch, key, r0["prefills"], r0["columns"])
+        summary[str(key)] = row
+        log(f"mesh [{card}] {arch} over {key} card(s): " + json.dumps(row))
+    log(f"mesh [{card}] {arch}: " + json.dumps({k: v for k, v in summary.items() if not isinstance(v, dict)}))
+    # bf16 compute: the partial sums of the row-split products are added in
+    # another order, which moves a rare bf16 rounding of the residual (and in
+    # a moe model may flip a near-tied expert choice); so the meshes' logits
+    # are held to the f32 forward, no farther from it than 4 times the
+    # 1-card bf16 run's distance, and to that 1-card run itself within
+    # MESH_LOGIT_TOL of the scale, which the planted fault must exceed
+    bound = summary["one_card_bound"]
+    for n in cards:
+        assert off(got[0][n]["first_logits"]) <= 4 * off(one), (arch, n, off(got[0][n]["first_logits"]), off(one))
+        assert off_one(got[0][n]["first_logits"]) <= bound, (arch, n, off_one(got[0][n]["first_logits"]), bound)
+    if "planted_logits" in got[0]:
+        assert summary["planted_off_one_card"] > bound, (arch, summary["planted_off_one_card"], bound)
+    return summary
+
+
 def mesh_phase(card: str, world: int = 4) -> dict:
-    """Full-width qwen1.5-110b (d 8,192, 64/8 heads of 128, d_ff 49,152,
-    vocab 152,064, QKV bias) cut to ``MESH_LAYERS`` of its 80 layers,
-    served over meshes of 1, 2 and 4 cards (one NCCL rank a card, meeting
-    at a file store) with the same Web1 requests: its parameters placed by
-    ``shard_model_params``, B5 and B4 on each card's own heads, B1 on each
-    card's own store shard. Asserts: every rank of a mesh gives the same
-    tokens and books; the books equal across meshes; the first prefill's
-    logits no farther from the model's f32 forward than 4 times the 1-card
-    mesh's are; the model kernels once a layer a dispatch on every rank.
-    Reports whether those logits are within one bf16 step of the 1-card
-    mesh's, the tokens' first divergence with its top-2 logit margins,
-    per-card peak memory and parameter bytes, decode step time, device busy
-    and the collectives' share of it (their kernels' time includes the
-    wait for the slower rank), and tokens/s."""
+    """Serving across cards at full width, one NCCL rank a card meeting at a
+    file store, the same 6 Web1 requests everywhere: qwen1.5-110b (d 8,192,
+    64/8 heads of 128, d_ff 49,152, vocab 152,064, QKV bias) cut to
+    ``MESH_LAYERS`` of its 80 layers over meshes of 1, 2 and 4 cards, and
+    its chunked path (``prefill_chunk=CHUNK``) over 2; then qwen2-moe-a2.7b
+    (24 layers, d 2,048, 16 heads of 128, 60 experts top-4 of d_ff 1,408
+    and 4 shared, vocab 151,936: 57.3 GB in f32, more than one card holds,
+    so not on 1) over 2 and 4, its experts TP-for-MoE (their hidden dim
+    over the cards). Parameters placed by ``shard_model_params``, B5 and
+    B4 on each card's own heads, B1 on each card's own store shard. The
+    checks are ``_mesh_summary``'s; every rank's launches are held in
+    ``_serve_on_mesh``. Reports whether the first logits are within one
+    bf16 step of the fewest cards', the tokens' first divergence with its
+    top-2 logit margins, per-card peak memory and parameter bytes, decode
+    step time, device busy and the collectives' share of it (their
+    kernels' time includes the wait for the slower rank), and tokens/s."""
     import multiprocessing
     import tempfile
-
-    import torch
 
     with tempfile.TemporaryDirectory() as tmp:
         ctx = multiprocessing.get_context("spawn")
@@ -2938,55 +3207,13 @@ def mesh_phase(card: str, world: int = 4) -> dict:
         procs = [ctx.Process(target=_mesh_rank, args=(r, world, f"{tmp}/store", out)) for r in range(world)]
         for p in procs:
             p.start()
-        got = dict(out.get(timeout=1500) for _ in range(world))
+        got = dict(out.get(timeout=1300) for _ in range(world))
         for p in procs:
             p.join(timeout=60)
     errors = [r["error"] for r in got.values() if "error" in r]
     assert not errors, errors[0]
-    cards = [n for n in MESH_CARDS if n <= world]
-    base = got[0][cards[0]]
-    ref = got[0]["f32_logits"]
-    scale = float(np.abs(ref).max())
-    off = lambda logits: float(np.abs(logits - ref).max())
-    summary = {"draw_s": got[0]["draw_s"], "params": got[0]["params"], "f32_logits_scale": scale}
-    for n in cards:
-        runs = [got[r][n] for r in range(n)]
-        for r in runs[1:]:
-            assert np.array_equal(r["tokens"], runs[0]["tokens"]) and r["books"] == runs[0]["books"], n
-        r0 = runs[0]
-        assert r0["books"] == base["books"], n
-        assert r0["books"]["requests_finished"] == MESH_REQUESTS, r0["books"]["requests_finished"]
-        close = within_one_bf16_step(torch.from_numpy(r0["first_logits"]), torch.from_numpy(base["first_logits"]))
-        err = float(np.abs(r0["first_logits"] - base["first_logits"]).max())
-        diverge = None
-        if not np.array_equal(r0["tokens"], base["tokens"]):
-            step, slot = (int(i) for i in np.argwhere(r0["tokens"] != base["tokens"])[0])
-            diverge = {"step": step, "slot": slot}
-        summary[n] = {**{k: r0[k] for k in ("steps", "prefills", "decodes", "wall_s", "tokens_per_s", "step_p50_ms",
-                                            "step_p99_ms", "decode_host_ms", "decode_busy_ms", "decode_comm_ms",
-                                            "place_s")},
-                      "tokens_equal": diverge is None, "first_divergence": diverge,
-                      "first_logits_max_abs_diff": err, "first_logits_within_one_bf16_step": close,
-                      "first_logits_off_f32": off(r0["first_logits"]),
-                      "peak_gib_per_card": [r["peak_gib"] for r in runs],
-                      "param_gib_per_card": [r["param_gib"] for r in runs],
-                      "launches_per_rank": [r["launches"] for r in runs],
-                      "comm_share": r0["decode_comm_ms"] / max(r0["decode_busy_ms"], 1e-9)}
-        if diverge is not None:
-            # the top-2 logit margins of the divergent step's dispatches (a
-            # decode's at the slot, an admit's prefill), there and on 1 card
-            summary[n]["first_divergence"]["margins"] = {
-                label: [float(m[diverge["slot"]] if kind == "decode" else m[0]) for kind, m in r["margins"][diverge["step"]]]
-                for label, r in (("1", base), (str(n), r0))}
-        log(f"mesh [{card}] {n} card(s): " + json.dumps(summary[n]))
-        # bf16 compute: the partial sums of the row-split products are added
-        # in another order, which moves a rare bf16 rounding of the residual;
-        # so the mesh's logits are held to the f32 forward, no farther from it
-        # than 4 times the 1-card mesh's distance (a pairing or placement
-        # fault moves them by the logits' whole scale)
-        assert off(r0["first_logits"]) <= 4 * off(base["first_logits"]), (n, off(r0["first_logits"]),
-                                                                           off(base["first_logits"]))
-    return summary
+    return {arch: _mesh_summary(card, arch, {r: got[r][arch] for r in got}, cards, chunked)
+            for arch, _, cards, chunked in _mesh_models(world)}
 
 
 def whisper_flash_sites(attention: dict, wp: dict, keep: tuple) -> dict:
@@ -3020,10 +3247,7 @@ def main():
     t_start = time.perf_counter()
 
     # phase 1: device and build
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3061,7 +3285,7 @@ def main():
     # which they prefill whole under
     from repro_torch.runtime.serving import CHUNKABLE_FAMILIES
 
-    paths, chunked, moe_res, vlm_res = {}, {}, {}, {}
+    paths, chunked, moe_res, vlm_res, kept = {}, {}, {}, {}, {}
     for arch, n_req, widths, ssm in (
         ("smollm-360m", 16, (32, 960, 15, 5, 2560, 49152), None),
         ("qwen2.5-3b", 6, (36, 2048, 16, 2, 11008, 151936), None),
@@ -3090,6 +3314,8 @@ def main():
             t3f = time.perf_counter()
             vlm_res[arch] = vlm_checks(card, paths[arch])
             log(f"phase 3f {arch} M-RoPE checks {time.perf_counter() - t3f:.1f} s")
+        if arch in MESH_FAMILIES:  # phase 11's model of its family
+            kept[arch] = cut_depth(paths[arch]["params"], paths[arch]["cfg"], MESH_FAMILIES[arch])
         if arch != "smollm-360m":
             del paths[arch]["params"], paths[arch]["api"]
             gc.collect()
@@ -3150,9 +3376,10 @@ def main():
     log(f"phase 10c dry run {time.perf_counter() - t10c:.1f} s")
 
     # phase 11: the sharded engine over a mesh of this one card, against
-    # phase 7's 1-shard engine
+    # phase 7's 1-shard engine, then one model of each other family against
+    # the same engine without a mesh
     t11 = time.perf_counter()
-    mesh_one = serve_mesh_one(card, mp)
+    mesh_one = serve_mesh_one(card, mp, kept)
     log(f"phase 11 mesh {time.perf_counter() - t11:.1f} s")
 
     # phase 6: summary. Each row's launches are those of the main path that
@@ -3161,7 +3388,7 @@ def main():
     # chunked_launches: the same kernels' launches on that model's chunked path;
     # fleet_launches: on the fleet's path, summed over its hosts;
     # sharded_launches: B1's on phase 7's path at each shard count;
-    # mesh_launches: B1's, B4's and B5's on phase 11's path (a 1-card mesh)
+    # mesh_launches: each kernel's on phase 11's paths (a 1-card mesh), by model
     carrier = {"tiered_segmented": "smollm-360m", "paged_attention": "smollm-360m",
                "flash_attention": "smollm-360m", "wkv6": "rwkv6-7b", "ssd": "zamba2-1.2b"}
     launches = {"tiered_segmented": mp["launches"]["tiered_segmented"],
@@ -3217,7 +3444,9 @@ def main():
             **({"fleet_launches": fleet["launches"][name]} if carrier.get(name) == "smollm-360m" else {}),
             **({"sharded_launches": {n: v["launches"] for n, v in sharded.items()}}
                if name == "tiered_segmented" else {}),
-            **({"mesh_launches": {"1": mesh_one["launches"][name]}} if name in mesh_one["launches"] else {}),
+            **({"mesh_launches": {"1": {arch: m["launches"][name] for arch, m in mesh_one.items()
+                                        if name in m["launches"]}}}
+               if any(name in m["launches"] for m in mesh_one.values()) else {}),
             **{k: r[k] for k in (*MODELS_BESIDE, "training", "training_sites", "trainer", "shapes") if k in r},
             **({"decode": {k: v for k, v in r["decode"].items() if k != "bytes"}} if "decode" in r else {}),
         })

@@ -333,13 +333,21 @@ def local(x: torch.Tensor) -> torch.Tensor:
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def replicated(x: torch.Tensor, mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """A plain ``x``, the same on every rank, as a tensor replicated on
+    ``mesh`` (by default the active mesh: where a plain input first meets
+    the placed parameters); a DTensor, or any tensor with no mesh, as it
+    is."""
+    mesh = active_mesh() if mesh is None else mesh
+    if mesh is None or isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
 def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """A plain ``t`` as a tensor replicated on ``ref``'s mesh when ``ref`` is
     a DTensor (every rank holds the same ``t``); otherwise ``t``."""
-    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
-        return DTensor.from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim,
-                                  run_check=False)
-    return t
+    return replicated(t, ref.device_mesh) if isinstance(ref, DTensor) else t
 
 
 def common(a: torch.Tensor, b: torch.Tensor):
@@ -392,6 +400,38 @@ def take_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return w[ids.long()]
 
 
+def _over_model(ndim: int, dim: int) -> tuple:
+    axes = [None] * ndim
+    axes[dim % ndim] = MODEL
+    return tuple(axes)
+
+
+def local_heads(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's share of ``x`` along ``dim`` (the heads a kernel runs on)
+    as a plain tensor: the slice ``MODEL`` gives it where the axis divides
+    the dimension, all of it where it does not (the divisibility drop).
+    ``x`` a DTensor, or a plain tensor the same on every rank; with no
+    active mesh ``x`` as it is. A replicated input is sliced locally, with
+    no collective."""
+    if active_mesh() is None:
+        return x
+    x = replicated(x)
+    return shard(x, *_over_model(x.ndim, dim)).to_local()
+
+
+def from_heads(x: torch.Tensor, dim: int, shape, mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """:func:`local_heads`'s inverse: a rank's share along ``dim`` as a
+    DTensor of global ``shape`` on ``mesh`` (by default the active mesh),
+    sharded along ``dim`` over ``MODEL`` where it divides, replicated where
+    it does not; ``x`` as it is with no mesh."""
+    mesh = active_mesh() if mesh is None else mesh
+    if mesh is None:
+        return x
+    shape = torch.Size(shape)
+    return DTensor.from_local(x, mesh, placements(mesh, _over_model(len(shape), dim), shape), run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
 def whole(x: torch.Tensor) -> torch.Tensor:
     """A DTensor gathered whole on every rank, as a plain tensor (the
     vocabulary-sharded logits before the argmax); a plain tensor as it is."""
@@ -402,15 +442,6 @@ def gathered(x: torch.Tensor, mesh: DeviceMesh, dim: int) -> torch.Tensor:
     """Every rank's local ``x`` concatenated along ``dim`` in rank order
     (an all-gather over the 1-D ``mesh``), as a plain tensor."""
     return DTensor.from_local(x, mesh, [Shard(dim)], run_check=False).full_tensor()
-
-
-def wrap_like(x: torch.Tensor, ref: torch.Tensor, shape) -> torch.Tensor:
-    """A rank's local ``x`` as a DTensor of global ``shape`` with ``ref``'s
-    mesh and placements; ``x`` as it is when ``ref`` is plain."""
-    if not isinstance(ref, DTensor):
-        return x
-    return DTensor.from_local(x, ref.device_mesh, ref.placements, run_check=False, shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
 
 
 def all_reduce_host(values, mesh: DeviceMesh, op: str = "sum", dtype=np.int64) -> np.ndarray:

@@ -67,13 +67,25 @@ class ModelAPI:
         return _PORTED[self.family].cache_specs(self.cfg)
 
     def init_cache(self, batch: int, max_len: int, device=None, mesh=None) -> dict:
-        """The family's cache; over a ``mesh``, this rank's: its share of the
-        KV heads where the model axis divides them, all of them where it
-        does not (``launch.mesh.local_size``)."""
-        cfg = self.cfg
-        if mesh is not None:
-            cfg = dataclasses.replace(cfg, n_kv_heads=meshlib.local_size(cfg.n_kv_heads, mesh))
-        return _PORTED[self.family].init_cache(cfg, batch, max_len, device=resolve_device(device))
+        """The family's cache; over a ``mesh``, this rank's: every leaf whose
+        ``cache_specs`` put its heads over ``MODEL`` (the KV and cross
+        caches, rwkv6's wkv state, the Mamba2 SSM state) holds this rank's
+        share of them where the model axis divides them, all of them where
+        it does not (``launch.mesh.local_size``), as the models compute
+        them; the rest (shifts, conv tails, lengths) whole. Every leaf
+        starts at zero."""
+        mod, dev = _PORTED[self.family], resolve_device(device)
+        if mesh is None:
+            return mod.init_cache(self.cfg, batch, max_len, device=dev)
+        # model_axis 1: the KV specs take their heads form, so every MODEL
+        # entry marks a heads axis (the port never splits the sequence)
+        specs = mod.cache_specs(self.cfg, 1)
+        out = {}
+        for name, leaf in mod.init_cache(self.cfg, batch, max_len, device="meta").items():
+            shape = [meshlib.local_size(n, mesh) if a == meshlib.MODEL else n
+                     for n, a in zip(leaf.shape, specs[name])]
+            out[name] = torch.zeros(shape, dtype=leaf.dtype, device=dev)
+        return out
 
     def abstract_cache(self, batch: int, max_len: int) -> dict:
         """``init_cache``'s tree on the meta device, nothing allocated."""

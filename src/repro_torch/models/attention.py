@@ -109,7 +109,7 @@ def _local_heads(q, k, v):
     """(q, k, v, kv, wrap) on this rank: its query heads and its K/V as plain
     tensors, ``kv`` the slice of its K/V heads that its query heads read,
     and ``wrap``, which makes the attention output over its query heads a
-    DTensor with q's placement again. Plain tensors come back as they are,
+    DTensor on q's mesh again, its heads placed as q's. Plain tensors come back as they are,
     with every KV head and the identity."""
     if not meshlib.is_dtensor(q):
         return q, k, v, slice(None), lambda o: o
@@ -130,7 +130,7 @@ def _local_heads(q, k, v):
     if (kv.start, kv.stop) == (0, kl.shape[1]):
         kv = slice(None)  # every local KV head
     shape = lambda o: (o.shape[0], hq) + tuple(o.shape[2:])
-    return ql, kl, vl, kv, lambda o: meshlib.wrap_like(o, q, shape(o))
+    return ql, kl, vl, kv, lambda o: meshlib.from_heads(o, 1, shape(o), q.device_mesh)
 
 
 def _rope(cfg: ModelConfig, q, k, positions, mrope_positions=None):

@@ -60,8 +60,14 @@ def needs_grad(*tensors) -> bool:
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in f32, whatever the inputs' type. Across a mesh a plain
     operand meets a DTensor one replicated, and partial sums are added
-    across the mesh in f32 (module docstring)."""
+    across the mesh in f32 (module docstring). A DTensor ``a`` of three or
+    more dims against a 2-D ``b`` is folded into one 2-D product, as
+    ``torch.matmul`` folds a plain one: DTensor's own decomposition can
+    batch it instead (``bmm``), a kernel that rounds its sums differently."""
     a, b = meshlib.common(a, b)
+    if meshlib.is_dtensor(a) and a.ndim > 2 and b.ndim == 2:
+        out = meshlib.reduced(torch.matmul(a.reshape(-1, a.shape[-1]).float(), b.float()))
+        return out.reshape(*a.shape[:-1], b.shape[-1])
     return meshlib.reduced(torch.matmul(a.float(), b.float()))
 
 

@@ -17,6 +17,18 @@ since autograd keeps what the scan reads and a cache is written in place.
 ``apply`` casts the block's float leaves to ``cfg.compute_dtype`` as the
 reference's ``constrain_tree`` does, ``A_log``, ``D``, ``dt_bias`` and the
 conv weights included: at full width ``A = -exp(A_log)`` is a bf16 value.
+
+Across a mesh (``launch.mesh``; the caller places the block at
+``block_specs``) ``w_in``'s and ``conv_w``'s columns are split over
+``MODEL``, but the z | xBC | dt and x | B | C boundaries need not fall on
+a rank's columns: ``w_in``'s output is gathered whole before its split,
+and the depthwise conv runs on whole channels (its tail is replicated,
+``cache_specs``). xs goes over heads at the reference's site, and dt,
+``A_log``, ``D`` and ``dt_bias`` reach B7 on the same heads, B and C
+whole: each rank runs the scan on its own heads
+(``launch.mesh.local_heads``) with its own heads' SSM state. The gated
+RMSNorm's mean over ``d_inner`` spans the ranks (an f32 reduction across
+the mesh), and ``w_out``'s partial sums are added in f32.
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba2_scan import ssd_chunked, ssd_train
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import MODEL
 from repro_torch.models import common
 from repro_torch.models.common import ParamTree, matmul_f32
@@ -107,15 +120,20 @@ def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None,
     if state is None:  # a zero tail, and a zero SSM state inside the scan
         state = {"conv": init_state(cfg, b, x.device)["conv"], "ssm": None}
     xn = common.rms_norm(x, p["ln"], cfg.norm_eps)
-    proj = matmul_f32(xn, p["w_in"])
+    # gathered whole before the split: its boundaries cut the mesh's columns
+    proj = meshlib.replicated_dim(matmul_f32(xn, p["w_in"]), -1)
     z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * ns, nh], dim=-1)
-    conv_out, conv_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], state["conv"])
+    conv_out, conv_tail = _causal_conv(meshlib.whole(xbc), meshlib.whole(p["conv_w"]),
+                                       meshlib.whole(p["conv_b"]), state["conv"])
     conv_out = F.silu(conv_out)
     xs, B, C = torch.split(conv_out, [d_in, ns, ns], dim=-1)
-    xs = xs.reshape(b, t, nh, hd)
-    dt = torch.logaddexp(dt_raw + p["dt_bias"], torch.zeros((), device=x.device))  # softplus
-    A = -torch.exp(p["A_log"]).float()
-    D = p["D"].float()
+    # this rank's heads, plain: xs over heads (the reference's constraint),
+    # and dt, A, D on the same heads
+    xs = meshlib.local_heads(xs.reshape(b, t, nh, hd), 2)
+    dt = torch.logaddexp(meshlib.local_heads(dt_raw, 2) + meshlib.local_heads(p["dt_bias"], 0),
+                         torch.zeros((), device=x.device))  # softplus
+    A = -torch.exp(meshlib.local_heads(p["A_log"], 0)).float()
+    D = meshlib.local_heads(p["D"], 0).float()
     if common.needs_grad(xs, dt, A, B, C, D):
         if given:
             raise ValueError("a training forward takes no cache state: the scan's inputs are kept "
@@ -123,7 +141,7 @@ def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None,
         y, ssm_state = ssd_train(xs, dt, A, B, C, D)
     else:
         y, ssm_state = ssd_chunked(xs, dt, A, B, C, D, state["ssm"], inplace=inplace)
-    y = y.reshape(b, t, d_in)
+    y = meshlib.from_heads(y, 2, (b, t, nh, hd)).reshape(b, t, d_in)
     # gated RMSNorm (mamba2 style): norm(y * silu(z))
     y = y * F.silu(z)
     var = (y * y).mean(dim=-1, keepdim=True)

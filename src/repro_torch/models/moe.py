@@ -35,6 +35,19 @@ leaf (router and shared gate too), as the reference's ``constrain_tree``.
 The expert products are plain batched products through
 ``common.matmul_f32``; attention is ``models/attention`` as in the dense
 family (the flash and paged kernels on the card).
+
+Across a mesh (``launch.mesh``; the sharded engine) each layer is placed
+at ``layer_specs`` where it runs, as the reference's ``constrain_tree``
+places it, at the reference's ``model_axis`` of 16: every config's
+experts (8, 40 or 60) take TP-for-MoE, the expert hidden dim over
+``MODEL``, and none is expert-parallel. Attention runs on each rank's own
+heads (``attention._local_heads``). Routing and the dispatch (the
+one-hots, the sort's index copies and scatter) run on plain tensors, the
+whole batch's on every rank, from the replicated residual and router; so
+the routing books, top-k ties and capacity drops are the one-card ones.
+Only the experts' and the shared expert's products are split, over their
+hidden dim, and ``common.matmul_f32`` adds their partial sums across the
+mesh in f32.
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import MODEL
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.common import ParamTree
@@ -84,7 +98,8 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> transform
 
 def layer_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
     """Compute-time (TP) specs for one layer: expert-parallel over ``MODEL``
-    when the experts divide the axis, else the expert hidden dim sharded."""
+    when the experts divide ``model_axis``, else the expert hidden dim
+    sharded (TP-for-MoE: every config at the default 16)."""
     if cfg.n_experts % model_axis == 0:
         experts = {"w_gate": (MODEL, None, None), "w_up": (MODEL, None, None), "w_down": (MODEL, None, None)}
     else:
@@ -149,11 +164,12 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
 
 
 def _expert_ffn(experts: dict, xs: torch.Tensor) -> torch.Tensor:
-    """xs: (G, E, C, D) -> (G, E, C, D)."""
+    """xs: (G, E, C, D) -> (G, E, C, D), plain. Across a mesh the hidden
+    dim is split: the down product's partial sums are added in f32."""
     g = common.matmul_f32(xs, experts["w_gate"])
     u = common.matmul_f32(xs, experts["w_up"])
     h = (F.silu(g) * u).to(xs.dtype)
-    return common.matmul_f32(h, experts["w_down"]).to(xs.dtype)
+    return meshlib.whole(common.matmul_f32(h, experts["w_down"]).to(xs.dtype))
 
 
 def moe_einsum(p: dict, cfg: ModelConfig, xg: torch.Tensor, routing=None):
@@ -232,9 +248,13 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, dispatch: Optional[str] 
     """x: (B, S, D) -> (B, S, D), or (out, aux loss) ``with_aux`` (the
     training forward's). Routed per batch row (group = row); a sequence
     longer than ``cfg.moe_group`` and a multiple of it is routed in groups
-    of ``cfg.moe_group`` tokens, as in the reference."""
+    of ``cfg.moe_group`` tokens, as in the reference. A replicated ``x``
+    (across a mesh) is routed and dispatched as a plain tensor, and the
+    output is replicated again (module docstring)."""
     dispatch = dispatch or cfg.moe_dispatch
     fn = moe_einsum if dispatch == "einsum" else moe_sort
+    given, x = x, meshlib.whole(x)
+    p = {**p, "router": meshlib.whole(p["router"])}
     g0, t0, d0 = x.shape
     grp = cfg.moe_group
     if grp and t0 > grp and t0 % grp == 0:
@@ -243,7 +263,8 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, dispatch: Optional[str] 
     out, _keep = fn(p, cfg, x, routing)
     out = out.reshape(g0, t0, d0)
     if cfg.n_shared_experts:
-        out = out + _shared_ffn(p, x.reshape(g0, t0, d0))
+        out = out + meshlib.whole(_shared_ffn(p, x.reshape(g0, t0, d0)))
+    out = meshlib.like(out, given)
     if with_aux:
         _, topi, probs = routing
         return out, aux_losses(probs, topi, cfg)
@@ -295,14 +316,15 @@ def prefill(params: transformer.Transformer, cfg: ModelConfig, tokens, *, max_le
     b, l, _ = h.shape
     positions = common.causal_positions(b, l, h.device)
     ks, vs = [], []
+    specs = layer_specs(cfg)
     for blk in params.layers:
-        layer = blk.tree(cdt)
+        layer = blk.tree(cdt, specs)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         a, (k, v) = attention.apply_prefill(layer["attn"], cfg, x, positions, max_len,
                                             block_k=block_k)
         h = h + a
         x = common.rms_norm(h, layer["ln2"], cfg.norm_eps)
-        h = h + moe_ffn(layer, cfg, x, dispatch)
+        h = transformer._res(cfg, h + moe_ffn(layer, cfg, x, dispatch))
         ks.append(k.to(torch.bfloat16))
         vs.append(v.to(torch.bfloat16))
     cache = {
@@ -325,8 +347,9 @@ def decode_step(params: transformer.Transformer, cfg: ModelConfig, cache: dict, 
     h = transformer._embed_in(params, cfg, tokens)
     lengths = cache["lengths"]
     b = h.shape[0]
+    specs = layer_specs(cfg)
     for i, blk in enumerate(params.layers):
-        layer = blk.tree(cdt)
+        layer = blk.tree(cdt, specs)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_decode_every_row(layer["attn"], cfg, x, cache["k"][i],
                                                  cache["v"][i], lengths, page_size, active)

@@ -22,6 +22,17 @@ products of bf16 inputs are returned in bf16.
 Decode state is O(1) per layer: the (H, hd, hd) f32 wkv state and the
 last token's input to each mix. ``decode_step`` updates the cache tensors
 in place (the kernel writes each layer's new state over the old one).
+
+Across a mesh (``launch.mesh``; the sharded engine) each layer is placed
+at ``layer_specs`` where it runs (the reference's ``constrain_tree``), and
+r/k/v go over heads at the reference's site. The decay ``lw`` and the
+bonus ``u``, which the reference leaves to its compiler, reach B6 on the
+same heads: each rank runs the scan on its own heads
+(``launch.mesh.local_heads``), with its own heads' wkv state (the cache
+holds only those, ``cache_specs``), and the per-head group norm stays
+local; ``wo``'s and the channel mix's ``wv`` partial sums are added in
+f32 (``common.matmul_f32``). The shifts are replicated, whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -33,7 +44,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan import wkv6_chunked, wkv6_train
-from repro_torch.launch.mesh import BATCH, MODEL
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.mesh import BATCH, MODEL, shard
 from repro_torch.models import common
 from repro_torch.models.common import ParamTree, frozen, layer_norm, matmul_f32
 
@@ -135,8 +147,9 @@ def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
 
 
 def _token_shift(x, prev):
-    """x: (B, T, D); prev: (B, D), the last token of the previous segment."""
-    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+    """x: (B, T, D); prev: (B, D), the last token of the previous segment
+    (a cache's shift, whole on every rank, replicated beside a replicated x)."""
+    return torch.cat([meshlib.like(prev, x)[:, None, :], x[:, :-1, :]], dim=1)
 
 
 def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bool = True):
@@ -159,23 +172,25 @@ def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bo
     def proj(xx, w):  # bf16 x bf16 -> bf16 at full width, then f32
         return matmul_f32(xx.to(dtype), w).to(dtype).float()
 
-    r = proj(xr, att["wr"]).reshape(b, t, h, hd)
-    k = proj(xk, att["wk"]).reshape(b, t, h, hd)
-    v = proj(xv, att["wv"]).reshape(b, t, h, hd)
+    def heads(xx, w):  # (B, T, H, hd) over heads (the reference's constraint): this rank's, plain
+        return meshlib.local_heads(meshlib.split_last(proj(xx, w), (h, hd)), 2)
+
+    r, k, v = heads(xr, att["wr"]), heads(xk, att["wk"]), heads(xv, att["wv"])
     g = F.silu(proj(xg, att["wg"]))
     lw = -torch.exp(att["w0"] + matmul_f32(matmul_f32(xw, att["w1"]), att["w2"])).reshape(b, t, h, hd)
-    u = att["u"].float()
+    lw = meshlib.local_heads(lw, 2)
+    u = meshlib.local_heads(att["u"].float(), 0).contiguous()
     if common.needs_grad(r, k, v, lw, u, wkv_state):
         y, wkv_state = wkv6_train(r, k, v, lw, u, wkv_state)
     else:
         y, wkv_state = wkv6_chunked(r, k, v, lw, u, wkv_state, inplace=inplace and wkv_state is not None)
-    # per-head group norm, then gate and output projection
+    # per-head group norm (on this rank's heads), then gate and output projection
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
-    yn = ((y - mu) * torch.rsqrt(var + 64e-5)).reshape(b, t, d)
+    yn = meshlib.from_heads((y - mu) * torch.rsqrt(var + 64e-5), 2, (b, t, h, hd)).reshape(b, t, d)
     yn = yn * att["ln_x"]["w"] + att["ln_x"]["b"]
     out = matmul_f32((yn * g).to(dtype), att["wo"]).to(dtype)
-    return out, xf[:, -1, :], wkv_state
+    return out, meshlib.whole(xf[:, -1, :]), wkv_state
 
 
 def _channel_mix(ffn: dict, x, shift_prev):
@@ -187,7 +202,7 @@ def _channel_mix(ffn: dict, x, shift_prev):
     k = torch.square(torch.relu(matmul_f32(xk, ffn["wk"]).to(dtype)))
     kv = matmul_f32(k, ffn["wv"]).to(dtype)
     gate = torch.sigmoid(matmul_f32(xr, ffn["wr"]).to(dtype).float()).to(dtype)
-    return gate * kv, xf[:, -1, :]
+    return gate * kv, meshlib.whole(xf[:, -1, :])
 
 
 def _block(layer: dict, cfg: ModelConfig, h, att_shift, cm_shift, wkv_state, inplace: bool = True):
@@ -196,26 +211,28 @@ def _block(layer: dict, cfg: ModelConfig, h, att_shift, cm_shift, wkv_state, inp
     h = h + a
     x = layer_norm(h, layer["ln2"]["w"], layer["ln2"]["b"], cfg.norm_eps)
     m, cm_shift = _channel_mix(layer["ffn"], x, cm_shift)
-    return h + m, att_shift, cm_shift, wkv_state
+    return shard(h + m, BATCH, None, None), att_shift, cm_shift, wkv_state
 
 
 def _embed(params: RWKV6, cfg: ModelConfig, tokens):
-    h = params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
-    return layer_norm(h, params.ln0.w, params.ln0.b, cfg.norm_eps)
+    h = meshlib.take_rows(params.embed, tokens).to(common.dt(cfg.compute_dtype))
+    h = layer_norm(shard(h, BATCH, None, None), params.ln0.w, params.ln0.b, cfg.norm_eps)
+    return shard(h, BATCH, None, None)
 
 
 def _logits(params: RWKV6, cfg: ModelConfig, h):
     h = layer_norm(h, params.final_norm.w, params.final_norm.b, cfg.norm_eps)
-    return matmul_f32(h, common.cast(params, "lm_head", h.dtype))
+    return shard(matmul_f32(h, common.cast(params, "lm_head", h.dtype)), BATCH, None, MODEL)
 
 
 def _layers(params: RWKV6, cfg: ModelConfig, h):
     """Every layer from zero shifts and a zero state; yields (h, shifts, state)."""
     b, _, d = h.shape
     cdt = common.dt(cfg.compute_dtype)
+    specs = layer_specs(cfg)
     for blk in params.layers:
         z = torch.zeros((b, d), dtype=torch.float32, device=h.device)
-        h, a_s, c_s, s = _block(blk.tree(cdt), cfg, h, z, z, None)
+        h, a_s, c_s, s = _block(blk.tree(cdt, specs), cfg, h, z, z, None)
         yield h, a_s, c_s, s
 
 
@@ -288,8 +305,9 @@ def decode_step(params: RWKV6, cfg: ModelConfig, cache: dict, tokens, *, page_si
     """
     cdt = common.dt(cfg.compute_dtype)
     h = _embed(params, cfg, tokens)
+    specs = layer_specs(cfg)
     for i, blk in enumerate(params.layers):
-        h, a_s, c_s, s = _block(blk.tree(cdt), cfg, h, cache["att_shift"][i], cache["cm_shift"][i],
+        h, a_s, c_s, s = _block(blk.tree(cdt, specs), cfg, h, cache["att_shift"][i], cache["cm_shift"][i],
                                 cache["wkv"][i], inplace=active is None)
         if active is not None:
             common.commit(cache["wkv"][i], s, active)

@@ -32,6 +32,16 @@ remats its decoder and not its encoder). Its attention is
 over the frames in the encoder and the cross-attention, and the
 reference's backward in plain PyTorch. The head is the tied embedding, so
 its gradient sums the embedding's and the head's.
+
+Across a mesh (``launch.mesh``; the sharded engine) the encoder's and the
+prefill's layers are placed at their layer specs where they run (the
+reference's ``constrain_tree``); its decode places nothing, its leaves in
+the storage layout, as the reference's. Every attention runs on each
+rank's own heads (``attention._local_heads``): B5 non-causal in the
+encoder, the decoder's self-attention B5 at prefill and B4 at decode, and
+its cross-attention B5 over this rank's heads of the cross K/V, which
+prefill writes (``_cross_kv``) and the cache holds. The logits come from
+the tied embedding, over ``MODEL``.
 """
 from __future__ import annotations
 
@@ -41,7 +51,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import BATCH, MODEL
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.mesh import BATCH, MODEL, shard
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.common import ParamTree, frozen
 
@@ -135,11 +146,19 @@ def _mlp(x, p: dict):
 
 def _logits_out(params: Whisper, cfg: ModelConfig, h):
     h = _ln(h, params.dec_norm.tree(), cfg.norm_eps)
-    return common.matmul_f32(h, common.cast(params, "embed", h.dtype).T)
+    return shard(common.matmul_f32(h, common.cast(params, "embed", h.dtype).T), BATCH, None, MODEL)
 
 
 def _embed_tokens(params: Whisper, cfg: ModelConfig, tokens):
-    return params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
+    return meshlib.take_rows(params.embed, tokens).to(common.dt(cfg.compute_dtype))
+
+
+def _self_attend(p: dict, cfg: ModelConfig, x, causal: bool):
+    """Full-sequence self-attention without a cache (the encoder's, and the
+    training decoder's), on this rank's heads across a mesh."""
+    q, k, v, kv, wrap = attention._local_heads(*attention._project_qkv(p, cfg, x))
+    o = attention.attend(q, attention._heads(k, kv), attention._heads(v, kv), causal=causal, block_k=BLOCK_K)
+    return attention._out_proj(p, x.dtype, wrap(o))
 
 
 @torch.no_grad()
@@ -152,39 +171,50 @@ def _encode(params: Whisper, cfg: ModelConfig, frames) -> torch.Tensor:
     """The encoder, with autograd where a caller has it on (``features``)."""
     cdt = common.dt(cfg.compute_dtype)
     h = frames.to(cdt) + common.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device).to(cdt)
+    h = meshlib.replicated(h)
+    specs = enc_layer_specs(cfg)
     for blk in params.enc_layers:
-        layer = blk.tree(cdt)
-        x = _ln(h, layer["ln1"], cfg.norm_eps)
-        q, k, v = attention._project_qkv(layer["attn"], cfg, x)
-        o = attention.attend(q, k, v, causal=False, block_k=BLOCK_K)
-        h = h + attention._out_proj(layer["attn"], h.dtype, o)
+        layer = blk.tree(cdt, specs)
+        h = h + _self_attend(layer["attn"], cfg, _ln(h, layer["ln1"], cfg.norm_eps), causal=False)
         h = h + _mlp(_ln(h, layer["ln2"], cfg.norm_eps), layer["mlp"])
+        h = shard(h, BATCH, None, None)
     return _ln(h, params.enc_norm.tree(), cfg.norm_eps)
+
+
+def _heads_of(x, n: int, hd: int):
+    """(B, T, n * hd) -> (B, n, T, hd)."""
+    return meshlib.split_last(x, (n, hd)).transpose(1, 2)
 
 
 def _cross_kv(layer: dict, cfg: ModelConfig, enc_out):
     """Cross-attention K/V from the encoder's output: (B, Hkv, T_enc, hd)
-    each, a plain ``@`` in the reference (the promoted type)."""
-    b, t, _ = enc_out.shape
-    hd = cfg.head_dim
+    each, a plain ``@`` in the reference (the promoted type); across a mesh
+    this rank's heads, plain, as the cache holds them."""
     p = layer["cross_attn"]
-    k = common.matmul_promoted(enc_out, p["wk"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = common.matmul_promoted(enc_out, p["wv"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
-    return k, v
+    k = _heads_of(common.matmul_promoted(enc_out, p["wk"]), cfg.n_kv_heads, cfg.head_dim)
+    v = _heads_of(common.matmul_promoted(enc_out, p["wv"]), cfg.n_kv_heads, cfg.head_dim)
+    return meshlib.local_heads(k, 1), meshlib.local_heads(v, 1)
 
 
 def _cross_attend(layer: dict, cfg: ModelConfig, x, ck, cv):
-    b, t, _ = x.shape
+    """Cross-attention of ``x`` over ``ck``/``cv`` (across a mesh this rank's
+    heads of them): q over heads, and each rank's query heads read the
+    cross heads they group over."""
     p = layer["cross_attn"]
-    q = common.matmul_promoted(x, p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-    o = attention.attend(q, ck.to(q.dtype), cv.to(q.dtype), causal=False, block_k=BLOCK_K)
-    return attention._out_proj(p, x.dtype, o)
+    q = shard(_heads_of(common.matmul_promoted(x, p["wq"]), cfg.n_heads, cfg.head_dim), BATCH, MODEL, None, None)
+    shape = (ck.shape[0], cfg.n_kv_heads) + tuple(ck.shape[2:])
+    q, ck, cv, kv, wrap = attention._local_heads(q, meshlib.from_heads(ck, 1, shape),
+                                                 meshlib.from_heads(cv, 1, shape))
+    o = attention.attend(q, attention._heads(ck, kv).to(q.dtype), attention._heads(cv, kv).to(q.dtype),
+                         causal=False, block_k=BLOCK_K)
+    return attention._out_proj(p, x.dtype, wrap(o))
 
 
 def _dec_in(params: Whisper, cfg: ModelConfig, tokens):
     cdt = common.dt(cfg.compute_dtype)
     h = _embed_tokens(params, cfg, tokens)
-    return h + common.sinusoidal_positions(tokens.shape[1], cfg.d_model, h.device).to(cdt)
+    pe = common.sinusoidal_positions(tokens.shape[1], cfg.d_model, tokens.device).to(cdt)
+    return shard(h + meshlib.like(pe, h), BATCH, None, None)
 
 
 def _dec_block(blk, cfg: ModelConfig, h, enc_out):
@@ -192,10 +222,7 @@ def _dec_block(blk, cfg: ModelConfig, h, enc_out):
     (the reference's ``forward`` block): causal self-attention, the
     cross-attention over ``enc_out``, the MLP."""
     layer = blk.tree(common.dt(cfg.compute_dtype))
-    x = _ln(h, layer["ln1"], cfg.norm_eps)
-    q, k, v = attention._project_qkv(layer["self_attn"], cfg, x)
-    o = attention.attend(q, k, v, causal=True, block_k=BLOCK_K)
-    h = h + attention._out_proj(layer["self_attn"], h.dtype, o)
+    h = h + _self_attend(layer["self_attn"], cfg, _ln(h, layer["ln1"], cfg.norm_eps), causal=True)
     ck, cv = _cross_kv(layer, cfg, enc_out)
     h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), ck, cv)
     return h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"])
@@ -250,19 +277,20 @@ def prefill(params: Whisper, cfg: ModelConfig, tokens, frames, *, max_len: int):
     b, s = tokens.shape
     positions = common.causal_positions(b, s, h.device)
     kvs = {"k": [], "v": [], "cross_k": [], "cross_v": []}
+    specs = dec_layer_specs(cfg)
     for blk in params.dec_layers:
-        layer = blk.tree(cdt)
+        layer = blk.tree(cdt, specs)
         x = _ln(h, layer["ln1"], cfg.norm_eps)
         a, (k, v) = attention.apply_prefill(layer["self_attn"], cfg, x, positions, max_len,
                                             block_k=BLOCK_K)
         h = h + a
         ck, cv = _cross_kv(layer, cfg, enc_out)
         h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), ck, cv)
-        h = h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"])
+        h = shard(h + _mlp(_ln(h, layer["ln3"], cfg.norm_eps), layer["mlp"]), BATCH, None, None)
         for name, t in (("k", k), ("v", v), ("cross_k", ck), ("cross_v", cv)):
             kvs[name].append(t.to(torch.bfloat16))
     cache = {name: torch.stack(ts) for name, ts in kvs.items()}
-    cache["lengths"] = torch.full((b,), s, dtype=torch.int32, device=h.device)
+    cache["lengths"] = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return _logits_out(params, cfg, h), cache
 
 
@@ -283,8 +311,8 @@ def decode_step(params: Whisper, cfg: ModelConfig, cache: dict, tokens, *,
     lengths = cache["lengths"]
     s = cache["k"].shape[3]
     h = _embed_tokens(params, cfg, tokens)
-    pe = common.sinusoidal_positions(s, cfg.d_model, h.device).to(cdt)
-    h = h + pe[lengths.long().clamp(max=s - 1)][:, None, :]
+    pe = common.sinusoidal_positions(s, cfg.d_model, tokens.device).to(cdt)
+    h = h + meshlib.like(pe[lengths.long().clamp(max=s - 1)][:, None, :], h)
     for i, blk in enumerate(params.dec_layers):
         layer = blk.tree()  # the reference's decode casts no weight
         x = _ln(h, layer["ln1"], cfg.norm_eps)

@@ -25,6 +25,14 @@ per layer. In the backward a group's recompute runs each of its layers'
 forwards again, and each layer's own checkpoint a third time: with remat,
 B7 runs three times a grouped layer and twice a tail layer, B5 twice an
 application (``api.train_kernel_launches``).
+
+Across a mesh (``launch.mesh``; the sharded engine) each Mamba2 layer is
+placed at ``mamba2.block_specs`` where it runs (the reference's
+``constrain_tree`` inside its ``apply``) and runs B7 on each rank's own
+heads (``mamba2.apply``). The shared block stays as stored, uncast, as the
+reference's serving leaves it; its q and k go over heads at the
+reference's site, v on k's heads, and each rank runs B5/B4 on its own
+heads (``attention._local_heads``), its KV cache holding only those.
 """
 from __future__ import annotations
 
@@ -35,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import BATCH, MODEL
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.mesh import BATCH, MODEL, shard
 from repro_torch.models import attention, common, mamba2
 from repro_torch.models.common import ParamTree, frozen, matmul_f32, matmul_promoted, rms_norm
 
@@ -113,16 +122,22 @@ def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
 
 
 def _shared_qkv(sh: dict, cfg: ModelConfig, u, positions):
-    """``x @ W`` without a preferred type: bf16 x f32 gives f32, as in JAX."""
-    b, t, _ = u.shape
+    """``x @ W`` without a preferred type: bf16 x f32 gives f32, as in JAX.
+    Returns ``attention._local_heads``'s (q, k, v, kv, wrap), RoPE applied:
+    across a mesh this rank's heads as plain tensors (q and k over heads,
+    the reference's constraint, v on k's), else every head."""
     hd = cfg.head_dim
     un = rms_norm(u, sh["ln1"], cfg.norm_eps)
-    q = matmul_promoted(un, sh["wq"]).reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
-    k = matmul_promoted(un, sh["wk"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = matmul_promoted(un, sh["wv"]).reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+
+    def heads(w, n):
+        x = meshlib.split_last(matmul_promoted(un, w), (n, hd)).transpose(1, 2)
+        return shard(x, BATCH, MODEL, None, None)
+
+    q, k, v, kv, wrap = attention._local_heads(heads(sh["wq"], cfg.n_heads), heads(sh["wk"], cfg.n_kv_heads),
+                                               heads(sh["wv"], cfg.n_kv_heads))
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, kv, wrap
 
 
 def _shared_out(sh: dict, cfg: ModelConfig, h, emb0, o):
@@ -135,10 +150,11 @@ def _shared_out(sh: dict, cfg: ModelConfig, h, emb0, o):
 
 
 def shared_block(sh: dict, cfg: ModelConfig, h, emb0, positions):
-    """Full-sequence application without a cache; returns (h', k, v)."""
-    q, k, v = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
-    o = attention.attend(q, k, v, causal=True, block_k=1024)
-    return _shared_out(sh, cfg, h, emb0, o), k, v
+    """Full-sequence application without a cache; returns (h', k, v), k and v
+    this rank's heads across a mesh."""
+    q, k, v, kv, wrap = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
+    o = attention.attend(q, attention._heads(k, kv), attention._heads(v, kv), causal=True, block_k=1024)
+    return _shared_out(sh, cfg, h, emb0, wrap(o)), k, v
 
 
 def shared_block_decode(sh: dict, cfg: ModelConfig, h, emb0, k_cache, v_cache, lengths,
@@ -147,11 +163,11 @@ def shared_block_decode(sh: dict, cfg: ModelConfig, h, emb0, k_cache, v_cache, l
     ``lengths`` (a position past the end is dropped, as JAX drops it, and
     so is a row where a given (B,) bool ``active`` is False)."""
     positions = lengths[:, None].to(torch.int32)
-    q, k, v = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
+    q, k, v, kv, wrap = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
     attention._write_at(k_cache, lengths, k[:, :, 0, :], active)
     attention._write_at(v_cache, lengths, v[:, :, 0, :], active)
-    o = attention.attend_decode(q, k_cache, v_cache, lengths + 1, page_size)
-    return _shared_out(sh, cfg, h, emb0, o)
+    o = attention.attend_decode(q, k_cache, v_cache, lengths + 1, page_size, kv)
+    return _shared_out(sh, cfg, h, emb0, wrap(o))
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +175,13 @@ def shared_block_decode(sh: dict, cfg: ModelConfig, h, emb0, k_cache, v_cache, l
 
 
 def _embed(params: Zamba2, cfg: ModelConfig, tokens):
-    return params.embed[tokens.long()].to(common.dt(cfg.compute_dtype))
+    h = meshlib.take_rows(params.embed, tokens).to(common.dt(cfg.compute_dtype))
+    return shard(h, BATCH, None, None)
 
 
 def _logits(params: Zamba2, cfg: ModelConfig, h):
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return matmul_f32(h, common.cast(params, "lm_head", h.dtype))
+    return shard(matmul_f32(h, common.cast(params, "lm_head", h.dtype)), BATCH, None, MODEL)
 
 
 def _split_groups(cfg: ModelConfig, seq):
@@ -237,18 +254,20 @@ def prefill(params: Zamba2, cfg: ModelConfig, tokens, *, max_len: int):
     positions = common.causal_positions(b, t, h.device)
     sh = params.shared.tree()  # as stored: the reference's prefill does not cast it
     cdt = common.dt(cfg.compute_dtype)
+    specs = mamba2.block_specs(cfg)
     states, ks, vs = [], [], []
 
     def mamba_layer(h, blk):
-        m, st = mamba2.apply(blk.tree(cdt), cfg, h)
+        m, st = mamba2.apply(blk.tree(cdt, specs), cfg, h)
         states.append(st)
-        return h + m
+        return shard(h + m, BATCH, None, None)
 
     groups, tail = _split_groups(cfg, list(params.layers))
     for grp in groups:
         for blk in grp:
             h = mamba_layer(h, blk)
         h, k, v = shared_block(sh, cfg, h, emb0, positions)
+        h = shard(h, BATCH, None, None)
         ks.append(F.pad(k, (0, 0, 0, max(0, max_len - t))).to(torch.bfloat16))
         vs.append(F.pad(v, (0, 0, 0, max(0, max_len - t))).to(torch.bfloat16))
     for blk in tail:
@@ -281,10 +300,11 @@ def decode_step(params: Zamba2, cfg: ModelConfig, cache: dict, tokens, *, page_s
     lengths = cache["lengths"]
     cdt = common.dt(cfg.compute_dtype)
     sh = params.shared.tree()  # as stored: the reference's decode does not cast it
+    specs = mamba2.block_specs(cfg)
 
     def mamba_layer(h, i):
         state = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
-        return h + mamba2.apply(params.layers[i].tree(cdt), cfg, h, state, active)[0]
+        return h + mamba2.apply(params.layers[i].tree(cdt, specs), cfg, h, state, active)[0]
 
     groups, tail = _split_groups(cfg, list(range(cfg.n_layers)))
     for app, grp in enumerate(groups):

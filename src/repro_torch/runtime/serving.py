@@ -97,7 +97,7 @@ from repro_torch.core.profiler import AccessProfiler
 from repro_torch.data.requests import ChunkState, Request, RequestGenerator
 from repro_torch.device import resolve_device, stage_into, to_device, to_host
 from repro_torch.env import env_flag
-from repro_torch.launch.mesh import whole
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models.api import ModelAPI, make_serve_step
 from repro_torch.obs import Counter, MetricsRegistry, default_recorder
 from repro_torch.kernels import launch_counts
@@ -445,10 +445,12 @@ class ServingEngine:
         return k if k is not None and k.ndim == 5 else None
 
     def _payload_dim(self) -> int:
+        """A payload row's width: every KV head (a rank over a mesh holds its
+        share of them) over the cache's own first axis (zamba2's
+        shared-block applications, not its layers)."""
         k = self._dense_kv(self.cache)
         if k is not None:
-            n_layers, _, n_heads, _, head_dim = k.shape
-            return 2 * n_layers * n_heads * head_dim
+            return 2 * k.shape[0] * self.cfg.n_kv_heads * k.shape[4]
         return 128  # recurrent-state families: synthetic payload rows
 
     def _payload_rows(self, cache, batch_idxs, positions, page_ids) -> torch.Tensor:
@@ -563,7 +565,7 @@ class ServingEngine:
                     min((i + 1) * ps, len(tokens)) - 1 for i in range(len(pages))
                 ]
                 self._tiered_write(self.cache, [slot_idx] * len(pages), positions, pages)
-            nxt = int(to_host(torch.argmax(whole(logits1)[0, -1, : self.cfg.vocab_size])))
+            nxt = int(to_host(torch.argmax(meshlib.whole(logits1)[0, -1, : self.cfg.vocab_size])))
             self.next_tokens[slot_idx] = nxt
             self._record_ttft(req)
             if self.recorder is not None:
@@ -588,7 +590,9 @@ class ServingEngine:
         if fam == "vlm":
             n = t.shape[1]
             pos = torch.arange(n, dtype=torch.int32, device=self.device).expand(3, 1, n)
-            return {"embeds": self.params.embed[t.long()], "mrope_positions": pos}
+            # the rows of the table as stored (over a mesh its columns are
+            # split: the rows are looked up on each rank's shard)
+            return {"embeds": meshlib.take_rows(self.params.embed, t), "mrope_positions": pos}
         if fam == "audio":
             frames = torch.zeros((1, self.cfg.n_audio_frames, self.cfg.d_model), dtype=torch.bfloat16,
                                  device=self.device)

@@ -35,8 +35,9 @@ equal the unsharded engine's. Given a mesh of N cards
 logical replica spanning the cards. Its parameters are placed by
 ``shard_model_params`` (each leaf's last axis over ``model`` where it
 divides) and every step runs under the mesh, so the models' constraints
-bind; each card computes on its own shard, and B4/B5 run on its own
-heads. Shard ``s`` of the store lives on card ``s`` (``MeshTieredKV``):
+bind; each card computes on its own shard, and B4/B5 (every family's
+attention), B6 (rwkv6) and B7 (zamba2's Mamba2 layers) run on its own
+heads, its cache and recurrent states holding only those. Shard ``s`` of the store lives on card ``s`` (``MeshTieredKV``):
 only rank ``s`` writes its pages and launches B1 over them, so a step
 launches B1 once per non-empty shard summed over the ranks, and
 ``tiered_verify``'s B3 runs on each rank's own slice. A drain merges the
@@ -459,11 +460,12 @@ class ShardedServingEngine(ServingEngine):
     (``launch.mesh.make_serving_mesh``), the replica spans it, as the
     reference's does: the parameters are placed by ``shard_model_params``,
     every step runs under the mesh, shard ``s`` of the store lives on rank
-    ``s`` (``MeshTieredKV``), the cache holds each rank's share of the KV
-    heads, and the engine runs on the rank's device (``device`` None: the
-    mesh's). Every rank of the mesh builds the engine and drives it with
-    the same calls. Serving takes the dense family without
-    ``sp_activations`` (the reference's serving cells turn it off)."""
+    ``s`` (``MeshTieredKV``), the cache holds each rank's share of the
+    heads (``ModelAPI.init_cache(mesh=)``), and the engine runs on the
+    rank's device (``device`` None: the mesh's). Every rank of the mesh
+    builds the engine and drives it with the same calls. Serving takes
+    every family, without ``sp_activations`` (the reference's serving
+    cells turn it off; it is ROADMAP A11.3)."""
 
     def __init__(self, api, params, ecfg: EngineConfig, seed: int = 0, recorder=None, mesh=None,
                  device=None):
@@ -476,11 +478,9 @@ class ShardedServingEngine(ServingEngine):
                 raise ValueError(f"mesh model axis {mesh.size()} != model_shards={n}")
             if not meshlib.in_mesh(mesh):
                 raise ValueError("this rank is not in the engine's mesh")
-            if api.family != "dense":
-                raise NotImplementedError(f"the {api.family} family across cards is ROADMAP A11.2")
             if api.cfg.sp_activations:
-                raise ValueError("sp_activations shards the sequence, a training layout: "
-                                 "serving across cards turns it off")
+                raise NotImplementedError("sp_activations shards the sequence, a training layout: "
+                                          "serving across cards turns it off (ROADMAP A11.3)")
             device = meshlib.mesh_device(mesh) if device is None else device
             params = meshlib.shard_model_params(params, mesh)
         super().__init__(api, params, ecfg, seed=seed, recorder=recorder, device=device)
@@ -491,12 +491,6 @@ class ShardedServingEngine(ServingEngine):
 
     def _captures(self) -> bool:
         return super()._captures() and self.mesh is None
-
-    def _payload_dim(self) -> int:
-        if self.mesh is None or self._dense_kv(self.cache) is None:
-            return super()._payload_dim()
-        c = self.cfg
-        return 2 * c.n_layers * c.n_kv_heads * c.head_dim
 
     def _whole_heads(self, kv: torch.Tensor) -> torch.Tensor:
         """Payload vectors with every KV head: a rank holding its share of

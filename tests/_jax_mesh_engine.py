@@ -3,11 +3,14 @@
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` (as the reference's
 CI runs its sharded tests):
 
-    python tests/_jax_mesh_engine.py PARAMS.pkl OUT.pkl ARCH N
+    python tests/_jax_mesh_engine.py PARAMS.pkl OUT.pkl ARCH N:CHUNK [N:CHUNK ...]
 
 PARAMS.pkl maps each arch to its parameter tree (numpy leaves). For ARCH
-over N devices: tokens a step, stats, live counters, role hits, the merged
-drained planes, and one prefill's logits under the mesh."""
+over N devices with ``prefill_chunk=CHUNK``, each case in turn: tokens a
+step, stats, live counters, role hits, the merged drained planes, and one
+prefill's logits under the mesh, its input in the family's keys as the
+engine builds it (``_prefill_batch``: embeds and M-RoPE positions for vlm,
+tokens and frames for audio). OUT.pkl maps each (N, CHUNK) to its run."""
 import dataclasses
 import pickle
 import sys
@@ -28,11 +31,11 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from _torch_mesh_ranks import ENGINE, N_REQUESTS, PROMPT  # noqa: E402
 
 
-def run(arch: str, tree: dict, n: int) -> dict:
+def run(arch: str, tree: dict, n: int, chunk: int) -> dict:
     cfg = dataclasses.replace(get_config(arch).reduced(), sp_activations=False)
     api = get_model(cfg)
     params = jax.tree.map(jnp.asarray, tree)
-    eng = ShardedServingEngine(api, params, EngineConfig(**ENGINE, model_shards=n), seed=0)
+    eng = ShardedServingEngine(api, params, EngineConfig(**ENGINE, model_shards=n, prefill_chunk=chunk), seed=0)
     merged = {"near": 0, "far": 0, "slot": 0, "tenant": 0, "role": 0}
     drain = eng.tiered.drain_counters
 
@@ -56,8 +59,7 @@ def run(arch: str, tree: dict, n: int) -> dict:
     st = eng.stats()
     mesh = make_serving_mesh(n)
     with activate(mesh):
-        logits, _ = api.prefill(shard_model_params(params, mesh), {"tokens": jnp.asarray(PROMPT)[None]},
-                                max_len=64)
+        logits, _ = api.prefill(shard_model_params(params, mesh), eng._prefill_batch(PROMPT), max_len=64)
     return {"tokens": np.array(tokens), "stats": st, "live": eng.live_counters(),
             "role": np.asarray(eng.role_hits).copy(), "merged": merged, "logits": np.asarray(logits),
             "shard_rows": (eng.metrics.total("shard_near_hits"), eng.metrics.total("shard_far_hits"))}
@@ -66,9 +68,10 @@ def run(arch: str, tree: dict, n: int) -> dict:
 def main():
     with open(sys.argv[1], "rb") as f:
         trees = pickle.load(f)
-    arch, n = sys.argv[3], int(sys.argv[4])
-    assert len(jax.devices()) >= n, jax.devices()
-    out = run(arch, trees[arch], n)
+    arch = sys.argv[3]
+    cases = [tuple(int(x) for x in case.split(":")) for case in sys.argv[4:]]
+    assert len(jax.devices()) >= max(n for n, _ in cases), jax.devices()
+    out = {(n, chunk): run(arch, trees[arch], n, chunk) for n, chunk in cases}
     with open(sys.argv[2], "wb") as f:
         pickle.dump(out, f)
 

@@ -2,7 +2,9 @@
 only the port). ``spawn`` starts ``world`` processes that meet at a
 ``file://`` store (``gloo`` on the CPU, ``nccl`` over cards), runs
 ``fn(rank, world, *args)`` in each and returns their results by rank; a
-rank that raises fails the call with its traceback."""
+rank that raises fails the call with its traceback. At the end, the
+checks of one engine case against the reference's run, shared by the
+files that hold the mesh engine to it."""
 from __future__ import annotations
 
 import dataclasses
@@ -122,6 +124,11 @@ def mesh_checks(rank: int, world: int) -> dict:
         prod = common.matmul_f32(ac, br)
         res["matmul_row"] = ([repr(p) for p in prod.placements],
                              float((meshlib.whole(prod) - a @ b).abs().max()))
+    res["local_caches"] = _local_caches(meshes)
+    res["payload"] = _payload_widths(meshes)
+    res["scans"] = _scans_on_local_heads(full)
+    if meshlib.in_mesh(meshes[1]):
+        res["one_rank_ops"] = _one_rank_ops(meshes[1])
     # attention on local heads: qwen2.5-3b's 16 query heads over 2 KV heads
     # on 4 ranks (4 query heads a rank, the KV heads replicated): each rank
     # must read only the KV head its queries group over
@@ -158,6 +165,130 @@ def mesh_checks(rank: int, world: int) -> dict:
                 all(again["attn"][k] is v for k, v in layer["attn"].items()),
                 layer["mlp"]["w_down"].dtype == torch.bfloat16)
     return res
+
+
+FAMILY_ARCHS = ("qwen2.5-3b", "granite-moe-3b-a800m", "qwen2-vl-7b", "rwkv6-7b", "zamba2-1.2b", "whisper-base")
+
+
+def _local_caches(meshes) -> dict:
+    """``init_cache(mesh=)``'s leaf shapes, one arch a family, over each mesh
+    this rank is in (and with no mesh)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model
+
+    out = {}
+    for arch in FAMILY_ARCHS:
+        api = get_model(get_config(arch).reduced())
+        for n, mesh in [(0, None)] + sorted(meshes.items()):
+            if mesh is None or meshlib.in_mesh(mesh):
+                out[(arch, n)] = {k: tuple(v.shape) for k, v in api.init_cache(4, 64, device="cpu", mesh=mesh).items()}
+    return out
+
+
+def _payload_widths(meshes) -> dict:
+    """The tier store's row width of reduced zamba2's engine (2 layers, one
+    application of the shared block) unsharded and over each mesh this
+    rank is in."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model
+    from repro_torch.runtime.serving import EngineConfig, ServingEngine
+    from repro_torch.runtime.sharded import ShardedServingEngine
+
+    api = get_model(get_config("zamba2-1.2b").reduced())
+    model = api.init(0, device="cpu")
+    out = {0: ServingEngine(api, model, EngineConfig(**ENGINE), device="cpu").tiered.row_dim}
+    for n, mesh in sorted(meshes.items()):
+        if meshlib.in_mesh(mesh):
+            eng = ShardedServingEngine(api, model, EngineConfig(**ENGINE, model_shards=n), mesh=mesh)
+            out[n] = (eng.tiered.row_dim, tuple(eng.cache["k"].shape))
+    return out
+
+
+def _scans_on_local_heads(mesh) -> dict:
+    """B6 (``wkv6_chunked``) and B7 (``ssd_chunked``) on this rank's heads
+    (``launch.mesh.local_heads``) against the same heads' slice of the
+    whole-head call, from a given state: the largest differences of the
+    outputs and the states, and the local head counts."""
+    from repro_torch.kernels.mamba2_scan import ssd_chunked
+    from repro_torch.kernels.rwkv6_scan import wkv6_chunked
+    from repro_torch.launch import mesh as meshlib
+
+    g = torch.Generator().manual_seed(4)  # the same on every rank
+    b, t, h, hd, n = 2, 24, 8, 16, 16
+    r, k, v = (torch.randn(b, t, h, hd, generator=g) * 0.5 for _ in range(3))
+    lw = -torch.rand(b, t, h, hd, generator=g) - 0.1
+    u, s0 = torch.randn(h, hd, generator=g), torch.randn(b, h, hd, hd, generator=g) * 0.1
+    x, dt = torch.randn(b, t, h, hd, generator=g), torch.rand(b, t, h, generator=g) * 0.2
+    a, d = -torch.rand(h, generator=g) - 0.5, torch.randn(h, generator=g)
+    bb, cc = torch.randn(b, t, n, generator=g), torch.randn(b, t, n, generator=g)
+    s1 = torch.randn(b, h, hd, n, generator=g) * 0.1
+    y6, f6 = wkv6_chunked(r, k, v, lw, u, s0.clone())
+    y7, f7 = ssd_chunked(x, dt, a, bb, cc, d, s1.clone())
+    with meshlib.activate(mesh):
+        heads = meshlib.local_heads
+        ly6, lf6 = wkv6_chunked(heads(r, 2), heads(k, 2), heads(v, 2), heads(lw, 2), heads(u, 0), heads(s0, 1).clone())
+        ly7, lf7 = ssd_chunked(heads(x, 2), heads(dt, 2), heads(a, 0), bb, cc, heads(d, 0), heads(s1, 1).clone())
+        err = lambda local, whole, dim: float((local - heads(whole, dim)).abs().max())
+        return {"wkv6": (ly6.shape[2], err(ly6, y6, 2), err(lf6, f6, 1)),
+                "ssd": (ly7.shape[2], err(ly7, y7, 2), err(lf7, f7, 1))}
+
+
+# the ops whose order of summation decides their bits (on the card a GEMM's
+# kernel is picked by its shapes and strides)
+SUMMING_OPS = ("mm", "bmm", "addmm", "baddbmm", "var", "mean", "sum", "softmax", "cumsum", "sort")
+
+
+def _one_rank_ops(mesh) -> dict:
+    """Each family's prefill and decode at bf16 compute, with every leaf
+    plain and then placed on the 1-rank ``mesh``: the summing ops each
+    runs (op, and each tensor argument's shape, stride and dtype), and
+    whether the logits are bit-equal. The card's 1-card mesh is held
+    bit-equal to the engine without one, which needs the same kernels on
+    the same layouts."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__.lstrip("_")
+            if name in SUMMING_OPS:
+                self.seen.append((name, tuple((tuple(a.shape), a.stride(), str(a.dtype))
+                                              for a in args if isinstance(a, torch.Tensor))))
+            return func(*args, **(kwargs or {}))
+
+    toks = torch.arange(1, 13, dtype=torch.int32)[None].repeat(2, 1)
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype="bfloat16", sp_activations=False)
+        api = get_model(cfg)
+        plain = api.init(0, device="cpu")
+        runs = []
+        for params, on in ((plain, None), (meshlib.shard_model_params(plain, mesh), mesh)):
+            with torch.no_grad(), meshlib.activate(on):
+                batch = {"tokens": toks}
+                if cfg.family == "vlm":
+                    batch = {"embeds": meshlib.take_rows(params.embed, toks),
+                             "mrope_positions": torch.arange(12, dtype=torch.int32).expand(3, 2, 12)}
+                elif cfg.family == "audio":
+                    batch["frames"] = torch.zeros(2, cfg.n_audio_frames, cfg.d_model, dtype=torch.bfloat16)
+                with Ops() as pre:
+                    logits, cache = api.prefill(params, batch, max_len=16)
+                with Ops() as dec:
+                    nxt, _ = api.decode(params, cache, toks[:, :1], page_size=16)
+            runs.append((pre.seen, dec.seen, meshlib.whole(logits), meshlib.whole(nxt)))
+        (p0, d0, l0, n0), (p1, d1, l1, n1) = runs
+        out[arch] = {"prefill_ops": p0 == p1 and len(p0) > 0, "decode_ops": d0 == d1 and len(d0) > 0,
+                     "logits": torch.equal(l0, l1) and torch.equal(n0, n1)}
+    return out
 
 
 def _gqa_over_ranks(mesh, world: int) -> dict:
@@ -234,13 +365,27 @@ def _watch(eng, steps: list):
     return merged
 
 
-def engine_run(rank: int, world: int, params: dict, card: bool = False) -> dict:
-    """Each arch's mesh engine over all ``world`` ranks, then over ranks 0
-    and 1: tokens a step, books, merged drained planes, B1 a step, the
-    local shapes of the placed leaves, and one prefill's logits under the
-    mesh. ``params``: arch -> the reference's parameters as a state dict,
-    or None for the port's seed-0 init. ``card``: the config at the card's
-    attention widths (``card_widths``), each rank on its card."""
+def cases_of(archs, world: int, chunked=()) -> list:
+    """(arch, N, prefill_chunk) cases: every arch over ``world`` ranks and
+    over 2, whole-slot; each of ``chunked`` also over 2 with chunks of 8."""
+    return [(arch, n, 0) for arch in archs for n in (2, world)] + [(arch, 2, 8) for arch in chunked]
+
+
+def case_id(arch: str, n: int, chunk: int) -> str:
+    """A case's test id: ``arch-N``, and ``-chunkC`` on the chunked path."""
+    return f"{arch}-{n}" + (f"-chunk{chunk}" if chunk else "")
+
+
+def engine_run(rank: int, world: int, params: dict, card: bool = False, cases=None) -> dict:
+    """The mesh engine of each (arch, N, prefill_chunk) case of ``cases``
+    (default: every arch over all ``world`` ranks, then over ranks 0 and 1,
+    whole-slot): tokens a step, books, merged drained planes, B1 a step,
+    the local shapes of the placed leaves and of the cache, and one
+    prefill's logits under the mesh, its input in the family's keys
+    (``_prefill_batch``). ``params``: arch -> the reference's parameters as
+    a state dict, or None for the port's seed-0 init. ``card``: the config
+    at the card's attention widths (``card_widths``), each rank on its
+    card. Results are keyed by case."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
     from repro_torch.launch import mesh as meshlib
@@ -248,7 +393,9 @@ def engine_run(rank: int, world: int, params: dict, card: bool = False) -> dict:
     from repro_torch.runtime.serving import EngineConfig
     from repro_torch.runtime.sharded import ShardedServingEngine
 
-    meshes = {n: meshlib.make_serving_mesh(n) for n in (world, 2)}
+    cases = cases_of(params, world) if cases is None else cases
+    # making a sub-mesh is collective: every rank makes each, in one order
+    meshes = {n: meshlib.make_serving_mesh(n) for n in sorted({n for _, n, _ in cases})}
     out = {}
     for arch, state in params.items():
         cfg = dataclasses.replace(get_config(arch).reduced(), sp_activations=False)
@@ -258,10 +405,12 @@ def engine_run(rank: int, world: int, params: dict, card: bool = False) -> dict:
         model = api.init(0, device="cpu")
         if state is not None:
             model.load_state_dict(state, strict=True)
-        for n, mesh in meshes.items():
+        for _, n, chunk in [c for c in cases if c[0] == arch]:
+            mesh = meshes[n]
             if not meshlib.in_mesh(mesh):
                 continue
-            eng = ShardedServingEngine(api, model, EngineConfig(**ENGINE, model_shards=n), seed=0, mesh=mesh)
+            eng = ShardedServingEngine(api, model, EngineConfig(**ENGINE, model_shards=n, prefill_chunk=chunk),
+                                       seed=0, mesh=mesh)
             steps = []
             merged = _watch(eng, steps)
             for r in _requests(cfg):
@@ -274,15 +423,67 @@ def engine_run(rank: int, world: int, params: dict, card: bool = False) -> dict:
             after = launch_counts()
             st = eng.stats()
             with torch.no_grad(), meshlib.activate(mesh):
-                logits, _ = api.prefill(eng.params, {"tokens": torch.as_tensor(PROMPT)[None]}, max_len=64)
-            out[(arch, n)] = {
+                logits, _ = api.prefill(eng.params, eng._prefill_batch(PROMPT), max_len=64)
+            out[(arch, n, chunk)] = {
                 "tokens": np.array(tokens), "stats": st, "live": eng.live_counters(),
                 "role": eng.role_hits.copy(), "merged": merged, "steps": steps,
                 "logits": meshlib.whole(logits).cpu().numpy(),
                 "launches": {k: after[k] - before[k] for k in after},
                 "dispatches": (eng.prefill_dispatches, eng.batch_decodes),
                 "shapes": {k: tuple(p.to_local().shape) for k, p in eng.params.named_parameters()},
-                "cache": tuple(eng.cache["k"].shape),
+                "cache": {k: tuple(v.shape) for k, v in eng.cache.items()},
                 "shard_rows": (eng.metrics.total("shard_near_hits"), eng.metrics.total("shard_far_hits")),
             }
     return out
+
+
+# ---------------------------------------------------------------------------
+# one engine case's checks (``port``: rank -> case -> run, as ``engine_run``
+# returns them; ``ref``: case -> the reference's run; ``case``: (arch, n,
+# chunk))
+
+
+def check_tokens_and_books(port: list, ref: dict, case: tuple, world: int):
+    """The tokens of every step on every rank, stats, live counters, role
+    hits, the merged drained planes and the rows per shard equal the
+    reference's; ranks past ``n`` ran nothing."""
+    arch, n, chunk = case
+    want = ref[case]
+    for rank in range(n):
+        got = port[rank][case]
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        assert got["stats"] == want["stats"]
+        assert got["live"] == want["live"]
+        np.testing.assert_array_equal(got["role"], want["role"])
+        for plane in ("near", "far", "slot", "tenant", "role"):
+            np.testing.assert_array_equal(got["merged"][plane], want["merged"][plane], err_msg=plane)
+        assert got["shard_rows"] == want["shard_rows"]
+    dev = want["stats"]["device_tiering"]
+    assert dev["shards"] == n and dev["near_hits"] > 0 and dev["far_hits"] > 0
+    assert want["stats"]["requests_finished"] == N_REQUESTS
+    assert all(case not in port[rank] for rank in range(n, world))
+
+
+def check_prefill_logits(port: list, ref: dict, case: tuple, tol: float):
+    """One prefill's logits within ``tol`` of their scale of the
+    reference's, and every rank's the same."""
+    want = ref[case]["logits"]
+    scale = float(np.abs(want).max())
+    for rank in range(case[1]):
+        got = port[rank][case]["logits"]
+        assert got.shape == want.shape
+        assert float(np.abs(got - want).max()) <= tol * scale
+        np.testing.assert_array_equal(got, port[0][case]["logits"])
+
+
+def check_one_b1_launch_per_non_empty_shard(port: list, case: tuple):
+    """Summed over the ranks, each step's lookup launches the gather once per
+    shard holding one of its pages; a rank launches at most once."""
+    per_rank = [port[rank][case]["steps"] for rank in range(case[1])]
+    assert len({len(s) for s in per_rank}) == 1 and per_rank[0]
+    for step in zip(*per_rank):
+        busy = {b for b, _ in step}
+        assert len(busy) == 1 and sum(launched for _, launched in step) == busy.pop()
+        assert all(launched in (0, 1) for _, launched in step)
+    assert port[0][case]["stats"]["device_tiering"]["dispatches"] == sum(
+        launched for s in per_rank for _, launched in s)

@@ -1689,7 +1689,8 @@ def test_trainer_on_the_card_follows_the_cpu(card, tmp_path):
 # 4-rank cases need 4), against the same mesh engine on gloo ranks on the CPU
 
 
-MESH_ARCHS = ("qwen2.5-3b", "qwen1.5-110b")
+MESH_ARCHS = ("qwen2.5-3b", "qwen1.5-110b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "qwen2-vl-7b", "rwkv6-7b",
+              "zamba2-1.2b", "whisper-base")
 
 
 @pytest.fixture(scope="module")
@@ -1711,19 +1712,24 @@ def mesh_runs(tmp_path_factory):
 @pytest.mark.parametrize("n", [2, 4])
 def test_mesh_engine_on_cards_against_the_cpu(mesh_runs, arch, n):
     """Reduced qwen2.5-3b (4/2 heads: over 4 cards each card's query heads
-    read one of the 2 replicated KV heads) and qwen1.5-110b (4/4, QKV
-    bias) at head_dim 64, over n cards: B5 and B4 run on each card's local
-    heads, B1 and the verify probe's B3 on each card's own store shard, and the tokens, books and
-    merged planes are the CPU mesh's (the plain versions), on every rank;
-    the prefill logits within 1e-4 of their scale."""
+    read one of the 2 replicated KV heads), qwen1.5-110b (4/4, QKV bias),
+    and one or two models of every other family (the moe pair TP-for-MoE,
+    qwen2-vl's embeds input, rwkv6's B6 and zamba2's B7 on each card's
+    heads, whisper's encoder and cross-attention), attention at head_dim 64
+    (``card_widths``), over n cards: B5 and B4 run on each card's local
+    heads, B6 and B7 on its local heads, B1 and the verify probe's B3 on
+    each card's own store shard, and the tokens, books and merged planes
+    are the CPU mesh's (the plain versions), on every rank; the prefill
+    logits within 1e-4 of their scale."""
     world, card, cpu = mesh_runs
     if n > world:
         pytest.skip(f"needs {n} CUDA devices")
     from repro_torch.configs import get_config
+    from repro_torch.models.api import card_widths, kernel_launches
 
-    layers = get_config(arch).reduced().n_layers
+    cfg = card_widths(get_config(arch).reduced())
     for rank in range(n):
-        got, want = card[rank][(arch, n)], cpu[rank][(arch, n)]
+        got, want = card[rank][(arch, n, 0)], cpu[rank][(arch, n, 0)]
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
         assert got["stats"] == want["stats"] and got["live"] == want["live"]
         for plane in ("near", "far", "slot", "tenant", "role"):
@@ -1732,12 +1738,13 @@ def test_mesh_engine_on_cards_against_the_cpu(mesh_runs, arch, n):
         assert float(np.abs(got["logits"] - want["logits"]).max()) <= 1e-4 * scale
         prefills, decodes = got["dispatches"]
         launched = got["launches"]
-        assert launched["flash_attention"] == layers * prefills and launched["paged_attention"] == layers * decodes
+        expected = kernel_launches(cfg, prefills, decodes)
+        assert {k: launched[k] for k in expected} == expected, (launched, expected)
         assert launched["tiered_segmented"] == sum(b for _, b in got["steps"]) > 0
         # the verify probe reads this rank's own slice: B3 once a B1 launch
         assert launched["gather_rows"] == launched["tiered_segmented"]
         assert sum(want["launches"].values()) == 0
         print(f"mesh {arch} over {n} cards, rank {rank}: launches {launched}, "
               f"{len(got['steps'])} steps, {prefills} prefills, {decodes} decodes")
-    assert sum(sum(b for _, b in card[r][(arch, n)]["steps"]) for r in range(n)) == \
-        card[0][(arch, n)]["stats"]["device_tiering"]["dispatches"]
+    assert sum(sum(b for _, b in card[r][(arch, n, 0)]["steps"]) for r in range(n)) == \
+        card[0][(arch, n, 0)]["stats"]["device_tiering"]["dispatches"]

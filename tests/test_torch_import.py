@@ -267,19 +267,20 @@ def test_unported_family_names_its_roadmap_item():
 
 def test_what_the_port_still_refuses_names_a11():
     """Every ``NotImplementedError`` the port raises names its item of ROADMAP
-    A11 (tensor sharding across cards): training across cards (A11.3) in
-    the train step, the checkpoint restore and the elastic restore, and the
-    families other than dense across cards (A11.2) in the sharded engine.
-    Serving the dense family across cards (A11.1) and the trainer side (A9)
-    are ported."""
+    A11 (tensor sharding across cards), and that item is training across
+    cards (A11.3): in the train step, the checkpoint restore, the elastic
+    restore, and the sharded engine's refusal of ``sp_activations`` (the
+    sequence-parallel training layout). Serving every family across cards
+    (A11.1, A11.2) and the trainer side (A9) are ported."""
     raised = []
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
                 raised.append((path.name, ast.unparse(node)))
     assert {name for name, _ in raised} == {"api.py", "manager.py", "elastic.py", "sharded.py"}, raised
-    assert all(("A11.2" if name == "sharded.py" else "A11.3") in text and "A9" not in text
-               for name, text in raised), raised
+    assert all("A11.3" in text and "A11.2" not in text and "A9" not in text for _, text in raised), raised
+    sharded = [text for name, text in raised if name == "sharded.py"]
+    assert len(sharded) == 1 and "sp_activations" in sharded[0], sharded
 
 
 def test_casts_carry_the_gradient_only_in_a_training_forward():

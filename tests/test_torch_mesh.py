@@ -195,3 +195,59 @@ def test_attention_on_local_heads_reads_its_kv_head(rank_results):
         gqa = res["gqa"]
         assert gqa["kv_heads"] == 2  # replicated: 2 KV heads do not split 4 ways
         assert gqa["prefill"] < 1e-5 and gqa["decode"] < 1e-5 and gqa["cache"] == 0.0, gqa
+
+
+def test_init_cache_holds_this_ranks_heads(rank_results):
+    """``init_cache(mesh=)``: every leaf whose heads go over ``MODEL`` (the KV
+    and cross caches, rwkv6's wkv state, the Mamba2 SSM state) holds this
+    rank's share of its heads on axis 2 (all of them where the ranks do not
+    divide them: qwen2.5-3b's 2 KV heads over 4), the rest whole, one arch
+    a family; a 1-card mesh's cache is the unsharded one."""
+    heads = {"k", "v", "cross_k", "cross_v", "wkv", "ssm"}
+    for n in (1, 2, WORLD):
+        for rank, res in enumerate(rank_results[:n]):
+            for arch in ranks.FAMILY_ARCHS:
+                whole, local = res["local_caches"][(arch, 0)], res["local_caches"][(arch, n)]
+                assert set(local) == set(whole) and heads & set(whole), arch
+                for name, shape in whole.items():
+                    split = name in heads and shape[2] % n == 0
+                    want = shape[:2] + (shape[2] // n,) + shape[3:] if split else shape
+                    assert local[name] == want, (arch, n, name)
+        for res in rank_results[n:]:
+            assert all((arch, n) not in res["local_caches"] for arch in ranks.FAMILY_ARCHS)
+
+
+def test_mesh_payload_width_is_the_unsharded_engines(rank_results):
+    """Reduced zamba2 (2 Mamba2 layers, one application of the shared
+    block): the mesh engine's tier rows span the cache's own first axis
+    (the applications, not the layers) and every KV head, as the unsharded
+    engine's do, while each rank's cache holds its share of the heads."""
+    for n in (1, 2, WORLD):
+        for res in rank_results[:n]:
+            width, cache = res["payload"][n]
+            assert width == res["payload"][0] and cache[0] == 1 and cache[2] == 4 // n
+
+
+def test_scans_on_local_heads_equal_the_whole_calls_slice(rank_results):
+    """B6's and B7's plain versions on this rank's heads (8 heads: 4 a rank
+    over 2, 2 over 4) equal the same heads' slice of the whole-head call,
+    outputs and final states."""
+    for rank, res in enumerate(rank_results):
+        for name, (local_heads, out_err, state_err) in res["scans"].items():
+            assert local_heads == 8 // WORLD, (name, rank)
+            assert out_err == 0.0 and state_err == 0.0, (name, rank, out_err, state_err)
+
+
+def test_one_rank_mesh_runs_the_plain_paths_products(rank_results):
+    """Every family's prefill and decode at bf16 compute on a 1-rank mesh
+    run the plain path's summing ops (products, reductions, sorts) on
+    the same shapes, strides and dtypes, so the card's 1-card mesh picks
+    the same kernels (smoke phase 11 holds it bit-equal to the engine
+    without a mesh), and the logits are bit-equal here. A 3-D DTensor
+    product left to DTensor's decomposition batches it (``bmm``) where a
+    plain one folds (``mm``): ``common.matmul_f32`` folds it."""
+    got = rank_results[0]["one_rank_ops"]
+    assert set(got) == set(ranks.FAMILY_ARCHS)
+    for arch, checks in got.items():
+        assert all(checks.values()), (arch, checks)
+    assert all("one_rank_ops" not in res for res in rank_results[1:])

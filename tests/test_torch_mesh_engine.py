@@ -10,7 +10,8 @@ verify probe. The reference runs with 4 host devices, one subprocess a
 case, side by side (``tests/_jax_mesh_engine.py``; its eager steps over
 sharded arrays compile op by op); the port over 4 ``gloo`` ranks, then over
 ranks 0 and 1 (``tests/_torch_mesh_ranks.py``), both from the same
-parameters. Held: the tokens of every step, on every rank; stats, live
+parameters; qwen2.5-3b also through the chunked path (``prefill_chunk=8``)
+over 2 and 4 ranks, against the reference's chunked engine. Held: the tokens of every step, on every rank; stats, live
 counters, role hits and the merged drained planes (slot, tenant, role)
 bit-exact, and every rank's the same; one prefill's logits within 1e-4 of
 their scale (f32); B1 once per non-empty shard a step, summed over the
@@ -38,7 +39,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen2.5-3b", "qwen1.5-110b")
 WORLD = 4
 LOGIT_TOL = 1e-4
-CASES = [(arch, n) for arch in ARCHS for n in (2, WORLD)]
+CHUNK = 8
+CASES = ranks.cases_of(ARCHS, WORLD) + [("qwen2.5-3b", n, CHUNK) for n in (2, WORLD)]
+IDS = [ranks.case_id(*case) for case in CASES]
 
 
 @pytest.fixture(scope="module")
@@ -50,13 +53,14 @@ def runs(tmp_path_factory):
         pickle.dump(trees, f)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
-    refs = {case: subprocess.Popen(
+    out = lambda case: tmp / "ref_{}_{}_{}.pkl".format(*case)
+    refs = {case: subprocess.Popen(  # one a case, side by side
         [sys.executable, str(ROOT / "tests" / "_jax_mesh_engine.py"), str(tmp / "params.pkl"),
-         str(tmp / f"ref_{case[0]}_{case[1]}.pkl"), case[0], str(case[1])],
+         str(out(case)), case[0], f"{case[1]}:{case[2]}"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for case in CASES}
     try:
         port = ranks.spawn(ranks.engine_run, WORLD, str(tmp / "store"),
-                           {arch: params_from_jax(tree) for arch, tree in trees.items()})
+                           {arch: params_from_jax(tree) for arch, tree in trees.items()}, False, CASES)
         logs = {case: p.communicate(timeout=300)[0] for case, p in refs.items()}
     finally:
         for p in refs.values():
@@ -65,59 +69,28 @@ def runs(tmp_path_factory):
     ref = {}
     for case, p in refs.items():
         assert p.returncode == 0, logs[case][-4000:]
-        with open(tmp / f"ref_{case[0]}_{case[1]}.pkl", "rb") as f:
-            ref[case] = pickle.load(f)
+        with open(out(case), "rb") as f:
+            ref[case] = pickle.load(f)[case[1:]]
     return port, ref
 
 
-@pytest.mark.parametrize("arch,n", CASES)
-def test_tokens_and_books_equal_the_reference(runs, arch, n):
-    port, ref = runs
-    want = ref[(arch, n)]
-    for rank in range(n):
-        got = port[rank][(arch, n)]
-        np.testing.assert_array_equal(got["tokens"], want["tokens"])
-        assert got["stats"] == want["stats"]
-        assert got["live"] == want["live"]
-        np.testing.assert_array_equal(got["role"], want["role"])
-        for plane in ("near", "far", "slot", "tenant", "role"):
-            np.testing.assert_array_equal(got["merged"][plane], want["merged"][plane], err_msg=plane)
-        assert got["shard_rows"] == want["shard_rows"]
-    dev = want["stats"]["device_tiering"]
-    assert dev["shards"] == n and dev["near_hits"] > 0 and dev["far_hits"] > 0
-    assert want["stats"]["requests_finished"] == ranks.N_REQUESTS
-    assert all((arch, n) not in port[rank] for rank in range(n, WORLD))
+@pytest.mark.parametrize("arch,n,chunk", CASES, ids=IDS)
+def test_tokens_and_books_equal_the_reference(runs, arch, n, chunk):
+    ranks.check_tokens_and_books(*runs, (arch, n, chunk), WORLD)
 
 
-@pytest.mark.parametrize("arch,n", CASES)
-def test_prefill_logits_within_tolerance(runs, arch, n):
-    port, ref = runs
-    want = ref[(arch, n)]["logits"]
-    scale = float(np.abs(want).max())
-    for rank in range(n):
-        got = port[rank][(arch, n)]["logits"]
-        assert got.shape == want.shape
-        assert float(np.abs(got - want).max()) <= LOGIT_TOL * scale
-        np.testing.assert_array_equal(got, port[0][(arch, n)]["logits"])  # every rank the same
+@pytest.mark.parametrize("arch,n,chunk", CASES, ids=IDS)
+def test_prefill_logits_within_tolerance(runs, arch, n, chunk):
+    ranks.check_prefill_logits(*runs, (arch, n, chunk), LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch,n", CASES)
-def test_one_b1_launch_per_non_empty_shard(runs, arch, n):
-    """Summed over the ranks, each step's lookup launches the gather once per
-    shard holding one of its pages; a rank launches at most once."""
-    port, _ = runs
-    per_rank = [port[rank][(arch, n)]["steps"] for rank in range(n)]
-    assert len({len(s) for s in per_rank}) == 1 and per_rank[0]
-    for step in zip(*per_rank):
-        busy = {b for b, _ in step}
-        assert len(busy) == 1 and sum(launched for _, launched in step) == busy.pop()
-        assert all(launched in (0, 1) for _, launched in step)
-    assert port[0][(arch, n)]["stats"]["device_tiering"]["dispatches"] == sum(
-        launched for s in per_rank for _, launched in s)
+@pytest.mark.parametrize("arch,n,chunk", CASES, ids=IDS)
+def test_one_b1_launch_per_non_empty_shard(runs, arch, n, chunk):
+    ranks.check_one_b1_launch_per_non_empty_shard(runs[0], (arch, n, chunk))
 
 
-@pytest.mark.parametrize("arch,n", CASES)
-def test_each_rank_holds_its_share(runs, arch, n):
+@pytest.mark.parametrize("arch,n,chunk", CASES, ids=IDS)
+def test_each_rank_holds_its_share(runs, arch, n, chunk):
     """Every leaf of these reduced configs divides N: each rank holds its
     ``shape[-1] / N`` columns; the cache holds the rank's KV heads, all of
     them where the heads do not divide (qwen2.5-3b's 2 over 4 ranks)."""
@@ -127,8 +100,8 @@ def test_each_rank_holds_its_share(runs, arch, n):
         jax.tree.map(np.asarray, jax_model(cfg).init(jax.random.PRNGKey(0)))).items()}
     kv_local = cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else cfg.n_kv_heads
     for rank in range(n):
-        got = port[rank][(arch, n)]
+        got = port[rank][(arch, n, chunk)]
         assert set(got["shapes"]) == set(full)
         for name, shape in full.items():
             assert got["shapes"][name] == shape[:-1] + (shape[-1] // n,), name
-        assert got["cache"][2] == kv_local
+        assert got["cache"]["k"][2] == kv_local
