@@ -176,7 +176,20 @@ Phases (any failure raises, so the script exits non-zero):
    (``prefill_chunk=64``) over 2, and full-width qwen2-moe-a2.7b (all 24
    layers, more than one card holds) over 2 and 4; it needs a machine
    with 4 cards and runs alone (``README.md``, "Running the port on the
-   GPU").
+   GPU"); qwen1.5-110b serves in its shipped config (``sp_activations``);
+12. training over a mesh of this one card, in a child process with
+   deterministic algorithms: full-width smollm-360m at phase 9's 8 x
+   1,024 tokens, its parameters and AdamW moments placed at
+   ``core.pooling.pooled_specs`` over a ("data", "pool", "model") mesh of
+   one card (``launch.mesh.place_params``): 3 steps of ``make_train_step``
+   bit-equal to the same steps without a mesh (metrics, every parameter
+   and moment), B5 launched ``train_kernel_launches`` times a step; then a
+   ``Trainer`` on the mesh saves and ``elastic_restore`` puts the state
+   onto the card without a mesh, bit-equal. ``train_mesh_phase()`` trains
+   what no card holds over four (qwen1.5-110b, rwkv6-7b, qwen2-moe-a2.7b at
+   full width, pooled), and runs alone like ``mesh_phase()``. Phase 2 also
+   holds B5 with its lse at sequence-parallel rows (a non-zero
+   ``q_offset``) to its plain version.
 
 Each path's kernel launch counts are zeroed just before it and read just
 after, so the counts show which kernels each path went through. A path's
@@ -729,6 +742,63 @@ TRAIN_ATTN_SITES = [
 ]
 
 
+def _train_attention_row(label: str, b: int, hq: int, hkv: int, lq: int, lk: int, causal: bool, seed: int,
+                         d: int = 64, q_offset: int = 0) -> dict:
+    """One row of ``check_train_attention``/``check_sp_attention``: B5 with
+    its stats on random bf16 inputs against its plain version and timed.
+    The library call is ``aten._scaled_dot_product_flash_attention`` (K/V
+    repeated to the query heads) where the rows start at 0, and
+    ``aten._scaled_dot_product_efficient_attention`` under the same mask as
+    an additive bias where they start at ``q_offset`` (both return a
+    logsumexp)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import work
+
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
+    q, k = rand(b, hq, lq, d), rand(b, hkv, lk, d)
+    v = rand(b, lk, hkv * d).reshape(b, lk, hkv, d).transpose(1, 2)  # the projection's view, as the model's
+    kw = dict(causal=causal, lk_valid=lk, q_offset=q_offset)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    bare = fa.flash_attention(q, k, v, **kw)
+    plain, plain_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    krep, vrep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+    if q_offset == 0:
+        library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, krep, vrep, 0.0, causal)
+    else:
+        rows = torch.arange(lq, device="cuda")[:, None] + q_offset
+        bias = torch.where(torch.arange(lk, device="cuda")[None, :] <= rows, 0.0, float("-inf"))
+        bias = bias.to(torch.bfloat16).expand(b, hq, lq, lk)
+        library = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(q, krep, vrep, bias, True)
+    lib_lse = library()[1]
+    torch.cuda.synchronize()
+    lse_err = float((lse - plain_lse).abs().max())
+    assert torch.equal(out, bare), f"B5's output changed when asked for its stats ({label})"
+    assert within_one_bf16_step(out, plain), f"flash_attention with lse differs from plain ({label})"
+    assert lse.shape == (b, hq, lq) and lse.dtype == torch.float32 and lse_err <= LSE_TOL, (label, lse_err)
+    w = work.flash_attention(b, hq, hkv, lq, lk, d, 2, causal, q_offset=q_offset, return_lse=True)
+    nbytes, nops = w[0], w[1]
+    b_ms, b_by = bound(w)
+    r = {"shapes": f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) bf16, "
+                   f"{'causal' if causal else 'non-causal'}, q_offset {q_offset}, lse f32 ({b}, {hq}, {lq})",
+         "max_abs_err": float((out.float() - plain.float()).abs().max()), "lse_max_abs_err": lse_err,
+         "lse_vs_library": float((lse - lib_lse.float()[..., :lq]).abs().max()),
+         "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw, return_lse=True)),
+         "ms_without_lse": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+         "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw, return_lse=True), reps=10),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+         "library_ms": time_ms(library)}
+    log(f"flash_attention [training forward, {label}, with lse] {r['shapes']}: max_abs_err vs plain "
+        f"{r['max_abs_err']:.3e} (one bf16 step), lse {lse_err:.3e} (tolerance {LSE_TOL}), lse vs the "
+        f"library's {r['lse_vs_library']:.3e}; kernel {r['ms']:.4f} ms, without lse "
+        f"{r['ms_without_lse']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.1f} GFLOP), library {r['library_ms']:.4f} ms; at "
+        f"{b_ms / r['ms']:.4f} of its bound, {r['ms'] / r['library_ms']:.3f}x the library's time")
+    return r
+
+
 def check_train_attention():
     """B5 asked for its softmax stats at each training site
     (``TRAIN_ATTN_SITES``): smollm-360m's causal layers, whisper-base's
@@ -741,52 +811,29 @@ def check_train_attention():
     a logsumexp (``aten._scaled_dot_product_flash_attention``, K/V
     repeated to the query heads), with the bound. Returns the rows by
     "model site"."""
-    import torch
+    return {f"{arch} {site}": _train_attention_row(f"{arch} {site}", b, hq, hkv, lq, lk, causal, 6 + i)
+            for i, (arch, site, b, hq, hkv, lq, lk, causal) in enumerate(TRAIN_ATTN_SITES)}
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import work
 
-    rows = {}
-    for i, (arch, site, b, hq, hkv, lq, lk, causal) in enumerate(TRAIN_ATTN_SITES):
-        d = 64
-        g = torch.Generator().manual_seed(6 + i)
-        rand = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
-        q, k = rand(b, hq, lq, d), rand(b, hkv, lk, d)
-        v = rand(b, lk, hkv * d).reshape(b, lk, hkv, d).transpose(1, 2)  # the projection's view, as the model's
-        kw = dict(causal=causal, lk_valid=lk, q_offset=0)
-        out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
-        bare = fa.flash_attention(q, k, v, **kw)
-        plain, plain_lse = fa.flash_attention_ref(q, k, v, **kw, return_lse=True)
-        krep, vrep = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
-        library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, krep, vrep, 0.0, causal)
-        lib_lse = library()[1]
-        torch.cuda.synchronize()
-        lse_err = float((lse - plain_lse).abs().max())
-        label = f"{arch} {site}"
-        assert torch.equal(out, bare), f"B5's output changed when asked for its stats ({label})"
-        assert within_one_bf16_step(out, plain), f"flash_attention with lse differs from plain ({label})"
-        assert lse.shape == (b, hq, lq) and lse.dtype == torch.float32 and lse_err <= LSE_TOL, (label, lse_err)
-        w = work.flash_attention(b, hq, hkv, lq, lk, d, 2, causal, return_lse=True)  # q, o, k, v, lse
-        nbytes, nops = w[0], w[1]
-        b_ms, b_by = bound(w)
-        r = {"shapes": f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) bf16, "
-                       f"{'causal' if causal else 'non-causal'}, lse f32 ({b}, {hq}, {lq})",
-             "max_abs_err": float((out.float() - plain.float()).abs().max()), "lse_max_abs_err": lse_err,
-             "lse_vs_library": float((lse - lib_lse.float()).abs().max()),
-             "ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw, return_lse=True)),
-             "ms_without_lse": time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
-             "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw, return_lse=True), reps=10),
-             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-             "library_ms": time_ms(library)}
-        log(f"flash_attention [training forward, {label}, with lse] {r['shapes']}: max_abs_err vs plain "
-            f"{r['max_abs_err']:.3e} (one bf16 step), lse {lse_err:.3e} (tolerance {LSE_TOL}), lse vs the "
-            f"library's {r['lse_vs_library']:.3e}; kernel {r['ms']:.4f} ms, without lse "
-            f"{r['ms_without_lse']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{nbytes / 1e6:.2f} MB, {nops / 1e9:.1f} GFLOP), library {r['library_ms']:.4f} ms; at "
-            f"{b_ms / r['ms']:.4f} of its bound, {r['ms'] / r['library_ms']:.3f}x the library's time")
-        rows[label] = r
-        del q, k, v, krep, vrep, out, bare, plain, lse, plain_lse
-    return rows
+# B5 with its stats at sequence-parallel training rows (``sp_activations``,
+# ``train_mesh_phase``): qwen1.5-110b's 64/8 heads of 128 over a causal
+# 2,048, the query rows of rank 1 of 2 and of rank 3 of 4 (their q_offset
+# the rank's first row), a rank's rows of train_mesh_phase's 4-row batch:
+# (site, rows, query heads, kv heads, Lq, Lk, q_offset)
+SP_ATTN_SITES = [
+    ("rank 1 of 2", 2, 64, 8, 1024, 2048, 1024),
+    ("rank 3 of 4", 4, 64, 8, 512, 2048, 1536),
+]
+
+
+def check_sp_attention():
+    """B5 with its stats at ``SP_ATTN_SITES`` (a non-zero ``q_offset``: the
+    causal mask and the lse at the rows' global positions), held to the
+    plain version as ``check_train_attention`` holds its sites, and timed
+    beside the efficient-attention call under the same mask."""
+    return {f"qwen1.5-110b sp {site}": _train_attention_row(f"qwen1.5-110b sp {site}", b, hq, hkv, lq, lk, True,
+                                                            20 + i, d=128, q_offset=off)
+            for i, (site, b, hq, hkv, lq, lk, off) in enumerate(SP_ATTN_SITES)}
 
 
 SCAN_RTOL = 1e-4  # see check_scans
@@ -1937,43 +1984,15 @@ TRAINER_RESULT = "trainer phase result: "  # the child's last line, read by the 
 
 
 def trainer_phase() -> dict:
-    """Phase 9 in a child process (``trainer_child``): its lines go to this
-    log, its result comes back as one JSON line, and a failure in it (a
-    non-zero exit) raises here."""
-    import torch
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    result = None
-    with subprocess.Popen([sys.executable, str(Path(__file__).resolve()), TRAINER_CHILD], cwd=ROOT,
-                          env=dict(os.environ, **TRAINER_ENV), stdout=subprocess.PIPE, text=True) as proc:
-        try:
-            for line in proc.stdout:
-                if line.startswith(TRAINER_RESULT):
-                    result = json.loads(line[len(TRAINER_RESULT):])
-                else:
-                    log(f"  [phase 9] {line.rstrip()}")
-            rc = proc.wait(timeout=60)
-        except BaseException:
-            proc.kill()
-            raise
-    if rc != 0 or result is None:
-        raise RuntimeError(f"phase 9: the trainer's child process exited {rc} (result line: {result is not None})")
-    return result
+    """Phase 9 in a child process (``trainer_child``, ``_child_phase``)."""
+    return _child_phase(TRAINER_CHILD, TRAINER_RESULT, "phase 9")
 
 
 def trainer_child():
     """The child of phase 9: deterministic algorithms on before any CUDA
     work, then ``trainer_crash_resume``; its result is printed last."""
-    import torch
-
-    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != TRAINER_ENV["CUBLAS_WORKSPACE_CONFIG"]:
-        raise SystemExit("the trainer child needs CUBLAS_WORKSPACE_CONFIG=:4096:8 in its environment")
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    result = trainer_crash_resume(card_name())
-    print(TRAINER_RESULT + json.dumps(result), flush=True)
+    _deterministic_child()
+    print(TRAINER_RESULT + json.dumps(trainer_crash_resume(card_name())), flush=True)
 
 
 @contextlib.contextmanager
@@ -3073,10 +3092,9 @@ def _mesh_rank(rank: int, world: int, store: str, out):
         meshes = {n: meshlib.make_serving_mesh(n) for n in sorted({n for r in runs for n in r[2] + r[3]})}
         res = {}
         for arch, layers, cards, chunked in runs:
-            # serving turns sp_activations off, as the reference's dry run does
-            # for every non-train cell (it is a training memory feature)
-            cfg = dataclasses.replace(get_config(arch), sp_activations=False,
-                                      **({"n_layers": layers} if layers else {}))
+            # the shipped config: qwen1.5-110b's sp_activations split each
+            # prefill's queries over the cards (B5 at each rank's first row)
+            cfg = dataclasses.replace(get_config(arch), **({"n_layers": layers} if layers else {}))
             api = get_model(cfg)
             t0 = time.perf_counter()
             params = draw_on_card(api).to("cpu")  # the same values on every rank's card
@@ -3184,7 +3202,8 @@ def _mesh_summary(card: str, arch: str, got: dict, cards: tuple, chunked: tuple)
 def mesh_phase(card: str, world: int = 4) -> dict:
     """Serving across cards at full width, one NCCL rank a card meeting at a
     file store, the same 6 Web1 requests everywhere: qwen1.5-110b (d 8,192,
-    64/8 heads of 128, d_ff 49,152, vocab 152,064, QKV bias) cut to
+    64/8 heads of 128, d_ff 49,152, vocab 152,064, QKV bias; its shipped
+    ``sp_activations``: each prefill's queries split over the cards) cut to
     ``MESH_LAYERS`` of its 80 layers over meshes of 1, 2 and 4 cards, and
     its chunked path (``prefill_chunk=CHUNK``) over 2; then qwen2-moe-a2.7b
     (24 layers, d 2,048, 16 heads of 128, 60 experts top-4 of d_ff 1,408
@@ -3216,6 +3235,557 @@ def mesh_phase(card: str, world: int = 4) -> dict:
             for arch, _, cards, chunked in _mesh_models(world)}
 
 
+# ---------------------------------------------------------------------------
+# training across cards: phase 12 (a 1-card mesh, in the smoke) and
+# train_mesh_phase (four cards, alone)
+
+MESH_TRAIN_AXES = ("data", "pool", "model")
+MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 8, 1024, 3  # phase 12: phase 9's 8 x 1,024
+MESH_TRAIN_CHILD = "--mesh-train-child"  # phase 12's child's one argument
+MESH_TRAIN_RESULT = "mesh train phase result: "
+# train_mesh_phase's runs: (arch, layers kept or None, rows, sequence, meshes,
+# AdamW's lr) at the config's own grad_accum and sp_activations. AdamW's first
+# steps move every weight by about lr: at qwen1.5-110b's widths (a product
+# over d_ff 49,152) 1e-3 moves a layer's output by tens of its own size, and
+# the loss rose (run AM4c); its lr is cut to that of a step of ~0.15 of it.
+# rwkv6-7b's 32 layers rose at 1e-4 (AM4: 11.47 -> 14.81, its grad norm 5.1
+# -> 52.5), and take 1e-5; its 8 layers on one card at 1e-4 (lr_witness, run
+# AN) jump the same way without a mesh as over one (grad norm 2.52 -> 38.0,
+# the two runs bit-equal)
+TRAIN_MESH_RUNS = [
+    ("qwen1.5-110b", 4, 4, 2048, ((1, 4, 1), (1, 1, 4), (1, 2, 2)), 3e-6),
+    ("rwkv6-7b", None, 16, 1024, ((1, 2, 2),), 1e-5),
+    ("qwen2-moe-a2.7b", 12, 8, 1024, ((1, 2, 2),), 1e-4),
+]
+RESTORE_RUN = ("smollm-360m", 8, 1024, (1, 2, 2), (1, 4, 1))  # (d): trained, saved, restored elsewhere
+# the three qwen1.5-110b meshes' first steps agree within these (relative):
+# 2x the largest of run AM4's readings (loss 1.32e-6, grad norm 2.11e-4;
+# the planted fault read 6.35e-5 and 1.91e-3)
+MESH_AGREE = {"loss": 2.7e-6, "grad_norm": 4.3e-4}
+GIB = 2**30
+
+
+def _child_phase(arg: str, prefix: str, label: str) -> dict:
+    """A phase in a child process of this script (deterministic algorithms
+    on before any CUDA work, ``TRAINER_ENV``): its lines go to this log,
+    its result comes back as one JSON line after ``prefix``, and a failure
+    in it (a non-zero exit) raises here."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = None
+    with subprocess.Popen([sys.executable, str(Path(__file__).resolve()), arg], cwd=ROOT,
+                          env=dict(os.environ, **TRAINER_ENV), stdout=subprocess.PIPE, text=True) as proc:
+        try:
+            for line in proc.stdout:
+                if line.startswith(prefix):
+                    result = json.loads(line[len(prefix):])
+                else:
+                    log(f"  [{label}] {line.rstrip()}")
+            rc = proc.wait(timeout=60)
+        except BaseException:
+            proc.kill()
+            raise
+    if rc != 0 or result is None:
+        raise RuntimeError(f"{label}: the child process exited {rc} (result line: {result is not None})")
+    return result
+
+
+def _deterministic_child():
+    import torch
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != TRAINER_ENV["CUBLAS_WORKSPACE_CONFIG"]:
+        raise SystemExit("the child needs CUBLAS_WORKSPACE_CONFIG=:4096:8 in its environment")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def mesh_train_child():
+    """Phase 12's child: ``train_one_card_mesh`` with deterministic
+    algorithms; its result is printed last."""
+    _deterministic_child()
+    print(MESH_TRAIN_RESULT + json.dumps(train_one_card_mesh(card_name())), flush=True)
+
+
+def _states_equal(a_model, a_state, b_model, b_state) -> bool:
+    """Every parameter and moment of two states equal bit for bit (each
+    rank's local shards of a DTensor)."""
+    import torch
+
+    from repro_torch.launch import mesh as meshlib
+
+    bp = dict(b_model.named_parameters())
+    same = all(torch.equal(meshlib.local(p.detach()), meshlib.local(bp[n].detach()))
+               for n, p in a_model.named_parameters())
+    for k in ("m", "v"):
+        same = same and all(torch.equal(meshlib.local(x), meshlib.local(b_state[k][n])) for n, x in a_state[k].items())
+    return same and int(a_state["step"]) == int(b_state["step"])
+
+
+def train_one_card_mesh(card: str) -> dict:
+    """Phase 12: full-width smollm-360m trained over a ("data", "pool",
+    "model") mesh of this one card (a 1-rank NCCL group), its parameters
+    and moments placed at ``pooled_specs`` (``place_params``): 3 AdamW
+    steps at phase 9's 8 x 1,024 tokens bit-equal to the same steps
+    without a mesh (metrics, every parameter and moment), B5 launched
+    ``train_kernel_launches`` times a step; then a ``Trainer`` on the mesh
+    saves, and ``elastic_restore`` puts the state onto the card with no
+    mesh, bit-equal."""
+    import tempfile
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import pooling
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model, make_train_step, train_kernel_launches, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.runtime.elastic import elastic_restore
+
+    build.build_all()
+    cfg = get_config("smollm-360m")
+    api = get_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR, clip_norm=1.0)
+    batch = train_batch(cfg, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    plain = draw_on_card(api)
+    pstate = adamw_init(trainable(plain))
+    step = make_train_step(api, opt)
+    want = []
+    for _ in range(MESH_TRAIN_STEPS):
+        plain, pstate, m = step(plain, pstate, batch)
+        want.append({k: float(v) for k, v in m.items()})
+    plain_s = time.perf_counter() - t0
+    out = {"card": card, "plain_s": plain_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        meshlib.init_process_group(rank=0, world_size=1, store=f"{tmp}/store", backend="nccl")
+        try:
+            mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=MESH_TRAIN_AXES)
+            specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+            src = draw_on_card(api)
+            model = meshlib.place_params(src, mesh, specs)
+            del src
+            state = adamw_init(trainable(model))
+            mstep = make_train_step(api, opt, compute_specs=api.param_specs(), storage_specs=specs)
+            got, step_ms = [], []
+            zero_launch_counts()
+            for _ in range(MESH_TRAIN_STEPS):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                model, state, m = mstep(model, state, batch)
+                e.record()
+                torch.cuda.synchronize()
+                got.append({k: float(v) for k, v in m.items()})
+                step_ms.append(s.elapsed_time(e))
+            launches = launch_counts()["flash_attention"]
+            per_step = train_kernel_launches(cfg, cfg.grad_accum)["flash_attention"]
+            assert launches == per_step * MESH_TRAIN_STEPS, (launches, per_step)
+            assert got == want, (got, want)
+            assert _states_equal(model, state, plain, pstate), "the 1-card mesh's state departed from the plain one"
+            assert got[-1]["loss"] < got[0]["loss"], got
+            tr = Trainer(api, opt, TrainerConfig(ckpt_dir=f"{tmp}/ckpt"), compute_specs=api.param_specs(),
+                         device="cuda")
+            tr.params, tr.opt_state, tr.step = model, state, MESH_TRAIN_STEPS
+            t1 = time.perf_counter()
+            tr.save(sync=True)
+            save_s = time.perf_counter() - t1
+            template = draw_on_card(api, seed=1)  # other values: the restore must write them all
+            t1 = time.perf_counter()
+            (rmodel, rstate), extras = elastic_restore(CheckpointManager(f"{tmp}/ckpt"),
+                                                       (template, adamw_init(trainable(template))))
+            restore_s = time.perf_counter() - t1
+            assert extras == {"step": MESH_TRAIN_STEPS} and not meshlib.is_dtensor(rmodel.embed)
+            assert _states_equal(rmodel, rstate, model, state), "the restore without a mesh departed"
+        finally:
+            torch.distributed.destroy_process_group()
+    out.update({"metrics": got, "step_ms": step_ms, "flash_launches": launches,
+                "flash_launches_per_step": per_step, "save_s": save_s, "restore_s": restore_s,
+                "bit_equal": True})
+    log(f"phase 12: smollm-360m over a 1-card (1, 1, 1) mesh, {MESH_TRAIN_ROWS} x {MESH_TRAIN_SEQ} tokens, "
+        f"{MESH_TRAIN_STEPS} steps bit-equal to the plain steps (metrics, parameters, moments); loss "
+        f"{got[0]['loss']:.4f} -> {got[-1]['loss']:.4f}; step ms {', '.join(f'{x:.1f}' for x in step_ms)}; "
+        f"B5 {launches} = {per_step} a step; Trainer save {save_s:.2f} s, elastic restore without a mesh "
+        f"{restore_s:.2f} s, bit-equal; on {card}")
+    return out
+
+
+def _expected_bytes(api, mesh, specs) -> tuple:
+    """(bytes of this rank's local parameters that the specs give, the
+    leaves that no axis divides, as reference paths with their bytes a
+    card)."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.optim.adamw import LAYER_STACK
+
+    total, whole = 0, {}
+    for name, p in api.abstract_params().named_parameters():
+        place = meshlib.placements(mesh, meshlib.leaf_spec(specs, name), p.shape)
+        local = [n for n in p.shape]
+        for i, q in enumerate(place):
+            if q.is_shard():
+                local[q.dim] //= int(mesh.size(i))
+        nbytes = int(np.prod(local)) * p.element_size()
+        total += nbytes
+        if int(np.prod(local)) == p.numel():  # no axis of this mesh divides it: whole on every card
+            path = LAYER_STACK.sub(r"\1.*.", name)
+            whole[path] = whole.get(path, 0) + nbytes
+    return total, whole
+
+
+def _train_on_mesh(api, cfg, mesh, batch, lr: float, device: str, plant: bool = False) -> dict:
+    """One model of ``train_mesh_phase`` on one rank of ``mesh``: the whole
+    f32 tree drawn on the card, placed at ``pooled_specs`` and freed before
+    any AdamW state exists, then ``MESH_TRAIN_STEPS`` steps (each rank's
+    launches held to ``train_kernel_launches``), bytes a card against the
+    specs, peak memory, and one more step profiled for the collectives'
+    share of device busy. ``plant``: layer 0's ``w_up`` rolled by one row in
+    the shard of the mesh's pool rank 1 before one step (the first step's
+    metrics only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import make_train_step, train_kernel_launches, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = device == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+    t0 = time.perf_counter()
+    full = draw_on_card(api) if cuda else api.init(0, device="cpu")
+    model = meshlib.place_params(full, mesh, specs)
+    del full
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()  # the peak of training, not of the draw
+    place_s = time.perf_counter() - t0
+    if plant:
+        pool = mesh.mesh_dim_names.index("pool")
+        if mesh.get_local_rank(pool) == 1:
+            w = model.layers[0].mlp.w_up.to_local()
+            with torch.no_grad():
+                w.copy_(torch.roll(w.clone(), 1, 0))
+    state = adamw_init(trainable(model))
+    local = lambda t: meshlib.local(t).numel() * t.element_size()
+    got_bytes = {"params": sum(local(p) for p in model.parameters()),
+                 "m": sum(local(x) for x in state["m"].values()), "v": sum(local(x) for x in state["v"].values())}
+    want_bytes, whole = _expected_bytes(api, mesh, specs)
+    assert got_bytes == {"params": want_bytes, "m": want_bytes, "v": want_bytes}, (got_bytes, want_bytes)
+    step = make_train_step(api, AdamWConfig(lr=lr, clip_norm=1.0), compute_specs=api.param_specs(),
+                           storage_specs=specs)
+    want = {k: v for k, v in train_kernel_launches(cfg, cfg.grad_accum).items() if v}
+    metrics, step_ms, launched = [], [], []
+    for _ in range(1 if plant else MESH_TRAIN_STEPS):
+        zero_launch_counts()
+        t1 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})  # the step's end: its metrics read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        counts = launch_counts()
+        launched.append({k: counts[k] for k in want})
+        assert launched[-1] == want or not cuda, (launched[-1], want)  # the CPU runs the plain versions
+    out = {"metrics": metrics, "step_ms": step_ms, "launches": launched, "place_s": place_s,
+           "bytes": got_bytes, "whole_leaves": whole, "n_params": sum(p.numel() for p in model.parameters())}
+    if plant or not cuda:
+        return out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the host's ops untraced: they are many
+        model, state, m = step(model, state, batch)
+        float(m["loss"])
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    avgs = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in avgs) / 1e3
+    comm = sum(dev_us(e) for e in avgs if "nccl" in e.key.lower()) / 1e3
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / GIB, busy_ms=busy, nccl_ms=comm)
+    del model, state
+    return out
+
+
+def _restore_run(device: str, ckpt: str) -> dict:
+    """(d): ``RESTORE_RUN``'s model trained 2 steps on its first mesh, saved
+    (one rank writes), restored onto its second mesh with
+    ``elastic_restore``: the restored state whole equal to the saved one,
+    and the next step from it bit-equal to the step from the saved state
+    placed directly (deterministic algorithms on for this run)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model, make_train_step, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.elastic import elastic_restore
+
+    arch, rows, seq, first, second = RESTORE_RUN
+    cuda = device == "cuda"
+    cfg = get_config(arch) if cuda else get_config(arch).reduced()
+    api = get_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR, clip_norm=1.0)
+    batch = train_batch(cfg, rows, seq, seed=0, device=device)
+    draw = (lambda seed: draw_on_card(api, seed)) if cuda else (lambda seed: api.init(seed, device="cpu"))
+    if cuda:
+        torch.use_deterministic_algorithms(True)
+    try:
+        mesh = init_device_mesh(device, first, mesh_dim_names=MESH_TRAIN_AXES)
+        specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+        model = meshlib.place_params(draw(0), mesh, specs)
+        state = adamw_init(trainable(model))
+        step = make_train_step(api, opt, compute_specs=api.param_specs(), storage_specs=specs)
+        for _ in range(2):
+            model, state, _ = step(model, state, batch)
+        t0 = time.perf_counter()
+        CheckpointManager(ckpt).save(2, (model, state), {"step": 2})
+        save_s = time.perf_counter() - t0
+        saved = {"params": {n: meshlib.whole(p.detach()) for n, p in model.named_parameters()},
+                 **{k: {n: meshlib.whole(x) for n, x in state[k].items()} for k in ("m", "v")}}
+        del model, state
+        onto = init_device_mesh(device, second, mesh_dim_names=MESH_TRAIN_AXES)
+        specs2 = pooling.pooled_specs(api.param_specs(), api.abstract_params(), onto)
+        template = draw(1)
+        t0 = time.perf_counter()
+        (rmodel, rstate), extras = elastic_restore(CheckpointManager(ckpt), (template, adamw_init(trainable(template))),
+                                                   onto, (specs2, {"m": specs2, "v": specs2, "step": ()}))
+        restore_s = time.perf_counter() - t0
+        restored_equal = all(torch.equal(meshlib.whole(p.detach()), saved["params"][n])
+                             for n, p in rmodel.named_parameters()) and all(
+            torch.equal(meshlib.whole(x), saved[k][n]) for k in ("m", "v") for n, x in rstate[k].items())
+        direct_t = draw(2)
+        with torch.no_grad():
+            for n, p in direct_t.named_parameters():
+                p.copy_(saved["params"][n])
+        direct = meshlib.place_params(direct_t, onto, specs2)
+        dstate = {k: {n: meshlib.distribute(saved[k][n], onto, meshlib.leaf_spec(specs2, n)) for n in saved[k]}
+                  for k in ("m", "v")}
+        dstate["step"] = rstate["step"].clone()
+        step2 = make_train_step(api, opt, compute_specs=api.param_specs(), storage_specs=specs2)
+        _, _, m_restored = step2(rmodel, rstate, batch)
+        _, _, m_direct = step2(direct, dstate, batch)
+        m_restored = {k: float(v) for k, v in m_restored.items()}
+        m_direct = {k: float(v) for k, v in m_direct.items()}
+        next_equal = m_restored == m_direct and _states_equal(rmodel, rstate, direct, dstate)
+    finally:
+        if cuda:
+            torch.use_deterministic_algorithms(False)
+    assert extras == {"step": 2} and restored_equal and next_equal, (extras, restored_equal, next_equal)
+    return {"save_s": save_s, "restore_s": restore_s, "restored_equal": restored_equal,
+            "next_equal": next_equal, "next_metrics": m_restored}
+
+
+def _train_mesh_rank(rank: int, world: int, store: str, device: str, ckpt: str, out):
+    """One rank of ``train_mesh_phase`` (NCCL on the cards, gloo on the CPU
+    at reduced size, the rehearsal): every run of ``TRAIN_MESH_RUNS`` over
+    each of its meshes, the planted fault on qwen1.5-110b's (1, 4, 1), then
+    (d)."""
+    import traceback
+
+    try:
+        import torch
+
+        sys.path.insert(0, str(SRC))
+        torch.set_num_threads(8 if device == "cuda" else 1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        import logging
+
+        logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import build
+        from repro_torch.launch import mesh as meshlib
+        from repro_torch.models.api import get_model
+
+        cuda = device == "cuda"
+        meshlib.init_process_group(rank=rank, world_size=world, store=store, backend="nccl" if cuda else "gloo")
+        if cuda:
+            build.build_all()
+        res = {}
+        for arch, layers, rows, seq, shapes, lr in TRAIN_MESH_RUNS:
+            full = get_config(arch)
+            cfg = dataclasses.replace(full, n_layers=layers or full.n_layers) if cuda else full.reduced()
+            api = get_model(cfg)
+            batch = train_batch(cfg, rows, seq, seed=0, device=device)
+            for shape in shapes:
+                mesh = init_device_mesh(device, shape, mesh_dim_names=MESH_TRAIN_AXES)
+                t0 = time.perf_counter()
+                r = res[f"{arch} {shape}"] = _train_on_mesh(api, cfg, mesh, batch, lr, device)
+                r.update(wall_s=time.perf_counter() - t0, tokens=rows * seq, grad_accum=cfg.grad_accum,
+                         sp=cfg.sp_activations, layers=cfg.n_layers, lr=lr)
+                log(f"train mesh rank {rank}: {arch} {shape}: loss "
+                    f"{', '.join(f'{m['loss']:.4f}' for m in r['metrics'])}, step ms "
+                    f"{', '.join(f'{x:.0f}' for x in r['step_ms'])}, {time.perf_counter() - t0:.1f} s")
+                torch.distributed.barrier()
+            if arch == "qwen1.5-110b":
+                mesh = init_device_mesh(device, (1, 4, 1), mesh_dim_names=MESH_TRAIN_AXES)
+                res[f"{arch} planted"] = _train_on_mesh(api, cfg, mesh, batch, lr, device, plant=True)
+                torch.distributed.barrier()
+        if RESTORE_RUN is not None:
+            res["restore"] = _restore_run(device, ckpt)
+        torch.distributed.barrier()
+        out.put((rank, res))
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent raises it
+        out.put((rank, {"error": traceback.format_exc()}))
+
+
+def train_mesh_phase(card: str, world: int = 4, device: str = "cuda") -> dict:
+    """Training across cards (weight pooling, ZeRO storage over ``pool``),
+    one NCCL rank a card at a file store, alone on a machine with four
+    cards (not part of the smoke): (a) qwen1.5-110b at full width, 4 of 80
+    layers, its own config (``sp_activations``: B5 at each rank's first
+    query row), 4 x 2,048 tokens over (1, 4, 1), (1, 1, 4) and (1, 2, 2);
+    (b) rwkv6-7b, all 32 layers, 16 x 1,024 (``grad_accum`` 8) over (1, 2,
+    2); (c) qwen2-moe-a2.7b, 12 of 24 layers, 8 x 1,024 (``grad_accum`` 4)
+    over (1, 2, 2); each 3 steps on one batch (AdamW's lr by model,
+    ``TRAIN_MESH_RUNS``). (d) smollm-360m 2 steps on
+    (1, 2, 2), saved and restored onto (1, 4, 1): the state and the next
+    step bit-equal. Checks: the loss after step 3 below step 1's and the
+    metrics the same on every rank; bytes a card as the specs reckon them;
+    the peak a card below 80 GiB; B5/B6 launches equal
+    ``train_kernel_launches`` on each rank; the three qwen meshes' first
+    step within ``MESH_AGREE``, and a planted fault beyond it. Reports step
+    time, tokens/s, the NCCL kernels' share of device busy. ``device``
+    "cpu" rehearses the same code at reduced size over ``gloo`` ranks."""
+    import multiprocessing
+    import tempfile
+
+    os.environ.update(TRAINER_ENV)  # the ranks inherit it before CUDA starts ((d) runs deterministic)
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        out = ctx.Queue()
+        procs = [ctx.Process(target=_train_mesh_rank, args=(r, world, f"{tmp}/store", device, f"{tmp}/ckpt", out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got = dict(out.get(timeout=2400) for _ in range(world))
+        for p in procs:
+            p.join(timeout=60)
+    errors = [r["error"] for r in got.values() if "error" in r]
+    assert not errors, errors[0]
+    return _train_mesh_summary(card, got, world, device)
+
+
+def _train_mesh_summary(card: str, got: dict, world: int, device: str) -> dict:
+    summary = {"card": card}
+    first = {}
+    for key in [k for k in got[0] if k != "restore"]:
+        runs = [got[r][key] for r in range(world)]
+        r0 = runs[0]
+        assert all(r["metrics"] == r0["metrics"] for r in runs), f"{key}: the ranks' metrics differ"
+        row = {"metrics": r0["metrics"], "bytes_a_card": r0["bytes"], "whole_leaves": r0["whole_leaves"],
+               "launches_a_step": r0["launches"][0], "place_s": r0["place_s"]}
+        if not key.endswith("planted"):
+            assert r0["metrics"][-1]["loss"] < r0["metrics"][0]["loss"], (key, r0["metrics"])
+            first[key] = r0["metrics"][0]
+            ms = float(np.median([x for r in runs for x in r["step_ms"]]))
+            row.update(step_ms=ms, step_ms_all=[r["step_ms"] for r in runs], tokens_per_s=r0["tokens"] / ms * 1e3,
+                       wall_s=r0["wall_s"], state_bytes=16 * r0["n_params"], n_params=r0["n_params"],
+                       grad_accum=r0["grad_accum"], sp=r0["sp"], layers=r0["layers"], lr=r0["lr"])
+            if device == "cuda":
+                peaks = [r["peak_gib"] for r in runs]
+                assert max(peaks) < 80, (key, peaks)
+                row.update(peak_gib=peaks, busy_ms=[r["busy_ms"] for r in runs],
+                           nccl_share=[r["nccl_ms"] / r["busy_ms"] for r in runs])
+        else:
+            first[key] = r0["metrics"][0]
+        summary[key] = row
+        log(f"train mesh {key}: " + json.dumps(row))
+    if "qwen1.5-110b planted" not in first:  # a subset of the runs (TRAIN_MESH_RUNS set so)
+        return summary
+    qwen = {k: v for k, v in first.items() if k.startswith("qwen1.5-110b")}
+    clean = [v for k, v in qwen.items() if not k.endswith("planted")]
+    rel = lambda a, b, k: abs(a[k] - b[k]) / abs(b[k])
+    agree = {k: max(rel(a, b, k) for a in clean for b in clean) for k in MESH_AGREE}
+    planted = {k: max(rel(qwen["qwen1.5-110b planted"], b, k) for b in clean) for k in MESH_AGREE}
+    summary["qwen_first_step_agreement"] = {"readings": agree, "bound": MESH_AGREE, "planted": planted}
+    log(f"train mesh: qwen1.5-110b's meshes' first step agree to {agree} (bound {MESH_AGREE}); the planted "
+        f"fault {planted}")
+    assert all(agree[k] <= MESH_AGREE[k] for k in MESH_AGREE), agree
+    assert any(planted[k] > MESH_AGREE[k] for k in MESH_AGREE), planted
+    if "restore" in got[0]:
+        summary["restore"] = got[0]["restore"]
+        log("train mesh (d) restore: " + json.dumps(got[0]["restore"]))
+    return summary
+
+
+# the lr witness: rwkv6-7b's rise at lr 1e-4 (run AM4, 32 layers over four
+# cards) looked for on one card, at train_mesh_phase's batch:
+# (arch, layers one card holds with AdamW's state, rows, sequence, lr, steps)
+LR_WITNESS = ("rwkv6-7b", 8, 16, 1024, 1e-4, 2)
+
+
+def lr_witness(card: str, device: str = "cuda") -> dict:
+    """``LR_WITNESS``'s model trained on one card without a mesh and over a
+    (1, 1, 1) mesh at the pooled specs, each from the same draw, at the lr
+    its 32 layers rose at across four cards: each step's metrics, whether
+    the two runs' metrics are equal, and the largest difference of each
+    parameter or moment that is not bit-equal. Not part of
+    the smoke: run it alone in a process set up as phase 12's child
+    (``TRAINER_ENV`` in the environment, then ``_deterministic_child()``);
+    ``device`` "cpu" rehearses it at reduced size."""
+    import tempfile
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model, make_train_step, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    arch, layers, rows, seq, lr, steps = LR_WITNESS
+    cuda = device == "cuda"
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers) if cuda else get_config(arch).reduced()
+    api = get_model(cfg)
+    opt = AdamWConfig(lr=lr, clip_norm=1.0)
+    batch = train_batch(cfg, rows, seq, seed=0, device=device)
+    draw = (lambda: draw_on_card(api)) if cuda else (lambda: api.init(0, device="cpu"))
+
+    def run(model, step):
+        state, metrics, step_ms = adamw_init(trainable(model)), [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        host = {n: meshlib.local(p.detach()).cpu() for n, p in model.named_parameters()}
+        host.update({f"{k}.{n}": meshlib.local(x).cpu() for k in ("m", "v") for n, x in state[k].items()})
+        return metrics, step_ms, host
+
+    plain, plain_ms, plain_state = run(draw(), make_train_step(api, opt))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        meshlib.init_process_group(rank=0, world_size=1, store=f"{tmp}/store", backend="nccl" if cuda else "gloo")
+        try:
+            mesh = init_device_mesh(device, (1, 1, 1), mesh_dim_names=MESH_TRAIN_AXES)
+            specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+            step = make_train_step(api, opt, compute_specs=api.param_specs(), storage_specs=specs)
+            meshed, mesh_ms, mesh_state = run(meshlib.place_params(draw(), mesh, specs), step)
+        finally:
+            torch.distributed.destroy_process_group()
+    differ = {n: float((x.float() - mesh_state[n].float()).abs().max()) for n, x in plain_state.items()
+              if not torch.equal(x, mesh_state[n])}
+    out = {"card": card, "arch": arch, "layers": cfg.n_layers, "tokens": rows * seq, "lr": lr,
+           "grad_accum": cfg.grad_accum, "plain": plain, "plain_ms": plain_ms, "mesh": meshed, "mesh_ms": mesh_ms,
+           "metrics_equal": plain == meshed, "leaves_differing": differ}
+    log("lr witness: " + json.dumps({**out, "leaves_differing": len(differ),
+                                     "largest_difference": max(differ.values(), default=0.0)}))
+    return out
+
+
 def whisper_flash_sites(attention: dict, wp: dict, keep: tuple) -> dict:
     """whisper-base's B5 entries in the kernels line: its decoder's causal
     prompt and ``check_attention``'s other sites, each with the launches
@@ -3244,6 +3814,8 @@ def main():
     sys.path.insert(0, str(SRC))
     if sys.argv[1:] == [TRAINER_CHILD]:
         return trainer_child()
+    if sys.argv[1:] == [MESH_TRAIN_CHILD]:
+        return mesh_train_child()
     t_start = time.perf_counter()
 
     # phase 1: device and build
@@ -3273,6 +3845,7 @@ def main():
     attention = check_attention()
     attention_scaling()
     train_attention = check_train_attention()
+    sp_attention = check_sp_attention()
     kernels.update(check_scans())
     train_scans = check_train_scans()
     t2 = time.perf_counter()
@@ -3382,6 +3955,12 @@ def main():
     mesh_one = serve_mesh_one(card, mp, kept)
     log(f"phase 11 mesh {time.perf_counter() - t11:.1f} s")
 
+    # phase 12: training over a mesh of this one card (a child process with
+    # deterministic algorithms), against the same steps without a mesh
+    t12 = time.perf_counter()
+    mesh_train = _child_phase(MESH_TRAIN_CHILD, MESH_TRAIN_RESULT, "phase 12")
+    log(f"phase 12 mesh training {time.perf_counter() - t12:.1f} s")
+
     # phase 6: summary. Each row's launches are those of the main path that
     # runs it; the attention rows carry smollm-360m's numbers, and the other
     # models' ride along
@@ -3426,6 +4005,9 @@ def main():
         sum(launches_of("whisper-base", "flash_attention")), site_launches
     kernels["flash_attention"]["training_sites"] = {
         label: {**keep_train(train_attention[label]), "launches": n} for label, n in site_launches.items()}
+    # B5 at sequence-parallel rows: its launches come from train_mesh_phase (four
+    # cards), not from this one card's paths
+    kernels["flash_attention"]["training_sp"] = {label: keep_train(r) for label, r in sp_attention.items()}
     # B5's launches on phase 9's path: every Trainer and launcher step
     kernels["flash_attention"]["trainer"] = {k: trainer[k] for k in ("launches", "launches_per_step",
                                                                      "trainer_steps")}
@@ -3457,6 +4039,7 @@ def main():
     log("mesh engine (1 card): " + json.dumps(mesh_one))
     log("training: " + json.dumps({"reduced_card_vs_cpu": train_reduced, **train}))
     log("trainer: " + json.dumps(trainer))
+    log("mesh training (1 card): " + json.dumps(mesh_train))
     log("launch layer: " + json.dumps(launch_layer))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": rows}))

@@ -31,6 +31,15 @@ next step's. ``restore`` writes each leaf into the template's tensor in
 place (a parameter's held casts see the version bump and cast anew).
 Restore before an engine captures CUDA graphs over the parameters: a
 captured graph holds the old casts' storage.
+
+Across a mesh (a state whose leaves are DTensors, ``launch.mesh``): the
+snapshot gathers every leaf whole (a collective, on every rank of the
+mesh), one rank of the mesh writes, and the others wait for it at the end
+of the save (or at ``wait`` after ``save_async``); the files are the same
+full arrays as from one device. ``restore`` writes into a DTensor leaf's
+local shard the rows its placement gives this rank, each rank reading only
+its own slice of each file, so a checkpoint written from any mesh, or from
+one device, restores onto any other.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import stage_into, to_host
+from repro_torch.launch import mesh as meshlib
 from repro_torch.optim.adamw import LAYER_STACK, leaf_order
 
 
@@ -73,12 +83,36 @@ def _describe(leaves: list) -> str:
 
 
 def _host(tensors: list, stacked: bool) -> np.ndarray:
-    """One leaf as a host array that shares no memory with the live tensors."""
+    """One leaf as a host array that shares no memory with the live tensors
+    (a DTensor gathered whole first)."""
     if stacked:
-        return to_host(torch.stack([t.detach() for t in tensors]))
+        return to_host(torch.stack([meshlib.whole(t.detach()) for t in tensors]))
     t = tensors[0]
-    host = to_host(t)
-    return host.copy() if t.device.type == "cpu" else host
+    host = to_host(meshlib.whole(t.detach()))
+    return host.copy() if t.device.type == "cpu" and not meshlib.is_dtensor(t) else host
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes a state on ``mesh``: the mesh's first rank
+    (every rank, with no mesh)."""
+    return mesh is None or all(c == 0 for c in mesh.get_coordinate())
+
+
+def _barrier(mesh):
+    """Every rank of ``mesh`` waits for the others: one barrier along each
+    of its axes."""
+    for i in range(mesh.ndim):
+        torch.distributed.barrier(group=mesh.get_group(i))
+
+
+def _sharding_leaves(tree) -> list:
+    """A tree of ``launch.mesh.NamedSharding`` leaves, in the reference's
+    leaf order (dict keys sorted, tuples in order)."""
+    if isinstance(tree, meshlib.NamedSharding):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _sharding_leaves(tree[k])]
+    return [leaf for t in tree for leaf in _sharding_leaves(t)]
 
 
 class CheckpointManager:
@@ -88,6 +122,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None  # the mesh of a save whose ranks have not met since
         self.gc_orphans()
 
     # ------------------------------------------------------------------
@@ -141,21 +176,30 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def _snapshot(self, state: Any):
-        """(host leaves, tree description): the device-to-host copy."""
+        """(host leaves, tree description, mesh): the device-to-host copy;
+        across a mesh every rank gathers, and only the writing rank keeps
+        the leaves (None elsewhere)."""
         leaves = _flatten(state)
-        return [_host(t, stacked) for _, t, stacked in leaves], _describe(leaves)
+        mesh = meshlib.mesh_of(t for _, tensors, _ in leaves for t in tensors)
+        host = [_host(t, stacked) for _, t, stacked in leaves]
+        return (host if _writes(mesh) else None), _describe(leaves), mesh
 
     # ------------------------------------------------------------------
     def save(self, step: int, state: Any, extras: Optional[dict] = None):
         """Synchronous atomic save (state: a model, dicts, tuples of tensors)."""
         self.wait()
-        host, td = self._snapshot(state)
-        self._write(step, host, td, extras or {})
+        host, td, mesh = self._snapshot(state)
+        if host is not None:
+            self._write(step, host, td, extras or {})
+        if mesh is not None:
+            _barrier(mesh)
 
     def save_async(self, step: int, state: Any, extras: Optional[dict] = None):
         """Snapshot synchronously, write in the background."""
         self.wait()
-        host, td = self._snapshot(state)
+        host, td, self._mesh = self._snapshot(state)
+        if host is None:
+            return
         ex = extras or {}
 
         def _worker():
@@ -171,6 +215,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            _barrier(mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -180,11 +227,13 @@ class CheckpointManager:
         """Restore into ``template``'s tensors, in place, on their devices.
 
         ``template`` is the trainer's ``(model, opt_state)``, or a model
-        alone for a serving checkpoint. Returns (template, extras).
-        ``shardings`` (restoring onto a mesh) is not ported.
+        alone for a serving checkpoint. Returns (template, extras). A
+        DTensor leaf takes the rows its placement gives this rank, read
+        from its file alone (the elastic reshard: any mesh wrote it).
+        ``shardings``, a tree of ``launch.mesh.NamedSharding`` shaped as the
+        template (``runtime.elastic.shardings_for``), is each leaf's
+        placement, which the template's leaves must already have.
         """
-        if shardings is not None:
-            raise NotImplementedError("restoring onto shardings (a mesh) is ROADMAP A11.3")
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -192,11 +241,25 @@ class CheckpointManager:
         d = self._step_dir(step)
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
-        leaves = [np.load(os.path.join(d, f"arr_{i:05d}.npy")) for i in range(meta["n_leaves"])]
+        leaves = [np.load(os.path.join(d, f"arr_{i:05d}.npy"), mmap_mode="r") for i in range(meta["n_leaves"])]
         t_leaves = _flatten(template)
         if len(t_leaves) != len(leaves):
             raise ValueError(f"checkpoint/template leaf mismatch: {len(leaves)} leaves in {d}, "
                              f"{len(t_leaves)} in the template")
+        if shardings is not None:
+            sh = _sharding_leaves(shardings)
+            if len(sh) != len(t_leaves):
+                raise ValueError(f"{len(sh)} shardings for {len(t_leaves)} template leaves")
+            for (path, tensors, stacked), s in zip(t_leaves, sh):
+                spec = s.spec[1:] if stacked else s.spec  # a stack's spec less its layer axis
+                for t in tensors:
+                    if t.ndim == 0 and not meshlib.is_dtensor(t):
+                        continue  # AdamW's step: a plain tensor on every rank
+                    want = meshlib.placements(s.mesh, spec, t.shape)
+                    got = list(t.placements) if meshlib.is_dtensor(t) else None
+                    if got != want or t.device_mesh != s.mesh:
+                        raise ValueError(f"template leaf {path} is placed {got}, its sharding says {want}: "
+                                         "place the template on the mesh first (runtime.elastic)")
         with torch.no_grad():
             for (path, tensors, stacked), leaf in zip(t_leaves, leaves):
                 parts = list(leaf) if stacked else [leaf]
@@ -206,5 +269,9 @@ class CheckpointManager:
                     raise ValueError(f"checkpoint leaf {path}: {leaf.dtype} {list(leaf.shape)} does not fit the "
                                      f"template's {len(tensors)} x {t.dtype} {list(t.shape)}")
                 for t, part in zip(tensors, parts):
-                    stage_into(t, part)
+                    if meshlib.is_dtensor(t):
+                        idx = meshlib.local_index(t.shape, t.device_mesh, t.placements)
+                        stage_into(t.to_local(), np.array(part[idx]))  # this rank's slice, read
+                    else:
+                        stage_into(t, np.array(part))
         return template, meta["extras"]

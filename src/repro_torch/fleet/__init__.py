@@ -114,6 +114,7 @@ def build_fleet(
     speeds: Optional[Sequence[float]] = None,
     recorder=None,
     device=None,
+    mesh=None,
     **engine_kwargs,
 ) -> FleetRouter:
     """Construct N replicas sharing one model (params and their held casts),
@@ -137,6 +138,14 @@ def build_fleet(
     including elastically added ones — emits through it on the fleet's
     virtual clock. Defaults to the process-global recorder, if one is
     installed (``obs.set_default_recorder`` / ``REPRO_FLIGHT_RECORDER=1``).
+
+    ``mesh``, a ``("model",)`` mesh of ``model_shards`` ranks
+    (``launch.mesh.make_serving_mesh``): each replica with ``model_shards >
+    1`` spans it (``ShardedServingEngine(mesh=)``), its store one shard a
+    rank. Every rank of the mesh builds the same fleet and runs the same
+    router with the same calls; the router reads the replicas' books, which
+    each step merges across the ranks by all-reduce, so every rank routes
+    alike.
 
     ``device`` is where every replica runs: None means the CUDA card (and
     raises without one), tests pass ``"cpu"``. The model is the reduced
@@ -173,7 +182,7 @@ def build_fleet(
             # invisible to the router and merge by summation above this
             from repro_torch.runtime.sharded import ShardedServingEngine
 
-            eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid, device=dev)
+            eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid, device=dev, mesh=mesh)
         else:
             eng = ServingEngine(api, p, ecfg, seed=seed + rid, device=dev)
         return Replica(rid, eng, live_cache_blocks, speed=speed)

@@ -39,7 +39,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.optim.adamw import LAYER_STACK
 
 AxisName = Union[str, tuple, None]
 
@@ -221,6 +223,82 @@ def shard_model_params(params: torch.nn.Module, mesh: DeviceMesh, axis: str = MO
     return copy.deepcopy(params, memo)
 
 
+def leaf_spec(specs: dict, name: str) -> tuple:
+    """The partition spec of the parameter ``name`` (a ``state_dict`` name)
+    in a specs tree of the reference's shape: a layer of a stack
+    (``layers.<i>.rest``) takes its stack's spec less the leading layer
+    axis, since the port holds a module a layer where the reference stacks
+    them. A stack the specs shard along its layer axis (``pooled_specs``
+    pools qwen2-moe's (L, heads) attention biases so: L is their only
+    unsharded dim) has no per-layer form of that axis, and each layer's leaf
+    is held whole over it."""
+    m = LAYER_STACK.match(name)
+    path = [m.group(1), *name[m.end():].split(".")] if m else name.split(".")
+    s = specs
+    for k in path:
+        s = s[k]
+    s = tuple(s)
+    return s[1:] if m else s
+
+
+def distribute(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[AxisName],
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """``x``, the same whole tensor on every rank, as a DTensor on ``mesh``
+    placed at the partition spec ``axes`` (the divisibility drop applied):
+    each rank copies only its own slice to ``device`` (default the mesh's),
+    with no collective; ``x`` itself is left as it was."""
+    place = placements(mesh, axes, x.shape)
+    local = x.detach()[local_index(x.shape, mesh, place)]
+    local = local.to(mesh_device(mesh) if device is None else device, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, place, run_check=False, shape=x.shape,
+                              stride=torch.empty(x.shape, device="meta").stride())
+
+
+def local_index(shape, mesh: DeviceMesh, place) -> tuple:
+    """This rank's slice of a whole array of ``shape`` under the DTensor
+    placements ``place`` (even shards, as :func:`placements` leaves them;
+    a dimension sharded over several mesh axes splits in mesh-axis order),
+    as a tuple of slices: an index into a tensor or a numpy array (a
+    memory-mapped ``.npy`` reads only those rows)."""
+    lo, hi = [0] * len(shape), list(shape)
+    for i, p in enumerate(place):
+        if p.is_shard():
+            n = (hi[p.dim] - lo[p.dim]) // int(mesh.size(i))
+            lo[p.dim] += n * mesh.get_local_rank(i)
+            hi[p.dim] = lo[p.dim] + n
+    return tuple(slice(a, b) for a, b in zip(lo, hi))
+
+
+def place_params(params: torch.nn.Module, mesh: DeviceMesh, specs: dict) -> torch.nn.Module:
+    """A copy of the parameter module placed on ``mesh`` at ``specs`` (a
+    specs tree of the reference's shape, e.g. ``ModelAPI.param_specs()`` or
+    ``core.pooling.pooled_specs``): the counterpart of the reference's
+    ``jax.device_put(params, tree_shardings(mesh, specs))``. Each rank
+    copies only its own slice of every leaf to its device
+    (:func:`distribute`); the input module, on any device, is left as it
+    was, and the copy holds no cast of the source's."""
+    if not in_mesh(mesh):
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {mesh}")
+    memo = {}
+    for name, p in params.named_parameters():
+        if id(p) not in memo:
+            memo[id(p)] = torch.nn.Parameter(distribute(p, mesh, leaf_spec(specs, name)),
+                                             requires_grad=False)
+    for m in params.modules():
+        held = m.__dict__.get("_casts")
+        if held is not None:
+            memo[id(held)] = {}  # held casts belong to the source's leaves
+    return copy.deepcopy(params, memo)
+
+
+def mesh_of(tensors) -> Optional[DeviceMesh]:
+    """The mesh of the first DTensor among ``tensors``; None if none is one."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            return t.device_mesh
+    return None
+
+
 # ---------------------------------------------------------------------------
 # active-mesh context (thread-local; no global process-group state)
 
@@ -391,13 +469,34 @@ def split_last(x: torch.Tensor, sizes: tuple) -> torch.Tensor:
 
 
 def take_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``w[ids]``: the rows of a table. A DTensor table is looked up by
-    ``F.embedding`` on each rank's shard, the rows of a vocabulary-sharded
-    table added across the mesh (each row lives on one rank, so the sum is
-    exact)."""
-    if isinstance(w, DTensor):
-        return reduced(F.embedding(like(ids.long(), w), w))
-    return w[ids.long()]
+    """``w[ids]``: the rows of a table. A DTensor table is looked up on each
+    rank's shard, on each rank's ids (a batch sharded over the data axes
+    stays so), by ``w[ids]`` where the rank holds every row (a 1-card mesh
+    runs the plain path's op) and ``F.embedding`` where it holds some: a
+    rank of a vocabulary-sharded table gives the rows it holds and zeros
+    for the others, and the rows are added across the mesh (each row lives
+    on one rank, so the sum is exact); a table sharded along its width
+    gives the rows' columns."""
+    if not isinstance(w, DTensor):
+        return w[ids.long()]
+    ids = like(ids.long(), w)
+    mesh, out, n = w.device_mesh, [], w.shape[0]
+    for pw, pi in zip(w.placements, ids.placements):
+        if pw.is_shard(0):
+            out.append(Partial())
+        elif pw.is_shard(1):
+            out.append(Shard(ids.ndim))
+        else:
+            out.append(pi)
+    rows = local_index(w.shape, mesh, w.placements)[0]
+    wl = w.to_local(grad_placements=grad_placements(w, ids))
+    il = ids.to_local()
+    if (rows.start, rows.stop) == (0, n):  # the whole table: the plain path's own op
+        local = wl[il]
+    else:
+        keep = (il >= rows.start) & (il < rows.stop)
+        local = torch.where(keep[..., None], F.embedding((il - rows.start).clamp(0, wl.shape[0] - 1), wl), 0.0)
+    return reduced(from_local(local, mesh, out, tuple(ids.shape) + (w.shape[1],)))
 
 
 def _over_model(ndim: int, dim: int) -> tuple:
@@ -406,30 +505,162 @@ def _over_model(ndim: int, dim: int) -> tuple:
     return tuple(axes)
 
 
-def local_heads(x: torch.Tensor, dim: int) -> torch.Tensor:
+def _heads_placements(mesh: DeviceMesh, dim: int, shape, keep=None) -> list:
+    """Placements with ``dim`` over ``MODEL`` where it divides (replicated
+    where it does not) and every other mesh axis as in ``keep`` (a DTensor's
+    placements: a batch sharded over the data axes stays so), replicated
+    without it."""
+    out = placements(mesh, _over_model(len(shape), dim), shape)
+    if keep is not None and MODEL in (mesh.mesh_dim_names or ()):
+        m = mesh.mesh_dim_names.index(MODEL)
+        out = [o if i == m else k for i, (o, k) in enumerate(zip(out, keep))]
+    return out
+
+
+def grad_placements(x: DTensor, ref: Optional[DTensor]) -> list:
+    """The placements of the gradient of ``x``'s local tensor when each rank
+    computes with it beside ``ref``'s local tensor: over a mesh axis that
+    shards ``ref`` but replicates ``x`` (a weight beside a batch sharded
+    over the data axes, K/V beside queries split over ``MODEL``) each rank's
+    gradient is a partial sum; elsewhere the gradient is placed as ``x``."""
+    if ref is None:
+        return list(x.placements)
+    return [Partial() if p.is_replicate() and not r.is_replicate() else p
+            for p, r in zip(x.placements, ref.placements)]
+
+
+def local_heads(x: torch.Tensor, dim: int, like: Optional[DTensor] = None) -> torch.Tensor:
     """This rank's share of ``x`` along ``dim`` (the heads a kernel runs on)
     as a plain tensor: the slice ``MODEL`` gives it where the axis divides
-    the dimension, all of it where it does not (the divisibility drop).
-    ``x`` a DTensor, or a plain tensor the same on every rank; with no
-    active mesh ``x`` as it is. A replicated input is sliced locally, with
-    no collective."""
+    the dimension, all of it where it does not (the divisibility drop);
+    every other mesh axis keeps its placement (a batch sharded over the
+    data axes stays so). ``x`` a DTensor, or a plain tensor the same on
+    every rank; with no active mesh ``x`` as it is. A replicated input is
+    sliced locally, with no collective. ``like``, the activation the local
+    computation runs beside, gives the gradient's placements
+    (:func:`grad_placements`)."""
     if active_mesh() is None:
         return x
     x = replicated(x)
-    return shard(x, *_over_model(x.ndim, dim)).to_local()
+    want = _heads_placements(x.device_mesh, dim, x.shape, x.placements)
+    if list(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return x.to_local(grad_placements=grad_placements(x, like))
 
 
-def from_heads(x: torch.Tensor, dim: int, shape, mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+def from_heads(x: torch.Tensor, dim: int, shape, mesh: Optional[DeviceMesh] = None,
+               like: Optional[DTensor] = None) -> torch.Tensor:
     """:func:`local_heads`'s inverse: a rank's share along ``dim`` as a
     DTensor of global ``shape`` on ``mesh`` (by default the active mesh),
     sharded along ``dim`` over ``MODEL`` where it divides, replicated where
-    it does not; ``x`` as it is with no mesh."""
+    it does not, every other mesh axis placed as ``like`` (the activation
+    it came from) where given; ``x`` as it is with no mesh."""
     mesh = active_mesh() if mesh is None else mesh
     if mesh is None:
         return x
     shape = torch.Size(shape)
-    return DTensor.from_local(x, mesh, placements(mesh, _over_model(len(shape), dim), shape), run_check=False,
+    keep = like.placements if isinstance(like, DTensor) else None
+    return DTensor.from_local(x, mesh, _heads_placements(mesh, dim, shape, keep), run_check=False,
                               shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+class _FromLocal(torch.autograd.Function):
+    """``DTensor.from_local`` whose backward hands each rank the gradient of
+    its local tensor: the incoming gradient placed as the output was, a
+    partial output's gradient whole (a partial sum's every term takes the
+    whole gradient; DTensor's own ``from_local`` passes a partial gradient
+    on as it came)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, place, shape):
+        ctx.mesh, ctx.place = mesh, [Replicate() if p.is_partial() else p for p in place]
+        shape = torch.Size(shape)
+        return DTensor.from_local(x, mesh, place, run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        if list(grad.placements) != ctx.place:
+            grad = grad.redistribute(ctx.mesh, ctx.place)
+        return grad.to_local(), None, None, None
+
+
+def from_local(x: torch.Tensor, mesh: DeviceMesh, place, shape) -> DTensor:
+    """A rank's local result ``x`` as a DTensor of global ``shape`` on
+    ``mesh``, placed at ``place`` (:class:`_FromLocal`)."""
+    return _FromLocal.apply(x, mesh, list(place), tuple(shape))
+
+
+def local_matmul(a: DTensor, b: DTensor, fn=torch.matmul) -> DTensor:
+    """``fn(a, b)`` (a matmul, (..., M, K) @ (K, N) or (..., K, N)) computed
+    on each rank's local shards, the placements worked out here, mesh axis
+    by mesh axis: a batch or row shard of ``a`` stays on the output (the
+    weight gathered where it is split on the same axis), a column shard of
+    ``b`` gives an output column shard, and a split contraction (the other
+    operand sliced to it locally where it is whole) gives a partial sum.
+    Each rank runs the plain ``fn`` on plain tensors (so a 1-card mesh runs
+    exactly the plain path's kernel), and the gradients' placements follow
+    (:func:`grad_placements`). DTensor's own propagation of a product over
+    a mesh of three axes takes seconds a shape on the host. A ``ValueError``
+    where the operands fall outside these cases (b's batch axes split, a
+    split where it broadcasts against b's): no model makes such a product."""
+    mesh = a.device_mesh
+    if b.device_mesh != mesh or a.ndim < 2 or b.ndim < 2:
+        raise ValueError(f"a product of {a.ndim}-D by {b.ndim}-D operands on one mesh is needed")
+    a, b = reduced(a), reduced(b)
+    ka, kb, nb = a.ndim - 1, b.ndim - 2, b.ndim - 1
+    if any(p.is_shard() and p.dim < kb for p in b.placements) or (
+            b.ndim > 2 and any(p.is_shard() and p.dim < a.ndim - 2 for p in a.placements)):
+        raise ValueError(f"batch dims split across cards: {a.placements} @ {b.placements}")
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) if b.ndim > 2 else a.shape[:-2]
+    shape = tuple(batch) + (a.shape[-2], b.shape[-1])
+    shift = len(shape) - a.ndim
+    want_a, want_b, out = list(a.placements), list(b.placements), []
+    for i, (pa, pb) in enumerate(zip(a.placements, b.placements)):
+        a_k, b_k, b_n = pa.is_shard(ka), pb.is_shard(kb), pb.is_shard(nb)
+        a_row = pa.is_shard() and not a_k
+        if a_row and (b_k or b_n):  # both split on this axis: gather the weight
+            want_b[i], b_k, b_n = Replicate(), False, False
+        if a_k and b_n:  # a's contraction split against b's columns: gather a's
+            want_a[i], a_k = Replicate(), False
+        if a_k and not b_k:
+            want_b[i], b_k = Shard(kb), True
+        elif b_k and not a_k:
+            want_a[i], a_k = Shard(ka), True
+        if a_k:
+            out.append(Partial())
+        elif a_row:
+            out.append(Shard(pa.dim + shift))
+        elif b_n:
+            out.append(Shard(len(shape) - 1))
+        else:
+            out.append(Replicate())
+    if want_a != list(a.placements):
+        a = a.redistribute(mesh, want_a)
+    if want_b != list(b.placements):
+        b = b.redistribute(mesh, want_b)
+    al = a.to_local(grad_placements=grad_placements(a, b))
+    bl = b.to_local(grad_placements=grad_placements(b, a))
+    return from_local(fn(al, bl), mesh, out, shape)
+
+
+def local_einsum(eq: str, x: DTensor, w: torch.Tensor) -> Optional[DTensor]:
+    """``torch.einsum(eq, x, w)`` on each rank's local shard of ``x`` beside
+    a ``w`` whole on every rank (replicated, or plain): a shard of ``x``
+    stays on the output dimension of its letter, or gives a partial sum
+    where its letter is summed. None where ``w`` is split."""
+    w = like(w, x)
+    if w.device_mesh != x.device_mesh or any(not p.is_replicate() for p in w.placements):
+        return None
+    x = reduced(x)
+    ins, os_ = eq.split("->")
+    xs, ws = ins.split(",")
+    out = [Replicate() if not p.is_shard() else (Shard(os_.index(xs[p.dim])) if xs[p.dim] in os_ else Partial())
+           for p in x.placements]
+    sizes = dict(zip(xs, x.shape))
+    sizes.update(zip(ws, w.shape))
+    local = torch.einsum(eq, x.to_local(), w.to_local(grad_placements=grad_placements(w, x)))
+    return from_local(local, x.device_mesh, out, [sizes[c] for c in os_])
 
 
 def whole(x: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import BATCH
 from repro_torch.models import common, moe, rwkv6, transformer, vlm, whisper, zamba2
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig
+from repro_torch.optim.adamw import adamw_update_
 
 _PORTED = {"dense": transformer, "moe": moe, "ssm": rwkv6, "hybrid": zamba2, "vlm": vlm,
            "audio": whisper}
@@ -72,10 +73,11 @@ class ModelAPI:
         caches, rwkv6's wkv state, the Mamba2 SSM state) holds this rank's
         share of them where the model axis divides them, all of them where
         it does not (``launch.mesh.local_size``), as the models compute
-        them; the rest (shifts, conv tails, lengths) whole. Every leaf
-        starts at zero."""
+        them; the rest (shifts, conv tails, lengths) whole. Under
+        ``sp_activations`` attention gathers K/V whole on every rank, and
+        the cache holds every head. Every leaf starts at zero."""
         mod, dev = _PORTED[self.family], resolve_device(device)
-        if mesh is None:
+        if mesh is None or self.cfg.sp_activations:
             return mod.init_cache(self.cfg, batch, max_len, device=dev)
         # model_axis 1: the KV specs take their heads form, so every MODEL
         # entry marks a heads axis (the port never splits the sequence)
@@ -147,7 +149,7 @@ class ModelAPI:
             h, w, aux = moe.features(params, cfg, batch["tokens"], remat=remat)
             loss, metrics = ce(h, w)
             metrics["aux_loss"] = aux
-            return loss + aux, metrics
+            return loss + meshlib.like(aux, loss), metrics  # aux: plain, the same on every rank
         if self.family == "vlm":
             return ce(*vlm.features(params, cfg, batch["embeds"], batch["mrope_positions"], remat=remat))
         if self.family == "audio":
@@ -256,6 +258,35 @@ def _split(name: str, x: torch.Tensor, ga: int) -> torch.Tensor:
     return x.movedim(axis, 0)
 
 
+# the families whose train step runs across cards (the reference pools
+# qwen1.5-110b, qwen2-moe-a2.7b and rwkv6-7b); the others are ROADMAP A11.6
+MESH_TRAINED = ("dense", "moe", "ssm")
+
+
+def _on_mesh(name: str, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A micro-batch leaf as a DTensor sharded on its batch axis over
+    ``BATCH`` (each rank keeps its rows), the counterpart of the
+    reference's ``shard(x, None, BATCH)``; plain with no mesh."""
+    if mesh is None:
+        return x
+    axes = (None, BATCH) if name == "mrope_positions" else (BATCH,)
+    return meshlib.distribute(x, mesh, axes + (None,) * (x.ndim - len(axes)))
+
+
+def _storage_placements(named: dict, storage_specs: Optional[dict], mesh) -> dict:
+    """Each trainable leaf's placements: its own, which ``storage_specs``
+    (when given) must name."""
+    out = {}
+    for n, p in named.items():
+        out[n] = list(p.placements) if meshlib.is_dtensor(p) else None
+        if storage_specs is not None and mesh is not None:
+            want = meshlib.placements(mesh, meshlib.leaf_spec(storage_specs, n), p.shape)
+            if out[n] != want:
+                raise ValueError(f"{n} is placed {out[n]}, its storage spec says {want}: "
+                                 "place the parameters at storage_specs (launch.mesh.place_params)")
+    return out
+
+
 def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optional[dict] = None,
                     grad_accum: Optional[int] = None, storage_specs: Optional[dict] = None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
@@ -265,8 +296,9 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optio
     batch (``labels`` and the family's inputs). The step switches
     ``requires_grad`` on for the trainable leaves, takes the loss and its
     gradients, switches it off again (so a serving path never sees a leaf
-    that requires grad), and writes AdamW's new values into the leaves in
-    place under ``torch.no_grad()``: the held casts see the new version and
+    that requires grad), and writes AdamW's new values into the leaves and
+    ``opt_state``'s moments in place, a leaf at a time
+    (``optim.adamw.adamw_update_``): the held casts see the new version and
     cast anew. Every metric is a 0-d f32 tensor on the model's device; the
     step reads nothing back to the host.
 
@@ -274,43 +306,66 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optio
     many micro-batches, run one after another; their gradients summed in
     f32 and, like their metrics, divided by the count.
 
-    ``compute_specs`` and ``storage_specs`` are the reference's sharding
-    constraints; on one device they are None and change nothing.
+    Across a mesh of cards (weight pooling, the reference's
+    ``compute_specs``/``storage_specs``): the parameters arrive as DTensors
+    placed at their storage layout (``launch.mesh.place_params`` at
+    ``core.pooling.pooled_specs``), and AdamW's moments beside them
+    (``adamw_init`` keeps each leaf's placement). The step runs under their
+    mesh: the models gather each layer's leaves to the compute layout
+    (``api.param_specs()``, which ``compute_specs`` must be) where the layer
+    runs, cast first, one layer at a time (``common.cast``), and nothing
+    gathered is held across steps. ``batch`` is the global batch, the same
+    on every rank (a DTensor is gathered first); each micro-batch enters as
+    a DTensor sharded on its batch axis over ``BATCH``, so autograd sums
+    the data-parallel ranks' gradients: the gradient of a gather comes back
+    partial over the batch axes, and placing it at the storage layout is
+    the reduce-scatter. Gradients, the f32 accumulators of ``grad_accum``
+    and the update stay at the storage layout (``storage_specs``, when
+    given, must be it); the metrics are the same plain tensors on every
+    rank. With every leaf plain the specs change nothing.
     """
-    if compute_specs is not None or storage_specs is not None:
-        raise NotImplementedError("sharded parameters and gradients (compute_specs, storage_specs) "
-                                  "are ROADMAP A11.3")
+    if (compute_specs is not None or storage_specs is not None) and api.family not in MESH_TRAINED:
+        raise NotImplementedError(f"training the {api.family} family across cards (compute_specs, "
+                                  "storage_specs) is ROADMAP A11.6")
+    if compute_specs is not None and compute_specs != api.param_specs():
+        raise ValueError("the models gather at their own sites: compute_specs must be api.param_specs()")
     ga = grad_accum if grad_accum is not None else api.cfg.grad_accum
 
     def grads_of(params, named: dict, batch: dict):
         loss, metrics = api.loss(params, batch)
-        g = torch.autograd.grad(loss, list(named.values()), allow_unused=True, materialize_grads=True)
+        g = torch.autograd.grad(meshlib.reduced(loss), list(named.values()), allow_unused=True,
+                                materialize_grads=True)
         return dict(zip(named, g)), metrics
 
     def train_step(params, opt_state, batch):
         named = trainable(params)
+        mesh = meshlib.mesh_of(named.values())
+        place = _storage_placements(named, storage_specs, mesh)
         for p in named.values():
             p.requires_grad_(True)
         try:
-            micro = {k: _split(k, v, ga) for k, v in batch.items()}
-            grads, metrics = {}, {}
-            for i in range(ga):
-                g, m = grads_of(params, named, {k: v[i] for k, v in micro.items()})
-                for total, part in ((grads, g), (metrics, m)):
-                    for k, x in part.items():
-                        x = x.detach().float()
-                        total[k] = total[k] + x if k in total else x
-            # one micro-batch divides by 1, which changes no bit
-            grads = {n: x / ga for n, x in grads.items()}
-            metrics = {k: x / ga for k, x in metrics.items()}
+            with meshlib.activate(mesh):
+                micro = {k: _split(k, meshlib.whole(v), ga) for k, v in batch.items()}
+                grads, metrics = {}, {}
+                for i in range(ga):
+                    g, m = grads_of(params, named, {k: _on_mesh(k, v[i], mesh) for k, v in micro.items()})
+                    # the storage layout: a partial sum over the batch axes is
+                    # reduce-scattered (or all-reduced) into it
+                    g = {n: x if place[n] is None else x.redistribute(x.device_mesh, place[n])
+                         for n, x in g.items()}
+                    for total, part in ((grads, g), (metrics, m)):
+                        for k, x in part.items():
+                            x = x.detach().float()
+                            total[k] = total[k] + x if k in total else x
+                # one micro-batch divides by 1, which changes no bit
+                grads = {n: x / ga for n, x in grads.items()}
+                metrics = {k: meshlib.whole(meshlib.reduced(x / ga)) for k, x in metrics.items()}
         finally:
             for p in named.values():
                 p.requires_grad_(False)
-        with torch.no_grad():
-            new, opt_state, om = adamw_update(opt_cfg, {n: p.detach() for n, p in named.items()},
-                                              grads, opt_state)
-            for n, p in named.items():
-                p.copy_(new[n])
+        # in place, a leaf at a time: a card has no room for a second state
+        opt_state, om = adamw_update_(opt_cfg, {n: p.detach() for n, p in named.items()}, grads, opt_state)
+        om = {k: meshlib.whole(meshlib.reduced(x)) for k, x in om.items()}
         return params, opt_state, {**metrics, **om}
 
     return train_step

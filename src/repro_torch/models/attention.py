@@ -106,19 +106,26 @@ def _heads(t: torch.Tensor, kv: slice, dim: int = 1) -> torch.Tensor:
 
 
 def _local_heads(q, k, v):
-    """(q, k, v, kv, wrap) on this rank: its query heads and its K/V as plain
-    tensors, ``kv`` the slice of its K/V heads that its query heads read,
-    and ``wrap``, which makes the attention output over its query heads a
-    DTensor on q's mesh again, its heads placed as q's. Plain tensors come back as they are,
-    with every KV head and the identity."""
+    """(q, k, v, kv, wrap, rows) on this rank: its queries and its K/V as
+    plain tensors, ``kv`` the slice of its K/V heads that its query heads
+    read, ``wrap``, which makes the attention output over its queries a
+    DTensor on q's mesh again, placed as q is, and ``rows``, the global
+    (batch, sequence) index of its first query. q and k may be sharded on
+    their batch (dim 0, over the data axes), and q on its heads (dim 1) or,
+    under ``sp_activations``, on its sequence (dim 2, with k and v
+    gathered); each rank's gradient of K/V it shares with other ranks'
+    queries is a partial sum (``launch.mesh.grad_placements``). Plain
+    tensors come back as they are, with every KV head, the identity and
+    (0, 0)."""
     if not meshlib.is_dtensor(q):
-        return q, k, v, slice(None), lambda o: o
-    for x in (q, k):
-        if any(p.is_shard() and not p.is_shard(1) for p in x.placements):
-            raise ValueError("attention across cards takes head-sharded activations; "
-                             "sp_activations (a training layout) shards the sequence")
+        return q, k, v, slice(None), lambda o: o, (0, 0)
+    for x, dims in ((q, (0, 1, 2)), (k, (0, 1))):
+        if any(p.is_shard() and p.dim not in dims for p in x.placements):
+            raise ValueError(f"attention across cards takes activations sharded on dims {dims}, "
+                             f"not {x.placements}")
     hq, hkv = q.shape[1], k.shape[1]
-    ql, kl, vl = meshlib.local(q), meshlib.local(k), meshlib.local(v)
+    ql = q.to_local()
+    kl, vl = (x.to_local(grad_placements=meshlib.grad_placements(x, q)) for x in (k, v))
     group = hq // hkv
     q0, n_q, k0 = _first(q, 1), ql.shape[1], _first(k, 1)
     if n_q % group and group % n_q:
@@ -129,18 +136,24 @@ def _local_heads(q, k, v):
     kv = slice(first - k0, first - k0 + n_kv)
     if (kv.start, kv.stop) == (0, kl.shape[1]):
         kv = slice(None)  # every local KV head
-    shape = lambda o: (o.shape[0], hq) + tuple(o.shape[2:])
-    return ql, kl, vl, kv, lambda o: meshlib.from_heads(o, 1, shape(o), q.device_mesh)
+    wrap = lambda o: meshlib.from_local(o, q.device_mesh, q.placements, tuple(q.shape[:3]) + (o.shape[3],))
+    return ql, kl, vl, kv, wrap, (_first(q, 0), _first(q, 2))
 
 
-def _rope(cfg: ModelConfig, q, k, positions, mrope_positions=None):
+def _rope(cfg: ModelConfig, q, k, positions, mrope_positions=None, rows=(0, 0)):
+    """RoPE (or M-RoPE) at each tensor's own positions: ``rows`` is the
+    global (batch, sequence) index of q's first entry (``_local_heads``);
+    k holds the same batch rows and every sequence position."""
     if cfg.rope_theta <= 0:
         return q, k
+    b0, s0 = rows
+    bq, lq, lk = q.shape[0], q.shape[2], k.shape[2]
     if mrope_positions is not None:
-        return (common.apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections),
-                common.apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections))
-    return (common.apply_rope(q, positions, cfg.rope_theta),
-            common.apply_rope(k, positions, cfg.rope_theta))
+        rope = lambda x, at: common.apply_mrope(x, at, cfg.rope_theta, cfg.mrope_sections)
+        return (rope(q, mrope_positions[:, b0:b0 + bq, s0:s0 + lq]),
+                rope(k, mrope_positions[:, b0:b0 + bq, :lk]))
+    return (common.apply_rope(q, positions[b0:b0 + bq, s0:s0 + lq], cfg.rope_theta),
+            common.apply_rope(k, positions[b0:b0 + bq, :lk], cfg.rope_theta))
 
 
 def _out_proj(p: dict, x_dtype, o: torch.Tensor) -> torch.Tensor:
@@ -149,26 +162,28 @@ def _out_proj(p: dict, x_dtype, o: torch.Tensor) -> torch.Tensor:
     return common.matmul_f32(o, p["wo"]).to(x_dtype)
 
 
-def attend(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
-    """Full-sequence attention, (B, Hq, L, hd) -> (B, Hq, L, hd): the flash
-    kernel on the card (every key valid, q row 0 at position 0), the eager
-    online-softmax reference on the CPU. A training forward (grad mode on
-    and an input that requires grad) goes through ``common.attention_train``
-    instead, whose forward is the same kernel (or the same reference) and
-    whose backward is the reference's."""
+def attend(q, k, v, *, causal: bool, block_k: int, q_offset: int = 0) -> torch.Tensor:
+    """Full-sequence attention, (B, Hq, Lq, hd) over (B, Hkv, Lk, hd) ->
+    (B, Hq, Lq, hd): the flash kernel on the card (every key valid, q row 0
+    at position ``q_offset``: a rank's first row when the sequence is split
+    across cards), the eager online-softmax reference on the CPU. A
+    training forward (grad mode on and an input that requires grad) goes
+    through ``common.attention_train`` instead, whose forward is the same
+    kernel (or the same reference) and whose backward is the reference's,
+    masked at the same positions."""
     if common.needs_grad(q, k, v):
-        return common.attention_train(q, k, v, causal=causal, block_k=block_k)
+        return common.attention_train(q, k, v, causal=causal, q_offset=q_offset, block_k=block_k)
     if build.kernel_route(q):
-        return flash_attention(q, k, v, causal=causal, lk_valid=k.shape[2], q_offset=0)
-    return common.attention_chunked(q, k, v, causal=causal, block_k=block_k)
+        return flash_attention(q, k, v, causal=causal, lk_valid=k.shape[2], q_offset=q_offset)
+    return common.attention_chunked(q, k, v, causal=causal, q_offset=q_offset, block_k=block_k)
 
 
 def apply_train(p: dict, cfg: ModelConfig, x, positions, mrope_positions=None, *,
                 causal: bool = True, block_k: int = 1024) -> torch.Tensor:
     """Full-sequence attention (forward without cache return)."""
-    q, k, v, kv, wrap = _local_heads(*_project_qkv(p, cfg, x))
-    q, k = _rope(cfg, q, k, positions, mrope_positions)
-    o = attend(q, _heads(k, kv), _heads(v, kv), causal=causal, block_k=block_k)
+    q, k, v, kv, wrap, rows = _local_heads(*_project_qkv(p, cfg, x))
+    q, k = _rope(cfg, q, k, positions, mrope_positions, rows)
+    o = attend(q, _heads(k, kv), _heads(v, kv), causal=causal, block_k=block_k, q_offset=rows[1])
     return _out_proj(p, x.dtype, wrap(o))
 
 
@@ -176,9 +191,9 @@ def apply_prefill(p: dict, cfg: ModelConfig, x, positions, max_len: int, mrope_p
                   block_k: int = 1024):
     """As apply_train but also returns the (padded-to-max_len) KV for caching
     (across a mesh this rank's K/V, as plain tensors)."""
-    q, k, v, kv, wrap = _local_heads(*_project_qkv(p, cfg, x))
-    q, k = _rope(cfg, q, k, positions, mrope_positions)
-    o = attend(q, _heads(k, kv), _heads(v, kv), causal=True, block_k=block_k)
+    q, k, v, kv, wrap, rows = _local_heads(*_project_qkv(p, cfg, x))
+    q, k = _rope(cfg, q, k, positions, mrope_positions, rows)
+    o = attend(q, _heads(k, kv), _heads(v, kv), causal=True, block_k=block_k, q_offset=rows[1])
     l = x.shape[1]
     if max_len > l:
         k = F.pad(k, (0, 0, 0, max_len - l))
@@ -212,9 +227,9 @@ def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_s
     must be a multiple of it); the CPU path ignores it. Returns the
     attention output (B, 1, D).
     """
-    q, k, v, kv, wrap = _local_heads(*_project_qkv(p, cfg, x))
+    q, k, v, kv, wrap, rows = _local_heads(*_project_qkv(p, cfg, x))
     positions = lengths[:, None].to(torch.int32)  # (B, 1)
-    q, k = _rope(cfg, q, k, positions, mrope_positions)
+    q, k = _rope(cfg, q, k, positions, mrope_positions, rows)
     _write_at(k_cache, lengths, k[:, :, 0, :], active)
     _write_at(v_cache, lengths, v[:, :, 0, :], active)
     o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size, kv)

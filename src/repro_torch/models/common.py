@@ -60,15 +60,12 @@ def needs_grad(*tensors) -> bool:
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in f32, whatever the inputs' type. Across a mesh a plain
     operand meets a DTensor one replicated, and partial sums are added
-    across the mesh in f32 (module docstring). A DTensor ``a`` of three or
-    more dims against a 2-D ``b`` is folded into one 2-D product, as
-    ``torch.matmul`` folds a plain one: DTensor's own decomposition can
-    batch it instead (``bmm``), a kernel that rounds its sums differently."""
+    across the mesh in f32 (module docstring): each rank multiplies its
+    local shards with the plain path's own op (``launch.mesh.local_matmul``),
+    so a 1-card mesh runs exactly the plain path's kernels."""
     a, b = meshlib.common(a, b)
-    if meshlib.is_dtensor(a) and a.ndim > 2 and b.ndim == 2:
-        out = meshlib.reduced(torch.matmul(a.reshape(-1, a.shape[-1]).float(), b.float()))
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return meshlib.reduced(torch.matmul(a.float(), b.float()))
+    fn = lambda x, y: torch.matmul(x.float(), y.float())
+    return meshlib.reduced(meshlib.local_matmul(a, b, fn) if meshlib.is_dtensor(a) else fn(a, b))
 
 
 def matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -477,8 +474,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
 
 
 def _ce_chunk(hc, lc, w, vocab_bias):
-    """One sequence chunk of ``fused_ce_loss``: (nll, z, tokens, correct) sums."""
-    logits = matmul_f32(hc, w.to(hc.dtype)) + vocab_bias
+    """One sequence chunk of ``fused_ce_loss``: (nll, z, tokens, correct)
+    sums. Across a mesh the chunk's logits are gathered along the
+    vocabulary first (the label lookup is exact on whole rows)."""
+    logits = meshlib.replicated_dim(matmul_f32(hc, w.to(hc.dtype)), -1) + vocab_bias
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, lc.long().clamp_min(0)[..., None])[..., 0]
     msk = (lc >= 0).float()
@@ -499,6 +498,7 @@ def fused_ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_
     (B, S) int with -1 = ignore. Returns (loss, metrics) like
     ``cross_entropy``.
     """
+    h = meshlib.replicated_dim(h, 1)  # across a mesh: a sequence split over the cards gathered
     b, s, d = h.shape
     vp = w.shape[-1]
     chunk = min(chunk, s)
@@ -511,6 +511,7 @@ def fused_ce_loss(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab_
     ls = labels.reshape(b, nc, chunk)
     vocab_bias = torch.where(torch.arange(vp, device=h.device) < vocab_size, 0.0, NEG_INF).float()
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    vocab_bias, zero = meshlib.like(vocab_bias, h), meshlib.like(zero, h)  # across a mesh: replicated
     nll, zz, ntok, ncorr = zero, zero, zero, zero
     for i in range(nc):
         a, z, t, c = _ckpt.checkpoint(_ce_chunk, hs[:, i], ls[:, i], w, vocab_bias,
@@ -540,7 +541,7 @@ def maybe_remat(fn, enabled: bool, policy: str = "nothing"):
     if not enabled:
         return fn
     if policy == "nothing":
-        return lambda *args: _ckpt.checkpoint(fn, *args, use_reentrant=False,
+        return lambda *args: _ckpt.checkpoint(_under_active_mesh(fn), *args, use_reentrant=False,
                                               preserve_rng_state=False)
     if policy == "dots":
         def save_dots(ctx, op, *args, **kwargs):
@@ -551,9 +552,23 @@ def maybe_remat(fn, enabled: bool, policy: str = "nothing"):
         def contexts():
             return _ckpt.create_selective_checkpoint_contexts(save_dots)
 
-        return lambda *args: _ckpt.checkpoint(fn, *args, use_reentrant=False,
+        return lambda *args: _ckpt.checkpoint(_under_active_mesh(fn), *args, use_reentrant=False,
                                               preserve_rng_state=False, context_fn=contexts)
     raise ValueError(f"remat policy {policy!r}: 'nothing' or 'dots'")
+
+
+def _under_active_mesh(fn):
+    """``fn`` run under the mesh active at this call (``launch.mesh``): the
+    backward's recompute of a checkpointed block may run on autograd's
+    device thread, where the caller's thread-local active mesh is not set,
+    and must place its tensors as the forward did."""
+    mesh = meshlib.active_mesh()
+
+    def body(*args):
+        with meshlib.activate(mesh):
+            return fn(*args)
+
+    return body
 
 
 def commit(dst: torch.Tensor, new: torch.Tensor, active=None) -> torch.Tensor:

@@ -289,8 +289,10 @@ def features(params: transformer.Transformer, cfg: ModelConfig, tokens=None, emb
     b, l, _ = h.shape
     positions = common.causal_positions(b, l, h.device)
 
+    specs = layer_specs(cfg)
+
     def block(h, aux, blk):
-        layer = blk.tree(cdt)
+        layer = blk.tree(cdt, specs)
         x = common.rms_norm(h, layer["ln1"], cfg.norm_eps)
         h = h + attention.apply_train(layer["attn"], cfg, x, positions, block_k=block_k)
         x = common.rms_norm(h, layer["ln2"], cfg.norm_eps)
@@ -302,7 +304,7 @@ def features(params: transformer.Transformer, cfg: ModelConfig, tokens=None, emb
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in params.layers:
         h, aux = block(h, aux, blk)
-    h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
+    h = common.rms_norm(h, common.cast(params, "final_norm", None, (None,)), cfg.norm_eps)
     return h, transformer._head_param(params, cfg), aux
 
 

@@ -166,7 +166,10 @@ def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bo
     sx = _token_shift(xf, shift_prev) - xf
     xxx = xf + sx * att["maa_x"]
     mix = torch.tanh(matmul_f32(xxx, att["maa_w1"])).reshape(b, t, 5, MIX_RANK)
-    mix = torch.einsum("btfr,frd->fbtd", mix, att["maa_w2"].float())  # (5, B, T, D)
+    eq = "btfr,frd->fbtd"  # (5, B, T, D); across a mesh on each rank's rows
+    w2 = att["maa_w2"].float()
+    local = meshlib.local_einsum(eq, mix, w2) if meshlib.is_dtensor(mix) else None
+    mix = torch.einsum(eq, mix, w2) if local is None else local
     xw, xk, xv, xr, xg = [xf + sx * (att["maa"][i] + mix[i]) for i in range(5)]
 
     def proj(xx, w):  # bf16 x bf16 -> bf16 at full width, then f32
@@ -179,7 +182,7 @@ def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bo
     g = F.silu(proj(xg, att["wg"]))
     lw = -torch.exp(att["w0"] + matmul_f32(matmul_f32(xw, att["w1"]), att["w2"])).reshape(b, t, h, hd)
     lw = meshlib.local_heads(lw, 2)
-    u = meshlib.local_heads(att["u"].float(), 0).contiguous()
+    u = meshlib.local_heads(att["u"].float(), 0, like=x).contiguous()
     if common.needs_grad(r, k, v, lw, u, wkv_state):
         y, wkv_state = wkv6_train(r, k, v, lw, u, wkv_state)
     else:
@@ -187,7 +190,7 @@ def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bo
     # per-head group norm (on this rank's heads), then gate and output projection
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
-    yn = meshlib.from_heads((y - mu) * torch.rsqrt(var + 64e-5), 2, (b, t, h, hd)).reshape(b, t, d)
+    yn = meshlib.from_heads((y - mu) * torch.rsqrt(var + 64e-5), 2, (b, t, h, hd), like=x).reshape(b, t, d)
     yn = yn * att["ln_x"]["w"] + att["ln_x"]["b"]
     out = matmul_f32((yn * g).to(dtype), att["wo"]).to(dtype)
     return out, meshlib.whole(xf[:, -1, :]), wkv_state
@@ -214,9 +217,14 @@ def _block(layer: dict, cfg: ModelConfig, h, att_shift, cm_shift, wkv_state, inp
     return shard(h + m, BATCH, None, None), att_shift, cm_shift, wkv_state
 
 
-def _embed(params: RWKV6, cfg: ModelConfig, tokens):
-    h = meshlib.take_rows(params.embed, tokens).to(common.dt(cfg.compute_dtype))
-    h = layer_norm(shard(h, BATCH, None, None), params.ln0.w, params.ln0.b, cfg.norm_eps)
+def _embed(params: RWKV6, cfg: ModelConfig, tokens, gather: bool = False):
+    """The embedding rows of ``tokens`` through ``ln0``; ``gather`` (the
+    training trunk's) places the table and the norm at their compute specs
+    where they are used (a pooled parameter gathered, ``common.cast``)."""
+    emb = common.cast(params, "embed", None, (MODEL, None)) if gather else params.embed
+    ln0 = params.ln0.tree(None, {"w": (None,), "b": (None,)}) if gather else {"w": params.ln0.w, "b": params.ln0.b}
+    h = meshlib.take_rows(emb, tokens).to(common.dt(cfg.compute_dtype))
+    h = layer_norm(shard(h, BATCH, None, None), ln0["w"], ln0["b"], cfg.norm_eps)
     return shard(h, BATCH, None, None)
 
 
@@ -248,19 +256,21 @@ def features(params: RWKV6, cfg: ModelConfig, tokens, *, remat: Optional[bool] =
     ``remat`` (default ``cfg.remat``). Runs with autograd; the scan is
     ``wkv6_train`` (B6 on the card, twice a layer with remat: the forward
     and its recompute). ``forward`` is the serving form."""
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, gather=True)
     b, _, d = h.shape
     cdt = common.dt(cfg.compute_dtype)
+    specs = layer_specs(cfg)
 
     def block(h, blk):
         z = torch.zeros((b, d), dtype=torch.float32, device=h.device)
-        return _block(blk.tree(cdt), cfg, h, z, z, None, inplace=False)[0]
+        return _block(blk.tree(cdt, specs), cfg, h, z, z, None, inplace=False)[0]
 
     block = common.maybe_remat(block, cfg.remat if remat is None else remat, cfg.remat_policy)
     for blk in params.layers:
         h = block(h, blk)
-    h = layer_norm(h, params.final_norm.w, params.final_norm.b, cfg.norm_eps)
-    return h, params.lm_head
+    fn = params.final_norm.tree(None, {"w": (None,), "b": (None,)})
+    h = layer_norm(h, fn["w"], fn["b"], cfg.norm_eps)
+    return h, common.cast(params, "lm_head", None, (None, MODEL))
 
 
 @torch.no_grad()

@@ -161,8 +161,11 @@ def _head_w(params: Transformer, cfg: ModelConfig, dtype):
 
 def _head_param(params: Transformer, cfg: ModelConfig):
     """The output head as stored (the tied embedding's transpose for a tied
-    config), uncast: the fused CE casts it per chunk, as the reference's."""
-    return params.embed.T if cfg.tie_embeddings else params.lm_head
+    config), uncast: the fused CE casts it per chunk, as the reference's.
+    Under a mesh it is gathered at use to its compute layout."""
+    if cfg.tie_embeddings:
+        return common.cast(params, "embed", None, (MODEL, None)).T
+    return common.cast(params, "lm_head", None, (None, MODEL))
 
 
 def _logits_out(params: Transformer, cfg: ModelConfig, h):
@@ -237,7 +240,7 @@ def features(params: Transformer, cfg: ModelConfig, tokens=None, embeds=None, mr
     block = common.maybe_remat(block, use_remat, cfg.remat_policy)
     for i in range(0, n, k):
         h = block(h, params.layers[i:i + k])
-    h = common.rms_norm(h, params.final_norm, cfg.norm_eps)
+    h = common.rms_norm(h, common.cast(params, "final_norm", None, (None,)), cfg.norm_eps)
     return h, _head_param(params, cfg)
 
 

@@ -156,7 +156,7 @@ def _embed_tokens(params: Whisper, cfg: ModelConfig, tokens):
 def _self_attend(p: dict, cfg: ModelConfig, x, causal: bool):
     """Full-sequence self-attention without a cache (the encoder's, and the
     training decoder's), on this rank's heads across a mesh."""
-    q, k, v, kv, wrap = attention._local_heads(*attention._project_qkv(p, cfg, x))
+    q, k, v, kv, wrap, _ = attention._local_heads(*attention._project_qkv(p, cfg, x))
     o = attention.attend(q, attention._heads(k, kv), attention._heads(v, kv), causal=causal, block_k=BLOCK_K)
     return attention._out_proj(p, x.dtype, wrap(o))
 
@@ -203,7 +203,7 @@ def _cross_attend(layer: dict, cfg: ModelConfig, x, ck, cv):
     p = layer["cross_attn"]
     q = shard(_heads_of(common.matmul_promoted(x, p["wq"]), cfg.n_heads, cfg.head_dim), BATCH, MODEL, None, None)
     shape = (ck.shape[0], cfg.n_kv_heads) + tuple(ck.shape[2:])
-    q, ck, cv, kv, wrap = attention._local_heads(q, meshlib.from_heads(ck, 1, shape),
+    q, ck, cv, kv, wrap, _ = attention._local_heads(q, meshlib.from_heads(ck, 1, shape),
                                                  meshlib.from_heads(cv, 1, shape))
     o = attention.attend(q, attention._heads(ck, kv).to(q.dtype), attention._heads(cv, kv).to(q.dtype),
                          causal=False, block_k=BLOCK_K)

@@ -133,8 +133,8 @@ def _shared_qkv(sh: dict, cfg: ModelConfig, u, positions):
         x = meshlib.split_last(matmul_promoted(un, w), (n, hd)).transpose(1, 2)
         return shard(x, BATCH, MODEL, None, None)
 
-    q, k, v, kv, wrap = attention._local_heads(heads(sh["wq"], cfg.n_heads), heads(sh["wk"], cfg.n_kv_heads),
-                                               heads(sh["wv"], cfg.n_kv_heads))
+    q, k, v, kv, wrap, _ = attention._local_heads(heads(sh["wq"], cfg.n_heads), heads(sh["wk"], cfg.n_kv_heads),
+                                                  heads(sh["wv"], cfg.n_kv_heads))
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v, kv, wrap

@@ -464,8 +464,10 @@ class ShardedServingEngine(ServingEngine):
     heads (``ModelAPI.init_cache(mesh=)``), and the engine runs on the
     rank's device (``device`` None: the mesh's). Every rank of the mesh
     builds the engine and drives it with the same calls. Serving takes
-    every family, without ``sp_activations`` (the reference's serving
-    cells turn it off; it is ROADMAP A11.3)."""
+    every family, and ``sp_activations`` (qwen1.5-110b's shipped config):
+    a prefill then splits its queries' sequence over the ranks (B5 at each
+    rank's first row), K/V gathered whole, so each rank's cache holds
+    every KV head (``ModelAPI.init_cache``)."""
 
     def __init__(self, api, params, ecfg: EngineConfig, seed: int = 0, recorder=None, mesh=None,
                  device=None):
@@ -478,9 +480,6 @@ class ShardedServingEngine(ServingEngine):
                 raise ValueError(f"mesh model axis {mesh.size()} != model_shards={n}")
             if not meshlib.in_mesh(mesh):
                 raise ValueError("this rank is not in the engine's mesh")
-            if api.cfg.sp_activations:
-                raise NotImplementedError("sp_activations shards the sequence, a training layout: "
-                                          "serving across cards turns it off (ROADMAP A11.3)")
             device = meshlib.mesh_device(mesh) if device is None else device
             params = meshlib.shard_model_params(params, mesh)
         super().__init__(api, params, ecfg, seed=seed, recorder=recorder, device=device)

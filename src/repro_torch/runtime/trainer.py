@@ -14,7 +14,8 @@ Fault tolerance model (designed for 1000+ nodes, exercised in tests on 1):
     host — here surfaced via metrics, consumed by runtime/elastic.py).
 
 The parameters are the model (an ``nn.Module``) on ``device`` (None: the
-card), which the step updates in place; ``opt_state`` is AdamW's state of
+card), or placed on a mesh of cards by the caller, which the step updates
+in place; ``opt_state`` is AdamW's state of
 its trainable leaves. Host batches reach the device through
 ``device.to_device``, and the metrics are read once a step with
 ``float()``, as the reference reads them, so the host clock of a step
@@ -91,8 +92,15 @@ class Trainer:
         donate: bool = True,
         device=None,
     ):
-        """``compute_specs`` (sharded parameters) raises in ``make_train_step``;
-        ``donate`` changes nothing: the step already updates in place."""
+        """``compute_specs``: the model's compute layout across a mesh
+        (``make_train_step``); the trainer then trains the module the caller
+        placed on the mesh (``launch.mesh.place_params``, e.g. at
+        ``core.pooling.pooled_specs``) and set as ``params``, with
+        ``opt_state = adamw_init(trainable(params))`` beside it. ``save``
+        writes full arrays in the reference's layout (one rank writes, the
+        others wait), and ``try_restore`` puts each rank's slices back in
+        the same placement. ``donate`` changes nothing: the step already
+        updates in place."""
         self.device = resolve_device(device)
         self.api = api
         self.opt_cfg = opt_cfg

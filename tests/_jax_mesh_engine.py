@@ -5,6 +5,9 @@ CI runs its sharded tests):
 
     python tests/_jax_mesh_engine.py PARAMS.pkl OUT.pkl ARCH N:CHUNK [N:CHUNK ...]
 
+(``sp_activations`` off, as serving cells run; ``run(..., sp=True)``
+keeps the config's sequence-parallel attention on.)
+
 PARAMS.pkl maps each arch to its parameter tree (numpy leaves). For ARCH
 over N devices with ``prefill_chunk=CHUNK``, each case in turn: tokens a
 step, stats, live counters, role hits, the merged drained planes, and one
@@ -31,8 +34,8 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from _torch_mesh_ranks import ENGINE, N_REQUESTS, PROMPT  # noqa: E402
 
 
-def run(arch: str, tree: dict, n: int, chunk: int) -> dict:
-    cfg = dataclasses.replace(get_config(arch).reduced(), sp_activations=False)
+def run(arch: str, tree: dict, n: int, chunk: int, sp: bool = False) -> dict:
+    cfg = dataclasses.replace(get_config(arch).reduced(), sp_activations=sp)
     api = get_model(cfg)
     params = jax.tree.map(jnp.asarray, tree)
     eng = ShardedServingEngine(api, params, EngineConfig(**ENGINE, model_shards=n, prefill_chunk=chunk), seed=0)

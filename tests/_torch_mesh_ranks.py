@@ -7,7 +7,10 @@ checks of one engine case against the reference's run, shared by the
 files that hold the mesh engine to it."""
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
+import logging
 import multiprocessing as mp
 import queue
 import traceback
@@ -24,6 +27,8 @@ PROMPT = np.arange(1, 20, dtype=np.int32) * 7 % 500  # the logits probe's prompt
 def _child(fn, rank, world, store, backend, out, args):
     try:
         torch.set_num_threads(1)
+        # DTensor warns at every reduction over two or three mesh axes
+        logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
         from repro_torch.launch import mesh as meshlib
 
         meshlib.init_process_group(rank=rank, world_size=world, store=store, backend=backend)
@@ -58,6 +63,22 @@ def spawn(fn, world: int, store: str, *args, backend: str = "gloo", timeout: flo
     assert not errors, errors[0]
     assert sorted(results) == list(range(world)), f"ranks {sorted(results)} of {world} answered"
     return [results[r] for r in range(world)]
+
+
+@contextlib.contextmanager
+def one_rank_mesh(store: str, shape=(1, 1, 1), names=("data", "pool", "model")):
+    """A ``gloo`` process group of this process alone and a mesh of
+    ``shape`` (one rank) over it, for the tests of an entry point on a
+    1-rank mesh; the group is destroyed on the way out."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import mesh as meshlib
+
+    meshlib.init_process_group(rank=0, world_size=1, store=store, backend="gloo")
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=names)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +400,8 @@ def case_id(arch: str, n: int, chunk: int) -> str:
 def engine_run(rank: int, world: int, params: dict, card: bool = False, cases=None) -> dict:
     """The mesh engine of each (arch, N, prefill_chunk) case of ``cases``
     (default: every arch over all ``world`` ranks, then over ranks 0 and 1,
-    whole-slot): tokens a step, books, merged drained planes, B1 a step,
+    whole-slot; ``ARCH:sp`` is ARCH with ``sp_activations`` on, every
+    other arch serves with it off): tokens a step, books, merged drained planes, B1 a step,
     the local shapes of the placed leaves and of the cache, and one
     prefill's logits under the mesh, its input in the family's keys
     (``_prefill_batch``). ``params``: arch -> the reference's parameters as
@@ -398,7 +420,8 @@ def engine_run(rank: int, world: int, params: dict, card: bool = False, cases=No
     meshes = {n: meshlib.make_serving_mesh(n) for n in sorted({n for _, n, _ in cases})}
     out = {}
     for arch, state in params.items():
-        cfg = dataclasses.replace(get_config(arch).reduced(), sp_activations=False)
+        base, _, flag = arch.partition(":")  # "ARCH:sp" keeps sp_activations on
+        cfg = dataclasses.replace(get_config(base).reduced(), sp_activations=flag == "sp")
         if card:
             cfg = card_widths(cfg)
         api = get_model(cfg)
@@ -487,3 +510,144 @@ def check_one_b1_launch_per_non_empty_shard(port: list, case: tuple):
         assert all(launched in (0, 1) for _, launched in step)
     assert port[0][case]["stats"]["device_tiering"]["dispatches"] == sum(
         launched for s in per_rank for _, launched in s)
+
+
+# ---------------------------------------------------------------------------
+# training across the mesh (``tests/test_torch_mesh_train.py``)
+
+MESH_AXES = ("data", "pool", "model")
+
+
+@contextlib.contextmanager
+def backward_on_another_thread():
+    """``torch.autograd.grad`` run on a thread of its own (one, kept for
+    every call), as autograd runs a CUDA backward on its device thread: a
+    remat recompute there must not depend on the caller's thread-local
+    state (the active mesh)."""
+    grad = torch.autograd.grad
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as worker:
+        torch.autograd.grad = lambda *args, **kwargs: worker.submit(grad, *args, **kwargs).result()
+        try:
+            yield
+        finally:
+            torch.autograd.grad = grad
+
+
+def _train_case(api, mesh, state_dict, batch: dict, opt):
+    """Two steps of ``make_train_step`` at the pooled specs on ``mesh`` from
+    ``state_dict``: (metrics a step, the placed model, AdamW's state, the
+    specs)."""
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import make_train_step, trainable
+    from repro_torch.optim import adamw_init
+
+    model = api.init(0, device="cpu")
+    model.load_state_dict(state_dict, strict=True)
+    specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+    placed = meshlib.place_params(model, mesh, specs)
+    state = adamw_init(trainable(placed))
+    step = make_train_step(api, opt, compute_specs=api.param_specs(), storage_specs=specs)
+    metrics = []
+    with backward_on_another_thread():
+        for _ in range(2):
+            placed, state, m = step(placed, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, placed, state, specs
+
+
+def _whole_state(model, state) -> dict:
+    """The model's parameters and AdamW's moments gathered whole (every rank
+    takes part), as numpy by ``state_dict`` name."""
+    from repro_torch.launch import mesh as meshlib
+
+    out = {"params": {n: meshlib.whole(p.detach()).numpy() for n, p in model.named_parameters()}}
+    for k in ("m", "v"):
+        out[k] = {n: meshlib.whole(x).numpy() for n, x in state[k].items()}
+    return out
+
+
+def _state_specs(specs):
+    return specs, {"m": specs, "v": specs, "step": ()}
+
+
+def train_run(rank: int, world: int, inp: dict, ckpt_dir: str) -> dict:
+    """Every train case of ``inp`` (as ``tests/_jax_mesh_train.py`` takes
+    it) over a ("data", "pool", "model") mesh of the case's shape: each
+    step's metrics, the final parameters and moments whole (rank 0 only),
+    and every rank's local shard shapes. Then the restores across meshes:
+    the first case's state saved from its mesh, restored onto (1, 4, 1)
+    and onto one plain device (rank 0's full tensors, equal to what was
+    saved), and the step after the restore on (1, 4, 1) beside a step from
+    the saved state placed directly. Last, the mesh engine of
+    ``inp["engine"]`` with ``sp_activations`` on (``engine_run``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model, make_train_step, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parity import params_from_jax
+    from repro_torch.runtime.elastic import elastic_restore
+
+    opt = AdamWConfig(**inp["opt"])
+    out = {"train": {}}
+    saved = None
+    for arch, shape, _, _ in inp["cases"]:
+        api = get_model(get_config(arch).reduced())
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=MESH_AXES)
+        toks, labels = inp["batches"][arch]
+        batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+        metrics, model, state, specs = _train_case(api, mesh, params_from_jax(inp["trees"][arch]), batch, opt)
+        whole = _whole_state(model, state)
+        out["train"][(arch, shape)] = {
+            "metrics": metrics, "whole": whole if rank == 0 else None,
+            "shapes": {n: tuple(p.to_local().shape) for n, p in model.named_parameters()},
+            "moments": {n: (tuple(state["m"][n].to_local().shape), tuple(state["v"][n].to_local().shape))
+                        for n in state["m"]}}
+        if saved is None:  # the first case's state goes through a checkpoint
+            CheckpointManager(ckpt_dir).save(2, (model, state), {"step": 2})
+            saved = (arch, batch, whole, int(state["step"]))
+            # pooling.gather: each leaf at its compute placement, the same values
+            out["gather"] = all(
+                list(g.placements) == meshlib.placements(mesh, meshlib.leaf_spec(api.param_specs(), n), g.shape)
+                and np.array_equal(meshlib.whole(g).numpy(), whole["params"][n])
+                for n, g in pooling.gather(model, api.param_specs()))
+    arch, batch, whole, step_no = saved
+    api = get_model(get_config(arch).reduced())
+    mgr = CheckpointManager(ckpt_dir)
+    onto = init_device_mesh("cpu", (1, 4, 1), mesh_dim_names=MESH_AXES)
+    specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), onto)
+    template = api.init(0, device="cpu")
+    (model, state), extras = elastic_restore(mgr, (template, adamw_init(trainable(template))), onto,
+                                             _state_specs(specs))
+    restored, restored_step = _whole_state(model, state), int(state["step"])
+    plain_t = api.init(0, device="cpu")
+    (plain, pstate), _ = elastic_restore(mgr, (plain_t, adamw_init(trainable(plain_t))))
+    step = make_train_step(api, opt, compute_specs=api.param_specs(), storage_specs=specs)
+    _, _, m_restored = step(model, state, batch)
+    direct_t = api.init(0, device="cpu")
+    direct_t.load_state_dict({n: torch.from_numpy(a) for n, a in whole["params"].items()}, strict=True)
+    direct = meshlib.place_params(direct_t, onto, specs)
+    dstate = {k: {n: meshlib.distribute(torch.from_numpy(a), onto, meshlib.leaf_spec(specs, n))
+                  for n, a in whole[k].items()} for k in ("m", "v")}
+    dstate["step"] = torch.tensor(step_no, dtype=torch.int32)
+    _, _, m_direct = step(direct, dstate, batch)
+    after = (_whole_state(model, state), _whole_state(direct, dstate))
+    out["restore"] = {
+        "extras": extras, "step": restored_step,
+        "restored": restored if rank == 0 else None, "saved": whole if rank == 0 else None,
+        "plain": ({"params": {n: p.detach().numpy() for n, p in plain.named_parameters()},
+                   "m": {n: x.numpy() for n, x in pstate["m"].items()},
+                   "v": {n: x.numpy() for n, x in pstate["v"].items()}} if rank == 0 else None),
+        "plain_step": int(pstate["step"]),
+        "next": ({k: float(v) for k, v in m_restored.items()}, {k: float(v) for k, v in m_direct.items()}),
+        "after": after if rank == 0 else None,
+        "shapes": {n: tuple(p.to_local().shape) for n, p in model.named_parameters()},
+    }
+    arch_sp, n = inp["engine"]
+    out["engine"] = engine_run(rank, world, {arch_sp: params_from_jax(inp["trees"][arch_sp.partition(":")[0]])},
+                               False, [(arch_sp, n, 0)])
+    return out

@@ -273,13 +273,26 @@ def test_restore_refuses_what_does_not_fit(tmp_path):
 
 
 def test_mesh_restores_name_their_roadmap_item(tmp_path):
+    """Restoring onto a mesh (ROADMAP A11.3, ported): a checkpoint saved
+    from one device restores onto a 1-rank mesh through ``elastic_restore
+    (mesh, specs)``, every leaf a DTensor placed at its spec and equal to
+    what was saved; ``restore(shardings=)`` refuses a template not placed
+    as its shardings say; with no mesh the restore is the plain one."""
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.runtime.elastic import shardings_for
+
     mgr = CheckpointManager(str(tmp_path))
-    mgr.save(3, {"w": torch.ones(3)}, {"step": 3})
-    with pytest.raises(NotImplementedError, match="A11"):
-        mgr.restore({"w": torch.zeros(3)}, shardings={"w": None})
-    with pytest.raises(NotImplementedError, match="A11"):
-        elastic_restore(mgr, {"w": torch.zeros(3)}, mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        elastic_restore(mgr, {"w": torch.zeros(3)}, specs={"w": (None,)})
-    state, extras = elastic_restore(mgr, {"w": torch.zeros(3)})
-    assert torch.equal(state["w"], torch.ones(3)) and extras == {"step": 3}
+    w = torch.arange(12.0).reshape(3, 4)
+    mgr.save(3, {"w": w, "n": torch.tensor(5, dtype=torch.int32)}, {"step": 3})
+    specs = {"w": (None, "model"), "n": ()}
+    with ranks.one_rank_mesh(str(tmp_path / "store"), shape=(1,), names=("model",)) as mesh:
+        state, extras = elastic_restore(mgr, {"w": torch.zeros(3, 4), "n": torch.tensor(0, dtype=torch.int32)},
+                                        mesh, specs)
+        assert extras == {"step": 3} and meshlib.is_dtensor(state["w"]) and int(state["n"]) == 5
+        assert torch.equal(state["w"].full_tensor(), w)
+        with pytest.raises(ValueError, match="place the template"):
+            mgr.restore({"w": torch.zeros(3, 4), "n": torch.tensor(0, dtype=torch.int32)},
+                        shardings=shardings_for(mesh, specs))
+    state, extras = elastic_restore(mgr, {"w": torch.zeros(3, 4), "n": torch.tensor(0, dtype=torch.int32)})
+    assert torch.equal(state["w"], w) and extras == {"step": 3}

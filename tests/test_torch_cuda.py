@@ -1261,6 +1261,30 @@ def test_flash_lse_against_plain(attn, dtype, hq, hkv, d, lq, lk, q_offset):
     torch.testing.assert_close(lse, plain_lse, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("b,lq,q_offset", [(2, 1024, 1024), (4, 512, 1536)], ids=["rank1of2", "rank3of4"])
+def test_flash_lse_at_sequence_parallel_rows(attn, b, lq, q_offset):
+    """B5 with its stats at a rank's rows of a sequence split across cards
+    (``sp_activations``): qwen1.5-110b's 64/8 heads of 128 over a causal
+    2,048, the rows of rank 1 of 2 and of rank 3 of 4 (``q_offset`` the
+    rank's first row), bf16. The output and lse are the plain version's
+    (one bf16 step; 1e-4), and the same rows of the whole sequence's
+    launch (its causal mask and lse at the rows' global positions)."""
+    fa, _ = attn
+    lk, hq, hkv, d = 2048, 64, 8, 128
+    q = _randn((b, hq, lk, d), 17, torch.bfloat16)
+    k, v = _randn((b, hkv, lk, d), 18, torch.bfloat16), _randn((b, hkv, lk, d), 19, torch.bfloat16)
+    rows = q[:, :, q_offset:q_offset + lq]
+    kw = dict(causal=True, lk_valid=lk, q_offset=q_offset)
+    out, lse = fa.flash_attention(rows, k, v, **kw, return_lse=True)
+    plain, plain_lse = fa.flash_attention_ref(rows, k, v, **kw, return_lse=True)
+    whole, whole_lse = fa.flash_attention(q, k, v, causal=True, lk_valid=lk, q_offset=0, return_lse=True)
+    torch.cuda.synchronize()
+    _close(out, plain)
+    torch.testing.assert_close(lse, plain_lse, rtol=0, atol=1e-4)
+    _close(out, whole[:, :, q_offset:q_offset + lq])
+    torch.testing.assert_close(lse, whole_lse[:, :, q_offset:q_offset + lq], rtol=0, atol=1e-4)
+
+
 def _wrapper_cases():
     from repro_torch.kernels import (flash_attention as fa, mamba2_scan, paged_attention as pa,
                                      rwkv6_scan, tiered_gather)

@@ -147,9 +147,10 @@ CHANGED = {
     )"""),
     ],
     "fleet/__init__.py": [
-        # no JAX: the device every replica runs on
+        # no JAX: the device every replica runs on, and the mesh a replica spans
         ("import jax\n\n", "from repro.device import resolve_device\n"),
-        ("    recorder=None,\n    **engine_kwargs,", "    recorder=None,\n    device=None,\n    **engine_kwargs,"),
+        ("    recorder=None,\n    **engine_kwargs,",
+         "    recorder=None,\n    device=None,\n    mesh=None,\n    **engine_kwargs,"),
         # the model cache is keyed on (arch, device); the port's init takes a seed
         ("""    if arch not in _MODEL_CACHE:
         cfg = get_config(arch).reduced()
@@ -164,7 +165,7 @@ CHANGED = {
     cfg, api, params = _MODEL_CACHE[key]"""),
         # every engine, sharded or not, on the fleet's device
         ("eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid)",
-         "eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid, device=dev)"),
+         "eng = ShardedServingEngine(api, p, ecfg, seed=seed + rid, device=dev, mesh=mesh)"),
         ("eng = ServingEngine(api, p, ecfg, seed=seed + rid)",
          "eng = ServingEngine(api, p, ecfg, seed=seed + rid, device=dev)"),
         # the vocab comes from the config alone, not the (now per-device) cache
@@ -248,8 +249,8 @@ def test_unported_family_names_its_roadmap_item():
     """No family is left to port (ROADMAP A8 and A13 are done): every
     config of the port builds through ``get_model``, at full size and
     reduced, and every family has its loss. What the model API still
-    refuses names its ROADMAP item: sharded train-step specs (A11.3), and
-    nothing else."""
+    refuses names its ROADMAP item: sharded train-step specs for the
+    families the reference does not pool (A11.6), and nothing else."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.models import api
 
@@ -261,26 +262,38 @@ def test_unported_family_names_its_roadmap_item():
     source = (ROOT / "src" / "repro_torch" / "models" / "api.py").read_text()
     raised = [n for n in ast.walk(ast.parse(source))
               if isinstance(n, ast.Raise) and "NotImplementedError" in ast.unparse(n)]
-    assert len(raised) == 1 and "A8" not in source and "A13" not in source
-    assert "A11.3" in ast.unparse(raised[0])
+    assert len(raised) == 1 and "A8" not in source and "A13" not in source and "A11.3" not in source
+    assert "A11.6" in ast.unparse(raised[0])
 
 
 def test_what_the_port_still_refuses_names_a11():
     """Every ``NotImplementedError`` the port raises names its item of ROADMAP
-    A11 (tensor sharding across cards), and that item is training across
-    cards (A11.3): in the train step, the checkpoint restore, the elastic
-    restore, and the sharded engine's refusal of ``sp_activations`` (the
-    sequence-parallel training layout). Serving every family across cards
-    (A11.1, A11.2) and the trainer side (A9) are ported."""
+    A11 (tensor sharding across cards), and that item is training the
+    families the reference does not pool across cards (A11.6: vlm, hybrid,
+    audio), in the train step. Training across cards (A11.3: the pooled
+    train step, the restores onto a mesh, ``sp_activations`` in the mesh
+    engine), serving every family across cards (A11.1, A11.2) and the
+    trainer side (A9) are ported: no refusal names them."""
     raised = []
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
-        for node in ast.walk(ast.parse(path.read_text())):
+        text = path.read_text()
+        assert "A11.3" not in text, path
+        for node in ast.walk(ast.parse(text)):
             if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
                 raised.append((path.name, ast.unparse(node)))
-    assert {name for name, _ in raised} == {"api.py", "manager.py", "elastic.py", "sharded.py"}, raised
-    assert all("A11.3" in text and "A11.2" not in text and "A9" not in text for _, text in raised), raised
-    sharded = [text for name, text in raised if name == "sharded.py"]
-    assert len(sharded) == 1 and "sp_activations" in sharded[0], sharded
+    assert {name for name, _ in raised} == {"api.py"}, raised
+    assert all("A11.6" in text for _, text in raised), raised
+
+
+def test_pooling_keeps_the_reference_capacity_model():
+    """``core/pooling.py``'s ``apparent_capacity_model`` is the reference's
+    code (the same AST once docstrings are dropped)."""
+    def fn(rel):
+        tree = ast.parse((ROOT / "src" / rel / "core" / "pooling.py").read_text())
+        (node,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "apparent_capacity_model"]
+        return _code(ast.unparse(node), rel)
+
+    assert fn("repro") == fn("repro_torch")
 
 
 def test_casts_carry_the_gradient_only_in_a_training_forward():

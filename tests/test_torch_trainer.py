@@ -190,9 +190,48 @@ def test_trainer_follows_the_jax_trainer(jax_trainer, tmp_path):
 
 
 def test_trainer_refuses_sharding_specs(tmp_path):
-    api = get_model(get_config(ARCH).reduced())
-    with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(api, AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path)), compute_specs={}, device="cpu")
+    """``Trainer(compute_specs=)`` refuses the families not trained across
+    cards (ROADMAP A11.6). On a 1-rank mesh it trains the module the caller
+    placed (at the pooled specs), and a crash at step 3 resumed from its
+    checkpoint (restored into the placed template, in place) ends at step
+    5 with the state of a clean run, bit for bit."""
+    import _torch_mesh_ranks as ranks
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import trainable
+    from repro_torch.optim import adamw_init
+
+    vlm = get_model(get_config("qwen2-vl-7b").reduced())
+    with pytest.raises(NotImplementedError, match="A11.6"):
+        Trainer(vlm, AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path / "vlm")),
+                compute_specs=vlm.param_specs(), device="cpu")
+    cfg = get_config(ARCH).reduced()
+    api = get_model(cfg)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=16)
+    with ranks.one_rank_mesh(str(tmp_path / "store")) as mesh:
+        specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+
+        def trainer(name):
+            tr = Trainer(api, AdamWConfig(lr=LR), TrainerConfig(ckpt_dir=str(tmp_path / name), ckpt_every=3),
+                         compute_specs=api.param_specs(), device="cpu")
+            tr.params = meshlib.place_params(api.init(0, device="cpu"), mesh, specs)
+            tr.opt_state = adamw_init(trainable(tr.params))
+            return tr
+
+        clean = trainer("clean")
+        clean.run(token_batches(corpus, 8), 5)
+        crashed = trainer("crash")
+        with pytest.raises(SimulatedFailure):
+            crashed.run(token_batches(corpus, 8), 5, fail_at=3)
+        crashed.ckpt.wait()  # the step-3 checkpoint's background write
+        resumed = trainer("crash")
+        assert resumed.try_restore() and resumed.step == 3
+        resumed.run(token_batches(corpus, 8, start_step=3), 2)
+        assert resumed.step == clean.step == 5
+        want = _state(clean)
+        for name, t in _state(resumed).items():
+            assert meshlib.is_dtensor(t) == (name != "step"), name
+            assert torch.equal(meshlib.local(t), meshlib.local(want[name])), name
 
 
 # ---------------------------------------------------------------------------
