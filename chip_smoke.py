@@ -185,9 +185,13 @@ Phases (any failure raises, so the script exits non-zero):
    bit-equal to the same steps without a mesh (metrics, every parameter
    and moment), B5 launched ``train_kernel_launches`` times a step; then a
    ``Trainer`` on the mesh saves and ``elastic_restore`` puts the state
-   onto the card without a mesh, bit-equal. ``train_mesh_phase()`` trains
-   what no card holds over four (qwen1.5-110b, rwkv6-7b, qwen2-moe-a2.7b at
-   full width, pooled), and runs alone like ``mesh_phase()``. Phase 2 also
+   onto the card without a mesh, bit-equal; then qwen2-vl-7b (2 layers),
+   zamba2-1.2b (6) and whisper-base the same way, B5 and B7 launched as
+   ``train_kernel_launches`` gives. ``train_mesh_phase()`` trains what no
+   card holds over four (qwen1.5-110b, rwkv6-7b, qwen2-moe-a2.7b,
+   qwen2-vl-7b at full width, pooled; zamba2-1.2b and whisper-base against
+   a step with no mesh; the walk of qwen1.5-110b's step on meta against the
+   cards), and runs alone like ``mesh_phase()``. Phase 2 also
    holds B5 with its lse at sequence-parallel rows (a non-zero
    ``q_offset``) to its plain version.
 
@@ -1663,7 +1667,11 @@ def train_batch(cfg, rows: int, seq: int, seed: int, device: str) -> dict:
     next token (the last position ignored): a fixed batch a model can
     learn from in a few steps. An audio model's batch also holds ``rows``
     clips of its ``n_audio_frames`` frames (the front end's stub), normal
-    draws from the same generator."""
+    draws from the same generator. A vlm's holds, in place of the tokens,
+    embeddings (the vision tower's stub: normal draws at 0.02, the labels
+    still Zipf-like, so the loss can fall) and (3, rows, seq) M-RoPE
+    positions: the three channels the same positions, each row's offset
+    apart."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -1676,6 +1684,12 @@ def train_batch(cfg, rows: int, seq: int, seed: int, device: str) -> dict:
     if cfg.family == "audio":
         frames = rng.standard_normal((rows, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
         batch["frames"] = torch.from_numpy(frames).to(device)
+    if cfg.family == "vlm":
+        del batch["tokens"]
+        embeds = (rng.standard_normal((rows, seq, cfg.d_model)) * 0.02).astype(np.float32)
+        batch["embeds"] = torch.from_numpy(embeds).to(device)
+        pos = np.arange(seq)[None, None, :] + rng.integers(0, 8, (1, rows, 1))
+        batch["mrope_positions"] = torch.from_numpy(np.repeat(pos, 3, 0).astype(np.int32)).to(device)
     return batch
 
 
@@ -2348,12 +2362,12 @@ def dryrun_phase() -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        rc = dryrun.main(["--arch", "smollm-360m", "--out", tmp])
+        rc = dryrun.main(["--arch", "smollm-360m", "--mesh", "card", "--out", tmp])
         walk_s = time.perf_counter() - t0
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             report.main(["--dir", tmp])
-        cells = report.load(os.path.join(tmp, dryrun.MESHES["single"]))
+        cells = report.load(os.path.join(tmp, dryrun.MESHES["card"]))
     for line in buf.getvalue().splitlines():
         log(f"  [report] {line}")
     assert rc == 0 and len(cells) == 3 and all(c["ok"] for c in cells), [c.get("error") for c in cells]
@@ -3241,6 +3255,13 @@ def mesh_phase(card: str, world: int = 4) -> dict:
 
 MESH_TRAIN_AXES = ("data", "pool", "model")
 MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 8, 1024, 3  # phase 12: phase 9's 8 x 1,024
+# phase 12's other families over the 1-card mesh: (arch, layers kept or None,
+# rows, sequence, AdamW's lr), each at its config's grad_accum (vlm 8, zamba2
+# 4, whisper 1): at 1e-3 qwen2-vl-7b's loss rose at step 3 (12.32, 9.69,
+# 12.73, its grad norm 5.4 -> 35.3; run AO1b), and so did zamba2-1.2b's
+# (10.78, 7.17, 11.47; AO1c), each bit-equal to its steps with no mesh
+MESH_TRAIN_FAMILIES = [("qwen2-vl-7b", 2, 8, 1024, 1e-4), ("zamba2-1.2b", 6, 4, 1024, 1e-4),
+                       ("whisper-base", None, 4, 1024, 1e-4)]
 MESH_TRAIN_CHILD = "--mesh-train-child"  # phase 12's child's one argument
 MESH_TRAIN_RESULT = "mesh train phase result: "
 # train_mesh_phase's runs: (arch, layers kept or None, rows, sequence, meshes,
@@ -3252,16 +3273,48 @@ MESH_TRAIN_RESULT = "mesh train phase result: "
 # -> 52.5), and take 1e-5; its 8 layers on one card at 1e-4 (lr_witness, run
 # AN) jump the same way without a mesh as over one (grad norm 2.52 -> 38.0,
 # the two runs bit-equal)
+# (e), the families the reference does not pool: qwen2-vl-7b at full depth
+# (8.3 B parameters, 133 GB with AdamW's state: two or four cards) at 1e-5,
+# a step of ~0.15 of qwen1.5-110b's by the same reckoning from its d_ff
+# 18,944; zamba2-1.2b and whisper-base at 1e-4 (phase 12's: zamba2's loss
+# rose at 1e-3 there), each also taking one step with no mesh on rank 0's
+# card (``TRAIN_MESH_PLAIN``)
 TRAIN_MESH_RUNS = [
     ("qwen1.5-110b", 4, 4, 2048, ((1, 4, 1), (1, 1, 4), (1, 2, 2)), 3e-6),
     ("rwkv6-7b", None, 16, 1024, ((1, 2, 2),), 1e-5),
     ("qwen2-moe-a2.7b", 12, 8, 1024, ((1, 2, 2),), 1e-4),
+    ("qwen2-vl-7b", None, 32, 512, ((1, 2, 2), (1, 4, 1)), 1e-5),
+    ("zamba2-1.2b", None, 8, 1024, ((1, 2, 2),), 1e-4),
+    ("whisper-base", None, 8, 1024, ((1, 2, 2),), 1e-4),
 ]
+TRAIN_MESH_PLAIN = ("zamba2-1.2b", "whisper-base")  # held to a step with no mesh on one card
+# the leaf a planted fault rolls by one row in the shard of pool rank 1, on the
+# model's first mesh, for one step: each model's agreement bound must miss it
+TRAIN_MESH_PLANT = {"qwen1.5-110b": "layers.0.mlp.w_up", "qwen2-vl-7b": "layers.0.mlp.w_up",
+                    "zamba2-1.2b": "layers.0.w_in", "whisper-base": "enc_layers.0.mlp.w_in"}
+# the walk of (a)'s step on meta against (a)'s (1, 4, 1) run: (arch, layers,
+# rows, sequence, mesh), over a fake process group of the mesh's ranks
+TRAIN_WALK = ("qwen1.5-110b", 4, 4, 2048, (1, 4, 1))
+TRAIN_WALK_CHILD = "--train-walk-child"
+TRAIN_WALK_RESULT = "train walk result: "
 RESTORE_RUN = ("smollm-360m", 8, 1024, (1, 2, 2), (1, 4, 1))  # (d): trained, saved, restored elsewhere
-# the three qwen1.5-110b meshes' first steps agree within these (relative):
-# 2x the largest of run AM4's readings (loss 1.32e-6, grad norm 2.11e-4;
-# the planted fault read 6.35e-5 and 1.91e-3)
-MESH_AGREE = {"loss": 2.7e-6, "grad_norm": 4.3e-4}
+# a model's first steps (its meshes' against each other, or its mesh's against
+# the step with no mesh) agree within these (relative), each 2x the largest of
+# that model's bf16 readings: qwen1.5-110b's in run AM4 (loss 1.32e-6, grad
+# norm 2.11e-4; the planted fault read 6.35e-5 and 1.91e-3), qwen2-vl-7b's in
+# AO4 (2.38e-5, 2.04e-4; planted 5.78e-4, 4.08e-3), zamba2-1.2b's and
+# whisper-base's in AO4b (1.53e-5, 8.46e-5; 3.30e-6, 1.00e-4). Their cause is
+# the bf16 compute's rounding, shown by the f32 witness below
+MESH_AGREE = {"qwen1.5-110b": {"loss": 2.7e-6, "grad_norm": 4.3e-4},
+              "qwen2-vl-7b": {"loss": 4.8e-5, "grad_norm": 4.1e-4},
+              "zamba2-1.2b": {"loss": 3.1e-5, "grad_norm": 1.7e-4},
+              "whisper-base": {"loss": 6.6e-6, "grad_norm": 2.0e-4}}
+# the f32 witness: the same first steps with compute_dtype float32. Rounding
+# shrinks with the compute's precision and a placement fault does not, so the
+# f32 readings must fall within F32_AGREE, 30x below the smallest planted
+# fault's loss reading (6.35e-5) and 48x below its grad norm (1.91e-3)
+TRAIN_MESH_F32 = ("qwen2-vl-7b", "zamba2-1.2b", "whisper-base")
+F32_AGREE = {"loss": 2e-6, "grad_norm": 4e-5}
 GIB = 2**30
 
 
@@ -3332,7 +3385,11 @@ def train_one_card_mesh(card: str) -> dict:
     without a mesh (metrics, every parameter and moment), B5 launched
     ``train_kernel_launches`` times a step; then a ``Trainer`` on the mesh
     saves, and ``elastic_restore`` puts the state onto the card with no
-    mesh, bit-equal."""
+    mesh, bit-equal. Then the families the reference does not pool
+    (``MESH_TRAIN_FAMILIES``: qwen2-vl-7b, zamba2-1.2b, whisper-base at
+    full width, depth cut where it says), each 3 steps over the same mesh
+    bit-equal to its steps without one, B5/B7 launched as
+    ``train_kernel_launches`` gives."""
     import tempfile
 
     import torch
@@ -3402,6 +3459,10 @@ def train_one_card_mesh(card: str) -> dict:
             restore_s = time.perf_counter() - t1
             assert extras == {"step": MESH_TRAIN_STEPS} and not meshlib.is_dtensor(rmodel.embed)
             assert _states_equal(rmodel, rstate, model, state), "the restore without a mesh departed"
+            del plain, pstate, model, state, rmodel, rstate, template, tr
+            out["families"] = {arch: _one_card_mesh_family(card, arch, layers, rows, seq, mesh,
+                                                           AdamWConfig(lr=lr, clip_norm=1.0))
+                               for arch, layers, rows, seq, lr in MESH_TRAIN_FAMILIES}
         finally:
             torch.distributed.destroy_process_group()
     out.update({"metrics": got, "step_ms": step_ms, "flash_launches": launches,
@@ -3413,6 +3474,66 @@ def train_one_card_mesh(card: str) -> dict:
         f"B5 {launches} = {per_step} a step; Trainer save {save_s:.2f} s, elastic restore without a mesh "
         f"{restore_s:.2f} s, bit-equal; on {card}")
     return out
+
+
+def _one_card_mesh_family(card: str, arch: str, layers, rows: int, seq: int, mesh, opt) -> dict:
+    """One model of ``MESH_TRAIN_FAMILIES`` (phase 12): ``MESH_TRAIN_STEPS``
+    steps without a mesh, then over ``mesh`` from the same draw at the
+    pooled specs, bit-equal (metrics, every parameter and moment), its
+    kernels launched as ``train_kernel_launches`` gives a step."""
+    import gc as gc_
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model, make_train_step, train_kernel_launches, trainable
+    from repro_torch.optim import adamw_init
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    api = get_model(cfg)
+    batch = train_batch(cfg, rows, seq, seed=0, device="cuda")
+    plain = draw_on_card(api)
+    pstate = adamw_init(trainable(plain))
+    step = make_train_step(api, opt)
+    want = []
+    for _ in range(MESH_TRAIN_STEPS):
+        plain, pstate, m = step(plain, pstate, batch)
+        want.append({k: float(v) for k, v in m.items()})
+    specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+    src = draw_on_card(api)
+    model = meshlib.place_params(src, mesh, specs)
+    del src
+    state = adamw_init(trainable(model))
+    mstep = make_train_step(api, opt, compute_specs=api.param_specs(), storage_specs=specs)
+    per_step = {k: v for k, v in train_kernel_launches(cfg, cfg.grad_accum).items() if v}
+    got, step_ms, launched = [], [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        zero_launch_counts()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        model, state, m = mstep(model, state, batch)
+        e.record()
+        torch.cuda.synchronize()
+        got.append({k: float(v) for k, v in m.items()})
+        step_ms.append(s.elapsed_time(e))
+        counts = launch_counts()
+        launched.append({k: counts[k] for k in per_step})
+    assert all(x == per_step for x in launched), (arch, launched, per_step)
+    assert got == want, (arch, got, want)
+    assert _states_equal(model, state, plain, pstate), f"{arch}: the 1-card mesh's state departed from the plain one"
+    assert got[-1]["loss"] < got[0]["loss"], (arch, got)
+    log(f"phase 12: {arch} ({cfg.n_layers} of {full.n_layers} layers, grad_accum {cfg.grad_accum}) over the "
+        f"1-card mesh, {rows} x {seq} tokens, {MESH_TRAIN_STEPS} steps bit-equal to the plain steps; loss "
+        f"{got[0]['loss']:.4f} -> {got[-1]['loss']:.4f}; step ms {', '.join(f'{x:.1f}' for x in step_ms)}; "
+        f"launches a step {per_step}; on {card}")
+    del plain, pstate, model, state
+    gc_.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "rows": rows, "seq": seq, "grad_accum": cfg.grad_accum, "metrics": got,
+            "step_ms": step_ms, "launches_a_step": per_step, "bit_equal": True}
 
 
 def _expected_bytes(api, mesh, specs) -> tuple:
@@ -3437,15 +3558,15 @@ def _expected_bytes(api, mesh, specs) -> tuple:
     return total, whole
 
 
-def _train_on_mesh(api, cfg, mesh, batch, lr: float, device: str, plant: bool = False) -> dict:
+def _train_on_mesh(api, cfg, mesh, batch, lr: float, device: str, plant: str | None = None,
+                   steps: int = MESH_TRAIN_STEPS) -> dict:
     """One model of ``train_mesh_phase`` on one rank of ``mesh``: the whole
     f32 tree drawn on the card, placed at ``pooled_specs`` and freed before
-    any AdamW state exists, then ``MESH_TRAIN_STEPS`` steps (each rank's
-    launches held to ``train_kernel_launches``), bytes a card against the
-    specs, peak memory, and one more step profiled for the collectives'
-    share of device busy. ``plant``: layer 0's ``w_up`` rolled by one row in
-    the shard of the mesh's pool rank 1 before one step (the first step's
-    metrics only)."""
+    any AdamW state exists, then ``steps`` steps (each rank's launches held
+    to ``train_kernel_launches``), bytes a card against the specs, and,
+    after more than one step, peak memory and one more step profiled for
+    the collectives' share of device busy. ``plant``: that leaf rolled by
+    one row in the shard of the mesh's pool rank 1 before the steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3469,10 +3590,10 @@ def _train_on_mesh(api, cfg, mesh, batch, lr: float, device: str, plant: bool = 
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()  # the peak of training, not of the draw
     place_s = time.perf_counter() - t0
-    if plant:
+    if plant is not None:
         pool = mesh.mesh_dim_names.index("pool")
         if mesh.get_local_rank(pool) == 1:
-            w = model.layers[0].mlp.w_up.to_local()
+            w = model.get_parameter(plant).to_local()
             with torch.no_grad():
                 w.copy_(torch.roll(w.clone(), 1, 0))
     state = adamw_init(trainable(model))
@@ -3485,7 +3606,7 @@ def _train_on_mesh(api, cfg, mesh, batch, lr: float, device: str, plant: bool = 
                            storage_specs=specs)
     want = {k: v for k, v in train_kernel_launches(cfg, cfg.grad_accum).items() if v}
     metrics, step_ms, launched = [], [], []
-    for _ in range(1 if plant else MESH_TRAIN_STEPS):
+    for _ in range(steps):
         zero_launch_counts()
         t1 = time.perf_counter()
         model, state, m = step(model, state, batch)
@@ -3496,7 +3617,7 @@ def _train_on_mesh(api, cfg, mesh, batch, lr: float, device: str, plant: bool = 
         assert launched[-1] == want or not cuda, (launched[-1], want)  # the CPU runs the plain versions
     out = {"metrics": metrics, "step_ms": step_ms, "launches": launched, "place_s": place_s,
            "bytes": got_bytes, "whole_leaves": whole, "n_params": sum(p.numel() for p in model.parameters())}
-    if plant or not cuda:
+    if steps == 1 or not cuda:
         return out
     with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the host's ops untraced: they are many
         model, state, m = step(model, state, batch)
@@ -3508,6 +3629,52 @@ def _train_on_mesh(api, cfg, mesh, batch, lr: float, device: str, plant: bool = 
     out.update(peak_gib=torch.cuda.max_memory_allocated() / GIB, busy_ms=busy, nccl_ms=comm)
     del model, state
     return out
+
+
+def _train_plain_step(api, batch, lr: float, device: str) -> dict:
+    """One step of ``api``'s model with no mesh on this rank's card, from
+    the draw ``_train_on_mesh`` places (the same seed): its metrics, and
+    the card's peak."""
+    import torch
+
+    from repro_torch.models.api import make_train_step, trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cuda = device == "cuda"
+    model = draw_on_card(api) if cuda else api.init(0, device="cpu")
+    state = adamw_init(trainable(model))
+    _, _, m = make_train_step(api, AdamWConfig(lr=lr, clip_norm=1.0))(model, state, batch)
+    out = {"metrics": [{k: float(v) for k, v in m.items()}]}
+    del model, state
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_walk_child():
+    """``TRAIN_WALK``'s step walked on meta (``launch.dryrun.walk_cell``)
+    over a fake process group of its mesh's ranks, in this process alone:
+    the walk's peak a card, B5 calls and collectives, printed last."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model
+
+    arch, layers, rows, seq, shape = TRAIN_WALK
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    t0 = time.perf_counter()
+    with meshlib.fake_process_group(int(np.prod(shape))):
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=MESH_TRAIN_AXES)
+        _, cost, arg_bytes, *_ = dryrun.walk_cell(get_model(cfg), ShapeSpec("walk", seq, rows, "train"), mesh,
+                                                 pool=shape[MESH_TRAIN_AXES.index("pool")])
+    print(TRAIN_WALK_RESULT + json.dumps({
+        "peak_bytes": cost.peak_bytes, "argument_bytes": arg_bytes, "kernel_calls": dict(cost.kernel_calls),
+        "collective_bytes": dict(cost.collective_bytes), "collective_ops": dict(cost.collective_ops),
+        "by_group": cost.collectives, "walk_s": time.perf_counter() - t0}), flush=True)
 
 
 def _restore_run(device: str, ckpt: str) -> dict:
@@ -3614,7 +3781,13 @@ def _train_mesh_rank(rank: int, world: int, store: str, device: str, ckpt: str, 
             full = get_config(arch)
             cfg = dataclasses.replace(full, n_layers=layers or full.n_layers) if cuda else full.reduced()
             api = get_model(cfg)
+            f32 = get_model(dataclasses.replace(cfg, compute_dtype="float32")) if arch in TRAIN_MESH_F32 else None
             batch = train_batch(cfg, rows, seq, seed=0, device=device)
+            if arch in TRAIN_MESH_PLAIN and rank == 0:
+                res[f"{arch} plain"] = _train_plain_step(api, batch, lr, device)
+                if f32 is not None:
+                    res[f"{arch} plain f32"] = _train_plain_step(f32, batch, lr, device)
+            torch.distributed.barrier()
             for shape in shapes:
                 mesh = init_device_mesh(device, shape, mesh_dim_names=MESH_TRAIN_AXES)
                 t0 = time.perf_counter()
@@ -3625,9 +3798,13 @@ def _train_mesh_rank(rank: int, world: int, store: str, device: str, ckpt: str, 
                     f"{', '.join(f'{m['loss']:.4f}' for m in r['metrics'])}, step ms "
                     f"{', '.join(f'{x:.0f}' for x in r['step_ms'])}, {time.perf_counter() - t0:.1f} s")
                 torch.distributed.barrier()
-            if arch == "qwen1.5-110b":
-                mesh = init_device_mesh(device, (1, 4, 1), mesh_dim_names=MESH_TRAIN_AXES)
-                res[f"{arch} planted"] = _train_on_mesh(api, cfg, mesh, batch, lr, device, plant=True)
+                if f32 is not None:
+                    res[f"{arch} {shape} f32"] = _train_on_mesh(f32, f32.cfg, mesh, batch, lr, device, steps=1)
+                    torch.distributed.barrier()
+            if arch in TRAIN_MESH_PLANT:
+                mesh = init_device_mesh(device, shapes[0], mesh_dim_names=MESH_TRAIN_AXES)
+                res[f"{arch} planted"] = _train_on_mesh(api, cfg, mesh, batch, lr, device,
+                                                        plant=TRAIN_MESH_PLANT[arch], steps=1)
                 torch.distributed.barrier()
         if RESTORE_RUN is not None:
             res["restore"] = _restore_run(device, ckpt)
@@ -3660,33 +3837,84 @@ def train_mesh_phase(card: str, world: int = 4, device: str = "cuda") -> dict:
     import tempfile
 
     os.environ.update(TRAINER_ENV)  # the ranks inherit it before CUDA starts ((d) runs deterministic)
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = multiprocessing.get_context("spawn")
-        out = ctx.Queue()
-        procs = [ctx.Process(target=_train_mesh_rank, args=(r, world, f"{tmp}/store", device, f"{tmp}/ckpt", out))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        got = dict(out.get(timeout=2400) for _ in range(world))
-        for p in procs:
-            p.join(timeout=60)
+    walk = None
+    if TRAIN_WALK is not None and device == "cuda":  # on the host's cores, beside the ranks
+        walk = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), TRAIN_WALK_CHILD], cwd=ROOT,
+                                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), stdout=subprocess.PIPE, text=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = multiprocessing.get_context("spawn")
+            out = ctx.Queue()
+            procs = [ctx.Process(target=_train_mesh_rank,
+                                 args=(r, world, f"{tmp}/store", device, f"{tmp}/ckpt", out)) for r in range(world)]
+            for p in procs:
+                p.start()
+            got = dict(out.get(timeout=2400) for _ in range(world))
+            for p in procs:
+                p.join(timeout=60)
+        walk_lines = walk.communicate(timeout=600)[0].splitlines() if walk is not None else []
+    finally:
+        if walk is not None and walk.poll() is None:
+            walk.kill()
     errors = [r["error"] for r in got.values() if "error" in r]
     assert not errors, errors[0]
-    return _train_mesh_summary(card, got, world, device)
+    summary = _train_mesh_summary(card, got, world, device)
+    if walk is not None:
+        assert walk.returncode == 0, walk_lines[-20:]
+        walked = json.loads(next(x for x in walk_lines if x.startswith(TRAIN_WALK_RESULT))[len(TRAIN_WALK_RESULT):])
+        summary["walk"] = _walk_vs_mesh_run(walked, got, world)
+        if not summary["walk"]["within"]:
+            summary["missed"].append(("walk", summary["walk"]))
+    assert not summary["missed"], summary["missed"]
+    return summary
+
+
+def _walk_vs_mesh_run(walked: dict, got: dict, world: int) -> dict:
+    """The walk of ``TRAIN_WALK`` against its measured run: the walk's peak
+    a card within ``PEAK_RATIO`` of the run's peak on every card, its B5
+    calls the run's launches a step on a rank, its collective bytes by kind
+    beside the run's NCCL time (the walk's figures are the walk's, not
+    measured)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import train_kernel_launches
+
+    arch, layers, rows, seq, shape = TRAIN_WALK
+    key = f"{arch} {shape}"
+    runs = [got[r][key] for r in range(world)]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    b5 = train_kernel_launches(cfg, cfg.grad_accum)["flash_attention"]
+    ratios = [walked["peak_bytes"] / (r["peak_gib"] * GIB) for r in runs]
+    out = {"walk_peak_gib": walked["peak_bytes"] / GIB, "measured_peak_gib": [r["peak_gib"] for r in runs],
+           "ratios": ratios, "band": PEAK_RATIO, "walk_b5": walked["kernel_calls"].get("flash_attention", 0),
+           "b5_a_step": b5, "measured_b5": [r["launches"][0]["flash_attention"] for r in runs],
+           "walk_collective_bytes": walked["collective_bytes"], "walk_collective_ops": walked["collective_ops"],
+           "walk_by_group": walked["by_group"], "measured_nccl_ms": [r["nccl_ms"] for r in runs],
+           "measured_busy_ms": [r["busy_ms"] for r in runs], "walk_s": walked["walk_s"]}
+    out["within"] = all(PEAK_RATIO[0] <= x <= PEAK_RATIO[1] for x in ratios) and \
+        out["walk_b5"] == b5 == out["measured_b5"][0]
+    log("train mesh walk: " + json.dumps(out))
+    return out
 
 
 def _train_mesh_summary(card: str, got: dict, world: int, device: str) -> dict:
+    """The runs' rows, then each model's first-step agreement: its bf16
+    runs (its meshes and the step with no mesh) within its ``MESH_AGREE``
+    and its planted fault beyond it against every one of them, and its f32
+    witness runs within ``F32_AGREE``; every miss is logged, then listed."""
     summary = {"card": card}
     first = {}
-    for key in [k for k in got[0] if k != "restore"]:
+    side = (" plain", " plain f32")  # rank 0's steps with no mesh
+    plain = {k[:-len(e)] + e.replace(" plain", ""): got[0][k]["metrics"][0] for k in got[0] for e in side
+             if k.endswith(e)}
+    for key in [k for k in got[0] if k != "restore" and not k.endswith(side)]:
         runs = [got[r][key] for r in range(world)]
         r0 = runs[0]
         assert all(r["metrics"] == r0["metrics"] for r in runs), f"{key}: the ranks' metrics differ"
         row = {"metrics": r0["metrics"], "bytes_a_card": r0["bytes"], "whole_leaves": r0["whole_leaves"],
                "launches_a_step": r0["launches"][0], "place_s": r0["place_s"]}
-        if not key.endswith("planted"):
+        first[key] = r0["metrics"][0]
+        if not key.endswith(("planted", " f32")):
             assert r0["metrics"][-1]["loss"] < r0["metrics"][0]["loss"], (key, r0["metrics"])
-            first[key] = r0["metrics"][0]
             ms = float(np.median([x for r in runs for x in r["step_ms"]]))
             row.update(step_ms=ms, step_ms_all=[r["step_ms"] for r in runs], tokens_per_s=r0["tokens"] / ms * 1e3,
                        wall_s=r0["wall_s"], state_bytes=16 * r0["n_params"], n_params=r0["n_params"],
@@ -3696,25 +3924,37 @@ def _train_mesh_summary(card: str, got: dict, world: int, device: str) -> dict:
                 assert max(peaks) < 80, (key, peaks)
                 row.update(peak_gib=peaks, busy_ms=[r["busy_ms"] for r in runs],
                            nccl_share=[r["nccl_ms"] / r["busy_ms"] for r in runs])
-        else:
-            first[key] = r0["metrics"][0]
         summary[key] = row
         log(f"train mesh {key}: " + json.dumps(row))
-    if "qwen1.5-110b planted" not in first:  # a subset of the runs (TRAIN_MESH_RUNS set so)
-        return summary
-    qwen = {k: v for k, v in first.items() if k.startswith("qwen1.5-110b")}
-    clean = [v for k, v in qwen.items() if not k.endswith("planted")]
     rel = lambda a, b, k: abs(a[k] - b[k]) / abs(b[k])
-    agree = {k: max(rel(a, b, k) for a in clean for b in clean) for k in MESH_AGREE}
-    planted = {k: max(rel(qwen["qwen1.5-110b planted"], b, k) for b in clean) for k in MESH_AGREE}
-    summary["qwen_first_step_agreement"] = {"readings": agree, "bound": MESH_AGREE, "planted": planted}
-    log(f"train mesh: qwen1.5-110b's meshes' first step agree to {agree} (bound {MESH_AGREE}); the planted "
-        f"fault {planted}")
-    assert all(agree[k] <= MESH_AGREE[k] for k in MESH_AGREE), agree
-    assert any(planted[k] > MESH_AGREE[k] for k in MESH_AGREE), planted
+    pairs = lambda vs, bound: {k: max((rel(a, b, k) for a in vs for b in vs), default=0.0) for k in bound}
+    missed = []  # every agreement checked and logged first, then the misses raised together
+    for arch, bound in MESH_AGREE.items():  # a subset of the runs may leave one out (TRAIN_MESH_RUNS set so)
+        runs = {k[len(arch) + 1:]: v for k, v in first.items() if k.startswith(arch + " ")}
+        bf16 = [v for k, v in runs.items() if not k.endswith(("planted", "f32"))] + \
+            ([plain[arch]] if arch in plain else [])
+        if len(bf16) < 2:
+            continue
+        f32 = [v for k, v in runs.items() if k.endswith("f32")] + \
+            ([plain[arch + " f32"]] if arch + " f32" in plain else [])
+        agree = pairs(bf16, bound)
+        row = {"readings": agree, "bound": bound, "runs": len(bf16)}
+        if not all(agree[k] <= bound[k] for k in bound):
+            missed.append((arch, "bf16", agree))
+        if "planted" in runs:
+            row["planted"] = {k: min(rel(runs["planted"], b, k) for b in bf16) for k in bound}
+            if not any(row["planted"][k] > bound[k] for k in bound):
+                missed.append((arch, "planted", row["planted"]))
+        if len(f32) >= 2:
+            row.update(f32_readings=pairs(f32, F32_AGREE), f32_bound=F32_AGREE)
+            if not all(row["f32_readings"][k] <= F32_AGREE[k] for k in F32_AGREE):
+                missed.append((arch, "f32", row["f32_readings"]))
+        summary[f"{arch}_first_step_agreement"] = row
+        log(f"train mesh: {arch}'s first steps: " + json.dumps(row))
     if "restore" in got[0]:
         summary["restore"] = got[0]["restore"]
         log("train mesh (d) restore: " + json.dumps(got[0]["restore"]))
+    summary["missed"] = missed
     return summary
 
 
@@ -3807,6 +4047,8 @@ def whisper_flash_sites(attention: dict, wp: dict, keep: tuple) -> dict:
 def main():
     import torch
 
+    if sys.argv[1:] == [TRAIN_WALK_CHILD] and (SRC / "repro_torch").is_dir():  # a walk on meta: no card
+        return train_walk_child()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     if not (SRC / "repro_torch").is_dir():

@@ -251,7 +251,7 @@ class CheckpointManager:
             if len(sh) != len(t_leaves):
                 raise ValueError(f"{len(sh)} shardings for {len(t_leaves)} template leaves")
             for (path, tensors, stacked), s in zip(t_leaves, sh):
-                spec = s.spec[1:] if stacked else s.spec  # a stack's spec less its layer axis
+                spec = meshlib.layer_spec(s.spec) if stacked else s.spec  # a stack's, less its layer axis
                 for t in tensors:
                     if t.ndim == 0 and not meshlib.is_dtensor(t):
                         continue  # AdamW's step: a plain tensor on every rank

@@ -4,7 +4,8 @@ The card's figures are its published peaks, for an NVIDIA H100 80GB HBM3,
 700 W (the SXM part): 3.35 TB/s of HBM3 and 80 GiB of it, dense products
 at 989 TFLOP/s in bf16 and 495 TFLOP/s in TF32 on the tensor cores and
 67 TFLOP/s in f32 on the CUDA cores, NVLink 4 at 450 GB/s each way, and a
-PCIe Gen5 x16 host link at 64 GB/s each way. The roofline
+PCIe Gen5 x16 host link at 64 GB/s each way; across nodes of 8 cards (the
+DGX H100 system), InfiniBand NDR at 400 Gb/s a card, 50 GB/s each way. The roofline
 (``launch/roofline.py``) and the kernels' bounds (``kernels/work.py``)
 price work at these peaks. Tier specs mirror the paper's Table 4 (near =
 HB-DIMM-like: 2x BW, 2x cost; far = CXL-like: DDR BW, higher latency) as
@@ -23,9 +24,15 @@ PEAK_FLOPS_FP32 = 67e12  # FLOP/s, f32 on the CUDA cores (H100 SXM, 700 W)
 HBM_BW = 3.35e12  # B/s, HBM3 (H100 SXM, 700 W)
 HBM_BYTES = 80 * 2**30  # the card's 80 GiB of HBM3 (H100 SXM, 700 W)
 # NVLink 4, one direction, all 18 links of one card together (H100 SXM,
-# 700 W): the counterpart of the reference's ICI link figure, used only by
-# the roofline's collective term, which is 0 on one card
+# 700 W): the counterpart of the reference's ICI link figure, the link a
+# collective rides when its group lies inside one node (a DGX H100 system
+# joins its 8 cards by NVLink)
 NVLINK_BW = 450e9  # B/s
+# InfiniBand NDR, one direction, one 400 Gb/s port a card (the DGX H100
+# system's eight ConnectX-7 ports): the counterpart of the reference's
+# cross-pod DCI figure, the link a collective rides when its group spans
+# nodes
+IB_BW = 50e9  # B/s
 # host link (far tier for serving state): PCIe Gen5 x16, one direction
 HOST_LINK_BW = 64e9  # B/s
 

@@ -88,6 +88,23 @@ def init_process_group(*, rank: Optional[int] = None, world_size: Optional[int] 
     return rank
 
 
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """A process group of ``world_size`` ranks inside this one process, as
+    its rank 0, over PyTorch's ``fake`` backend: every collective returns
+    at once and moves nothing. For a cost walk on the meta device only
+    (``launch.dryrun`` over the production meshes, 256 or 512 ranks):
+    never in a process that serves or trains. The group is destroyed on
+    the way out."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def rank_card(rank: Optional[int] = None) -> int:
     """The index of this rank's card: ``LOCAL_RANK`` where torchrun set it,
     else the rank modulo the visible cards (one host)."""
@@ -96,6 +113,17 @@ def rank_card(rank: Optional[int] = None) -> int:
     if rank is None:
         rank = dist.get_rank()
     return rank % max(1, torch.cuda.device_count())
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, worked out without
+    making one (a cost walk would count a meta tensor of the global shape
+    as live)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= max(int(d), 1)
+    return tuple(reversed(out))
 
 
 def _world() -> int:
@@ -214,7 +242,7 @@ def shard_model_params(params: torch.nn.Module, mesh: DeviceMesh, axis: str = MO
             local = local.chunk(size, dim=-1)[coord]
         local = local.to(dev, copy=True).contiguous()
         d = DTensor.from_local(local, mesh, placements, run_check=False, shape=p.shape,
-                               stride=torch.empty(p.shape, device="meta").stride())
+                               stride=contiguous_stride(p.shape))
         memo[id(p)] = torch.nn.Parameter(d, requires_grad=False)
     for m in params.modules():
         held = m.__dict__.get("_casts")
@@ -227,18 +255,29 @@ def leaf_spec(specs: dict, name: str) -> tuple:
     """The partition spec of the parameter ``name`` (a ``state_dict`` name)
     in a specs tree of the reference's shape: a layer of a stack
     (``layers.<i>.rest``) takes its stack's spec less the leading layer
-    axis, since the port holds a module a layer where the reference stacks
-    them. A stack the specs shard along its layer axis (``pooled_specs``
-    pools qwen2-moe's (L, heads) attention biases so: L is their only
-    unsharded dim) has no per-layer form of that axis, and each layer's leaf
-    is held whole over it."""
+    axis (:func:`layer_spec`), since the port holds a module a layer where
+    the reference stacks them."""
     m = LAYER_STACK.match(name)
     path = [m.group(1), *name[m.end():].split(".")] if m else name.split(".")
     s = specs
     for k in path:
         s = s[k]
-    s = tuple(s)
-    return s[1:] if m else s
+    return layer_spec(s) if m else tuple(s)
+
+
+def layer_spec(stack: Sequence[AxisName]) -> tuple:
+    """One layer's spec from its stack's: the stack's less its layer axis. A
+    stack the specs shard along its layer axis (``pooled_specs`` pools
+    qwen2-moe's (L, heads) attention biases so: L is their only unsharded
+    dim) has no per-layer form of that axis, so each layer's leaf shards
+    its own first dim over those axes too, beside its own: a rank then
+    holds the same share of the stack, 1/pool of it. (Where that dim does
+    not divide, the divisibility drop holds the leaf whole over both.)"""
+    stack = tuple(stack)
+    if len(stack) < 2 or stack[0] is None:
+        return stack[1:]
+    axes = lambda a: () if a is None else (a if isinstance(a, tuple) else (a,))
+    return ((*axes(stack[1]), *axes(stack[0])),) + stack[2:]
 
 
 def distribute(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[AxisName],
@@ -246,12 +285,15 @@ def distribute(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[AxisName],
     """``x``, the same whole tensor on every rank, as a DTensor on ``mesh``
     placed at the partition spec ``axes`` (the divisibility drop applied):
     each rank copies only its own slice to ``device`` (default the mesh's),
-    with no collective; ``x`` itself is left as it was."""
+    with no collective; ``x`` itself is left as it was. A meta ``x`` (the
+    dry run's) stays on meta by default."""
     place = placements(mesh, axes, x.shape)
     local = x.detach()[local_index(x.shape, mesh, place)]
-    local = local.to(mesh_device(mesh) if device is None else device, copy=True).contiguous()
+    if device is None:
+        device = x.device if x.is_meta else mesh_device(mesh)
+    local = local.to(device, copy=True).contiguous()
     return DTensor.from_local(local, mesh, place, run_check=False, shape=x.shape,
-                              stride=torch.empty(x.shape, device="meta").stride())
+                              stride=contiguous_stride(x.shape))
 
 
 def local_index(shape, mesh: DeviceMesh, place) -> tuple:
@@ -428,6 +470,19 @@ def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return replicated(t, ref.device_mesh) if isinstance(ref, DTensor) else t
 
 
+def rows_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """A plain ``t`` holding rows of ``ref``'s batch (dim 0) as a tensor on
+    ``ref``'s mesh: where ``ref`` is split on dim 0 (over the data axes)
+    and ``t`` holds this rank's rows of it (a cache's shift or length, kept
+    a rank's rows), split on dim 0 as ``ref`` is and replicated elsewhere;
+    where ``t`` holds every row, or ``ref`` is not split, :func:`like`."""
+    if not isinstance(ref, DTensor) or not any(p.is_shard(0) for p in ref.placements) or \
+            t.shape[0] == ref.shape[0]:
+        return like(t, ref)
+    place = [Shard(0) if p.is_shard(0) else Replicate() for p in ref.placements]
+    return from_local(t, ref.device_mesh, place, (ref.shape[0],) + tuple(t.shape[1:]))
+
+
 def common(a: torch.Tensor, b: torch.Tensor):
     """``a`` and ``b`` on one footing: a plain one beside a DTensor becomes
     replicated on its mesh."""
@@ -539,13 +594,62 @@ def local_heads(x: torch.Tensor, dim: int, like: Optional[DTensor] = None) -> to
     sliced locally, with no collective. ``like``, the activation the local
     computation runs beside, gives the gradient's placements
     (:func:`grad_placements`)."""
+    x = to_heads(x, dim)
+    return x.to_local(grad_placements=grad_placements(x, like)) if isinstance(x, DTensor) else x
+
+
+def to_heads(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """:func:`local_heads` before its last step: ``x`` as a DTensor with
+    ``dim`` over ``MODEL`` where the axis divides it, every other mesh axis
+    as placed; with no active mesh ``x`` as it is."""
     if active_mesh() is None:
         return x
     x = replicated(x)
     want = _heads_placements(x.device_mesh, dim, x.shape, x.placements)
+    return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def local_rows(x: torch.Tensor, like: Optional[DTensor] = None) -> torch.Tensor:
+    """This rank's share of ``x`` as a plain tensor, gathered over ``MODEL``
+    and placed as it is over every other mesh axis: an activation's own
+    batch rows with every channel, or a parameter whole (a depthwise conv
+    runs on whole channels). ``like`` gives the gradient's placements
+    (:func:`grad_placements`: a weight used beside rows split over the
+    data axes takes a partial gradient). A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    want = [Replicate() if n == MODEL else p for n, p in zip(names, x.placements)]
     if list(x.placements) != want:
         x = x.redistribute(x.device_mesh, want)
     return x.to_local(grad_placements=grad_placements(x, like))
+
+
+def pooled(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor split over the ``POOL`` axis (a leaf at
+    its pooled storage layout)."""
+    return isinstance(x, DTensor) and POOL in (x.device_mesh.mesh_dim_names or ()) and \
+        x.placements[x.device_mesh.mesh_dim_names.index(POOL)].is_shard()
+
+
+def unpooled(x: torch.Tensor) -> torch.Tensor:
+    """A pooled leaf gathered over ``POOL`` (every other axis as placed):
+    what a path that reads a parameter as stored, with no compute spec of
+    its own, computes with; anything else as it is."""
+    if not pooled(x):
+        return x
+    i = x.device_mesh.mesh_dim_names.index(POOL)
+    return x.redistribute(x.device_mesh, [Replicate() if j == i else p for j, p in enumerate(x.placements)])
+
+
+def first_index(x: DTensor, dim: int) -> int:
+    """The global index of a DTensor's first local entry along ``dim``
+    (evenly sharded, as the placements here leave it)."""
+    start = 0
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            start = start * x.device_mesh.size(i) + x.device_mesh.get_local_rank(i)
+    return start * x.to_local().shape[dim]
 
 
 def from_heads(x: torch.Tensor, dim: int, shape, mesh: Optional[DeviceMesh] = None,
@@ -561,7 +665,7 @@ def from_heads(x: torch.Tensor, dim: int, shape, mesh: Optional[DeviceMesh] = No
     shape = torch.Size(shape)
     keep = like.placements if isinstance(like, DTensor) else None
     return DTensor.from_local(x, mesh, _heads_placements(mesh, dim, shape, keep), run_check=False,
-                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 class _FromLocal(torch.autograd.Function):
@@ -576,7 +680,7 @@ class _FromLocal(torch.autograd.Function):
         ctx.mesh, ctx.place = mesh, [Replicate() if p.is_partial() else p for p in place]
         shape = torch.Size(shape)
         return DTensor.from_local(x, mesh, place, run_check=False, shape=shape,
-                                  stride=torch.empty(shape, device="meta").stride())
+                                  stride=contiguous_stride(shape))
 
     @staticmethod
     def backward(ctx, grad):

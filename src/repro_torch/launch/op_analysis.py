@@ -29,7 +29,18 @@ on meta (shapes only, nothing allocated), and is priced:
   finalizer on the storage), so saved activations count while autograd
   holds them;
 * collectives: ``_c10d_functional`` ops counted by kind under the
-  reference's names, for ROADMAP A11.4. One card has none.
+  reference's names, each with the size of its group and the link its
+  group crosses (``link_of``: NVLink inside a node of 8 consecutive ranks,
+  InfiniBand across nodes), read from the group's ranks. One card has none.
+
+Across a mesh (the dry run over the production meshes, a fake process
+group of 256 or 512 ranks in one process, ``launch.mesh.fake_process_group``)
+the step runs on DTensors whose local tensors are this rank's (rank 0's)
+shards on meta. An op on DTensors is priced at its local tensors: its
+flops and bytes are rank 0's, and so are the live bytes (per card, as the
+reference's ``memory_analysis()`` is per device). A redistribution the
+models ask for (``launch.mesh``) issues functional collectives, which the
+walk sees; one DTensor inserts inside an op's own dispatch is not seen.
 
 ``walk(fn, *args)`` returns ``(fn's result, Cost)``.
 """
@@ -41,7 +52,9 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import build
@@ -72,11 +85,27 @@ GATHERS = {"index", "index_select", "gather", "embedding", "take"}
 SCATTERS = {"index_put_", "scatter_", "scatter_add_", "index_add_", "index_copy_", "index_fill_"}
 # ops that move no data: views, and allocations that write nothing
 NO_TRAFFIC = {"_unsafe_view", "alias", "lift_fresh", "empty", "empty_like", "empty_strided",
-              "new_empty", "new_empty_strided", "resize_", "set_"}
+              "new_empty", "new_empty_strided", "resize_", "set_", "wait_tensor", "_wrap_tensor_autograd"}
 # mutating ops whose written operand they do not read
 WRITE_ONLY = {"copy_", "fill_", "zero_"}
 COLLECTIVES = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
                "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
+NODE = 8  # cards a node (a DGX H100), joined by NVLink; nodes by InfiniBand
+
+
+def link_of(ranks) -> str:
+    """The link a collective over ``ranks`` crosses: ``nvlink`` when they
+    all lie in one node of ``NODE`` consecutive ranks, ``ib`` otherwise."""
+    ranks = list(ranks)
+    return "nvlink" if min(ranks) // NODE == max(ranks) // NODE else "ib"
+
+
+def _group_ranks(args) -> list:
+    """The ranks of a functional collective's group, its last argument the
+    group's name, which the running process group must resolve."""
+    from torch.distributed.distributed_c10d import _resolve_process_group, get_process_group_ranks
+
+    return get_process_group_ranks(_resolve_process_group(args[-1]))
 
 
 @dataclasses.dataclass
@@ -90,7 +119,8 @@ class Cost:
     transcendentals: float = 0.0
     collective_bytes: Dict[str, float] = dataclasses.field(default_factory=lambda: defaultdict(float))
     collective_ops: Dict[str, int] = dataclasses.field(default_factory=lambda: defaultdict(int))
-    group_sizes: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the port's: each (kind, group size, link) apart, {"bytes", "ops"}
+    collectives: Dict[str, dict] = dataclasses.field(default_factory=dict)
     tagged_bytes: Dict[str, float] = dataclasses.field(default_factory=lambda: defaultdict(float))
     tagged_flops: Dict[str, float] = dataclasses.field(default_factory=lambda: defaultdict(float))
     # the port's: aten flops by input dtype, products among them apart;
@@ -101,6 +131,15 @@ class Cost:
     kernel_seconds: Dict[str, float] = dataclasses.field(default_factory=lambda: defaultdict(float))
     peak_bytes: int = 0
     ops: int = 0
+
+    @property
+    def group_sizes(self) -> Dict[str, float]:
+        """The largest group of each kind (the reference's field), from
+        ``collectives``."""
+        out: Dict[str, float] = {}
+        for e in self.collectives.values():
+            out[e["kind"]] = max(out.get(e["kind"], 0.0), float(e["group"]))
+        return out
 
     @property
     def total_collective_bytes(self) -> float:
@@ -177,17 +216,22 @@ def _dtype_of(tensors) -> str:
     return str(tensors[0].dtype)[6:] if tensors else "none"
 
 
+def _local(x):
+    return x._local_tensor if isinstance(x, DTensor) else x
+
+
 def held_tensors(obj) -> list:
     """Every tensor a call's arguments hold: a module's parameters, buffers
     and held casts (``common.cast``), and the leaves of dicts, lists and
-    tuples."""
+    tuples; a DTensor's local tensor (this rank's shard)."""
     out = []
     if isinstance(obj, torch.Tensor):
-        out.append(obj)
+        out.append(_local(obj))
     elif isinstance(obj, torch.nn.Module):
         for m in obj.modules():
             out += list(m.parameters(recurse=False)) + list(m.buffers(recurse=False))
             out += [entry[1] for entry in m.__dict__.get("_casts", {}).values()]
+        out = [_local(t) for t in out]
     elif isinstance(obj, dict):
         for v in obj.values():
             out += held_tensors(v)
@@ -244,11 +288,15 @@ class CostWalk(TorchDispatchMode):
         rule = _rule(func)
         c.ops += 1
         if rule.collective:
-            c.collective_bytes[rule.collective] += sum(_touched_bytes(t) for t in ins)
+            nbytes = sum(_touched_bytes(t) for t in ins)  # the operands, as the reference's
+            ranks = _group_ranks(args)
+            c.collective_bytes[rule.collective] += nbytes
             c.collective_ops[rule.collective] += 1
-            size = next((a for a in args[1:] if isinstance(a, int)), None)
-            if size is not None:
-                c.group_sizes[rule.collective] = float(size)
+            key = f"{rule.collective}/{len(ranks)}/{link_of(ranks)}"
+            entry = c.collectives.setdefault(key, {"kind": rule.collective, "group": len(ranks),
+                                                   "link": link_of(ranks), "bytes": 0.0, "ops": 0})
+            entry["bytes"] += nbytes
+            entry["ops"] += 1
         if not rule.moves:
             return
         dtype = _dtype_of(ins)
@@ -282,11 +330,12 @@ class CostWalk(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        ins = _flat(kwargs, _flat(args, []))
-        self.track(ins)
         out = func(*args, **kwargs)
-        outs = _flat(out, [])
-        self._price(func, args, kwargs, ins, out, outs)
+        # an op on DTensors is priced at this rank's local tensors
+        args, kwargs, priced = tree_map(_local, args), tree_map(_local, kwargs), tree_map(_local, out)
+        ins, outs = _flat(kwargs, _flat(args, [])), _flat(priced, [])
+        self.track(ins)
+        self._price(func, args, kwargs, ins, priced, outs)
         self.track(outs)
         return out
 

@@ -14,8 +14,9 @@ import json
 import os
 
 GIB = 2**30
-# the mesh directories dryrun writes, and their headings; ROADMAP A11.4 adds more
-MESHES = {"h100x1": "1 × NVIDIA H100 80GB HBM3, 700 W"}
+# the mesh directories dryrun writes, and their headings (the card of each)
+MESHES = {"h100x1": "1 × NVIDIA H100 80GB HBM3, 700 W", "pod1": "16×16 = 256 × NVIDIA H100 80GB HBM3, 700 W",
+          "pod2": "2×16×16 = 512 × NVIDIA H100 80GB HBM3, 700 W"}
 
 
 def load(dirpath):

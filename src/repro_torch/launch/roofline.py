@@ -6,7 +6,8 @@ x shape) cell the same three terms, in seconds a step on one card, from
 
   compute term    = sum over ops of flops / (the peak of the unit they run on)
   memory term     = bytes / HBM_BW
-  collective term = collective bytes / NVLINK_BW (ring model; 0 on one card)
+  collective term = each collective's wire bytes / the bandwidth of the link
+                    its group crosses (ring model; 0 on one card)
 
 The compute term prices each product at the peak of the unit its input
 dtype runs on: bf16 (and fp16) products on the tensor cores at their bf16
@@ -20,6 +21,13 @@ The walk already counts the kernels' own traffic in place of an eager
 attention's (the kernels record their ``kernels/work.py`` bytes, and
 nothing of a score matrix reaches device memory), so
 ``memory_kernel_adj_s`` equals ``memory_s``.
+
+A collective's link: its group inside one node of 8 consecutive ranks
+rides NVLink (``hw.NVLINK_BW``), any other InfiniBand (``hw.IB_BW``), the
+counterpart of the reference's ICI and cross-pod DCI figures. On the
+production meshes the model axis (16 consecutive ranks) spans two nodes,
+so its collectives price at InfiniBand; the data and pool axes (stride 16)
+span nodes too.
 """
 from __future__ import annotations
 
@@ -61,21 +69,24 @@ def compute_seconds(cost: Cost) -> float:
     return seconds + (aten - products) / hw.PEAK_FLOPS_FP32 + sum(cost.kernel_seconds.values())
 
 
+def _wire_bytes(kind: str, nbytes: float, group: float) -> float:
+    """The bytes a card sends for one collective of ``nbytes`` (the full
+    buffer) on a bidirectional ring of ``group`` cards (the reference's
+    model)."""
+    g = max(group, 2)
+    frac = (g - 1) / g
+    if kind == "all-reduce":
+        return 2.0 * nbytes * frac
+    if kind in ("all-gather", "reduce-scatter", "all-to-all"):
+        return nbytes * frac
+    return nbytes  # collective-permute: point-to-point
+
+
 def _collective_seconds(cost: Cost) -> float:
-    """Ring-model seconds for the card's collective traffic (the reference's
-    model, over NVLink)."""
-    total_s = 0.0
-    for kind, nbytes in cost.collective_bytes.items():
-        g = max(cost.group_sizes.get(kind, 2), 2)
-        frac = (g - 1) / g
-        if kind == "all-reduce":
-            wire = 2.0 * nbytes * frac
-        elif kind in ("all-gather", "reduce-scatter", "all-to-all"):
-            wire = nbytes * frac
-        else:  # collective-permute: point-to-point
-            wire = nbytes
-        total_s += wire / hw.NVLINK_BW
-    return total_s
+    """Ring-model seconds for the card's collective traffic: each
+    collective at the link its group crosses."""
+    return sum(_wire_bytes(e["kind"], e["bytes"], e["group"])
+               / (hw.NVLINK_BW if e["link"] == "nvlink" else hw.IB_BW) for e in cost.collectives.values())
 
 
 def roofline(*, cost: Cost, n_params: float, n_tokens: float, chips: int = 1,
@@ -113,6 +124,7 @@ def roofline(*, cost: Cost, n_params: float, n_tokens: float, chips: int = 1,
             "per_collective_bytes": dict(cost.collective_bytes),
             "per_collective_ops": dict(cost.collective_ops),
             "group_sizes": dict(cost.group_sizes),
+            "collectives": {k: dict(v) for k, v in cost.collectives.items()},
         },
     )
 

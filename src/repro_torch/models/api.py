@@ -93,14 +93,15 @@ class ModelAPI:
         """``init_cache``'s tree on the meta device, nothing allocated."""
         return self.init_cache(batch, max_len, device="meta")
 
-    def input_specs(self, shape_name: str) -> dict:
-        """Meta tensors for the step of a ``SHAPES`` cell (global shapes,
+    def input_specs(self, shape_name) -> dict:
+        """Meta tensors for the step of a ``SHAPES`` cell (its name, or a
+        ``ShapeSpec`` of its own) (global shapes,
         nothing allocated), under the reference's keys and dtypes: int32
         tokens, labels and M-RoPE positions, bf16 embeds and frames. A
         train or prefill cell gets the family's inputs (and a train cell
         its labels); a decode cell one new token a row against a cache of
         ``seq_len`` positions (``abstract_cache``)."""
-        cfg, sh = self.cfg, SHAPES[shape_name]
+        cfg, sh = self.cfg, SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
         b, s = sh.global_batch, sh.seq_len
         tok = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
         emb = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device="meta")
@@ -116,9 +117,9 @@ class ModelAPI:
             return batch
         return {"tokens": tok(b, 1), "cache": self.abstract_cache(b, s)}
 
-    def batch_specs(self, shape_name: str) -> dict:
+    def batch_specs(self, shape_name) -> dict:
         """Partition specs matching ``input_specs(shape_name)``."""
-        sh = SHAPES[shape_name]
+        sh = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
         specs = {}
         if sh.kind in ("train", "prefill"):
             if self.family == "vlm":
@@ -168,7 +169,10 @@ class ModelAPI:
 
     def decode(self, params, cache: dict, tokens, *, page_size: int = 16, active=None):
         """One decode step, the cache updated in place; a given (B,) bool
-        ``active`` leaves every cache leaf of its False rows as it was."""
+        ``active`` leaves every cache leaf of its False rows as it was.
+        The cache is ``init_cache``'s: plain tensors, across a mesh this
+        rank's heads, and its rows where ``tokens`` are split over the data
+        axes."""
         return _PORTED[self.family].decode_step(params, self.cfg, cache, tokens,
                                                 page_size=page_size, active=active)
 
@@ -258,11 +262,6 @@ def _split(name: str, x: torch.Tensor, ga: int) -> torch.Tensor:
     return x.movedim(axis, 0)
 
 
-# the families whose train step runs across cards (the reference pools
-# qwen1.5-110b, qwen2-moe-a2.7b and rwkv6-7b); the others are ROADMAP A11.6
-MESH_TRAINED = ("dense", "moe", "ssm")
-
-
 def _on_mesh(name: str, x: torch.Tensor, mesh) -> torch.Tensor:
     """A micro-batch leaf as a DTensor sharded on its batch axis over
     ``BATCH`` (each rank keeps its rows), the counterpart of the
@@ -271,6 +270,15 @@ def _on_mesh(name: str, x: torch.Tensor, mesh) -> torch.Tensor:
         return x
     axes = (None, BATCH) if name == "mrope_positions" else (BATCH,)
     return meshlib.distribute(x, mesh, axes + (None,) * (x.ndim - len(axes)))
+
+
+def _micro_batches(batch: dict, ga: int, mesh) -> list:
+    """The global batch (a DTensor gathered whole first) as ``ga``
+    micro-batches, as the reference's: micro-batch i holds rows i * B / ga
+    onwards, each leaf on its batch axis (axis 1 for vlm's
+    ``mrope_positions``) split over ``BATCH`` across a mesh."""
+    micro = {k: _split(k, meshlib.whole(v), ga) for k, v in batch.items()}
+    return [{k: _on_mesh(k, v[i], mesh) for k, v in micro.items()} for i in range(ga)]
 
 
 def _storage_placements(named: dict, storage_specs: Optional[dict], mesh) -> dict:
@@ -307,26 +315,27 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optio
     f32 and, like their metrics, divided by the count.
 
     Across a mesh of cards (weight pooling, the reference's
-    ``compute_specs``/``storage_specs``): the parameters arrive as DTensors
-    placed at their storage layout (``launch.mesh.place_params`` at
-    ``core.pooling.pooled_specs``), and AdamW's moments beside them
-    (``adamw_init`` keeps each leaf's placement). The step runs under their
-    mesh: the models gather each layer's leaves to the compute layout
-    (``api.param_specs()``, which ``compute_specs`` must be) where the layer
-    runs, cast first, one layer at a time (``common.cast``), and nothing
-    gathered is held across steps. ``batch`` is the global batch, the same
-    on every rank (a DTensor is gathered first); each micro-batch enters as
-    a DTensor sharded on its batch axis over ``BATCH``, so autograd sums
+    ``compute_specs``/``storage_specs``), for every family: the parameters
+    arrive as DTensors placed at their storage layout
+    (``launch.mesh.place_params`` at ``core.pooling.pooled_specs``), and
+    AdamW's moments beside them (``adamw_init`` keeps each leaf's
+    placement). The step runs under their mesh: the models gather each
+    layer's leaves to the compute layout (``api.param_specs()``, which
+    ``compute_specs`` must be) where the layer runs, cast first, one layer
+    at a time (``common.cast``), and nothing gathered is held across steps;
+    attention (B5) and the scans (B6, B7) run on each rank's rows and
+    heads. ``batch`` is the global batch, the same on every rank (a DTensor
+    is gathered first, ``_micro_batches``); each micro-batch enters as a
+    DTensor sharded on its batch axis over ``BATCH``, so autograd sums
     the data-parallel ranks' gradients: the gradient of a gather comes back
     partial over the batch axes, and placing it at the storage layout is
-    the reduce-scatter. Gradients, the f32 accumulators of ``grad_accum``
-    and the update stay at the storage layout (``storage_specs``, when
-    given, must be it); the metrics are the same plain tensors on every
-    rank. With every leaf plain the specs change nothing.
+    the reduce-scatter. A leaf used at
+    several sites (zamba2's shared block, a tied head) sums its gradients
+    over them first. Gradients, the f32 accumulators of ``grad_accum`` and
+    the update stay at the storage layout (``storage_specs``, when given,
+    must be it); the metrics are the same plain tensors on every rank.
+    With every leaf plain the specs change nothing.
     """
-    if (compute_specs is not None or storage_specs is not None) and api.family not in MESH_TRAINED:
-        raise NotImplementedError(f"training the {api.family} family across cards (compute_specs, "
-                                  "storage_specs) is ROADMAP A11.6")
     if compute_specs is not None and compute_specs != api.param_specs():
         raise ValueError("the models gather at their own sites: compute_specs must be api.param_specs()")
     ga = grad_accum if grad_accum is not None else api.cfg.grad_accum
@@ -345,10 +354,9 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, *, compute_specs: Optio
             p.requires_grad_(True)
         try:
             with meshlib.activate(mesh):
-                micro = {k: _split(k, meshlib.whole(v), ga) for k, v in batch.items()}
                 grads, metrics = {}, {}
-                for i in range(ga):
-                    g, m = grads_of(params, named, {k: _on_mesh(k, v[i], mesh) for k, v in micro.items()})
+                for mb in _micro_batches(batch, ga, mesh):
+                    g, m = grads_of(params, named, mb)
                     # the storage layout: a partial sum over the batch axes is
                     # reduce-scattered (or all-reduced) into it
                     g = {n: x if place[n] is None else x.redistribute(x.device_mesh, place[n])

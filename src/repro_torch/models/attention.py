@@ -90,16 +90,6 @@ def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
-def _first(x, dim: int) -> int:
-    """The global index of a DTensor's first local entry along ``dim``
-    (evenly sharded, as the constraints leave it)."""
-    start = 0
-    for i, p in enumerate(x.placements):
-        if p.is_shard(dim):
-            start = start * x.device_mesh.size(i) + x.device_mesh.get_local_rank(i)
-    return start * meshlib.local(x).shape[dim]
-
-
 def _heads(t: torch.Tensor, kv: slice, dim: int = 1) -> torch.Tensor:
     """The KV heads ``kv`` of ``t`` along ``dim``: ``t`` itself for all of them."""
     return t if kv == slice(None) else t.narrow(dim, kv.start, kv.stop - kv.start)
@@ -127,7 +117,7 @@ def _local_heads(q, k, v):
     ql = q.to_local()
     kl, vl = (x.to_local(grad_placements=meshlib.grad_placements(x, q)) for x in (k, v))
     group = hq // hkv
-    q0, n_q, k0 = _first(q, 1), ql.shape[1], _first(k, 1)
+    q0, n_q, k0 = meshlib.first_index(q, 1), ql.shape[1], meshlib.first_index(k, 1)
     if n_q % group and group % n_q:
         raise ValueError(f"{n_q} local query heads do not group evenly over KV heads of {group}")
     first, n_kv = q0 // group, max(1, n_q // group)
@@ -137,7 +127,7 @@ def _local_heads(q, k, v):
     if (kv.start, kv.stop) == (0, kl.shape[1]):
         kv = slice(None)  # every local KV head
     wrap = lambda o: meshlib.from_local(o, q.device_mesh, q.placements, tuple(q.shape[:3]) + (o.shape[3],))
-    return ql, kl, vl, kv, wrap, (_first(q, 0), _first(q, 2))
+    return ql, kl, vl, kv, wrap, (meshlib.first_index(q, 0), meshlib.first_index(q, 2))
 
 
 def _rope(cfg: ModelConfig, q, k, positions, mrope_positions=None, rows=(0, 0)):
@@ -228,8 +218,8 @@ def apply_decode(p: dict, cfg: ModelConfig, x, k_cache, v_cache, lengths, page_s
     attention output (B, 1, D).
     """
     q, k, v, kv, wrap, rows = _local_heads(*_project_qkv(p, cfg, x))
-    positions = lengths[:, None].to(torch.int32)  # (B, 1)
-    q, k = _rope(cfg, q, k, positions, mrope_positions, rows)
+    positions = lengths[:, None].to(torch.int32)  # (B, 1), the cache's rows: this rank's
+    q, k = _rope(cfg, q, k, positions, mrope_positions, (0, rows[1]))
     _write_at(k_cache, lengths, k[:, :, 0, :], active)
     _write_at(v_cache, lengths, v[:, :, 0, :], active)
     o = attend_decode(q, k_cache, v_cache, lengths + 1, page_size, kv)

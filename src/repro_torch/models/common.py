@@ -97,7 +97,10 @@ def cast(owner: nn.Module, name: str, dtype, spec=None) -> torch.Tensor:
     ``spec``, a partition spec (``launch.mesh``), places a DTensor leaf at
     it under an active mesh, after the cast (the reference's
     ``constrain_tree``), and the placed leaf is held too; with no active
-    mesh, or on a plain leaf, ``spec`` changes nothing.
+    mesh, or on a plain leaf, ``spec`` changes nothing. Without a spec, a
+    leaf at its pooled storage layout (split over ``pool``) is gathered
+    over that axis (``launch.mesh.unpooled``): a serving path reads it as
+    stored, and the pool is storage only.
 
     A leaf that requires grad, under grad mode (a training forward), is
     cast fresh on every call and nothing is held: the cast is then a node
@@ -107,14 +110,15 @@ def cast(owner: nn.Module, name: str, dtype, spec=None) -> torch.Tensor:
     """
     p = getattr(owner, name)
     place = spec is not None and meshlib.is_dtensor(p) and meshlib.active_mesh() is not None
+    unpool = spec is None and meshlib.pooled(p)
     recast = dtype is not None and p.is_floating_point() and p.dtype != dtype
-    if not (recast or place):
+    if not (recast or place or unpool):
         return p
     if p.requires_grad and torch.is_grad_enabled():
         t = p.to(dtype) if recast else p
-        return meshlib.shard(t, *spec) if place else t
+        return meshlib.shard(t, *spec) if place else meshlib.unpooled(t)
     held = owner.__dict__.setdefault("_casts", {})
-    key = (name, dtype if recast else None) + ((tuple(spec),) if place else ())
+    key = (name, dtype if recast else None) + ((tuple(spec),) if place else ("unpooled",) if unpool else ())
     stamp = (id(p), meshlib.local(p).data_ptr(), p.device, p._version)
     entry = held.get(key)
     if entry is None or entry[0] != stamp:
@@ -123,6 +127,8 @@ def cast(owner: nn.Module, name: str, dtype, spec=None) -> torch.Tensor:
             t = t.to(dtype)
         if place:
             t = meshlib.shard(t, *spec)
+        elif unpool:
+            t = meshlib.unpooled(t)
         entry = held[key] = (stamp, t)
     return entry[1]
 

@@ -22,10 +22,12 @@ Across a mesh (``launch.mesh``; the caller places the block at
 ``block_specs``) ``w_in``'s and ``conv_w``'s columns are split over
 ``MODEL``, but the z | xBC | dt and x | B | C boundaries need not fall on
 a rank's columns: ``w_in``'s output is gathered whole before its split,
-and the depthwise conv runs on whole channels (its tail is replicated,
-``cache_specs``). xs goes over heads at the reference's site, and dt,
-``A_log``, ``D`` and ``dt_bias`` reach B7 on the same heads, B and C
-whole: each rank runs the scan on its own heads
+and the depthwise conv runs on whole channels and this rank's batch rows
+(``launch.mesh.local_rows``; a training batch is split over the data
+axes; the tail is replicated, ``cache_specs``). xs goes over heads at the
+reference's site, and dt, ``A_log``, ``D`` and ``dt_bias`` reach B7 on the
+same heads, B and C whole (each rank's gradient of them a partial sum
+over its heads): each rank runs the scan on its own rows and heads
 (``launch.mesh.local_heads``) with its own heads' SSM state. The gated
 RMSNorm's mean over ``d_inner`` spans the ranks (an f32 reduction across
 the mesh), and ``w_out``'s partial sums are added in f32.
@@ -117,23 +119,31 @@ def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None,
     hd = cfg.ssm_head_dim
     given = state is not None
     inplace = given and active is None
-    if state is None:  # a zero tail, and a zero SSM state inside the scan
-        state = {"conv": init_state(cfg, b, x.device)["conv"], "ssm": None}
     xn = common.rms_norm(x, p["ln"], cfg.norm_eps)
     # gathered whole before the split: its boundaries cut the mesh's columns
     proj = meshlib.replicated_dim(matmul_f32(xn, p["w_in"]), -1)
     z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * ns, nh], dim=-1)
-    conv_out, conv_tail = _causal_conv(meshlib.whole(xbc), meshlib.whole(p["conv_w"]),
-                                       meshlib.whole(p["conv_b"]), state["conv"])
+    # the conv on this rank's rows (a batch split over the data axes stays
+    # so) and every channel, plain
+    rows = meshlib.local_rows(xbc)
+    if state is None:  # a zero tail, and a zero SSM state inside the scan
+        state = {"conv": init_state(cfg, rows.shape[0], x.device)["conv"], "ssm": None}
+    conv_out, conv_tail = _causal_conv(rows, *(meshlib.local_rows(p[n], like=xbc) for n in ("conv_w", "conv_b")),
+                                       state["conv"])
     conv_out = F.silu(conv_out)
     xs, B, C = torch.split(conv_out, [d_in, ns, ns], dim=-1)
+    if meshlib.is_dtensor(xbc):  # the rows as DTensors again, placed as xbc
+        xs, B, C = (meshlib.from_local(v, xbc.device_mesh, xbc.placements, (b, t, v.shape[-1])) for v in (xs, B, C))
     # this rank's heads, plain: xs over heads (the reference's constraint),
-    # and dt, A, D on the same heads
-    xs = meshlib.local_heads(xs.reshape(b, t, nh, hd), 2)
-    dt = torch.logaddexp(meshlib.local_heads(dt_raw, 2) + meshlib.local_heads(p["dt_bias"], 0),
+    # and dt, A, D on the same heads; B and C whole, each rank's gradient
+    # of them a partial sum over its heads
+    xs = meshlib.to_heads(xs.reshape(b, t, nh, hd), 2)
+    B, C = (meshlib.local_rows(v, like=xs) for v in (B, C))
+    xs = meshlib.local(xs)
+    dt = torch.logaddexp(meshlib.local_heads(dt_raw, 2) + meshlib.local_heads(p["dt_bias"], 0, like=xbc),
                          torch.zeros((), device=x.device))  # softplus
-    A = -torch.exp(meshlib.local_heads(p["A_log"], 0)).float()
-    D = meshlib.local_heads(p["D"], 0).float()
+    A = -torch.exp(meshlib.local_heads(p["A_log"], 0, like=xbc)).float()
+    D = meshlib.local_heads(p["D"], 0, like=xbc).float()
     if common.needs_grad(xs, dt, A, B, C, D):
         if given:
             raise ValueError("a training forward takes no cache state: the scan's inputs are kept "
@@ -141,7 +151,7 @@ def apply(p: dict, cfg: ModelConfig, x, state: Optional[dict] = None,
         y, ssm_state = ssd_train(xs, dt, A, B, C, D)
     else:
         y, ssm_state = ssd_chunked(xs, dt, A, B, C, D, state["ssm"], inplace=inplace)
-    y = meshlib.from_heads(y, 2, (b, t, nh, hd)).reshape(b, t, d_in)
+    y = meshlib.from_heads(y, 2, (b, t, nh, hd), like=xbc).reshape(b, t, d_in)
     # gated RMSNorm (mamba2 style): norm(y * silu(z))
     y = y * F.silu(z)
     var = (y * y).mean(dim=-1, keepdim=True)

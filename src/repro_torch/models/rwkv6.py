@@ -148,8 +148,9 @@ def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
 
 def _token_shift(x, prev):
     """x: (B, T, D); prev: (B, D), the last token of the previous segment
-    (a cache's shift, whole on every rank, replicated beside a replicated x)."""
-    return torch.cat([meshlib.like(prev, x)[:, None, :], x[:, :-1, :]], dim=1)
+    (a cache's shift: the same rows as x, this rank's where x is split over
+    the batch axes)."""
+    return torch.cat([meshlib.rows_like(prev, x)[:, None, :], x[:, :-1, :]], dim=1)
 
 
 def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bool = True):
@@ -193,7 +194,7 @@ def _time_mix(att: dict, cfg: ModelConfig, x, shift_prev, wkv_state, inplace: bo
     yn = meshlib.from_heads((y - mu) * torch.rsqrt(var + 64e-5), 2, (b, t, h, hd), like=x).reshape(b, t, d)
     yn = yn * att["ln_x"]["w"] + att["ln_x"]["b"]
     out = matmul_f32((yn * g).to(dtype), att["wo"]).to(dtype)
-    return out, meshlib.whole(xf[:, -1, :]), wkv_state
+    return out, meshlib.local_rows(xf[:, -1, :]), wkv_state
 
 
 def _channel_mix(ffn: dict, x, shift_prev):
@@ -205,7 +206,7 @@ def _channel_mix(ffn: dict, x, shift_prev):
     k = torch.square(torch.relu(matmul_f32(xk, ffn["wk"]).to(dtype)))
     kv = matmul_f32(k, ffn["wv"]).to(dtype)
     gate = torch.sigmoid(matmul_f32(xr, ffn["wr"]).to(dtype).float()).to(dtype)
-    return gate * kv, meshlib.whole(xf[:, -1, :])
+    return gate * kv, meshlib.local_rows(xf[:, -1, :])
 
 
 def _block(layer: dict, cfg: ModelConfig, h, att_shift, cm_shift, wkv_state, inplace: bool = True):
@@ -221,15 +222,16 @@ def _embed(params: RWKV6, cfg: ModelConfig, tokens, gather: bool = False):
     """The embedding rows of ``tokens`` through ``ln0``; ``gather`` (the
     training trunk's) places the table and the norm at their compute specs
     where they are used (a pooled parameter gathered, ``common.cast``)."""
-    emb = common.cast(params, "embed", None, (MODEL, None)) if gather else params.embed
-    ln0 = params.ln0.tree(None, {"w": (None,), "b": (None,)}) if gather else {"w": params.ln0.w, "b": params.ln0.b}
+    emb = common.cast(params, "embed", None, (MODEL, None) if gather else None)
+    ln0 = params.ln0.tree(None, {"w": (None,), "b": (None,)} if gather else None)
     h = meshlib.take_rows(emb, tokens).to(common.dt(cfg.compute_dtype))
     h = layer_norm(shard(h, BATCH, None, None), ln0["w"], ln0["b"], cfg.norm_eps)
     return shard(h, BATCH, None, None)
 
 
 def _logits(params: RWKV6, cfg: ModelConfig, h):
-    h = layer_norm(h, params.final_norm.w, params.final_norm.b, cfg.norm_eps)
+    fn = params.final_norm.tree()
+    h = layer_norm(h, fn["w"], fn["b"], cfg.norm_eps)
     return shard(matmul_f32(h, common.cast(params, "lm_head", h.dtype)), BATCH, None, MODEL)
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import transformer
 
 
@@ -24,12 +25,16 @@ def forward(params, cfg: ModelConfig, embeds, mrope_positions, **kw):
 
 def features(params, cfg: ModelConfig, embeds, mrope_positions, **kw):
     """The training trunk from ``embeds`` (B, S, D) and (3, B, S)
-    ``mrope_positions``: ``transformer.features``'s (h, head weight)."""
-    return transformer.features(params, cfg, embeds=embeds, mrope_positions=mrope_positions, **kw)
+    ``mrope_positions``: ``transformer.features``'s (h, head weight).
+    Across a mesh the positions, split over the batch axes as the
+    embeds are, are gathered whole once: attention takes each rank's rows
+    at its queries' own offsets (``attention._rope``)."""
+    return transformer.features(params, cfg, embeds=embeds, mrope_positions=meshlib.whole(mrope_positions),
+                                **kw)
 
 
 def prefill(params, cfg: ModelConfig, embeds, mrope_positions, *, max_len: int, **kw):
-    return transformer.prefill(params, cfg, embeds=embeds, mrope_positions=mrope_positions,
+    return transformer.prefill(params, cfg, embeds=embeds, mrope_positions=meshlib.whole(mrope_positions),
                                max_len=max_len, **kw)
 
 

@@ -41,7 +41,10 @@ rank's own heads (``attention._local_heads``): B5 non-causal in the
 encoder, the decoder's self-attention B5 at prefill and B4 at decode, and
 its cross-attention B5 over this rank's heads of the cross K/V, which
 prefill writes (``_cross_kv``) and the cache holds. The logits come from
-the tied embedding, over ``MODEL``.
+the tied embedding, over ``MODEL``. Training across a mesh (``features``)
+runs the encoder over frames split over the batch axes, places each
+decoder layer at ``dec_layer_specs`` (the reference's ``constrain_tree``),
+and the embedding and norms at their compute specs where they are used.
 """
 from __future__ import annotations
 
@@ -149,8 +152,15 @@ def _logits_out(params: Whisper, cfg: ModelConfig, h):
     return shard(common.matmul_f32(h, common.cast(params, "embed", h.dtype).T), BATCH, None, MODEL)
 
 
-def _embed_tokens(params: Whisper, cfg: ModelConfig, tokens):
-    return meshlib.take_rows(params.embed, tokens).to(common.dt(cfg.compute_dtype))
+LN_SPECS = {"w": (None,), "b": (None,)}
+
+
+def _embed_tokens(params: Whisper, cfg: ModelConfig, tokens, gather: bool = False):
+    """The embedding rows of ``tokens``; ``gather`` (the training trunk's)
+    places the table at its compute spec where it is used (a pooled
+    parameter gathered, ``common.cast``)."""
+    emb = common.cast(params, "embed", None, (MODEL, None) if gather else None)
+    return meshlib.take_rows(emb, tokens).to(common.dt(cfg.compute_dtype))
 
 
 def _self_attend(p: dict, cfg: ModelConfig, x, causal: bool):
@@ -167,18 +177,20 @@ def encode(params: Whisper, cfg: ModelConfig, frames) -> torch.Tensor:
     return _encode(params, cfg, frames)
 
 
-def _encode(params: Whisper, cfg: ModelConfig, frames) -> torch.Tensor:
-    """The encoder, with autograd where a caller has it on (``features``)."""
+def _encode(params: Whisper, cfg: ModelConfig, frames, gather: bool = False) -> torch.Tensor:
+    """The encoder, with autograd where a caller has it on (``features``,
+    whose ``gather`` places the final norm at its compute spec); across a
+    mesh ``frames`` may arrive split over the batch axes."""
     cdt = common.dt(cfg.compute_dtype)
-    h = frames.to(cdt) + common.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device).to(cdt)
-    h = meshlib.replicated(h)
+    pe = common.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device).to(cdt)
+    h = meshlib.replicated(frames.to(cdt) + meshlib.like(pe, frames))
     specs = enc_layer_specs(cfg)
     for blk in params.enc_layers:
         layer = blk.tree(cdt, specs)
         h = h + _self_attend(layer["attn"], cfg, _ln(h, layer["ln1"], cfg.norm_eps), causal=False)
         h = h + _mlp(_ln(h, layer["ln2"], cfg.norm_eps), layer["mlp"])
         h = shard(h, BATCH, None, None)
-    return _ln(h, params.enc_norm.tree(), cfg.norm_eps)
+    return _ln(h, params.enc_norm.tree(None, LN_SPECS if gather else None), cfg.norm_eps)
 
 
 def _heads_of(x, n: int, hd: int):
@@ -189,7 +201,8 @@ def _heads_of(x, n: int, hd: int):
 def _cross_kv(layer: dict, cfg: ModelConfig, enc_out):
     """Cross-attention K/V from the encoder's output: (B, Hkv, T_enc, hd)
     each, a plain ``@`` in the reference (the promoted type); across a mesh
-    this rank's heads, plain, as the cache holds them."""
+    this rank's heads (and its rows, where the batch is split over the
+    data axes), plain, as the cache holds them."""
     p = layer["cross_attn"]
     k = _heads_of(common.matmul_promoted(enc_out, p["wk"]), cfg.n_kv_heads, cfg.head_dim)
     v = _heads_of(common.matmul_promoted(enc_out, p["wv"]), cfg.n_kv_heads, cfg.head_dim)
@@ -198,21 +211,21 @@ def _cross_kv(layer: dict, cfg: ModelConfig, enc_out):
 
 def _cross_attend(layer: dict, cfg: ModelConfig, x, ck, cv):
     """Cross-attention of ``x`` over ``ck``/``cv`` (across a mesh this rank's
-    heads of them): q over heads, and each rank's query heads read the
-    cross heads they group over."""
+    heads of them, on q's rows): q over heads, and each rank's query heads
+    read the cross heads they group over."""
     p = layer["cross_attn"]
     q = shard(_heads_of(common.matmul_promoted(x, p["wq"]), cfg.n_heads, cfg.head_dim), BATCH, MODEL, None, None)
-    shape = (ck.shape[0], cfg.n_kv_heads) + tuple(ck.shape[2:])
-    q, ck, cv, kv, wrap, _ = attention._local_heads(q, meshlib.from_heads(ck, 1, shape),
-                                                 meshlib.from_heads(cv, 1, shape))
+    shape = (q.shape[0], cfg.n_kv_heads) + tuple(ck.shape[2:])
+    q, ck, cv, kv, wrap, _ = attention._local_heads(q, meshlib.from_heads(ck, 1, shape, like=q),
+                                                    meshlib.from_heads(cv, 1, shape, like=q))
     o = attention.attend(q, attention._heads(ck, kv).to(q.dtype), attention._heads(cv, kv).to(q.dtype),
                          causal=False, block_k=BLOCK_K)
     return attention._out_proj(p, x.dtype, wrap(o))
 
 
-def _dec_in(params: Whisper, cfg: ModelConfig, tokens):
+def _dec_in(params: Whisper, cfg: ModelConfig, tokens, gather: bool = False):
     cdt = common.dt(cfg.compute_dtype)
-    h = _embed_tokens(params, cfg, tokens)
+    h = _embed_tokens(params, cfg, tokens, gather)
     pe = common.sinusoidal_positions(tokens.shape[1], cfg.d_model, tokens.device).to(cdt)
     return shard(h + meshlib.like(pe, h), BATCH, None, None)
 
@@ -220,8 +233,9 @@ def _dec_in(params: Whisper, cfg: ModelConfig, tokens):
 def _dec_block(blk, cfg: ModelConfig, h, enc_out):
     """One decoder layer over the whole sequence, cast to the compute dtype
     (the reference's ``forward`` block): causal self-attention, the
-    cross-attention over ``enc_out``, the MLP."""
-    layer = blk.tree(common.dt(cfg.compute_dtype))
+    cross-attention over ``enc_out``, the MLP; placed at its layer specs
+    under a mesh, as the reference's ``constrain_tree`` places it."""
+    layer = blk.tree(common.dt(cfg.compute_dtype), dec_layer_specs(cfg))
     h = h + _self_attend(layer["self_attn"], cfg, _ln(h, layer["ln1"], cfg.norm_eps), causal=True)
     ck, cv = _cross_kv(layer, cfg, enc_out)
     h = h + _cross_attend(layer, cfg, _ln(h, layer["ln2"], cfg.norm_eps), ck, cv)
@@ -243,15 +257,17 @@ def features(params: Whisper, cfg: ModelConfig, tokens, frames, *, remat: Option
     stored), the reference's ``features``; runs with autograd. With
     ``remat`` (default ``cfg.remat``) each decoder layer is a checkpoint
     under ``cfg.remat_policy``; the encoder is not, as in the reference."""
-    enc_out = _encode(params, cfg, frames)
-    h = _dec_in(params, cfg, tokens)
+    enc_out = _encode(params, cfg, frames, gather=True)
+    h = _dec_in(params, cfg, tokens, gather=True)
+
     def block(h, enc_out, blk):
         return _dec_block(blk, cfg, h, enc_out)
 
     block = common.maybe_remat(block, cfg.remat if remat is None else remat, cfg.remat_policy)
     for blk in params.dec_layers:
         h = block(h, enc_out, blk)
-    return _ln(h, params.dec_norm.tree(), cfg.norm_eps), params.embed.T
+    h = _ln(h, params.dec_norm.tree(None, LN_SPECS), cfg.norm_eps)
+    return h, common.cast(params, "embed", None, (MODEL, None)).T
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +328,7 @@ def decode_step(params: Whisper, cfg: ModelConfig, cache: dict, tokens, *,
     s = cache["k"].shape[3]
     h = _embed_tokens(params, cfg, tokens)
     pe = common.sinusoidal_positions(s, cfg.d_model, tokens.device).to(cdt)
-    h = h + meshlib.like(pe[lengths.long().clamp(max=s - 1)][:, None, :], h)
+    h = h + meshlib.rows_like(pe[lengths.long().clamp(max=s - 1)], h)[:, None, :]
     for i, blk in enumerate(params.dec_layers):
         layer = blk.tree()  # the reference's decode casts no weight
         x = _ln(h, layer["ln1"], cfg.norm_eps)

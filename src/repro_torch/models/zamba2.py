@@ -33,6 +33,11 @@ heads (``mamba2.apply``). The shared block stays as stored, uncast, as the
 reference's serving leaves it; its q and k go over heads at the
 reference's site, v on k's heads, and each rank runs B5/B4 on its own
 heads (``attention._local_heads``), its KV cache holding only those.
+Training across a mesh (``features``) places each Mamba2 layer at
+``block_specs`` and the cast shared block at ``shared_specs`` where they
+run, the embedding, final norm and head at their compute specs, and runs
+on each rank's batch rows; the shared block's gradient sums its
+applications, then the data-parallel ranks.
 """
 from __future__ import annotations
 
@@ -121,11 +126,13 @@ def cache_specs(cfg: ModelConfig, model_axis: int = 16) -> dict:
             "lengths": (BATCH,)}
 
 
-def _shared_qkv(sh: dict, cfg: ModelConfig, u, positions):
+def _shared_qkv(sh: dict, cfg: ModelConfig, u, positions, every_row: bool = True):
     """``x @ W`` without a preferred type: bf16 x f32 gives f32, as in JAX.
     Returns ``attention._local_heads``'s (q, k, v, kv, wrap), RoPE applied:
     across a mesh this rank's heads as plain tensors (q and k over heads,
-    the reference's constraint, v on k's), else every head."""
+    the reference's constraint, v on k's), else every head. ``positions``
+    hold every row of the batch (``every_row``), or this rank's rows (a
+    decode's, from the cache's lengths)."""
     hd = cfg.head_dim
     un = rms_norm(u, sh["ln1"], cfg.norm_eps)
 
@@ -133,10 +140,9 @@ def _shared_qkv(sh: dict, cfg: ModelConfig, u, positions):
         x = meshlib.split_last(matmul_promoted(un, w), (n, hd)).transpose(1, 2)
         return shard(x, BATCH, MODEL, None, None)
 
-    q, k, v, kv, wrap, _ = attention._local_heads(heads(sh["wq"], cfg.n_heads), heads(sh["wk"], cfg.n_kv_heads),
-                                                  heads(sh["wv"], cfg.n_kv_heads))
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v, kv, wrap, rows = attention._local_heads(heads(sh["wq"], cfg.n_heads), heads(sh["wk"], cfg.n_kv_heads),
+                                                     heads(sh["wv"], cfg.n_kv_heads))
+    q, k = attention._rope(cfg, q, k, positions, rows=rows if every_row else (0, rows[1]))
     return q, k, v, kv, wrap
 
 
@@ -163,7 +169,7 @@ def shared_block_decode(sh: dict, cfg: ModelConfig, h, emb0, k_cache, v_cache, l
     ``lengths`` (a position past the end is dropped, as JAX drops it, and
     so is a row where a given (B,) bool ``active`` is False)."""
     positions = lengths[:, None].to(torch.int32)
-    q, k, v, kv, wrap = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions)
+    q, k, v, kv, wrap = _shared_qkv(sh, cfg, torch.cat([h, emb0], dim=-1), positions, every_row=False)
     attention._write_at(k_cache, lengths, k[:, :, 0, :], active)
     attention._write_at(v_cache, lengths, v[:, :, 0, :], active)
     o = attention.attend_decode(q, k_cache, v_cache, lengths + 1, page_size, kv)
@@ -174,13 +180,17 @@ def shared_block_decode(sh: dict, cfg: ModelConfig, h, emb0, k_cache, v_cache, l
 # full model
 
 
-def _embed(params: Zamba2, cfg: ModelConfig, tokens):
-    h = meshlib.take_rows(params.embed, tokens).to(common.dt(cfg.compute_dtype))
+def _embed(params: Zamba2, cfg: ModelConfig, tokens, gather: bool = False):
+    """The embedding rows of ``tokens``; ``gather`` (the training trunk's)
+    places the table at its compute spec where it is used (a pooled
+    parameter gathered, ``common.cast``)."""
+    emb = common.cast(params, "embed", None, (MODEL, None) if gather else None)
+    h = meshlib.take_rows(emb, tokens).to(common.dt(cfg.compute_dtype))
     return shard(h, BATCH, None, None)
 
 
 def _logits(params: Zamba2, cfg: ModelConfig, h):
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    h = rms_norm(h, common.cast(params, "final_norm", None), cfg.norm_eps)
     return shard(matmul_f32(h, common.cast(params, "lm_head", h.dtype)), BATCH, None, MODEL)
 
 
@@ -219,21 +229,23 @@ def features(params: Zamba2, cfg: ModelConfig, tokens, *, remat: Optional[bool] 
     that carry the gradient. With ``remat`` (default ``cfg.remat``) each
     Mamba2 layer is a checkpoint under ``cfg.remat_policy``, and so is each
     group of ``shared_attn_every`` of them with its shared block."""
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, gather=True)
     b, t, _ = h.shape
     positions = common.causal_positions(b, t, h.device)
     cdt = common.dt(cfg.compute_dtype)
     use_remat = cfg.remat if remat is None else remat
+    specs = mamba2.block_specs(cfg)
 
     def mamba_layer(h, blk):
-        return h + mamba2.apply(blk.tree(cdt), cfg, h)[0]
+        return shard(h + mamba2.apply(blk.tree(cdt, specs), cfg, h)[0], BATCH, None, None)
 
     mamba_layer = common.maybe_remat(mamba_layer, use_remat, cfg.remat_policy)
 
     def group(h, emb0, blks):
         for blk in blks:
             h = mamba_layer(h, blk)
-        return shared_block(params.shared.tree(cdt), cfg, h, emb0, positions)[0]
+        return shard(shared_block(params.shared.tree(cdt, shared_specs(cfg)), cfg, h, emb0, positions)[0],
+                     BATCH, None, None)
 
     group = common.maybe_remat(group, use_remat, cfg.remat_policy)
     groups, tail = _split_groups(cfg, list(params.layers))
@@ -242,7 +254,8 @@ def features(params: Zamba2, cfg: ModelConfig, tokens, *, remat: Optional[bool] 
         h = group(h, emb0, blks)
     for blk in tail:
         h = mamba_layer(h, blk)
-    return rms_norm(h, params.final_norm, cfg.norm_eps), params.lm_head
+    h = rms_norm(h, common.cast(params, "final_norm", None, (None,)), cfg.norm_eps)
+    return h, common.cast(params, "lm_head", None, (None, MODEL))
 
 
 @torch.no_grad()

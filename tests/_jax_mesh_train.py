@@ -6,18 +6,24 @@
 
 IN.pkl holds ``cases``, each (arch, mesh shape over ("data", "pool",
 "model"), rows, sequence), ``trees`` (arch -> the initial parameters,
-numpy leaves), ``batches`` (arch -> (tokens, labels)), ``opt`` (AdamW's
+numpy leaves), ``batches`` (arch -> the family's batch: ``labels`` and
+``tokens``, ``embeds`` and ``mrope_positions``, or ``tokens`` and
+``frames``), ``opt`` (AdamW's
 keyword arguments) and ``engine`` ("ARCH:sp", N): one serving case with
 ``sp_activations`` on. For each train case: the reference's
 ``make_train_step(api, AdamWConfig(**opt), storage_specs=pooled_specs)``,
 jitted with the placements of ``launch/dryrun.py:run_cell`` (parameters and
-moments at the pooled specs, the batch at ``batch_specs``), two steps on the
+moments at the pooled specs, the batch at the model's ``batch_specs``
+of a train cell), two steps on the
 one batch: each step's metrics, the final parameters and moments, and each
-leaf's shard shape; for each arch and mesh shape, ``pooled_specs`` at full
-size. The mesh takes Auto axes (``Mesh`` over the devices, as
+leaf's shard shape; and the final parameters and moments of the same two
+steps jitted on one device; for each arch and mesh shape, ``pooled_specs`` at full
+size. ``grad_accum`` (arch -> micro-batches) overrides a reduced config's.
+The mesh takes Auto axes (``Mesh`` over the devices, as
 ``make_serving_mesh`` builds its own): ``jax.make_mesh``'s Explicit axes
 refuse the reference's sharding constraints. OUT.pkl maps ``train``,
 ``specs`` and ``engine`` to those."""
+import dataclasses
 import pickle
 import sys
 
@@ -43,29 +49,37 @@ def mesh_of(shape) -> Mesh:
     return Mesh(np.asarray(jax.devices()[:int(np.prod(shape))]).reshape(shape), AXES)
 
 
-def train(arch: str, shape, tree: dict, batch: tuple, opt: dict) -> dict:
-    api = get_model(get_config(arch).reduced())
+def train(arch: str, shape, tree: dict, batch: dict, opt: dict, grad_accum=None) -> dict:
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg if grad_accum is None else dataclasses.replace(cfg, grad_accum=grad_accum))
     mesh = mesh_of(shape)
     with activate(mesh):
         aparams = api.abstract_params()
         specs = pooling.pooled_specs(api.param_specs(), aparams, mesh)
         p_sh = tree_shardings(mesh, specs, aparams)
         o_sh = {"m": p_sh, "v": p_sh, "step": NamedSharding(mesh, P())}
-        tokens, labels = (jnp.asarray(x) for x in batch)
-        b_sh = {"tokens": NamedSharding(mesh, P(("data", "pool"), None)),
-                "labels": NamedSharding(mesh, P(("data", "pool"), None))}
+        batch = {k: jnp.asarray(v) for k, v in batch.items()}
+        b_sh = tree_shardings(mesh, api.batch_specs("train_4k"), batch)
         step = jax.jit(make_train_step(api, AdamWConfig(**opt), storage_specs=specs),
                        in_shardings=(p_sh, o_sh, b_sh), out_shardings=(p_sh, o_sh, None))
         params = jax.device_put(jax.tree.map(jnp.asarray, tree), p_sh)
         state = jax.device_put(adamw_init(params), o_sh)
         metrics = []
         for _ in range(2):
-            params, state, m = step(params, state, {"tokens": tokens, "labels": labels})
+            params, state, m = step(params, state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
         host = lambda t: jax.tree.map(np.asarray, t)
-        return {"metrics": metrics, "params": host(params), "m": host(state["m"]), "v": host(state["v"]),
-                "shards": jax.tree.map(lambda x: tuple(x.sharding.shard_shape(x.shape)), params),
-                "specs": specs}
+    # the same two steps on one device: the reference's own spread between
+    # two summation orders
+    plain = jax.jit(make_train_step(api, AdamWConfig(**opt)))
+    pp = jax.tree.map(jnp.asarray, tree)
+    ps = adamw_init(pp)
+    for _ in range(2):
+        pp, ps, _ = plain(pp, ps, batch)
+    return {"metrics": metrics, "params": host(params), "m": host(state["m"]), "v": host(state["v"]),
+            "plain": {"params": host(pp), "m": host(ps["m"]), "v": host(ps["v"])},
+            "shards": jax.tree.map(lambda x: tuple(x.sharding.shard_shape(x.shape)), params),
+            "specs": specs}
 
 
 def full_specs(arch: str, shape) -> dict:
@@ -80,7 +94,8 @@ def main():
     assert len(jax.devices()) >= 4, jax.devices()
     out = {"train": {}, "specs": {}}
     for arch, shape, _, _ in inp["cases"]:
-        out["train"][(arch, shape)] = train(arch, shape, inp["trees"][arch], inp["batches"][arch], inp["opt"])
+        out["train"][(arch, shape)] = train(arch, shape, inp["trees"][arch], inp["batches"][arch], inp["opt"],
+                                            inp["grad_accum"].get(arch))
         out["specs"][(arch, shape)] = full_specs(arch, shape)
     arch, n = inp["engine"]  # "ARCH:sp"
     base = arch.partition(":")[0]

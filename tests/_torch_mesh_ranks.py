@@ -561,9 +561,10 @@ def _whole_state(model, state) -> dict:
     takes part), as numpy by ``state_dict`` name."""
     from repro_torch.launch import mesh as meshlib
 
-    out = {"params": {n: meshlib.whole(p.detach()).numpy() for n, p in model.named_parameters()}}
+    # copies: a leaf replicated on every axis gathers to its own storage
+    out = {"params": {n: meshlib.whole(p.detach()).numpy().copy() for n, p in model.named_parameters()}}
     for k in ("m", "v"):
-        out[k] = {n: meshlib.whole(x).numpy() for n, x in state[k].items()}
+        out[k] = {n: meshlib.whole(x).numpy().copy() for n, x in state[k].items()}
     return out
 
 
@@ -576,30 +577,28 @@ def train_run(rank: int, world: int, inp: dict, ckpt_dir: str) -> dict:
     it) over a ("data", "pool", "model") mesh of the case's shape: each
     step's metrics, the final parameters and moments whole (rank 0 only),
     and every rank's local shard shapes. Then the restores across meshes:
-    the first case's state saved from its mesh, restored onto (1, 4, 1)
-    and onto one plain device (rank 0's full tensors, equal to what was
-    saved), and the step after the restore on (1, 4, 1) beside a step from
-    the saved state placed directly. Last, the mesh engine of
-    ``inp["engine"]`` with ``sp_activations`` on (``engine_run``)."""
+    for each arch of ``inp["restores"]``, its first case's state saved
+    from its mesh (to ``ckpt_dir/<arch>``), restored onto (1, 4, 1) and
+    onto one plain device (rank 0's full tensors, equal to what was saved),
+    and the step after the restore on (1, 4, 1) beside a step from the
+    saved state placed directly. Last, the mesh engine of ``inp["engine"]``
+    with ``sp_activations`` on (``engine_run``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.core import pooling
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.models.api import get_model, make_train_step, trainable
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import AdamWConfig
     from repro_torch.parity import params_from_jax
-    from repro_torch.runtime.elastic import elastic_restore
 
     opt = AdamWConfig(**inp["opt"])
-    out = {"train": {}}
-    saved = None
+    out = {"train": {}, "restore": {}}
+    saved = {}
     for arch, shape, _, _ in inp["cases"]:
-        api = get_model(get_config(arch).reduced())
+        api = get_model(_reduced(arch, inp))
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=MESH_AXES)
-        toks, labels = inp["batches"][arch]
-        batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+        batch = {k: torch.from_numpy(v) for k, v in inp["batches"][arch].items()}
         metrics, model, state, specs = _train_case(api, mesh, params_from_jax(inp["trees"][arch]), batch, opt)
         whole = _whole_state(model, state)
         out["train"][(arch, shape)] = {
@@ -607,16 +606,48 @@ def train_run(rank: int, world: int, inp: dict, ckpt_dir: str) -> dict:
             "shapes": {n: tuple(p.to_local().shape) for n, p in model.named_parameters()},
             "moments": {n: (tuple(state["m"][n].to_local().shape), tuple(state["v"][n].to_local().shape))
                         for n in state["m"]}}
-        if saved is None:  # the first case's state goes through a checkpoint
-            CheckpointManager(ckpt_dir).save(2, (model, state), {"step": 2})
-            saved = (arch, batch, whole, int(state["step"]))
+        if arch in inp["restores"] and arch not in saved:  # its first case goes through a checkpoint
+            CheckpointManager(f"{ckpt_dir}/{arch}").save(2, (model, state), {"step": 2})
+            saved[arch] = (batch, whole, int(state["step"]))
+        if "gather" not in out:
             # pooling.gather: each leaf at its compute placement, the same values
             out["gather"] = all(
                 list(g.placements) == meshlib.placements(mesh, meshlib.leaf_spec(api.param_specs(), n), g.shape)
                 and np.array_equal(meshlib.whole(g).numpy(), whole["params"][n])
                 for n, g in pooling.gather(model, api.param_specs()))
-    arch, batch, whole, step_no = saved
-    api = get_model(get_config(arch).reduced())
+    for arch, (batch, whole, step_no) in saved.items():
+        out["restore"][arch] = _restore_case(rank, _reduced(arch, inp), batch, whole, step_no, f"{ckpt_dir}/{arch}",
+                                             opt)
+    arch_sp, n = inp["engine"]
+    out["engine"] = engine_run(rank, world, {arch_sp: params_from_jax(inp["trees"][arch_sp.partition(":")[0]])},
+                               False, [(arch_sp, n, 0)])
+    return out
+
+
+def _reduced(arch: str, inp: dict):
+    """The case's reduced config, at ``inp["grad_accum"]``'s micro-batches
+    where it names the arch."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    ga = inp.get("grad_accum", {}).get(arch)
+    return cfg if ga is None else dataclasses.replace(cfg, grad_accum=ga)
+
+
+def _restore_case(rank: int, cfg, batch: dict, whole: dict, step_no: int, ckpt_dir: str, opt) -> dict:
+    """The state ``whole`` saved in ``ckpt_dir`` restored onto a (1, 4, 1)
+    mesh and onto one plain device, and the step after the restore beside
+    a step from ``whole`` placed directly (``train_run``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pooling
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.api import get_model, make_train_step, trainable
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.elastic import elastic_restore
+
+    api = get_model(cfg)
     mgr = CheckpointManager(ckpt_dir)
     onto = init_device_mesh("cpu", (1, 4, 1), mesh_dim_names=MESH_AXES)
     specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), onto)
@@ -636,7 +667,7 @@ def train_run(rank: int, world: int, inp: dict, ckpt_dir: str) -> dict:
     dstate["step"] = torch.tensor(step_no, dtype=torch.int32)
     _, _, m_direct = step(direct, dstate, batch)
     after = (_whole_state(model, state), _whole_state(direct, dstate))
-    out["restore"] = {
+    return {
         "extras": extras, "step": restored_step,
         "restored": restored if rank == 0 else None, "saved": whole if rank == 0 else None,
         "plain": ({"params": {n: p.detach().numpy() for n, p in plain.named_parameters()},
@@ -647,7 +678,3 @@ def train_run(rank: int, world: int, inp: dict, ckpt_dir: str) -> dict:
         "after": after if rank == 0 else None,
         "shapes": {n: tuple(p.to_local().shape) for n, p in model.named_parameters()},
     }
-    arch_sp, n = inp["engine"]
-    out["engine"] = engine_run(rank, world, {arch_sp: params_from_jax(inp["trees"][arch_sp.partition(":")[0]])},
-                               False, [(arch_sp, n, 0)])
-    return out

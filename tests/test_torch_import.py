@@ -108,7 +108,9 @@ CHANGED = {
     ],
     "launch/report.py": [
         # the port's mesh directory and its heading
-        ("GIB = 2**30\n", 'GIB = 2**30\nMESHES = {"h100x1": "1 × NVIDIA H100 80GB HBM3, 700 W"}\n'),
+        ("GIB = 2**30\n", 'GIB = 2**30\nMESHES = {"h100x1": "1 × NVIDIA H100 80GB HBM3, 700 W", '
+                          '"pod1": "16×16 = 256 × NVIDIA H100 80GB HBM3, 700 W",\n'
+                          '          "pod2": "2×16×16 = 512 × NVIDIA H100 80GB HBM3, 700 W"}\n'),
         ('ap.add_argument("--dir", default="experiments/dryrun")',
          'ap.add_argument("--dir", default="experiments/dryrun_torch")'),
         ('for mesh in ("pod1", "pod2"):', "for mesh in MESHES:"),
@@ -248,9 +250,9 @@ def test_engine_without_device_wants_the_card():
 def test_unported_family_names_its_roadmap_item():
     """No family is left to port (ROADMAP A8 and A13 are done): every
     config of the port builds through ``get_model``, at full size and
-    reduced, and every family has its loss. What the model API still
-    refuses names its ROADMAP item: sharded train-step specs for the
-    families the reference does not pool (A11.6), and nothing else."""
+    reduced, and every family has its loss. The model API refuses nothing
+    any more: every family trains across cards (A11.6 done), and no ROADMAP
+    item is named in it."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.models import api
 
@@ -262,27 +264,25 @@ def test_unported_family_names_its_roadmap_item():
     source = (ROOT / "src" / "repro_torch" / "models" / "api.py").read_text()
     raised = [n for n in ast.walk(ast.parse(source))
               if isinstance(n, ast.Raise) and "NotImplementedError" in ast.unparse(n)]
-    assert len(raised) == 1 and "A8" not in source and "A13" not in source and "A11.3" not in source
-    assert "A11.6" in ast.unparse(raised[0])
+    assert raised == [] and "A8" not in source and "A13" not in source
+    assert "A11.3" not in source and "A11.6" not in source
 
 
 def test_what_the_port_still_refuses_names_a11():
-    """Every ``NotImplementedError`` the port raises names its item of ROADMAP
-    A11 (tensor sharding across cards), and that item is training the
-    families the reference does not pool across cards (A11.6: vlm, hybrid,
-    audio), in the train step. Training across cards (A11.3: the pooled
-    train step, the restores onto a mesh, ``sp_activations`` in the mesh
-    engine), serving every family across cards (A11.1, A11.2) and the
-    trainer side (A9) are ported: no refusal names them."""
+    """No ``NotImplementedError`` is left in the port: training across cards
+    (A11.3, and A11.6 for vlm, hybrid and audio), serving every family
+    across cards (A11.1, A11.2), the dry run over the production meshes
+    (A11.4) and the trainer side (A9) are ported, and no module names an
+    item of ROADMAP A11 as still to come."""
     raised = []
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         text = path.read_text()
-        assert "A11.3" not in text, path
+        for item in ("A11.3", "A11.4", "A11.6"):
+            assert item not in text, (path, item)
         for node in ast.walk(ast.parse(text)):
             if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
                 raised.append((path.name, ast.unparse(node)))
-    assert {name for name, _ in raised} == {"api.py"}, raised
-    assert all("A11.6" in text for _, text in raised), raised
+    assert raised == [], raised
 
 
 def test_pooling_keeps_the_reference_capacity_model():

@@ -26,6 +26,10 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -58,6 +62,8 @@ from repro_torch.launch import dryrun, op_analysis, report, roofline, serve  # n
 from repro_torch.models import api as port_api  # noqa: E402
 from repro_torch.models.api import get_model, make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.parity import params_from_jax  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
 
 SERVE_ARGS = ["--arch", "smollm-360m", "--reduced", "--requests", "4"]
 STACKS = ("layers", "enc_layers", "dec_layers")  # the reference's layer stacks
@@ -139,7 +145,7 @@ def test_report_renders_the_reference_tables(tmp_path):
     assert report.dryrun_table(CELLS) == ref_report.dryrun_table(CELLS)
     assert report.roofline_table(CELLS) == ref_report.roofline_table(CELLS)
     assert report.summary(CELLS) == ref_report.summary(CELLS)
-    for mesh in ("h100x1", "pod1"):
+    for mesh in ("pod1", "pod2"):  # the reference's meshes: the same tables
         (tmp_path / mesh).mkdir()
         for c in CELLS:
             (tmp_path / mesh / f"{c['arch']}__{c['shape']}.json").write_text(json.dumps(c))
@@ -150,7 +156,13 @@ def test_report_renders_the_reference_tables(tmp_path):
             mod.main(["--dir", str(tmp_path)])
         outs.append([line for line in buf.getvalue().splitlines() if not line.startswith("## ")])
     assert outs[0] == outs[1]
-    assert "## Dry-run — h100x1 (1 × NVIDIA H100 80GB HBM3, 700 W)" in _render(tmp_path)
+    (tmp_path / "h100x1").mkdir()
+    for c in CELLS:
+        (tmp_path / "h100x1" / f"{c['arch']}__{c['shape']}.json").write_text(json.dumps(c))
+    text = _render(tmp_path)
+    assert "## Dry-run — h100x1 (1 × NVIDIA H100 80GB HBM3, 700 W)" in text
+    assert "## Dry-run — pod1 (16×16 = 256 × NVIDIA H100 80GB HBM3, 700 W)" in text
+    assert "## Dry-run — pod2 (2×16×16 = 512 × NVIDIA H100 80GB HBM3, 700 W)" in text
 
 
 def _render(path) -> str:
@@ -173,7 +185,8 @@ def test_roofline_terms_at_the_h100_figures():
     cost.flops = sum(cost.flops_by_dtype.values()) + 495e12 / 3
     cost.bytes = 2 * 3.35e12
     cost.collective_bytes["all-reduce"] = 450e9
-    cost.group_sizes["all-reduce"] = 4
+    cost.collectives["all-reduce/4/nvlink"] = {"kind": "all-reduce", "group": 4, "link": "nvlink",
+                                               "bytes": 450e9, "ops": 1}
     t = roofline.roofline(cost=cost, n_params=1e9, n_tokens=1e3, kind="train")
     assert t.compute_s == pytest.approx(2.0 + 1.0 + 3.0 + 1.0, rel=1e-12)  # bf16, f32, elementwise, kernel
     assert t.memory_s == pytest.approx(2.0) and t.memory_kernel_adj_s == t.memory_s
@@ -246,16 +259,36 @@ def test_walk_tracks_the_peak_over_allocations_and_frees():
     assert cost.peak_bytes == 400 + 4000 + 8000
 
 
+# a functional all-gather of 1,024 f32 over the world group of a fake process
+# group of 4 ranks, walked in a process of its own (a fake group never starts
+# in one that serves or trains)
+COLLECTIVE_WALK = """
+import json, torch, torch.distributed as dist
+from repro_torch.launch import mesh as meshlib, op_analysis, roofline
+x = torch.empty(1024, device="meta")
+with meshlib.fake_process_group(4):
+    name = dist.group.WORLD.group_name
+    _, cost = op_analysis.walk(lambda t: torch.ops._c10d_functional.all_gather_into_tensor(t, 4, name), x)
+print(json.dumps({"ops": cost.collective_ops, "bytes": cost.collective_bytes, "groups": cost.group_sizes,
+                  "by_group": cost.collectives,
+                  "seconds": roofline.roofline(cost=cost, n_params=1, n_tokens=1).collective_s}))
+"""
+
+
 def test_walk_counts_collectives_by_kind():
-    x = _meta(1024)
-    try:
-        _, cost = op_analysis.walk(lambda t: torch.ops._c10d_functional.all_gather_into_tensor(t, 4, "0"), x)
-    except Exception as e:  # noqa: BLE001
-        pytest.fail(f"a functional collective on meta: {e}")
-    assert cost.collective_ops == {"all-gather": 1} and cost.collective_bytes == {"all-gather": 4096.0}
-    assert cost.group_sizes == {"all-gather": 4.0}
-    assert roofline.roofline(cost=cost, n_params=1, n_tokens=1).collective_s == \
-        pytest.approx(4096.0 * 3 / 4 / hw.NVLINK_BW)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", COLLECTIVE_WALK], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["ops"] == {"all-gather": 1} and got["bytes"] == {"all-gather": 4096.0}
+    assert got["groups"] == {"all-gather": 4.0}
+    assert got["by_group"] == {"all-gather/4/nvlink": {"kind": "all-gather", "group": 4, "link": "nvlink",
+                                                       "bytes": 4096.0, "ops": 1}}
+    assert got["seconds"] == pytest.approx(4096.0 * 3 / 4 / hw.NVLINK_BW)
+    # a group the running process group does not resolve is not priced by a guess
+    with pytest.raises(RuntimeError, match="resolve"):
+        op_analysis.walk(lambda t: torch.ops._c10d_functional.all_gather_into_tensor(t, 4, "0"), _meta(1024))
 
 
 def test_walk_of_a_reduced_dense_prefill_counts_its_products():

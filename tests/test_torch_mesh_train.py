@@ -7,21 +7,30 @@ its ``sp_activations``: B5 at each rank's first query row) 8 x 32 tokens
 over (data, pool, model) = (1, 2, 2), (1, 4, 1), (2, 1, 2) and (1, 1, 4);
 rwkv6-7b (ssm, ``grad_accum`` 8: B6 on each rank's heads) 16 x 32 over (1,
 2, 2) and (2, 1, 2); qwen2-moe-a2.7b (moe, ``grad_accum`` 4, TP-for-MoE)
-8 x 32 over (1, 2, 2). Each: two steps of ``make_train_step`` from the same
+8 x 32 over (1, 2, 2). The families the reference does not pool, reduced
+and pooled here all the same over the ``pool`` axis: qwen2-vl-7b (vlm,
+its ``grad_accum`` cut from 8 to 2 on both sides, ``GRAD_ACCUM``: embeds
+and (3, B, S) M-RoPE positions split on their batch axes) 8 x 16 over (1,
+2, 2) and (2, 1, 2); zamba2-1.2b (hybrid,
+``grad_accum`` 4: B7 on each rank's rows and heads, the shared block cast
+and applied twice) 8 x 16 over (1, 2, 2); whisper-base (audio: tokens and
+frames split on their batch axis, the cross K/V on each rank's heads) 4 x
+16 over (2, 1, 2). Each: two steps of ``make_train_step`` from the same
 parameters (the reference's seed-1 init) and one numpy-seeded batch, the
 parameters and AdamW's moments placed at ``core.pooling.pooled_specs``
 (``launch.mesh.place_params``), against ``tests/_jax_mesh_train.py`` (the
 reference's step jitted with ``launch/dryrun.py``'s placements, one
 subprocess for the module). Held: every metric, on every rank the same,
 within the tolerances ``tests/test_torch_train_step.py`` holds each family
-to (1e-5; a recurrent model's second step 1e-4); the parameters and both
-moments within ``TOL`` (below); each rank's local shard shapes equal to the
-reference's shard shapes, the moments placed as their parameters; and
-``pooled_specs`` of the three configs at full size over the four mesh
-shapes equal to the reference's, leaf for leaf.
+to (1e-5; a recurrent model's second step, rwkv6's and zamba2's, 1e-4);
+the parameters and both moments within ``TOL`` (below); each rank's local
+shard shapes equal to the reference's shard shapes, the moments placed as
+their parameters; and ``pooled_specs`` of the six configs at full size
+over the case's mesh shapes equal to the reference's, leaf for leaf.
 
-Restores across meshes: the first case's state, saved from (1, 2, 2) (one
-rank writes), restores onto (1, 4, 1) and onto one plain device, its full
+Restores across meshes: the first qwen1.5-110b case's state, saved from
+(1, 2, 2) (one rank writes), and the whisper-base case's, saved from (2,
+1, 2), each restore onto (1, 4, 1) and onto one plain device, their full
 tensors bit-equal to what was saved; the step after the restore is
 bit-equal to a step from the same state placed directly; the files are
 the reference manager's layout byte for byte, and the reference's
@@ -40,9 +49,28 @@ model at its compute layout, leaf by leaf.
 ``TOL``: the parameters take the rule ``tests/test_torch_trainer.py``
 holds the port's Trainer to against the reference's: every element within
 lr / 10 (plus 2e-4 relative), and at most 1e-3 of a leaf's elements beyond
-lr / 100 (rwkv6: lr / 10 for every element, ``tests/test_torch_train_step.py``'s
-recurrent tolerance: its scan carries each rounding into every later
-gradient). An element whose gradient is a few eps moves by about lr in
+lr / 100 (rwkv6 and zamba2: lr / 10 for every element,
+``tests/test_torch_train_step.py``'s recurrent tolerance: a scan carries
+each rounding into every later gradient). The one exception to lr / 10,
+and to the moments' bounds below, is one hidden unit of zamba2's shared
+MLP (``EPS_DECIDED``: column 86 of ``shared.w_gate`` and ``shared.w_up``,
+row 86 of ``shared.w_down``), held to its bound plus twice the reference's
+own spread there (its plain step against its mesh step). The cause, shown
+by ``test_zamba2_excepted_unit_is_decided_by_summation_order``: the
+clipped first-step gradient of ``shared.w_down[86, 56]`` is 2.7e-10 (its
+leaf's rms 3.9e-4, AdamW's eps 1e-8), so its first update lr g / (|g| +
+eps) is its gradient's rounding (1.5e-10 and 3.4e-10 at two other
+micro-batch splits of the port's plain step), and the second step carries
+that into the unit, most into ``shared.w_gate[101, 86]``, whose second
+moment m nearly cancels (-1.8e-9 against a gradient of 3e-7). Readings
+there: the reference's plain and mesh steps 1.25e-3 apart, the port's
+1.23e-3, the port's and the reference's plain steps 1.1e-4, the port's
+mesh and the reference's 2.6e-3 (each mesh departs from its plain step
+along the same direction with opposite signs: correlation -1.00 over the
+leaf); the port's plain step at ``grad_accum`` 8 against 4 5.05e-4, where
+no element outside the unit moves 4.8e-5. The unit's m lie up to 1.4e-7
+from the reference's against a bound of 1.05e-7 (the reference's own
+spread 6.9e-8). An element whose gradient is a few eps moves by about lr in
 AdamW's first steps whatever its size, so f32 ordering decides it (one of
 8,192 of qwen's ``wo`` moved 2.3e-4, one of 32,768 of qwen2-moe's
 embedding 2.6e-4). The attention key bias (``bk``, qwen's QKV bias) has an
@@ -54,9 +82,10 @@ gradients in other orders (~1e-7 of their scale), and the second step's
 gradients meet parameters that already differ by the above, so each
 moment is held to 5e-4 of its leaf's largest magnitude (plus 1e-7 absolute
 for v, whose entries start at zero; 2.1e-4 seen on qwen's ``lm_head``),
-2e-3 for rwkv6 and qwen2-moe (9.6e-4 relative on four of rwkv6's
+2e-3 for rwkv6, zamba2 and qwen2-moe (9.6e-4 relative on four of rwkv6's
 embedding elements seen).
 """
+import dataclasses
 import json
 import os
 import pickle
@@ -91,15 +120,39 @@ OPT = {"lr": LR, "clip_norm": 0.5}
 RECURRENT_METRICS = 1e-4
 # (share bound, moments) a family; every element within lr / 10 (module docstring)
 TOL = {"dense": {"params": LR / 100, "moments": 5e-4}, "ssm": {"params": LR / 10, "moments": 2e-3},
-       "moe": {"params": LR / 100, "moments": 2e-3}}
+       "moe": {"params": LR / 100, "moments": 2e-3}, "vlm": {"params": LR / 100, "moments": 5e-4},
+       "hybrid": {"params": LR / 10, "moments": 2e-3}, "audio": {"params": LR / 100, "moments": 5e-4}}
+RECURRENT = ("ssm", "hybrid")
 ZERO_GRADIENT = "layers.attn.bk"  # its gradient is rounding alone (module docstring)
+EPS_DECIDED = {"zamba2-1.2b": 86}  # the shared MLP's hidden unit that rounding decides (module docstring)
 LOGIT_TOL = 1e-4
 CASES = [("qwen1.5-110b", shape, 8, 32) for shape in ((1, 2, 2), (1, 4, 1), (2, 1, 2), (1, 1, 4))] + \
         [("rwkv6-7b", shape, 16, 32) for shape in ((1, 2, 2), (2, 1, 2))] + \
-        [("qwen2-moe-a2.7b", (1, 2, 2), 8, 32)]
+        [("qwen2-moe-a2.7b", (1, 2, 2), 8, 32)] + \
+        [("qwen2-vl-7b", shape, 8, 16) for shape in ((1, 2, 2), (2, 1, 2))] + \
+        [("zamba2-1.2b", (1, 2, 2), 8, 16), ("whisper-base", (2, 1, 2), 4, 16)]
+ARCHS = list(dict.fromkeys(arch for arch, _, _, _ in CASES))
+RESTORES = ("qwen1.5-110b", "whisper-base")  # a pooled config's state, and one of A11.6's
+GRAD_ACCUM = {"qwen2-vl-7b": 2}  # both sides: the reduced config's 8 micro-batches cost the most
 IDS = ["{}-{}".format(arch, "x".join(map(str, shape))) for arch, shape, _, _ in CASES]
 ENGINE = ("qwen1.5-110b:sp", 2)
 ENGINE_CASE = (ENGINE[0], ENGINE[1], 0)
+
+
+def _batch(cfg, b: int, s: int) -> dict:
+    """The family's batch from a numpy seed: labels and tokens, with audio
+    frames for whisper, and embeds and (3, B, S) M-RoPE positions (each
+    row's three channels offset apart) in place of tokens for vlm."""
+    rng = np.random.default_rng(0)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        batch["mrope_positions"] = (np.arange(s)[None, None, :] + rng.integers(0, 4, (3, b, 1))).astype(np.int32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((b, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _flat(tree, prefix=""):
@@ -112,11 +165,11 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_train")
     trees, batches = {}, {}
     for arch, _, b, s in CASES:
-        cfg = jax_config(arch).reduced()
+        cfg = jax_config(arch).reduced()  # the batch's shapes: grad_accum changes none
         trees[arch] = jax.tree.map(np.asarray, jax_model(cfg).init(jax.random.PRNGKey(1)))
-        rng = np.random.default_rng(0)
-        batches[arch] = tuple(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32) for _ in range(2))
-    inp = {"cases": CASES, "trees": trees, "batches": batches, "opt": OPT, "engine": ENGINE}
+        batches[arch] = _batch(cfg, b, s)
+    inp = {"cases": CASES, "trees": trees, "batches": batches, "opt": OPT, "engine": ENGINE, "restores": RESTORES,
+           "grad_accum": GRAD_ACCUM}
     with open(tmp / "in.pkl", "wb") as f:
         pickle.dump(inp, f)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4", JAX_PLATFORMS="cpu",
@@ -125,8 +178,8 @@ def runs(tmp_path_factory):
                                  str(tmp / "out.pkl")], env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
     try:
-        port = ranks.spawn(ranks.train_run, WORLD, str(tmp / "store"), inp, str(tmp / "ckpt"), timeout=600.0)
-        log = ref_proc.communicate(timeout=600)[0]
+        port = ranks.spawn(ranks.train_run, WORLD, str(tmp / "store"), inp, str(tmp / "ckpt"), timeout=900.0)
+        log = ref_proc.communicate(timeout=900)[0]
     finally:
         if ref_proc.poll() is None:
             ref_proc.kill()
@@ -148,7 +201,7 @@ def test_train_step_matches_the_reference(runs, arch, shape):
     for i, want in enumerate(ref["metrics"]):
         got = port[0]["metrics"][i]
         assert sorted(got) == sorted(want)
-        tol = RECURRENT_METRICS if family == "ssm" and i > 0 else 1e-5
+        tol = RECURRENT_METRICS if family in RECURRENT and i > 0 else 1e-5
         for k, w in want.items():
             assert_close(np.float32(got[k]), np.float32(w), atol=tol, rtol=tol, what=f"step {i} {k}")
         assert all(r["metrics"][i] == got for r in port)  # the same on every rank
@@ -156,28 +209,87 @@ def test_train_step_matches_the_reference(runs, arch, shape):
     whole = port[0]["whole"]
     tol = TOL[family]
     got = dict(_flat(tree_from_state({n: torch.from_numpy(a) for n, a in whole["params"].items()})))
+    own = dict(_flat(ref["plain"]["params"]))
     for name, want in _flat(ref["params"]):
-        assert_close(got[name], want, atol=LR / 10, rtol=2e-4, what=name)
+        unit = _unit(arch, name, want.shape)
+        if unit.any():  # EPS_DECIDED: its bound plus twice the reference's own spread
+            diff, spread = np.abs(np.asarray(got[name]) - want), np.abs(own[name] - want)
+            assert (diff[unit] <= LR / 10 + 2e-4 * np.abs(want[unit]) + 2 * spread[unit]).all(), name
+        assert_close(np.asarray(got[name])[~unit], want[~unit], atol=LR / 10, rtol=2e-4, what=name)
         beyond = np.abs(np.asarray(got[name]) - want) > tol["params"] + 2e-4 * np.abs(want)
         assert name == ZERO_GRADIENT or float(beyond.mean()) <= 1e-3, (name, int(beyond.sum()))
     for k in ("m", "v"):
         got = dict(_flat(tree_from_state({n: torch.from_numpy(a) for n, a in whole[k].items()})))
+        own = dict(_flat(ref["plain"][k]))
         for name, want in _flat(ref[k]):
             scale = float(np.abs(want).max())
-            assert_close(got[name], want, atol=tol["moments"] * scale + (1e-7 if k == "v" else 0.0), rtol=0,
-                         what=f"{k} {name}")
+            bound = tol["moments"] * scale + (1e-7 if k == "v" else 0.0)
+            unit = _unit(arch, name, want.shape)
+            if unit.any():
+                diff, spread = np.abs(np.asarray(got[name]) - want), np.abs(own[name] - want)
+                assert (diff[unit] <= bound + 2 * spread[unit]).all(), (k, name)
+            assert_close(np.asarray(got[name])[~unit], want[~unit], atol=bound, rtol=0, what=f"{k} {name}")
+
+
+def _unit(arch: str, name: str, shape) -> np.ndarray:
+    """The elements of leaf ``name`` in ``EPS_DECIDED``'s hidden unit (none
+    outside zamba2's shared MLP)."""
+    mask = np.zeros(shape, bool)
+    if arch in EPS_DECIDED:
+        unit = EPS_DECIDED[arch]
+        if name in ("shared.w_gate", "shared.w_up"):
+            mask[:, unit] = True
+        elif name == "shared.w_down":
+            mask[unit, :] = True
+    return mask
+
+
+def test_zamba2_excepted_unit_is_decided_by_summation_order(runs):
+    """The port's plain step of the zamba2 case at ``grad_accum`` 8 against
+    4 (one function, two orders of the same sums), two steps each: the
+    whole tree's largest departure lies in ``EPS_DECIDED``'s unit, beyond
+    lr / 50 (5.05e-4 read), and no element outside the unit moves lr / 100
+    (4.8e-5 read); the unit's ``shared.w_down[86, 56]`` has a nonzero
+    first-step gradient below AdamW's eps / 10 at both."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.models.api import make_train_step, trainable
+    from repro_torch.parity import params_from_jax
+
+    arch, (b, s) = "zamba2-1.2b", next((b, s) for a, _, b, s in CASES if a == "zamba2-1.2b")
+    cfg = get_config(arch).reduced()
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, b, s).items()}
+    final = {}
+    for ga in (4, 8):
+        api = get_model(dataclasses.replace(cfg, grad_accum=ga))
+        model = api.init(0, device="cpu")
+        model.load_state_dict(params_from_jax(runs["trees"][arch]), strict=True)
+        state = adamw_init(trainable(model))
+        step = make_train_step(api, AdamWConfig(**OPT))
+        model, state, _ = step(model, state, batch)
+        g = float(state["m"]["shared.w_down"][EPS_DECIDED[arch], 56]) / (1 - AdamWConfig().b1)
+        assert 0 < abs(g) < AdamWConfig().eps / 10, (ga, g)
+        model, state, _ = step(model, state, batch)
+        final[ga] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+    inside, outside = 0.0, 0.0
+    for name, a in final[4].items():
+        diff = np.abs(final[8][name] - a)
+        unit = _unit(arch, name, a.shape)
+        inside = max(inside, float(diff[unit].max()) if unit.any() else 0.0)
+        outside = max(outside, float(diff[~unit].max()))
+    assert inside > LR / 50 and outside < LR / 100, (inside, outside)
 
 
 @pytest.mark.parametrize("arch,shape", [c[:2] for c in CASES], ids=IDS)
 def test_local_shards_are_the_reference_shards(runs, arch, shape):
     """Each rank's local shape of every leaf is the reference's shard shape
-    (a stacked leaf's less its layer axis; a stack the specs pool along
-    its layer axis is held whole over it, one module a layer), and the
-    moments are placed as their parameters."""
+    (a stacked leaf's less its layer axis; of a stack the specs pool along
+    its layer axis, each layer's leaf shards its first dim over the pool
+    too, so a rank holds as many of the stack's elements as the
+    reference's shard), and the moments are placed as their parameters."""
     ref = runs["ref"]["train"][(arch, shape)]
     flat_specs = dict(_flat(ref["specs"]))
-    whole_layer = {path for path, spec in flat_specs.items()  # stacks the specs pool along L
-                   if LAYER_STACK.match(path.split(".")[0] + ".0.") and spec and spec[0] is not None}
+    pooled_l = {path for path, spec in flat_specs.items()  # stacks the specs pool along L
+                if LAYER_STACK.match(path.split(".")[0] + ".0.") and spec and spec[0] is not None}
     flat = {}  # the shard shapes (tuples) by reference path
 
     def walk(tree, prefix=""):
@@ -193,14 +305,20 @@ def test_local_shards_are_the_reference_shards(runs, arch, shape):
             path = f"{m.group(1)}.{name[m.end():]}" if m else name
             want = flat[path]
             if m:
-                n_layers = sum(1 for n in full if LAYER_STACK.match(n) and n[m.end():] == name[m.end():])
-                assert path in whole_layer or want[0] == n_layers, name
+                n_layers = sum(1 for n in full if (mm := LAYER_STACK.match(n)) and mm.group(1) == m.group(1)
+                               and n[mm.end():] == name[m.end():])
+                if path in pooled_l:
+                    assert n_layers * int(np.prod(local)) == int(np.prod(want)), (rank, name, local, want)
+                    assert local[1:] == want[2:], name
+                    assert got["moments"][name] == (local, local), name
+                    continue
+                assert want[0] == n_layers, name
                 want = want[1:]
             assert local == want, (rank, name, local, want)
             assert got["moments"][name] == (local, local), name
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-110b", "rwkv6-7b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_pooled_specs_at_full_size_equal_the_reference(runs, arch):
     api = get_model(get_config(arch))
     meta = api.abstract_params()
@@ -231,25 +349,39 @@ def _assert_equal(a: dict, b: dict):
 
 
 def test_restore_onto_another_mesh_and_one_device_is_bit_equal(runs):
-    r = runs["port"][0]["restore"]
+    _restored_bit_equal(runs, RESTORES[0])
+
+
+def test_restore_of_an_unpooled_family_onto_another_mesh_is_bit_equal(runs):
+    """whisper-base's state, saved from (2, 1, 2): the restore helpers take
+    every family's tree."""
+    _restored_bit_equal(runs, RESTORES[1])
+
+
+def _restored_bit_equal(runs, arch):
+    r = runs["port"][0]["restore"][arch]
     assert r["extras"] == {"step": 2} and r["step"] == r["plain_step"] == 2
     _assert_equal(r["restored"], r["saved"])
     _assert_equal(r["plain"], r["saved"])
-    api = get_model(get_config(CASES[0][0]).reduced())
+    api = get_model(get_config(arch).reduced())
     specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(),
                                  types.SimpleNamespace(mesh_dim_names=ranks.MESH_AXES, shape=(1, 4, 1)))
     for rank in range(WORLD):  # each rank holds its (1, 4, 1) slices
-        for name, local in runs["port"][rank]["restore"]["shapes"].items():
+        for name, local in runs["port"][rank]["restore"][arch]["shapes"].items():
             spec = meshlib.leaf_spec(specs, name)
             full = r["saved"]["params"][name].shape
             assert local == tuple(n // 4 if a == meshlib.POOL else n for n, a in zip(full, spec)), name
 
 
-def test_step_after_restore_equals_a_step_from_the_placed_state(runs):
+def test_step_after_an_unpooled_family_restore_equals_a_step_from_the_placed_state(runs):
+    test_step_after_restore_equals_a_step_from_the_placed_state(runs, RESTORES[1])
+
+
+def test_step_after_restore_equals_a_step_from_the_placed_state(runs, arch=RESTORES[0]):
     for rank in range(WORLD):
-        restored, direct = runs["port"][rank]["restore"]["next"]
+        restored, direct = runs["port"][rank]["restore"][arch]["next"]
         assert restored == direct
-    after, direct = runs["port"][0]["restore"]["after"]
+    after, direct = runs["port"][0]["restore"][arch]["after"]
     _assert_equal(after, direct)
 
 
@@ -257,11 +389,11 @@ def test_checkpoint_files_are_the_reference_layout(runs, tmp_path):
     """The files the ranks wrote are the reference manager's for the same
     state, byte for byte (``meta.json`` but its tree description), and the
     reference's ``restore(shardings=)`` reads them."""
-    r = runs["port"][0]["restore"]["saved"]
+    r = runs["port"][0]["restore"][RESTORES[0]]["saved"]
     tree = lambda d: tree_from_state({n: torch.from_numpy(a) for n, a in d.items()})
     state = (tree(r["params"]), {"m": tree(r["m"]), "v": tree(r["v"]), "step": np.int32(2)})
     JaxCheckpointManager(str(tmp_path)).save(2, state, {"step": 2})
-    ref, port = tmp_path / "step_00000002", runs["ckpt"] / "step_00000002"
+    ref, port = tmp_path / "step_00000002", runs["ckpt"] / RESTORES[0] / "step_00000002"
     assert sorted(os.listdir(ref)) == sorted(os.listdir(port))
     metas = [json.loads((d / "meta.json").read_text()) for d in (ref, port)]
     for m in metas:
@@ -273,7 +405,8 @@ def test_checkpoint_files_are_the_reference_layout(runs, tmp_path):
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1, 1), ranks.MESH_AXES)
     template = jax.tree.map(jax.numpy.asarray, state)
     shardings = jax.tree.map(lambda _: NamedSharding(mesh, P()), template)
-    (params, opt), extras = JaxCheckpointManager(str(runs["ckpt"])).restore(template, shardings=shardings)
+    (params, opt), extras = JaxCheckpointManager(str(runs["ckpt"] / RESTORES[0])).restore(template,
+                                                                                         shardings=shardings)
     assert extras == {"step": 2}
     for (name, want), (_, got) in zip(_flat(state[0]), _flat(jax.tree.map(np.asarray, params))):
         np.testing.assert_array_equal(got, np.asarray(want), err_msg=name)

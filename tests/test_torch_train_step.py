@@ -251,46 +251,56 @@ def test_grad_accum_matches_single_batch(arch_steps):
         assert_close(a, out[2][1][name], atol=PARAM_ATOL, rtol=2e-4, what=name)
 
 
+def _family_batch(cfg, b=4, s=8, seed=0):
+    """``_batch`` with vlm's inputs: embeds (B, S, D) and (3, B, S) M-RoPE
+    positions (each row's three channels offset apart) in place of tokens."""
+    batch = _batch(cfg, b, s, seed)
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(seed + 1)
+        del batch["tokens"]
+        batch["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        batch["mrope_positions"] = (np.arange(s)[None, None, :] + rng.integers(0, 4, (3, b, 1))).astype(np.int32)
+    return batch
+
+
 def test_train_step_refuses_sharding_specs(tmp_path):
-    """Sharding specs train dense, moe and ssm across a mesh; vlm, hybrid and
-    audio refuse them, naming their ROADMAP item (A11.6). On a 1-rank
-    mesh, at the pooled specs, two steps of reduced smollm-360m are the
-    plain steps bit for bit (each rank's products are the plain ops on its
-    local shards)."""
+    """Sharding specs train every family across a mesh (compute specs other
+    than ``param_specs`` are refused). On a 1-rank mesh, at the pooled
+    specs, two steps of reduced smollm-360m, qwen2-vl-7b, zamba2-1.2b and
+    whisper-base (one micro-batch each) are each the plain steps bit for
+    bit (each rank's products are the plain ops on its local shards)."""
     import _torch_mesh_ranks as ranks
     from repro_torch.core import pooling
     from repro_torch.launch import mesh as meshlib
 
-    for arch in ("qwen2-vl-7b", "zamba2-1.2b", "whisper-base"):
-        api = get_model(get_config(arch).reduced())
-        with pytest.raises(NotImplementedError, match="A11.6"):
-            make_train_step(api, AdamWConfig(), compute_specs=api.param_specs())
     api = get_model(get_config("smollm-360m").reduced())
     with pytest.raises(ValueError, match="param_specs"):
         make_train_step(api, AdamWConfig(), compute_specs={})
-    batch = {k: torch.from_numpy(v) for k, v in _batch(api.cfg, s=16).items()}
-    plain = api.init(0, device="cpu")
-    state = adamw_init(trainable(plain))
-    step = make_train_step(api, AdamWConfig(lr=LR))
-    want = []
-    for _ in range(2):
-        plain, state, m = step(plain, state, batch)
-        want.append(m)
     with ranks.one_rank_mesh(str(tmp_path / "store")) as mesh:
-        specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
-        placed = meshlib.place_params(api.init(0, device="cpu"), mesh, specs)
-        pstate = adamw_init(trainable(placed))
-        step = make_train_step(api, AdamWConfig(lr=LR), compute_specs=api.param_specs(), storage_specs=specs)
-        got = []
-        for _ in range(2):
-            placed, pstate, m = step(placed, pstate, batch)
-            got.append(m)
-        assert all(meshlib.is_dtensor(p) for p in placed.parameters())
-        for name, p in placed.named_parameters():
-            assert torch.equal(p.to_local(), dict(plain.named_parameters())[name]), name
-            assert torch.equal(pstate["v"][name].to_local(), state["v"][name]), name
-    for g, w in zip(got, want):
-        assert {k: float(v) for k, v in g.items()} == {k: float(v) for k, v in w.items()}
+        for arch in ("smollm-360m", "qwen2-vl-7b", "zamba2-1.2b", "whisper-base"):
+            api = get_model(dataclasses.replace(get_config(arch).reduced(), grad_accum=1))
+            batch = {k: torch.from_numpy(v) for k, v in _family_batch(api.cfg, b=4, s=8).items()}
+            plain = api.init(0, device="cpu")
+            state = adamw_init(trainable(plain))
+            step = make_train_step(api, AdamWConfig(lr=LR))
+            want = []
+            for _ in range(2):
+                plain, state, m = step(plain, state, batch)
+                want.append(m)
+            specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+            placed = meshlib.place_params(api.init(0, device="cpu"), mesh, specs)
+            pstate = adamw_init(trainable(placed))
+            step = make_train_step(api, AdamWConfig(lr=LR), compute_specs=api.param_specs(), storage_specs=specs)
+            got = []
+            for _ in range(2):
+                placed, pstate, m = step(placed, pstate, batch)
+                got.append(m)
+            assert all(meshlib.is_dtensor(p) for p in placed.parameters()), arch
+            for name, p in placed.named_parameters():
+                assert torch.equal(p.to_local(), dict(plain.named_parameters())[name]), (arch, name)
+                assert torch.equal(pstate["v"][name].to_local(), state["v"][name]), (arch, name)
+            for g, w in zip(got, want):
+                assert {k: float(v) for k, v in g.items()} == {k: float(v) for k, v in w.items()}, arch
 
 
 def test_vlm_micro_batches_split_mrope_positions_on_their_batch_axis():

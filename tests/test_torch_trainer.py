@@ -15,6 +15,7 @@
    resumes from its last checkpoint and raises at ``--fail-at``; without
    ``--device`` it wants the card, as the Trainer does.
 """
+import dataclasses
 import shutil
 
 import numpy as np
@@ -189,22 +190,66 @@ def test_trainer_follows_the_jax_trainer(jax_trainer, tmp_path):
     assert moved > 100 * PARAM_ATOL  # the steps moved the parameters by far more than the tolerance
 
 
+def _family_batches(cfg, b: int, s: int, n: int):
+    """(step, host batch) pairs of the family's inputs, from a numpy seed:
+    labels and tokens, with audio frames for whisper, and embeds and (3, B,
+    S) M-RoPE positions in place of tokens for vlm."""
+    for step in range(n):
+        rng = np.random.default_rng(step)
+        batch = {"labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+        if cfg.family == "vlm":
+            batch["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+            batch["mrope_positions"] = (np.arange(s)[None, None, :] + rng.integers(0, 4, (3, b, 1))).astype(np.int32)
+        else:
+            batch["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+        if cfg.family == "audio":
+            batch["frames"] = rng.standard_normal((b, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+        yield step, batch
+
+
 def test_trainer_refuses_sharding_specs(tmp_path):
-    """``Trainer(compute_specs=)`` refuses the families not trained across
-    cards (ROADMAP A11.6). On a 1-rank mesh it trains the module the caller
-    placed (at the pooled specs), and a crash at step 3 resumed from its
-    checkpoint (restored into the placed template, in place) ends at step
-    5 with the state of a clean run, bit for bit."""
+    """``Trainer(compute_specs=)`` trains every family across a mesh: on a
+    1-rank mesh, reduced qwen2-vl-7b, zamba2-1.2b and whisper-base (one
+    micro-batch a step) each take two steps bit-equal to a Trainer with no
+    mesh, and the step-2
+    checkpoint restores into a placed template bit for bit. For reduced
+    smollm-360m a crash at step 3 resumed from its checkpoint (restored
+    into the placed template, in place) ends at step 5 with the state of a
+    clean run, bit for bit."""
     import _torch_mesh_ranks as ranks
     from repro_torch.core import pooling
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models.api import trainable
     from repro_torch.optim import adamw_init
 
-    vlm = get_model(get_config("qwen2-vl-7b").reduced())
-    with pytest.raises(NotImplementedError, match="A11.6"):
-        Trainer(vlm, AdamWConfig(), TrainerConfig(ckpt_dir=str(tmp_path / "vlm")),
-                compute_specs=vlm.param_specs(), device="cpu")
+    with ranks.one_rank_mesh(str(tmp_path / "families")) as mesh:
+        for arch in ("qwen2-vl-7b", "zamba2-1.2b", "whisper-base"):
+            api = get_model(dataclasses.replace(get_config(arch).reduced(), grad_accum=1))
+            specs = pooling.pooled_specs(api.param_specs(), api.abstract_params(), mesh)
+            plain = Trainer(api, AdamWConfig(lr=LR), TrainerConfig(ckpt_dir=str(tmp_path / arch / "plain")),
+                            device="cpu")
+            plain.init_state()
+            plain.run(_family_batches(api.cfg, 4, 8, 2), 2)
+
+            def placed(name):
+                tr = Trainer(api, AdamWConfig(lr=LR), TrainerConfig(ckpt_dir=str(tmp_path / arch / name),
+                                                                      ckpt_every=2),
+                             compute_specs=api.param_specs(), device="cpu")
+                tr.params = meshlib.place_params(api.init(0, device="cpu"), mesh, specs)
+                tr.opt_state = adamw_init(trainable(tr.params))
+                return tr
+
+            tr = placed("mesh")
+            tr.run(_family_batches(api.cfg, 4, 8, 2), 2)
+            assert [m["loss"] for m in tr.metrics_log] == [m["loss"] for m in plain.metrics_log], arch
+            want = _state(plain)
+            for name, t in _state(tr).items():
+                assert meshlib.is_dtensor(t) == (name != "step"), (arch, name)
+                assert torch.equal(meshlib.local(t), want[name]), (arch, name)
+            back = placed("mesh")
+            assert back.try_restore() and back.step == 2
+            for name, t in _state(back).items():
+                assert torch.equal(meshlib.local(t), want[name]), (arch, name)
     cfg = get_config(ARCH).reduced()
     api = get_model(cfg)
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=16)
