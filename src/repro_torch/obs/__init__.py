@@ -23,7 +23,18 @@ scheduling, elasticity, the serving engine, and the tiered-KV drain path:
   time; the prompt-completing chunk step under chunked prefill), merged
   into ``tenant_report``'s ``ttft_p50``/``ttft_p99``;
 * ``export``  — Perfetto/Chrome trace_event JSON for the span timeline and
-  JSON-lines metric snapshots per profiler window.
+  JSON-lines metric snapshots per profiler window;
+* ``timeline`` — each serving engine's device timeline: its step phases
+  (admission, the prefills and the model call inside each, the decode's
+  replay or the chunk columns, the tier lookup and writes, the host books,
+  the placement-window boundary's drain, plan, migrations and prefetch
+  window) and each request's ``queue`` wait and ``prefill``, on the host
+  clock (``time.perf_counter`` seconds). On the card the points are CUDA
+  events, mapped onto the host clock at the waits the engine makes anyway
+  (a whole-slot prefill's first token, the counter plane's drain), so the
+  timeline adds no host sync; a host-only span (one that launches nothing)
+  measures the idle its host work leaves the device. It is kept apart from
+  the span ring and the registries above, which stay the reference's.
 
 :class:`FlightRecorder` is the facade the fleet attaches
 (``FleetRouter.attach_recorder`` / ``build_fleet(recorder=...)``); a
@@ -31,6 +42,17 @@ process-global default recorder can be installed explicitly
 (:func:`set_default_recorder`, what ``benchmarks/run.py --trace`` does) or
 via the strict boolean env ``REPRO_FLIGHT_RECORDER=1`` (what CI uses to run
 the dispatch-budget suite with tracing on).
+
+A recorder, to an engine, is anything with ``register``, ``span`` and
+``instant``: the engine calls nothing else on it. An engine's device
+timeline is on exactly while a recorder is attached to it (the
+constructor's ``recorder=``, the default recorder, or a fleet's attach),
+and the engine hands the timeline over through ``register``;
+``FlightRecorder.write`` renders every timeline handed to it, apart from
+the span timeline, as ``<trace>.device.json`` on the wall clock. The
+whole-slot ``prefill`` span reaches the recorder after the request's first
+token is back on the host, outside every host-only span, so a recorder
+may act on the device there; elsewhere its calls should launch nothing.
 """
 from __future__ import annotations
 
@@ -50,6 +72,7 @@ from repro_torch.obs.metrics import (
     sum_counters,
 )
 from repro_torch.obs.spans import Span, SpanRecorder
+from repro_torch.obs.timeline import DeviceTimeline, trace_events
 
 __all__ = [
     "Counter",
@@ -89,6 +112,8 @@ class FlightRecorder:
         self.spans = SpanRecorder(capacity)
         self.metrics = MetricsRegistry()
         self.extra_registries: List[MetricsRegistry] = []
+        # engines' device timelines: exported apart, never merged
+        self.timelines: List[DeviceTimeline] = []
         self.metrics_window = float(metrics_window)
         self.metric_rows: List[dict] = []
         self.step_spans = bool(step_spans)  # per-replica step spans on host tracks
@@ -99,9 +124,13 @@ class FlightRecorder:
     def now(self) -> float:
         return float(self.now_fn())
 
-    def register(self, registry: MetricsRegistry):
-        """Include an engine/replica registry in snapshots and exports."""
-        if registry is not self.metrics and registry not in self.extra_registries:
+    def register(self, registry):
+        """Include an engine/replica registry in snapshots and exports, or an
+        engine's device timeline in ``write``'s device file."""
+        if isinstance(registry, DeviceTimeline):
+            if registry not in self.timelines:
+                self.timelines.append(registry)
+        elif registry is not self.metrics and registry not in self.extra_registries:
             self.extra_registries.append(registry)
 
     # span API (t defaults to the shared virtual clock) ----------------
@@ -155,7 +184,8 @@ class FlightRecorder:
         metrics_path: Optional[str] = None,
         validate: bool = True,
     ) -> dict:
-        """Export the span timeline (and final metrics row) to disk.
+        """Export the span timeline (and final metrics row) to disk, and the
+        registered engines' device timelines to ``<trace_path>.device.json``.
 
         ``metrics_path`` defaults to ``<trace_path>.metrics.jsonl``. Returns
         the validator's summary so callers can assert on it.
@@ -169,6 +199,11 @@ class FlightRecorder:
         else:
             summary = {"events": len(events)}
         export_mod.write_trace(trace_path, events)
+        if self.timelines:
+            device = trace_events(self.timelines)
+            if validate:
+                export_mod.validate_trace_events(device)
+            export_mod.write_trace(f"{trace_path}.device.json", device)
         self.snapshot_metrics(self.now())
         export_mod.write_metrics(
             metrics_path or f"{trace_path}.metrics.jsonl", self.metric_rows

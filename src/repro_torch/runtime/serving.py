@@ -100,6 +100,7 @@ from repro_torch.env import env_flag
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models.api import ModelAPI, make_serve_step
 from repro_torch.obs import Counter, MetricsRegistry, default_recorder
+from repro_torch.obs.timeline import OFF, DeviceSpan, DeviceTimeline
 from repro_torch.kernels import launch_counts
 from repro_torch.runtime.graphs import StepGraph
 from repro_torch.runtime.tiered_kv import (
@@ -293,6 +294,9 @@ class ServingEngine:
         self._m_pf_promoted = self.metrics.counter("prefetch_promoted_pages")
         # delta-tracking for books owned elsewhere, synced at drain boundaries
         self._book_seen: Dict[str, int] = {}
+        # the device timeline (obs/timeline.py): on while a recorder is
+        # attached (the ``recorder`` setter), OFF otherwise
+        self._timeline: Optional[DeviceTimeline] = None
         self.recorder = recorder if recorder is not None else default_recorder()
         if self.recorder is not None:
             self.recorder.register(self.metrics)
@@ -330,15 +334,16 @@ class ServingEngine:
         self.prefill_dispatches = 0
         # time-to-first-token, stamped at submit()
         self._enq_vt: Dict[int, float] = {}
-        self._enq_wall: Dict[int, float] = {}
         self.ttft_vt_samples: List[float] = []
-        self.ttft_wall_samples: List[float] = []
         # per-role (decode, prefill) x (near, far) tier hits from the drain
         self.role_hits = np.zeros((N_ROLES, 2), np.int64)
         # per-slot (start, end) prompt intervals of the chunk step in flight,
         # set by step() before the dispatch and consumed by _account_decode
         # and the post-step bookkeeping
         self._step_chunks: Dict[int, Tuple[int, int]] = {}
+        # slot -> the timeline point after the chunk column that emitted its
+        # first token (the end of its prefill span)
+        self._emit_at: Dict[int, object] = {}
         # chunked prefill is gated per family (see CHUNKABLE_FAMILIES)
         self.chunking = e.prefill_chunk > 0 and api.family in CHUNKABLE_FAMILIES
         # whole-batch decodes run: one a decode step, one a chunk column (so
@@ -392,6 +397,30 @@ class ServingEngine:
         )
 
     # ------------------------------------------------------------------
+    @property
+    def recorder(self):
+        """The attached flight recorder (or None). The engine calls only its
+        ``register``, ``span`` and ``instant``; attaching one turns the
+        device timeline on and hands it over through ``register``."""
+        return self._recorder
+
+    @recorder.setter
+    def recorder(self, rec):
+        self._recorder = rec
+        self._tl = OFF
+        if rec is not None:
+            if self._timeline is None:
+                self._timeline = DeviceTimeline(self.device)
+            rec.register(self._timeline)
+            self._tl = self._timeline
+
+    def timeline(self, t0: float = float("-inf"), t1: float = float("inf")) -> List[DeviceSpan]:
+        """The device timeline's finished spans that end between host times
+        ``t0`` and ``t1`` (``time.perf_counter`` seconds), by start: what the
+        device has completed, read without waiting. Empty if no recorder
+        was ever attached."""
+        return [] if self._timeline is None else self._timeline.read(t0, t1)
+
     @property
     def cache(self) -> dict:
         """The batched cache, updated in place (never rebound)."""
@@ -490,13 +519,16 @@ class ServingEngine:
     def _sync_device_tiers(self):
         """Mirror placement.tier into the device store (real data movement)."""
         if self.tiered is not None:
-            self.tiered.migrate(self.placement.near_blocks())
+            sp = self._tl.enter("migrate")
+            moved = self.tiered.migrate(self.placement.near_blocks())
+            self._tl.leave(sp, promoted=moved["promoted"], demoted=moved["demoted"],
+                           bytes=moved["moved_bytes"])
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
         # stamp arrival so TTFT covers queue wait, not just slot residency
         self._enq_vt[req.rid] = self.now()
-        self._enq_wall[req.rid] = time.perf_counter()
+        self._tl.open("queue", req.rid, at=time.perf_counter())
         self.queue.append(req)
 
     def _record_ttft(self, req: Request):
@@ -505,9 +537,6 @@ class ServingEngine:
         vt = t - self._enq_vt.pop(req.rid, t)
         self.ttft_vt_samples.append(vt)
         self.metrics.histogram("ttft", tenant=req.tenant).record(vt)
-        wall = self._enq_wall.pop(req.rid, None)
-        if wall is not None:
-            self.ttft_wall_samples.append(time.perf_counter() - wall)
 
     def _admit_common(self, slot: _Slot, req: Request):
         """Slot bookkeeping shared by both admission paths. Returns the
@@ -540,45 +569,63 @@ class ServingEngine:
         and its first token is the one host read of the step's argmax.
         Chunked path: admission maps pages, zeroes the slot's cache rows in
         place and arms a ChunkState; the prompt flows through the chunk
-        columns of the following steps, with no host read."""
-        for slot_idx, slot in enumerate(self.slots):
-            if slot.active or not self.queue:
-                continue
-            req = self.queue.popleft()
-            tokens, share = self._admit_common(slot, req)
-            if self.chunking:
-                self._reset_slot(slot_idx)
-                slot.chunk = ChunkState(tokens=tokens)
-                slot.shared_pages = share["shared"]
-                continue
-            logits1, cache1 = self.api.prefill(self.params, self._prefill_batch(tokens),
-                                               max_len=self.ecfg.max_len)
-            self.model_dispatches += 1
-            self.prefill_dispatches += 1
-            self._write_slot(slot_idx, cache1)
-            if self.tiered is not None:
-                # seed the device tier store with this sequence's page
-                # payloads (each page keyed by its last prefilled token)
-                pages = self.pagetable.seqs[req.rid]
-                ps = self.ecfg.page_size
-                positions = [
-                    min((i + 1) * ps, len(tokens)) - 1 for i in range(len(pages))
-                ]
-                self._tiered_write(self.cache, [slot_idx] * len(pages), positions, pages)
-            nxt = int(to_host(torch.argmax(meshlib.whole(logits1)[0, -1, : self.cfg.vocab_size])))
-            self.next_tokens[slot_idx] = nxt
-            self._record_ttft(req)
-            if self.recorder is not None:
-                self.recorder.span(
-                    "prefill",
-                    req.rid,
-                    slot.t_admit,
-                    slot.t_admit,
-                    tenant=req.tenant,
-                    replica=self.host_rid,
-                    prompt_tokens=len(tokens),
-                    shared_pages=share["shared"],
-                )
+        columns of the following steps, with no host read.
+
+        On the device timeline: ``admit``, its host bookkeeping
+        (``admit.host``), and each request's ``queue`` closed and
+        ``prefill`` opened where its prefill starts on the device; a
+        whole-slot ``prefill`` holds ``prefill.model`` and ends when its
+        first token is back on the host (and is reported to the recorder
+        after that, outside any host-only span)."""
+        tl = self._tl
+        with tl.phase("admit"):
+            for slot_idx, slot in enumerate(self.slots):
+                if slot.active or not self.queue:
+                    continue
+                with tl.phase("admit.host", host_only=True):
+                    req = self.queue.popleft()
+                    tokens, share = self._admit_common(slot, req)
+                at = tl.mark()
+                tl.close("queue", req.rid, at)
+                if self.chunking:
+                    tl.open("prefill", req.rid, at)
+                    self._reset_slot(slot_idx)
+                    slot.chunk = ChunkState(tokens=tokens)
+                    slot.shared_pages = share["shared"]
+                    continue
+                pre = tl.enter("prefill", req.rid, at=at)
+                batch = self._prefill_batch(tokens)
+                with tl.phase("prefill.model", req.rid):
+                    logits1, cache1 = self.api.prefill(self.params, batch, max_len=self.ecfg.max_len)
+                self.model_dispatches += 1
+                self.prefill_dispatches += 1
+                self._write_slot(slot_idx, cache1)
+                if self.tiered is not None:
+                    # seed the device tier store with this sequence's page
+                    # payloads (each page keyed by its last prefilled token)
+                    pages = self.pagetable.seqs[req.rid]
+                    ps = self.ecfg.page_size
+                    positions = [
+                        min((i + 1) * ps, len(tokens)) - 1 for i in range(len(pages))
+                    ]
+                    self._tiered_write(self.cache, [slot_idx] * len(pages), positions, pages)
+                first = torch.argmax(meshlib.whole(logits1)[0, -1, : self.cfg.vocab_size])
+                tl.settle()  # the host is about to wait for the prefill anyway
+                nxt = int(to_host(first))
+                tl.leave(pre, at=tl.waited())
+                self.next_tokens[slot_idx] = nxt
+                self._record_ttft(req)
+                if self.recorder is not None:
+                    self.recorder.span(
+                        "prefill",
+                        req.rid,
+                        slot.t_admit,
+                        slot.t_admit,
+                        tenant=req.tenant,
+                        replica=self.host_rid,
+                        prompt_tokens=len(tokens),
+                        shared_pages=share["shared"],
+                    )
 
     def _prefill_batch(self, tokens) -> dict:
         """A batch-1 prefill input in the family's keys, as the reference
@@ -691,8 +738,20 @@ class ServingEngine:
         n_cols = int(np.flatnonzero(act.any(axis=0))[-1]) + 1
         stage_into(self._bufs["plan"], np.stack([tok, use_prompt, act, emit]))
         self._bufs["col"].zero_()
-        for _ in range(n_cols):
-            self._dispatch("column")
+        tl = self._tl
+        # column -> the slots whose first token it emits: a timeline point
+        # after its replay ends their prefill spans
+        firsts: Dict[int, List[int]] = {}
+        if tl.on:
+            for i, (start, end) in spans.items():
+                if emit[i, end - start - 1]:
+                    firsts.setdefault(end - start - 1, []).append(i)
+        with tl.phase("columns"):
+            for c in range(n_cols):
+                self._dispatch("column")
+                if c in firsts:
+                    at = tl.mark()
+                    self._emit_at.update(dict.fromkeys(firsts[c], at))
         self.chunk_columns += n_cols
         self.batch_decodes += n_cols
 
@@ -750,7 +809,11 @@ class ServingEngine:
         d = None
         self._last_drain_step = self.engine_steps
         if self.tiered is not None:
-            d = self.tiered.drain_counters()
+            with self._tl.phase("drain"):
+                reads = self.tiered.plane_dirty  # a clean plane drains without a host read
+                d = self.tiered.drain_counters()
+                if reads:
+                    self._tl.waited()
             if d["near"] or d["far"]:
                 self.placement.stats.near_hits += d["near"]
                 self.placement.stats.far_hits += d["far"]
@@ -769,6 +832,7 @@ class ServingEngine:
     def _verify(self, rows, ids):
         """tiered_verify: fold the tiered-vs-flat divergence of one read in."""
         err = float(to_host((rows - self.tiered.lookup_flat(ids)).abs().max()))
+        self._tl.waited()
         self.tiered_max_err = max(self.tiered_max_err, err)
 
     def _account_decode(self):
@@ -783,39 +847,54 @@ class ServingEngine:
         Under chunked prefill a prefilling slot's walk is truncated to the
         pages whose KV content exists after this step's chunk, and its
         segment carries ROLE_PREFILL into the counter plane's role
-        accumulator: the mixed prefill/decode step stays ONE lookup."""
-        segs = []
-        for slot_idx, slot in enumerate(self.slots):
-            if not slot.active:
-                continue
-            pages_all = self.pagetable.seqs[slot.seq_id]
-            role = ROLE_DECODE
-            if slot.prefilling and slot_idx in self._step_chunks:
-                end = self._step_chunks[slot_idx][1]
-                pages = np.array(pages_all[: -(-end // self.ecfg.page_size)], np.int64)
-                role = ROLE_PREFILL
-            else:
-                pages = np.array(pages_all, np.int64)
-            if pages.size:
-                segs.append((slot_idx, slot, pages, role))
+        accumulator: the mixed prefill/decode step stays ONE lookup.
+
+        On the device timeline: the ``lookup`` around the store's call, and
+        the host work on either side of it as ``books`` (host-only, unless
+        the per-slot baseline's lookups run inside it)."""
+        tl = self._tl
+        segmented = self.tiered is not None and self.ecfg.segmented_lookup
+        with tl.phase("books", host_only=True):
+            segs = []
+            for slot_idx, slot in enumerate(self.slots):
+                if not slot.active:
+                    continue
+                pages_all = self.pagetable.seqs[slot.seq_id]
+                role = ROLE_DECODE
+                if slot.prefilling and slot_idx in self._step_chunks:
+                    end = self._step_chunks[slot_idx][1]
+                    pages = np.array(pages_all[: -(-end // self.ecfg.page_size)], np.int64)
+                    role = ROLE_PREFILL
+                else:
+                    pages = np.array(pages_all, np.int64)
+                if pages.size:
+                    segs.append((slot_idx, slot, pages, role))
+            if segs and segmented:
+                ids = np.concatenate([p for _, _, p, _ in segs])
+                seg_of = np.repeat(
+                    np.arange(len(segs), dtype=np.int32), [p.size for _, _, p, _ in segs]
+                )
         if not segs:
             return
-        segmented = self.tiered is not None and self.ecfg.segmented_lookup
         if segmented:
-            ids = np.concatenate([p for _, _, p, _ in segs])
-            seg_of = np.repeat(
-                np.arange(len(segs), dtype=np.int32), [p.size for _, _, p, _ in segs]
-            )
-            rows = self.tiered.lookup_segments(
-                ids,
-                seg_of,
-                self.ecfg.max_batch + 1,  # last segment absorbs the padding
-                slot_idx=[i for i, _, _, _ in segs],
-                tenant_idx=[self._tenant_index[s.request.tenant] for _, s, _, _ in segs],
-                role_idx=[r for _, _, _, r in segs],
-            )
+            with tl.phase("lookup"):
+                rows = self.tiered.lookup_segments(
+                    ids,
+                    seg_of,
+                    self.ecfg.max_batch + 1,  # last segment absorbs the padding
+                    slot_idx=[i for i, _, _, _ in segs],
+                    tenant_idx=[self._tenant_index[s.request.tenant] for _, s, _, _ in segs],
+                    role_idx=[r for _, _, _, r in segs],
+                )
             if self.ecfg.tiered_verify:
                 self._verify(rows, ids)
+        with tl.phase("books", host_only=segmented or self.tiered is None):
+            self._account_pages(segs, segmented)
+
+    def _account_pages(self, segs, segmented: bool):
+        """The host books of one step's page reads (``_account_decode``):
+        the per-slot baseline's hit split, prefetch, profiler, tracer and
+        hooks."""
         far_total = n_total = 0
         for slot_idx, slot, pages, _role in segs:
             far = self.placement.tier[pages] == 1
@@ -844,13 +923,14 @@ class ServingEngine:
                 hook(pages, False)
         self.last_step_far_frac = far_total / n_total if n_total else 0.0
 
-    def _finish_chunk(self, slot_idx: int, slot: _Slot):
+    def _finish_chunk(self, slot_idx: int, slot: _Slot, writes: List[tuple]):
         """Post-dispatch bookkeeping for one prefilling slot: advance the
-        chunk cursor, push the prompt pages this chunk completed through
-        the tiered write path (each page keyed by its last prefilled
-        token, as the whole-slot admit seeds them), and, when the final
-        prompt token just landed, close TTFT: the emit column captured the
-        request's first generated token into next_tokens."""
+        chunk cursor, queue the prompt pages this chunk completed for the
+        tiered write path on ``writes`` (each page keyed by its last
+        prefilled token, as the whole-slot admit seeds them; the step
+        writes them after its host bookkeeping, in this order), and, when
+        the final prompt token just landed, close TTFT: the emit column
+        captured the request's first generated token into next_tokens."""
         start, end = self._step_chunks[slot_idx]
         slot.chunk.pos = end
         slot.chunks_done += 1
@@ -866,7 +946,7 @@ class ServingEngine:
                     w_pages.append(pid)
                     w_pos.append(endpos - 1)
             if w_pages:
-                self._tiered_write(self.cache, [slot_idx] * len(w_pages), w_pos, w_pages)
+                writes.append(([slot_idx] * len(w_pages), w_pos, w_pages))
         t = self.now()
         if self.recorder is not None:
             self.recorder.span(
@@ -883,6 +963,7 @@ class ServingEngine:
             prompt_tokens = slot.chunk.total
             slot.chunk = None
             self._record_ttft(slot.request)
+            self._tl.close("prefill", slot.seq_id, self._emit_at.pop(slot_idx, None))
             if self.recorder is not None:
                 self.recorder.span(
                     "prefill",
@@ -906,7 +987,23 @@ class ServingEngine:
         Either way one model dispatch and one tiered-gather launch, and no
         host read but a whole-slot admit's first token and the
         profiler-window drain. Returns tokens decoded this step.
+
+        On the device timeline the step is a ``step`` span over its phases:
+        ``admit``, ``decode`` or ``columns``, ``books`` and ``lookup``,
+        ``retire``, ``write``, ``books``, and at a placement-window boundary
+        ``epoch``; its ``prefills`` arg counts the first tokens it emitted.
         """
+        tl = self._tl
+        firsts = len(self.ttft_vt_samples)
+        sp = tl.enter("step")
+        try:
+            decoded = self._step()
+        finally:
+            tl.leave(sp, prefills=len(self.ttft_vt_samples) - firsts)
+        return decoded
+
+    def _step(self) -> int:
+        tl = self._tl
         self._admit()
         if not any(s.active for s in self.slots):
             return 0
@@ -914,27 +1011,63 @@ class ServingEngine:
             self._chunk_step()
         else:
             self._step_chunks = {}
-            self._dispatch("decode")
+            with tl.phase("decode"):
+                self._dispatch("decode")
             self.batch_decodes += 1
         self.model_dispatches += 1
         self._account_decode()
+        with tl.phase("retire", host_only=True):
+            decoded, chunk_writes, w = self._retire()
+        if self.tiered is not None and (chunk_writes or w["page"]):
+            # the prompt pages the chunks completed, then the decoded
+            # tokens' KV, executed on the device store
+            with tl.phase("write"):
+                for slots, pos, pages in chunk_writes:
+                    self._tiered_write(self.cache, slots, pos, pages)
+                self._tiered_write(self.cache, w["slot"], w["pos"], w["page"])
+        with tl.phase("books", host_only=True):
+            if w["page"]:
+                pages = np.asarray(w["page"], np.int64)
+                self.profiler.record("kv", pages, rw="w")
+                by_tenant: Dict[str, List[int]] = {}
+                for page, tenant in zip(w["page"], w["tenant"]):
+                    by_tenant.setdefault(tenant, []).append(page)
+                for tenant, pids in by_tenant.items():
+                    self.profiler.record(f"kv.{tenant}", np.asarray(pids, np.int64), rw="w")
+                self.tracer.record(pages, is_write=True, stream=np.asarray(w["seq"], np.int64))
+                for hook in self.access_hooks:
+                    hook(pages, True)
+            self._m_tokens.inc(decoded)
+            self.engine_steps += 1
+            self.profiler.tick()
+            self.tracer.tick()
+        # profiler-window boundary: drain the device counter plane into the
+        # host books, then run the TPP epoch (unless a planner owns placement)
+        if self.engine_steps % self.ecfg.placement_window == 0:
+            self._epoch()
+        return decoded
+
+    def _retire(self):
+        """The host side of a step after its dispatch: each prefilling slot's
+        chunk books (``_finish_chunk``), each decoding slot's token appended
+        to its pages and its books, and the slots whose requests finished
+        freed. Returns (tokens decoded, the chunks' tiered writes, the
+        decoded tokens' pages with their slot, position, sequence and
+        tenant)."""
         decoded = 0
-        written: List[int] = []
-        written_tenant: List[str] = []
-        written_slot: List[int] = []
-        written_pos: List[int] = []
-        written_seq: List[int] = []
+        chunk_writes: List[tuple] = []
+        w: Dict[str, list] = {"page": [], "tenant": [], "slot": [], "pos": [], "seq": []}
         for slot_idx, slot in enumerate(self.slots):
             if not slot.active:
                 continue
             if slot.prefilling:
-                self._finish_chunk(slot_idx, slot)
+                self._finish_chunk(slot_idx, slot, chunk_writes)
                 continue
-            written.append(self.pagetable.append_token(slot.seq_id))
-            written_tenant.append(slot.request.tenant)
-            written_slot.append(slot_idx)
-            written_pos.append(self.pagetable.seq_len[slot.seq_id] - 1)
-            written_seq.append(slot.seq_id)
+            w["page"].append(self.pagetable.append_token(slot.seq_id))
+            w["tenant"].append(slot.request.tenant)
+            w["slot"].append(slot_idx)
+            w["pos"].append(self.pagetable.seq_len[slot.seq_id] - 1)
+            w["seq"].append(slot.seq_id)
             slot.remaining -= 1
             decoded += 1
             ts = self._tenant(slot.request.tenant)
@@ -965,48 +1098,39 @@ class ServingEngine:
                 self._m_finished.inc()
                 slot.seq_id = -1
                 slot.request = None
-        if written:
-            # the decoded token's KV write, executed on the device store too
-            w = np.asarray(written, np.int64)
-            if self.tiered is not None:
-                self._tiered_write(self.cache, written_slot, written_pos, written)
-            self.profiler.record("kv", w, rw="w")
-            by_tenant: Dict[str, List[int]] = {}
-            for page, tenant in zip(written, written_tenant):
-                by_tenant.setdefault(tenant, []).append(page)
-            for tenant, pages in by_tenant.items():
-                self.profiler.record(f"kv.{tenant}", np.asarray(pages, np.int64), rw="w")
-            self.tracer.record(w, is_write=True, stream=np.asarray(written_seq, np.int64))
-            for hook in self.access_hooks:
-                hook(w, True)
-        self._m_tokens.inc(decoded)
-        self.engine_steps += 1
-        self.profiler.tick()
-        self.tracer.tick()
-        # profiler-window boundary: drain the device counter plane into the
-        # host books, then run the TPP epoch (unless a planner owns placement)
-        if self.engine_steps % self.ecfg.placement_window == 0:
+        return decoded, chunk_writes, w
+
+    def _epoch(self):
+        """A placement-window boundary (``epoch`` on the device timeline):
+        the counter plane's ``drain``, the TPP ``plan`` and its ``migrate``,
+        and the ``prefetch`` issue window."""
+        tl = self._tl
+        tl.settle()  # before the drain's wait, outside the boundary's span
+        with tl.phase("epoch"):
             self.drain_tier_counters()
             # degraded mode suspends placement planning and prefetch
             # promotion (there is no near capacity to plan into); the drain
             # above still runs, so degraded books keep the same cadence
             if not self.external_placement and not self.degraded:
-                wins = self.profiler.windows("kv")
+                with tl.phase("plan", host_only=True):
+                    wins = self.profiler.windows("kv")
+                    if wins:
+                        self.placement.step(wins[-1])
                 if wins:
-                    self.placement.step(wins[-1])
                     self._sync_device_tiers()
             # the prefetch issue window runs right after the boundary drain:
             # its migration sees a clean counter plane and reads nothing back
             if self.ecfg.prefetch_promote and not self.degraded:
-                if self.prefetch.predictor == "trace":
-                    # tenant-partitioned local training: trace streams are
-                    # seq ids, and _seq_tenant maps them to their tenant
-                    self.prefetch.load_successors(
-                        train_tenant_successors(self.tracer.windows[-32:], self._seq_tenant),
-                        merge=True,
-                    )
-                self._prefetch_window()
-        return decoded
+                with tl.phase("prefetch"):
+                    if self.prefetch.predictor == "trace":
+                        # tenant-partitioned local training: trace streams
+                        # are seq ids, and _seq_tenant maps them to their
+                        # tenant
+                        self.prefetch.load_successors(
+                            train_tenant_successors(self.tracer.windows[-32:], self._seq_tenant),
+                            merge=True,
+                        )
+                    self._prefetch_window()
 
     def _prefetch_window(self) -> int:
         """Chase each predicted page chain and promote the predicted FAR
@@ -1298,7 +1422,7 @@ class ServingEngine:
         out: List[Tuple[Request, int]] = []
         for req in self.queue:
             self._enq_vt.pop(req.rid, None)
-            self._enq_wall.pop(req.rid, None)
+            self._tl.forget(req.rid)
             out.append((req, 0))
         self.queue.clear()
         for slot in self.slots:
@@ -1309,12 +1433,13 @@ class ServingEngine:
             self.pagetable.free_sequence(slot.seq_id)
             self.prefetch.drop_stream(slot.seq_id)
             self._enq_vt.pop(slot.seq_id, None)
-            self._enq_wall.pop(slot.seq_id, None)
+            self._tl.forget(slot.seq_id)
             slot.seq_id = -1
             slot.request = None
             slot.chunk = None
             slot.remaining = 0
             out.append((req, max(0, done)))
+        self._emit_at.clear()
         if out:
             self.metrics.counter("requests_aborted").inc(len(out))
         return out

@@ -280,6 +280,11 @@ class ShardedTieredKV:
     def degraded(self) -> bool:
         return all(sh.degraded for sh in self.shards)
 
+    @property
+    def plane_dirty(self) -> bool:
+        """Whether the next drain reads back a plane this process holds."""
+        return any(sh.plane_dirty for sh in self.shards)
+
     def set_degraded(self, flag: bool):
         """Far-tier-only mode for every shard: one logical replica degrades
         as a unit."""

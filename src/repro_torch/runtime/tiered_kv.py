@@ -135,6 +135,12 @@ class TieredKVCache:
     def near_count(self) -> int:
         return int((self.tier_host == NEAR).sum())
 
+    @property
+    def plane_dirty(self) -> bool:
+        """Whether the next (non-discarding) drain reads the plane back: a
+        clean plane drains without touching the device."""
+        return self._plane_dirty
+
     def _device_maps(self):
         if self._maps_dirty:
             self._tier_dev = to_device(self.tier_host, torch.int32, self.device)

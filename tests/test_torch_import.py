@@ -89,7 +89,7 @@ COPIED = [
     "configs/rwkv6_7b.py", "configs/smollm_360m.py", "configs/whisper_base.py",
     "configs/zamba2_1_2b.py", "core/distribution.py", "core/pagetable.py",
     "core/placement.py", "core/profiler.py", "core/memtrace.py", "core/prefetch.py",
-    "data/requests.py", "obs/__init__.py", "obs/metrics.py", "obs/spans.py", "obs/export.py",
+    "data/requests.py", "obs/metrics.py", "obs/spans.py", "obs/export.py",
     "core/tiering.py", "fleet/scheduler.py", "fleet/replica.py", "fleet/admission.py",
     "fleet/aggregator.py", "fleet/autotier.py", "fleet/faults.py", "fleet/elastic.py",
     "data/__init__.py", "data/synthetic.py", "data/loader.py", "checkpoint/__init__.py",
@@ -101,6 +101,31 @@ COPIED = [
 # comments may differ; the code must be the reference's with exactly these
 # replacements (and the package renamed in imports).
 CHANGED = {
+    "obs/__init__.py": [
+        # the engines' device timelines (obs/timeline.py): kept apart from
+        # the registries, written beside the span trace
+        ("from repro.obs.spans import Span, SpanRecorder\n",
+         "from repro.obs.spans import Span, SpanRecorder\nfrom repro.obs.timeline import DeviceTimeline, trace_events\n"),
+        ("        self.extra_registries: List[MetricsRegistry] = []\n",
+         "        self.extra_registries: List[MetricsRegistry] = []\n"
+         "        self.timelines: List[DeviceTimeline] = []\n"),
+        ("""    def register(self, registry: MetricsRegistry):
+        \"\"\"Include an engine/replica registry in snapshots and exports.\"\"\"
+        if registry is not self.metrics and registry not in self.extra_registries:""",
+         """    def register(self, registry):
+        if isinstance(registry, DeviceTimeline):
+            if registry not in self.timelines:
+                self.timelines.append(registry)
+        elif registry is not self.metrics and registry not in self.extra_registries:"""),
+        ("        export_mod.write_trace(trace_path, events)\n",
+         """        export_mod.write_trace(trace_path, events)
+        if self.timelines:
+            device = trace_events(self.timelines)
+            if validate:
+                export_mod.validate_trace_events(device)
+            export_mod.write_trace(f"{trace_path}.device.json", device)
+"""),
+    ],
     "fleet/router.py": [
         # the serving tiers' relative constants under a name without the TPU
         ("from repro.core.hw import TPU_TIERED", "from repro.core.hw import SERVING_TIERED"),
